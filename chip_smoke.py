@@ -16,10 +16,14 @@ Phases (each prints its seconds):
    before and read just after, and must both be above 0.  The first
    ``[B, L]`` batch of every shape the run launched is kept.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
-   for bit, timed with CUDA events: on the kept main-path batch of every
-   shape; K1 also on random bytes (some OOV table entries) at
-   ``[8192, 512]`` and ``[16, 4096]``; K2 also on ``[16, 4096]`` rows
-   filled with corpus text.
+   for bit, on the kept main-path batch of every shape; K1 also on random
+   bytes (some OOV table entries) at ``[8192, 512]`` and ``[16, 4096]``;
+   K2 also on ``[16, 4096]`` rows filled with corpus text, on the rows
+   that separate its greedy apply from the JAX rule (``run_rows``) at
+   ``[16, 1024]`` and ``[4, 4096]``, with and without OOV bytes inside
+   the runs, and on one 4,096-byte word of one letter.  Kernels and the
+   library expression are timed by replaying a CUDA graph, K2's plain
+   version with CUDA events around its calls (``_time_ms``).
 5. report: one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -53,21 +57,43 @@ def _phase(name: str, t0: float) -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` calls after one
-    warm-up call, from CUDA events."""
+def _time_ms(fn, reps: int, graph: bool = True, warm: bool = True) -> float:
+    """Mean device milliseconds of one call of ``fn``.
+
+    With ``graph`` (kernels and library expressions): one warm-up call, so
+    that one-time work (the kernel's shared-memory opt-in, the allocator)
+    stays outside the capture, then ``reps`` calls captured in one CUDA
+    graph, replayed once to warm and three times between CUDA events.
+    Replay keeps the host's issue rate out of the time.  Without it (K2's
+    plain version, which syncs to the host on every step and cannot be
+    captured): CUDA events around a Python loop of ``reps`` calls, after
+    one warm-up call unless ``warm`` is false."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not graph:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(3):
+        g.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -133,8 +159,11 @@ def check_seed(label: str, arr, lens, table) -> dict:
     )
 
 
-def check_merge(label: str, tb, arr, lens) -> dict:
-    """K2 against its plain version on the pre-split, seeded ``arr`` rows."""
+def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2) -> dict:
+    """K2 against its plain version on the pre-split ``arr`` rows, seeded
+    with ``byte_table`` (the vocabulary's own by default).  The plain
+    version is timed over ``plain_reps`` calls; with 1, the comparison's
+    own call is the warm-up."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.merge import (
@@ -146,7 +175,8 @@ def check_merge(label: str, tb, arr, lens) -> dict:
 
     B, L = arr.shape
     _, wid, _ = presplit(arr, lens, tb.class_table)
-    tokens = seed_tokens_plain(arr, lens, tb.byte_token_table)
+    byte_table = tb.byte_token_table if byte_table is None else byte_table
+    tokens = seed_tokens_plain(arr, lens, byte_table)
 
     def kernel():
         return merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
@@ -160,7 +190,7 @@ def check_merge(label: str, tb, arr, lens) -> dict:
     err = max(_max_abs_err(got_t, exp_t), _max_abs_err(got_c, exp_c))
     match = bool(torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c))
     ms = _time_ms(kernel, 20)
-    plain_ms = _time_ms(plain, 2)
+    plain_ms = _time_ms(plain, plain_reps, graph=False, warm=plain_reps > 1)
     # the least work any fixpoint needs on these rows: every initial
     # adjacent pair of a word probed once, and the up to two new pairs of
     # each merge; bytes: tokens, wid and both tables in, tokens and counts out
@@ -227,8 +257,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     try:
         from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
+        from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
         from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+        from complexity_tokenizer_tpu_torch.utils.corpus import RUN_BREAKS, run_rows
         from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -335,7 +367,8 @@ def main(argv=None) -> int:
         merge_res.append(check_merge("main path", tb, arr, lens))
     rng = np.random.RandomState(args.seed)
     table = rng.randint(0, 50000, size=256).astype(np.int32)
-    table[rng.choice(256, 24, replace=False)] = -1  # OOV bytes
+    oov = rng.choice(256, 24, replace=False)
+    table[oov] = -1  # OOV bytes
     table = torch.from_numpy(table).cuda()
     for B, W in ((8192, 512), (16, 4096)):
         arr = torch.from_numpy(rng.randint(0, 256, size=(B, W)).astype(np.uint8)).cuda()
@@ -343,6 +376,22 @@ def main(argv=None) -> int:
         seed_res.append(check_seed("random bytes", arr, lens, table))
     arr, lens = (torch.from_numpy(x).cuda() for x in _corpus_rows(texts, 16, 4096))
     merge_res.append(check_merge("corpus rows", tb, arr, lens))
+    # the rows that separate the greedy apply from the JAX rule, also with
+    # the random table's OOV bytes (and the run breakers) as tombstones
+    oov_table = tb.byte_token_table.clone()
+    oov_table[torch.from_numpy(oov).cuda()] = -1
+    oov_table[list(RUN_BREAKS)] = -1
+    corpus_bytes = " ".join(texts).encode("utf-8")
+    for B, L in ((16, 1024), (4, 4096)):
+        for with_oov in (False, True):
+            rows = run_rows(corpus_bytes, B, L, with_oov)
+            arr, lens = (torch.from_numpy(x).cuda() for x in pack_texts(rows, L, B))
+            merge_res.append(check_merge(
+                "run rows, OOV breaks" if with_oov else "run rows", tb, arr, lens,
+                byte_table=oov_table if with_oov else None, plain_reps=1,
+            ))
+    arr, lens = (torch.from_numpy(x).cuda() for x in pack_texts([b"a" * 4096], 4096, 1))
+    merge_res.append(check_merge("one letter", tb, arr, lens, plain_reps=1))
     _phase("kernels", t0)
 
     # 5. report --------------------------------------------------------------

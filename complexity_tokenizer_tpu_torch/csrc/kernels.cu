@@ -9,8 +9,7 @@
 
 namespace {
 
-constexpr uint32_t kMiss = 0xFFFFFFFFu;    // empty cuckoo slot / no pair
-constexpr uint32_t kInfRank = 0x3FFFFFFFu; // INF_RANK of ops/hashtable.py
+constexpr uint32_t kMiss = 0xFFFFFFFFu;  // empty cuckoo slot / no pair
 
 // ---------------------------------------------------------------------------
 // K1: byte -> token seed.
@@ -62,31 +61,70 @@ __global__ void seed_tokens_kernel(const uint8_t* __restrict__ arr,
 //
 // Replaces the jax.lax.while_loop of _segmented_fixpoint / merge_words_qc
 // (complexity_tokenizer_tpu/ops/merge.py) with its probe qc_lookup_jnp,
-// mix_hash_jnp and mix_hash2_jnp (ops/hashtable.py).  One iteration of the
-// JAX loop, restricted to one word (a maximal run of equal wid >= 0):
-//   - a pair is an alive token and the next alive token of the same word;
-//   - rank/minted come from the cuckoo probe (key a<<16|b, the sentinel
-//     key 0xFFFFFFFF never hits);
-//   - the word's minimum rank is taken; is_best = rank == minimum;
-//   - selected = is_best and not is_best at the previous alive position
-//     (the leading occurrence of an equal-pair run wins);
-//   - a selected position takes the minted id and the next alive position
-//     becomes a -1 tombstone.
-// The loop stops when no pair is selected.  Words are independent: a pair
-// never crosses a word, so is_best (and selected) at the last alive position
-// of one word is always false and the previous-alive carries of JAX's
-// row-wide scans never reach across a word boundary.  Each word therefore
-// runs to its own fixpoint, which equals the row's.
+// mix_hash_jnp and mix_hash2_jnp (ops/hashtable.py), and gives bit for bit
+// the (tokens, count) of its plain twin merge_fixpoint_qc_plain
+// (ops/merge.py): merged ids at the leftmost byte of their span, -1
+// tombstones elsewhere, per-row counts of live ids.
 //
-// Bound: in JAX each iteration is a few dozen launches over the whole batch
-// plus a host sync on "any selected".  Here one block owns one row, keeps its
-// tokens, word ids and probed (rank<<16|minted) values in shared memory
-// (12 B per position) and runs the whole fixpoint without leaving the
-// kernel; device memory sees each row once in and once out, plus the 8-byte
-// table rows of each probe (through the read-only cache).  What bounds it on
-// this card is the serial work of one thread per word: each thread walks
-// the words that start in its slice of the row, two passes per iteration.
-// A very long word runs serially on one thread (known weakness).
+// Words.  A word is a maximal run of equal wid >= 0.  A pair is an alive
+// token and the next alive token of the same word (an OOV byte, table entry
+// -1, is a tombstone from the start and is skipped), so words never
+// interact and each runs to its own fixpoint.
+//
+// Greedy apply.  The JAX step merges, in each word, every occurrence of the
+// word's minimum-rank pair except one whose previous alive pair also matches:
+// in a run "a a a a a" only the pair 0-1.  This kernel applies every
+// non-overlapping occurrence, greedily from left to right (0-1 and 2-3), and
+// reaches the same fixpoint: ranks are unique per pair, so two best pairs
+// overlap only in a run of one token a.  The pipeline takes only well-formed
+// tables (ops/pipeline.py, core/bpe.py:merges_well_formed): every pair that
+// contains merge r's product ranks after r.  After the JAX step merges the
+// leading "a a" of a run, the two pairs it creates hold the product, so they
+// rank after the run's pair, and the next step merges the next leftmost
+// "a a" of the same run, and so on: the one-merge-per-step order, which is
+// the greedy order.  Greedy does the same merges in one step; the JAX rule
+// needs about n/2 steps for a run of n.  On a table that is not well-formed
+// the two differ, as the device pipeline's refusal of such tables says.
+//
+// Cached probes.  Each alive position keeps its probed rank<<16|minted (or
+// kMiss) in shared memory, probed once.  Taking the pair at an alive entry
+// changes only its own pair and the pair of the kept entry before it, so
+// only those are probed again; the word's minimum comes from the cached
+// values.  Ranks are unique, so the minimum value is the minimum rank and
+// equal values are equal pairs.  At most two probes per merge.
+//
+// Alive list.  Each word walks a compacted list of its alive positions
+// (uint16 in `aux`, over the word's own range, compacted in place every
+// step), never a scan over tombstones.
+//
+// Work.  One block owns one row in shared memory, 14 B a position: tokens
+// and cached probes 4 B each, the alive lists, the row's word-boundary list
+// (from a block-wide scan) and its short words sorted by length, 2 B each.
+// The block has a quarter of the row's width in threads, 64 to 1,024.
+// - Words of more than kWarpWordBytes bytes go to a whole warp each; warps
+//   take 32 boundaries at a time from a shared counter.  A warp word takes
+//   its minimum with __reduce_min_sync, its best pairs as a __ballot_sync
+//   mask per chunk of 32 alive entries, the greedy pick inside a run of
+//   consecutive best pairs from the mask (the run's start from __clz, its
+//   parity carried across chunks), the compaction from a second ballot, and
+//   probes a chunk's changed pairs in parallel (marked by kFlag).
+// - The other words go to one thread each, longest first (a counting sort
+//   by length, so a warp's lanes walk words of about equal work); warps
+//   take 32 of them at a time from a second counter.  A thread word runs
+//   each step as one pass: pick, compact, probe the changed pairs, minimum.
+//
+// Bound.  Device memory sees each row once in and once out (12 B a
+// position) plus the 8-byte table rows of each probe; the work is the
+// word's initial pairs plus at most two probes per merge.  What limits it is
+// latency and issue: each step of a word is a dependent L2 probe (the table
+// is about a megabyte) after a serial walk of the word in shared memory.
+// Many words are in flight per SM (one per thread, one per warp for a long
+// word, up to 2,048 threads per SM) and each takes few steps.
+constexpr int kWarpWordBytes = 32;  // longer words are walked by a whole warp
+constexpr uint16_t kFlag = 0x8000;  // alive list: probe again; boundaries: gap
+constexpr uint16_t kPosMask = 0x7FFF;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+
 __device__ __forceinline__ uint32_t mix_hash(uint32_t a, uint32_t b) {
   uint32_t h = (a * 0x85EBCA6Bu) ^ (b * 0xC2B2AE35u);
   h ^= h >> 15;
@@ -102,109 +140,337 @@ __device__ __forceinline__ uint32_t mix_hash2(uint32_t a, uint32_t b) {
   return g;
 }
 
+struct Table {
+  const uint2* __restrict__ t1;
+  const uint2* __restrict__ t2;
+  uint32_t mask;
+};
+
 // rank << 16 | minted for the pair (a, b), or kMiss.
-__device__ __forceinline__ uint32_t qc_probe(const uint2* __restrict__ t1,
-                                             const uint2* __restrict__ t2,
-                                             uint32_t mask, int32_t a,
+__device__ __forceinline__ uint32_t qc_probe(const Table& tb, int32_t a,
                                              int32_t b) {
   const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
   const uint32_t k = (ua << 16) | ub;
-  if (k == kMiss) return kMiss;
-  const uint2 r1 = __ldg(t1 + (mix_hash(ua, ub) & mask));
-  const uint2 r2 = __ldg(t2 + (mix_hash2(ua, ub) & mask));
+  if (k == kMiss) return kMiss;  // the sentinel key never hits
+  const uint2 r1 = __ldg(tb.t1 + (mix_hash(ua, ub) & tb.mask));
+  const uint2 r2 = __ldg(tb.t2 + (mix_hash2(ua, ub) & tb.mask));
   if (r1.x == k) return r1.y;
   if (r2.x == k) return r2.y;
   return kMiss;
 }
 
-// Runs the word [p, e) of the shared row to its fixpoint.
-__device__ void merge_word(int32_t* t, uint32_t* rm, int p, int e,
-                           const uint2* __restrict__ t1,
-                           const uint2* __restrict__ t2, uint32_t mask) {
-  while (true) {
-    // pass 1: probe each alive token with the next alive token
-    int i = p;
-    while (i < e && t[i] < 0) ++i;
-    if (i >= e) return;
-    uint32_t best = kInfRank;
-    while (true) {
-      int j = i + 1;
-      while (j < e && t[j] < 0) ++j;
-      if (j >= e) {
-        rm[i] = kMiss;
-        break;
-      }
-      const uint32_t v = qc_probe(t1, t2, mask, t[i], t[j]);
-      rm[i] = v;
-      if (v != kMiss && (v >> 16) < best) best = v >> 16;
-      i = j;
+// --- one thread per word ----------------------------------------------------
+
+// Runs the word [p, e) of the shared row to its fixpoint on one thread.
+// Each step is one pass over the word's alive list aux[0, m): it takes the
+// step's best pairs greedily, compacts the list in place, probes a kept
+// entry's pair as soon as its right neighbour is final (only where the step
+// changed the pair) and takes the minimum for the next step.  A cached
+// value read before its entry is reached is the old pair's, which is what
+// the greedy pick compares.
+__device__ void thread_word(int32_t* t, uint32_t* rm, uint16_t* aux_row,
+                            int p, int e, const Table& tb) {
+  uint16_t* aux = aux_row + p;
+  int m = 0, left = -1;
+  uint32_t best = kMiss;
+  for (int q = p; q < e; ++q) {
+    if (t[q] < 0) continue;
+    if (left >= 0) {
+      const uint32_t v = qc_probe(tb, t[left], t[q]);
+      rm[left] = v;
+      best = min(best, v);
     }
-    if (best == kInfRank) return;
-    // pass 2: apply the word's minimum-rank pair, leading occurrence first.
-    // t[i] changes only when i is visited, so t[i] >= 0 still reads the
-    // iteration's old alive set.
-    bool prev_best = false, prev_sel = false;
-    for (int q = p; q < e; ++q) {
-      if (t[q] < 0) continue;
-      const uint32_t v = rm[q];
-      const bool is_best = v != kMiss && (v >> 16) == best;
-      bool sel = false;
-      if (prev_sel) {
-        t[q] = -1;  // partner of the selected pair on its left
-      } else if (is_best && !prev_best) {
-        t[q] = (int32_t)(v & 0xFFFFu);
-        sel = true;
+    aux[m++] = (uint16_t)q;
+    left = q;
+  }
+  if (left >= 0) rm[left] = kMiss;
+  while (best != kMiss) {
+    uint32_t next = kMiss;
+    int out = 0;
+    int lpos = -1;          // the last kept entry
+    bool lchanged = false;  // its pair changed in this step
+    bool consumed = false;  // the entry is the right token of a taken pair
+    for (int k = 0; k < m; ++k) {
+      const int pos = aux[k];
+      if (consumed) {
+        t[pos] = -1;
+        consumed = false;
+        continue;
       }
-      prev_best = is_best;
-      prev_sel = sel;
+      const uint32_t v = rm[pos];
+      const bool taken = v == best;
+      if (taken) {
+        t[pos] = (int32_t)(v & 0xFFFFu);
+        consumed = true;
+      }
+      if (lpos >= 0) {  // the pair (lpos, pos) is final
+        uint32_t lv = rm[lpos];
+        if (lchanged || taken) {
+          lv = qc_probe(tb, t[lpos], t[pos]);
+          rm[lpos] = lv;
+        }
+        next = min(next, lv);
+      }
+      aux[out++] = (uint16_t)pos;
+      lpos = pos;
+      lchanged = taken;
     }
+    // the last kept entry has no pair; unless taken, it was the last before
+    if (lchanged) rm[lpos] = kMiss;
+    m = out;
+    best = next;
   }
 }
 
-constexpr int kMergeThreads = 128;
+// --- one warp per word ------------------------------------------------------
 
-__global__ void __launch_bounds__(kMergeThreads)
+// Probes the marked (kFlag) entries of the alive list aux[0, m), a chunk of
+// 32 at a time in parallel, clears their marks and returns the word's
+// minimum cached value.
+__device__ uint32_t warp_probe_pass(const int32_t* t, uint32_t* rm,
+                                    uint16_t* aux, int m, const Table& tb,
+                                    int lane) {
+  uint32_t mn = kMiss;
+  for (int base = 0; base < m; base += 32) {
+    const int k = base + lane;
+    const uint16_t a = k < m ? aux[k] : 0;
+    const uint16_t an = k + 1 < m ? aux[k + 1] : 0;
+    __syncwarp();  // lane k-1 has read slot k before lane k rewrites it
+    const int pos = a & kPosMask;
+    uint32_t v = kMiss;
+    if (k < m) {
+      if (a & kFlag) {
+        if (k + 1 < m) v = qc_probe(tb, t[pos], t[an & kPosMask]);
+        rm[pos] = v;
+        aux[k] = (uint16_t)pos;
+      } else {
+        v = rm[pos];
+      }
+    }
+    mn = min(mn, v);
+  }
+  __syncwarp();
+  return __reduce_min_sync(kFull, mn);
+}
+
+// One greedy step of a warp word; returns the new length of its alive list.
+__device__ int warp_apply(int32_t* t, const uint32_t* rm, uint16_t* aux,
+                          int m, uint32_t best, int lane) {
+  const uint32_t lt = (1u << lane) - 1u;
+  int out = 0;
+  uint32_t carry = 0;  // the previous chunk's last entry was taken
+  for (int base = 0; base < m; base += 32) {
+    const int k = base + lane;
+    const bool valid = k < m;
+    const int pos = valid ? aux[k] : 0;
+    const uint32_t v = valid ? rm[pos] : kMiss;
+    const uint32_t isb = __ballot_sync(kFull, valid && v == best);
+    // taken = best and the entry before not taken: inside a run of
+    // consecutive best entries every second one from the run's start, the
+    // parity shifted by one where the run goes on from a taken entry
+    const uint32_t below = ~isb & lt;
+    const int run_start = below ? 32 - __clz(below) : 0;
+    const int parity = lane - run_start + (run_start == 0 ? (int)carry : 0);
+    const bool sel = ((isb >> lane) & 1u) && !(parity & 1);
+    const uint32_t S = __ballot_sync(kFull, sel);
+    const bool consumed = (((S << 1) | carry) >> lane) & 1u;
+    const bool keep = valid && !consumed;
+    const uint32_t K = __ballot_sync(kFull, keep);
+    const int nidx = out + __popc(K & lt);
+    __syncwarp();  // every slot of the chunk is read before any is rewritten
+    if (sel) t[pos] = (int32_t)(v & 0xFFFFu);
+    if (valid && consumed) t[pos] = -1;
+    if (keep) {
+      const bool again = sel || (lane < 31 && ((S >> (lane + 1)) & 1u));
+      aux[nidx] = (uint16_t)(pos | (again ? kFlag : 0));
+    }
+    // the last kept entry of the chunk before: its right neighbour changed
+    if (lane == 0 && sel && out > 0) aux[out - 1] |= kFlag;
+    out += __popc(K);
+    carry = S >> 31;
+  }
+  __syncwarp();
+  return out;
+}
+
+// Runs the word [p, e) of the shared row to its fixpoint on a whole warp.
+__device__ void warp_word(int32_t* t, uint32_t* rm, uint16_t* aux_row, int p,
+                          int e, const Table& tb, int lane) {
+  uint16_t* aux = aux_row + p;
+  const uint32_t lt = (1u << lane) - 1u;
+  int m = 0;
+  for (int base = p; base < e; base += 32) {
+    const int q = base + lane;
+    const bool alive = q < e && t[q] >= 0;
+    const uint32_t A = __ballot_sync(kFull, alive);
+    if (alive) aux[m + __popc(A & lt)] = (uint16_t)(q | kFlag);
+    m += __popc(A);
+  }
+  __syncwarp();
+  uint32_t best = warp_probe_pass(t, rm, aux, m, tb, lane);
+  while (best != kMiss) {
+    m = warp_apply(t, rm, aux, m, best, lane);
+    best = warp_probe_pass(t, rm, aux, m, tb, lane);
+  }
+}
+
+// --- the row's block ----------------------------------------------------------
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 2048 / kThreads)
 merge_fixpoint_qc_kernel(const int32_t* __restrict__ tokens_in,
-                         const int32_t* __restrict__ wid,
-                         const uint2* __restrict__ t1,
-                         const uint2* __restrict__ t2, uint32_t mask,
+                         const int32_t* __restrict__ wid, Table tb,
                          int32_t* __restrict__ tokens_out,
                          int32_t* __restrict__ count, int L) {
+  constexpr int kWarps = kThreads / 32;
   extern __shared__ int32_t smem[];
-  int32_t* t = smem;
-  int32_t* w = smem + L;
-  uint32_t* rm = reinterpret_cast<uint32_t*>(smem + 2 * L);
-  __shared__ int block_count;
+  int32_t* t = smem;                                       // [L] tokens
+  uint32_t* rm = reinterpret_cast<uint32_t*>(smem + L);    // [L] probes
+  uint16_t* aux = reinterpret_cast<uint16_t*>(smem + 2 * L);  // [L] lists
+  uint16_t* bnd = aux + L;  // [L + 1] word boundaries (kFlag: a wid -1 run)
+  uint16_t* order = bnd + L + 1;  // [L] short words, longest first
+  __shared__ int warp_sums[kWarps];
+  __shared__ int by_len[kWarpWordBytes + 1];
+  __shared__ int next_chunk, next_word, n_short, block_count;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t base = (int64_t)blockIdx.x * L;
-  if (threadIdx.x == 0) block_count = 0;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+  // word ids sit in rm's space until the boundary list is built
+  for (int i = tid; i < L; i += kThreads) {
     t[i] = tokens_in[base + i];
-    w[i] = wid[base + i];
+    rm[i] = (uint32_t)wid[base + i];
   }
-  __syncthreads();
-  // each thread runs the words that start in its contiguous slice
-  const int chunk = (L + blockDim.x - 1) / blockDim.x;
-  const int lo = threadIdx.x * chunk;
-  const int hi = min(L, lo + chunk);
-  for (int p = lo; p < hi; ++p) {
-    const int wp = w[p];
-    if (wp < 0 || (p > 0 && w[p - 1] == wp)) continue;
-    int e = p + 1;
-    while (e < L && w[e] == wp) ++e;
-    merge_word(t, rm, p, e, t1, t2, mask);
+  if (tid == 0) {
+    next_chunk = 0;
+    next_word = 0;
+    block_count = 0;
   }
+  for (int n = tid; n <= kWarpWordBytes; n += kThreads) by_len[n] = 0;
   __syncthreads();
+
+  // boundary list: every position where the word id changes, in order,
+  // from a block-wide exclusive scan of each thread's slice
+  const int slice = (L + kThreads - 1) / kThreads;
+  const int lo = min(L, tid * slice), hi = min(L, lo + slice);
   int c = 0;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+  for (int q = lo; q < hi; ++q) c += q == 0 || rm[q] != rm[q - 1];
+  int incl = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < kWarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < kWarps) warp_sums[lane] = s;
+  }
+  __syncthreads();
+  int off = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - c;
+  const int nb = warp_sums[kWarps - 1];
+  for (int q = lo; q < hi; ++q)
+    if (q == 0 || rm[q] != rm[q - 1])
+      bnd[off++] = (uint16_t)(q | ((int32_t)rm[q] < 0 ? kFlag : 0));
+  if (tid == 0) bnd[nb] = (uint16_t)L;
+  __syncthreads();
+
+  // long words: a whole warp each
+  for (;;) {
+    int c0 = 0;
+    if (lane == 0) c0 = atomicAdd(&next_chunk, 32);
+    c0 = __shfl_sync(kFull, c0, 0);
+    if (c0 >= nb) break;
+    const int k = c0 + lane;
+    bool is_long = false;
+    if (k < nb) {
+      const int s = bnd[k];
+      is_long = !(s & kFlag) && (bnd[k + 1] & kPosMask) - s > kWarpWordBytes;
+    }
+    for (uint32_t lm = __ballot_sync(kFull, is_long); lm; lm &= lm - 1) {
+      const int j = c0 + __ffs(lm) - 1;
+      warp_word(t, rm, aux, bnd[j], bnd[j + 1] & kPosMask, tb, lane);
+    }
+  }
+  // short words, one thread each, longest first: a counting sort by length
+  // puts words of one length side by side, so the lanes of a warp walk words
+  // of about equal work; warps take 32 of them at a time
+  for (int k = tid; k < nb; k += kThreads) {
+    const int s = bnd[k];
+    const int n = (bnd[k + 1] & kPosMask) - s;
+    if (!(s & kFlag) && n <= kWarpWordBytes) atomicAdd(&by_len[n], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0;
+    for (int n = kWarpWordBytes; n > 0; --n) {
+      const int words = by_len[n];
+      by_len[n] = acc;
+      acc += words;
+    }
+    n_short = acc;
+  }
+  __syncthreads();
+  for (int k = tid; k < nb; k += kThreads) {
+    const int s = bnd[k];
+    const int n = (bnd[k + 1] & kPosMask) - s;
+    if (!(s & kFlag) && n <= kWarpWordBytes) order[atomicAdd(&by_len[n], 1)] = (uint16_t)k;
+  }
+  __syncthreads();
+  for (;;) {
+    int c0 = 0;
+    if (lane == 0) c0 = atomicAdd(&next_word, 32);
+    c0 = __shfl_sync(kFull, c0, 0);
+    if (c0 >= n_short) break;
+    if (c0 + lane < n_short) {
+      const int k = order[c0 + lane];
+      thread_word(t, rm, aux, bnd[k], bnd[k + 1] & kPosMask, tb);
+    }
+  }
+  __syncthreads();
+
+  int n = 0;
+  for (int i = tid; i < L; i += kThreads) {
     const int32_t v = t[i];
     tokens_out[base + i] = v;
-    c += v >= 0;
+    n += v >= 0;
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-  if ((threadIdx.x & 31) == 0) atomicAdd(&block_count, c);
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(kFull, n, o);
+  if (lane == 0) atomicAdd(&block_count, n);
   __syncthreads();
-  if (threadIdx.x == 0) count[blockIdx.x] = block_count;
+  if (tid == 0) count[blockIdx.x] = block_count;
+}
+
+template <int kThreads>
+cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid,
+                         Table tb, int32_t* tokens_out, int32_t* count, int B,
+                         int L, cudaStream_t stream) {
+  // tokens and probes 4 B a position, alive lists, boundaries (L + 1) and
+  // the sorted short words 2 B each
+  const size_t smem = (size_t)14 * L + 4;
+  // the kernel's static shared memory counts against the same 48 KB default
+  // limit, so opt in to more dynamic shared memory well before it; once per
+  // device and size, so that a launch captured in a CUDA graph makes no
+  // attribute call
+  static size_t opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > 32 * 1024 && (dev >= 64 || opted[dev] < smem)) {
+    err = cudaFuncSetAttribute(merge_fixpoint_qc_kernel<kThreads>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted[dev] = smem;
+  }
+  merge_fixpoint_qc_kernel<kThreads><<<B, kThreads, smem, stream>>>(
+      tokens_in, wid, tb, tokens_out, count, L);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -229,21 +495,20 @@ int ctok_merge_fixpoint_qc(const void* tokens_in, const void* wid,
                            void* tokens_out, void* count, int B, int L,
                            void* stream) {
   if (B == 0 || L == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)12 * L;
-  // the kernel's static shared memory counts against the same 48 KB default
-  // limit, so opt in to more dynamic shared memory well before it
-  if (smem > 32 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        merge_fixpoint_qc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  merge_fixpoint_qc_kernel<<<B, kMergeThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(tokens_in), static_cast<const int32_t*>(wid),
-      static_cast<const uint2*>(t1), static_cast<const uint2*>(t2),
-      (uint32_t)mask, static_cast<int32_t*>(tokens_out),
-      static_cast<int32_t*>(count), L);
-  return (int)cudaGetLastError();
+  if (L > kPosMask) return (int)cudaErrorInvalidValue;  // uint16 positions
+  const Table tb{static_cast<const uint2*>(t1), static_cast<const uint2*>(t2),
+                 (uint32_t)mask};
+  const auto* ti = static_cast<const int32_t*>(tokens_in);
+  const auto* wi = static_cast<const int32_t*>(wid);
+  auto* to = static_cast<int32_t*>(tokens_out);
+  auto* co = static_cast<int32_t*>(count);
+  const auto s = (cudaStream_t)stream;
+  // a quarter of the row's width in threads, 64 to 1,024
+  if (L <= 256) return (int)launch_merge<64>(ti, wi, tb, to, co, B, L, s);
+  if (L <= 512) return (int)launch_merge<128>(ti, wi, tb, to, co, B, L, s);
+  if (L <= 1024) return (int)launch_merge<256>(ti, wi, tb, to, co, B, L, s);
+  if (L <= 2048) return (int)launch_merge<512>(ti, wi, tb, to, co, B, L, s);
+  return (int)launch_merge<1024>(ti, wi, tb, to, co, B, L, s);
 }
 
 const char* ctok_error_string(int code) {

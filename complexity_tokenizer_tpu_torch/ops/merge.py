@@ -1,18 +1,20 @@
 """Segmented BPE merge fixpoint: kernel K2 and its plain version.
 
 Tombstone layout: tokens stay at their byte positions and merged-away
-slots become -1.  Each iteration merges, in every word at once, all
-non-overlapping occurrences of that word's lowest-rank pair (the leading
-occurrence wins in an equal-pair run), until no pair is selected.  With a
-well-formed merge table this equals the reference's one-merge-per-step
-loop (``core/bpe.py``).
+slots become -1.  Each step merges, in every word at once, occurrences of
+that word's lowest-rank pair, until no pair is left.  With a well-formed
+merge table this equals the reference's one-merge-per-step loop
+(``core/bpe.py``).
 
 The plain version repeats the JAX package's ``_segmented_fixpoint``
-(``ops/merge.py``) step for step in torch ops: the carries are
-``cummax``/``cummin`` over position indices, the per-word minimum a
-``scatter_reduce(..., "amin")`` and the loop a Python ``while``.  The
-kernel (``csrc/kernels.cu``) runs each row in one block and each word to
-its own fixpoint in shared memory.
+(``ops/merge.py``) step for step in torch ops: the leading occurrence of
+an equal-pair run wins, the carries are ``cummax``/``cummin`` over
+position indices, the per-word minimum a ``scatter_reduce(..., "amin")``
+and the loop a Python ``while``.  The kernel (``csrc/kernels.cu``) runs
+each row in one block, probes each pair once and then only the pairs a
+merge makes, and applies every non-overlapping occurrence of a word's best
+pair per step, greedily from the left: on a well-formed table the same
+fixpoint, bit for bit, in far fewer steps.
 """
 
 from __future__ import annotations
@@ -118,9 +120,11 @@ def merge_fixpoint_qc_plain(tokens, wid, t1, t2, size: int):
 def merge_words_qc(tokens, wid, t1, t2, size: int):
     """K2 on CUDA tensors, the plain version on CPU tensors.
 
-    Same arguments and result as :func:`merge_fixpoint_qc_plain`.  The
-    kernel takes word ids as ``ops/presplit.py`` makes them: each word one
-    contiguous run, -1 past the end.
+    Same arguments and result as :func:`merge_fixpoint_qc_plain` when the
+    table is well-formed (``core/bpe.py:merges_well_formed``), which the
+    device pipeline requires.  The kernel takes word ids as
+    ``ops/presplit.py`` makes them: each word one contiguous run, -1 past
+    the end.
     """
     if tokens.device.type == "cpu":
         return merge_fixpoint_qc_plain(tokens, wid, t1, t2, size)

@@ -3,14 +3,15 @@
 The same texts as the repository's ``bench.py`` makes (``_zipf_lexicon``,
 ``_zipf_corpus``, ``_MULTI_PIECES``), kept here so that the port and
 ``chip_smoke.py`` need nothing of the JAX package.  Deterministic for a
-seed.
+seed.  Also the rows of long runs that separate the merge kernel's apply
+rule from the JAX one (:func:`run_rows`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["MULTI_PIECES", "zipf_lexicon", "zipf_corpus"]
+__all__ = ["MULTI_PIECES", "RUN_BREAKS", "run_rows", "zipf_lexicon", "zipf_corpus"]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
 # marks), mixed scripts, contractions and whitespace runs
@@ -90,3 +91,44 @@ def zipf_corpus(
             s += " It's 2026, isn't it? Numbers: 123 456."
         texts.append(s[:target])
     return texts
+
+
+# bytes that break runs when the byte table maps them to -1: a letter inside
+# letter runs, a symbol inside symbol runs (the pre-split keeps each inside
+# its word, so each is a tombstone inside the word)
+RUN_BREAKS = (ord("y"), ord("~"))
+
+
+def run_rows(text: bytes, B: int, L: int, breaks: bool = False) -> list[bytes]:
+    """``B`` rows of at most ``L`` bytes on which applying every
+    non-overlapping best pair per step and the JAX rule (the leading pair of
+    an equal-pair run per step) take very different numbers of steps: one
+    repeated letter, also after an odd prefix so that runs cross 32-entry
+    chunks at both parities; runs of ``=``, ``-`` and ``.``; alternating
+    ``abab...``; runs mixed with ``text``; then plain slices of ``text``.
+    With ``breaks``, every 37th byte that is not a space becomes a
+    :data:`RUN_BREAKS` byte."""
+    mixed = b""
+    for i, ch in enumerate(b"=-.a" * (L // 64 + 1)):
+        mixed += bytes([ch]) * (7 + 13 * i % 61) + b" " + text[i * 40 : i * 40 + 40] + b" "
+    pats = [
+        b"x" + b"a" * (L - 1),
+        b" " + b"=" * (L - 1),
+        b"ab" * (L // 2),
+        mixed,
+        b"a" * L,
+        b"-" * L,
+        b"." * L,
+        b"q" + b"ab" * (L // 2),
+    ]
+    rows = [pats[i][:L] if i < len(pats) else text[i * L : (i + 1) * L] for i in range(B)]
+    if not breaks:
+        return rows
+    letter, symbol = RUN_BREAKS
+    return [
+        bytes(
+            (letter if chr(c).isalpha() else symbol) if j % 37 == 36 and c != 0x20 else c
+            for j, c in enumerate(r)
+        )
+        for r in rows
+    ]

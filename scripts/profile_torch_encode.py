@@ -7,11 +7,11 @@ Encodes the ``chip_smoke.py`` corpus at the 50K vocabulary with
 ``Tokenizer.encode_batch(backend="device")`` once to warm up, then once
 under ``torch.profiler``, and prints the wall time, the device's busy time
 (the union of kernel intervals) and idle share, and the kernels that take
-the most device time.  Then it times K2 alone on the case that bounds
-its one-thread-per-word design: rows that each hold one 4,096-byte word of
-a single repeated letter (an equal-pair run merges one pair per iteration,
-so the word takes about a thousand iterations on one thread).  Needs a
-CUDA card; imports nothing of JAX.
+the most device time.  Then it times K2 alone (``chip_smoke._time_ms``,
+CUDA-graph replay) on rows that each hold one 4,096-byte word of a single
+repeated letter: the case that took a one-thread-per-word kernel with the
+JAX apply rule (one merge per equal-pair run and step) about two seconds.
+Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations

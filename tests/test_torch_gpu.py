@@ -18,7 +18,12 @@ from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
 from complexity_tokenizer_tpu_torch.ops.presplit import presplit
 from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens, seed_tokens_plain
 from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
-from complexity_tokenizer_tpu_torch.utils.corpus import MULTI_PIECES, zipf_corpus
+from complexity_tokenizer_tpu_torch.utils.corpus import (
+    MULTI_PIECES,
+    RUN_BREAKS,
+    run_rows,
+    zipf_corpus,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -53,7 +58,9 @@ def test_seed_kernel_matches_plain(B, W):
     assert torch.equal(got, seed_tokens_plain(arr, lens, table))
 
 
-@pytest.mark.parametrize("B,L", [(8192, 128), (2048, 512), (16, 4096), (16, 128)])
+@pytest.mark.parametrize(
+    "B,L", [(8192, 128), (2048, 512), (16, 4096), (16, 128), (64, 1024), (64, 2048)]
+)
 def test_merge_kernel_matches_plain(tok50k, B, L):
     _need_card()
     pipe = tok50k.pipeline("cuda")
@@ -69,6 +76,34 @@ def test_merge_kernel_matches_plain(tok50k, B, L):
     got_t, got_c = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
     torch.cuda.synchronize()
     assert merge_words_qc.launches == before + 1
+    exp_t, exp_c = merge_fixpoint_qc_plain(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    assert torch.equal(got_t, exp_t)
+    assert torch.equal(got_c, exp_c)
+
+
+@pytest.mark.parametrize("breaks", [False, True])
+@pytest.mark.parametrize("B,L", [(16, 1024), (4, 4096), (1, 4096)])
+def test_merge_kernel_matches_plain_on_run_rows(tok50k, B, L, breaks):
+    """Rows on which the kernel's greedy apply and the plain version's JAX
+    rule take very different paths to the same fixpoint: long runs of one
+    letter or symbol, ``abab...``, runs mixed with text, with OOV bytes
+    (the random table's and the run breakers) as tombstones inside words.
+    ``[1, 4096]`` is the single 4,096-byte word of one letter."""
+    _need_card()
+    tb = tok50k.pipeline("cuda").tables
+    text = " ".join(zipf_corpus(400, seed=L)).encode("utf-8")
+    rows = [b"a" * L] if B == 1 else run_rows(text, B, L, breaks)
+    arr, lens = pack_texts(rows, L, B)
+    arr, lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+    table = tb.byte_token_table.clone()
+    if breaks:
+        rng = np.random.RandomState(L)
+        table[torch.from_numpy(rng.choice(256, 24, replace=False)).cuda()] = -1
+        table[list(RUN_BREAKS)] = -1
+    _, wid, _ = presplit(arr, lens, tb.class_table)
+    tokens = seed_tokens(arr, lens, table)
+    got_t, got_c = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    torch.cuda.synchronize()
     exp_t, exp_c = merge_fixpoint_qc_plain(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
     assert torch.equal(got_t, exp_t)
     assert torch.equal(got_c, exp_c)
