@@ -17,7 +17,10 @@ Phases (each prints its seconds):
    ``[B, L]`` batch of every shape the run launched is kept.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept main-path batch of every shape; K1 also on random
-   bytes (some OOV table entries) at ``[8192, 512]`` and ``[16, 4096]``;
+   bytes (some OOV table entries) at ``[8192, 512]`` and ``[16, 4096]``
+   and on edge shapes (``seed_edge_batches``), and is timed warm, cold
+   (``_time_cold_ms``: no call finds its own lines in L2) and at
+   ``[1, 16]`` (its launch floor);
    K2 also on ``[16, 4096]`` rows filled with corpus text, on the rows
    that separate its greedy apply from the JAX rule (``run_rows``) at
    ``[16, 1024]`` and ``[4, 4096]``, with and without OOV bytes inside
@@ -48,6 +51,8 @@ TOKENIZER_JSON = os.path.join(REPO, ".cache", "bench_tokenizer_r4_50k.json")
 # architecture whitepaper) x the 1.98 GHz maximum boost clock
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# bytes that a cold timing rotates through: twice the H100's 50 MB L2
+COLD_BYTES = 2 * 50 * 2**20
 # int32 operations of one cuckoo probe: two multiply-xor-shift hashes, the
 # key pack and the compares
 OPS_PER_PROBE = 12
@@ -96,6 +101,43 @@ def _time_ms(fn, reps: int, graph: bool = True, warm: bool = True) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
+def _time_cold_ms(fn, arg_sets: list, reps: int) -> float:
+    """Mean device milliseconds of one call ``fn(*args)`` when no call finds
+    its own inputs or output in L2: the calls rotate through ``arg_sets``
+    (together over ``COLD_BYTES``, twice the L2, outputs included), all
+    captured in one CUDA graph with every output kept alive, so each call
+    writes a buffer of its own.  The graph is replayed once to warm, then
+    timed over at least ``reps`` calls."""
+    import torch
+
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    outs = []
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for args in arg_sets:
+            outs.append(fn(*args))
+    g.replay()
+    torch.cuda.synchronize()
+    replays = max(3, -(-reps // len(arg_sets)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(arg_sets))
+
+
+def _cold_sets(tensors: tuple, out_bytes: int) -> list:
+    """Copies of ``tensors`` enough that they and one output of
+    ``out_bytes`` each fill more than ``COLD_BYTES``."""
+    per_set = out_bytes + sum(t.numel() * t.element_size() for t in tensors)
+    n = -(-COLD_BYTES // per_set)
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
 def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -127,8 +169,12 @@ def _corpus_rows(texts: list[str], B: int, L: int):
     return pack_texts(rows, L, B)
 
 
-def check_seed(label: str, arr, lens, table) -> dict:
-    """K1 against its plain version on ``arr``/``lens`` (on the card)."""
+def check_seed(label: str, arr, lens, table, timed: bool = True) -> dict:
+    """K1 against its plain version on ``arr``/``lens`` (on the card).  With
+    ``timed``: the kernel warm (``ms``: graph replay on the same buffers,
+    which then sit in L2) and cold (``ms_cold``: ``_time_cold_ms``), its
+    plain version and the library expression warm, and the share of the
+    bytes bound that the cold time reaches."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens, seed_tokens_plain
@@ -139,24 +185,67 @@ def check_seed(label: str, arr, lens, table) -> dict:
     torch.cuda.synchronize()
     err = _max_abs_err(got, exp)
     match = bool(torch.equal(got, exp))
+    print(f"[seed_tokens] {label} [{B},{W}] match={match} max_abs_err={err}", flush=True)
+    if not match:
+        raise AssertionError(f"seed_tokens kernel differs from its plain version: {label} [{B},{W}]")
+    res = dict(inputs=label, shape=[B, W], match=match, max_abs_err=err)
+    if not timed:
+        return res
     valid = torch.arange(W, device="cuda")[None, :] < lens[:, None]
     reps = 50 if B * W >= 1 << 20 else 200
     ms = _time_ms(lambda: seed_tokens(arr, lens, table), reps)
+    sets = _cold_sets((arr, lens), 4 * B * W)
+    ms_cold = _time_cold_ms(lambda a, n: seed_tokens(a, n, table), sets, reps)
+    del sets
     plain_ms = _time_ms(lambda: seed_tokens_plain(arr, lens, table), reps)
     library_ms = _time_ms(lambda: torch.where(valid, table[arr.long()], -1), reps)
-    bound_ms, bound_by = _bound(B * W + 4 * B + 4 * 256 + 4 * B * W, B * W)
+    # the function reads no byte at or past lens[r]: count the live bytes in
+    live = int(lens.clamp(0, W).sum())
+    bound_ms, bound_by = _bound(live + 4 * B + 4 * 256 + 4 * B * W, B * W)
     print(
-        f"[seed_tokens] {label} [{B},{W}] match={match} max_abs_err={err} "
-        f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library={library_ms:.4f} ms "
-        f"bound={bound_ms:.4f} ms ({bound_by})",
+        f"[seed_tokens] {label} [{B},{W}] kernel warm={ms:.4f} ms cold={ms_cold:.4f} ms "
+        f"plain={plain_ms:.4f} ms library={library_ms:.4f} ms bound={bound_ms:.4f} ms "
+        f"({bound_by}; {live} live bytes; cold share {bound_ms / ms_cold:.3f})",
         flush=True,
     )
-    if not match:
-        raise AssertionError(f"seed_tokens kernel differs from its plain version: {label} [{B},{W}]")
     return dict(
-        inputs=label, shape=[B, W], match=match, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        res, ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, bound_share=bound_ms / ms_cold, library_ms=library_ms,
     )
+
+
+def seed_launch_floor_ms(table) -> float:
+    """K1's time at [1, 16] by graph replay: one launch carrying almost no
+    work."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
+
+    arr = torch.arange(16, dtype=torch.uint8, device="cuda")[None, :]
+    lens = torch.tensor([16], dtype=torch.int32, device="cuda")
+    check_seed("launch floor", arr, lens, table, timed=False)
+    ms = _time_ms(lambda: seed_tokens(arr, lens, table), 200)
+    print(f"[seed_tokens] launch floor [1,16] {ms:.4f} ms", flush=True)
+    return ms
+
+
+def seed_edge_batches(rng) -> list[tuple]:
+    """(label, arr, lens) on the card at shapes that reach the kernel's edge
+    cases: W not a multiple of the 128-byte segment, one row and 8,193 rows,
+    rows of length 0, 1, 15, 16, 17 and W, and rows handed in as an offset
+    row slice (16-byte aligned) of a larger buffer."""
+    import torch
+
+    out = []
+    for B, W, skip in ((5, 48, 3), (257, 2064, 1), (1, 16, 0), (8193, 16, 0), (8193, 144, 0)):
+        arr = torch.from_numpy(rng.randint(0, 256, size=(B + skip, W)).astype("uint8")).cuda()
+        lens = rng.randint(0, W + 1, size=B + skip).astype("int32")
+        edge = [n for n in (0, 1, 15, 16, 17, W) if n <= W]
+        lens[skip : skip + len(edge)] = edge[:B]
+        lens = torch.from_numpy(lens).cuda()
+        label = f"edge, rows {skip}.. of {B + skip}" if skip else "edge"
+        out.append((label, arr[skip:], lens[skip:]))
+    return out
 
 
 def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2) -> dict:
@@ -374,6 +463,9 @@ def main(argv=None) -> int:
         arr = torch.from_numpy(rng.randint(0, 256, size=(B, W)).astype(np.uint8)).cuda()
         lens = torch.from_numpy(rng.randint(0, W + 1, size=B).astype(np.int32)).cuda()
         seed_res.append(check_seed("random bytes", arr, lens, table))
+    for label, arr, lens in seed_edge_batches(rng):
+        seed_res.append(check_seed(label, arr, lens, table, timed=False))
+    launch_floor_ms = seed_launch_floor_ms(tb.byte_token_table)
     arr, lens = (torch.from_numpy(x).cuda() for x in _corpus_rows(texts, 16, 4096))
     merge_res.append(check_merge("corpus rows", tb, arr, lens))
     # the rows that separate the greedy apply from the JAX rule, also with
@@ -422,6 +514,11 @@ def main(argv=None) -> int:
             "library_ms": main["library_ms"],
             "checks": res,
         })
+        if name == "seed_tokens":
+            kernels[-1].update(
+                ms_cold=main["ms_cold"], bound_share=main["bound_share"],
+                launch_floor_ms=launch_floor_ms,
+            )
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -18,41 +18,128 @@ constexpr uint32_t kMiss = 0xFFFFFFFFu;  // empty cuckoo slot / no pair
 // and its XLA twin merge.seed_tokens: out[r, i] = table[arr[r, i]] where
 // i < lens[r], else -1.
 //
-// Bound: bytes.  Each byte read once (1 B) and each token written once
-// (4 B); at [8192, 512] that is 21 MB, about 6.3 us at 3.35 TB/s.  The
+// Bound: bytes.  Each byte before lens[r] read once (1 B) and each token
+// written once (4 B), so most of the traffic is stores; at the main path's
+// [8192, 512] batch that is 19.2 MB, about 5.7 us at 3.35 TB/s.  (The
+// kernel reads whole rows: skipping the loads past lens[r] was slower.)
+// At the main path's smaller batches the launch sets the time: one launch
+// with almost no work takes 1.5 us.  The
 // TPU kernel split the table on its high bit to fit Mosaic's 128-lane
-// gather; here the 256-entry table sits in shared memory (1 KB per block)
-// and each thread moves 16 bytes in (one 128-bit load) and 64 bytes out
-// (four 128-bit stores), with a grid-stride loop over the flat matrix.
-// Requires W % 16 == 0 and 16-byte-aligned rows (checked by the wrapper).
-__global__ void seed_tokens_kernel(const uint8_t* __restrict__ arr,
-                                   const int32_t* __restrict__ lens,
-                                   const int32_t* __restrict__ table,
-                                   int32_t* __restrict__ out, int B, int W) {
-  __shared__ int32_t tab[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
-  const int per_row = W / 16;
-  const int64_t n = (int64_t)B * per_row;
-  const uint4* src = reinterpret_cast<const uint4*>(arr);
-  int4* dst = reinterpret_cast<int4*>(out);
-  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < n;
-       g += (int64_t)gridDim.x * blockDim.x) {
-    const int row = (int)(g / per_row);
-    const int col = (int)(g - (int64_t)row * per_row) * 16;
-    const int len = __ldg(lens + row);
-    const uint4 v = __ldg(src + g);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+// gather; here the 256-entry table sits in shared memory, and the text's
+// bank conflicts cost nothing measurable (the same time on one repeated
+// byte as on text or random bytes).
+//
+// Design: a streaming kernel.
+// - Segments.  A row is cut into segments of 128 bytes (the last may be
+//   short).  A warp takes kSeedUnroll consecutive segments (in row-major
+//   order) per step: each lane loads 4 bytes of each (one coalesced 128 B
+//   load per segment) and stores their 4 tokens as one int4 (one contiguous
+//   512 B store per segment).  The segments' rows and columns come from one
+//   division per step and an increment per segment; lens[r] is one
+//   broadcast load per segment.
+// - Latency.  All loads of a step are issued before any is used, and the
+//   next step's loads before this step's stores.  The first step's loads
+//   are issued before the block stages the table, so those round trips
+//   overlap.
+// - Registers.  Only the step's bytes and lengths stay in registers; the
+//   rows are walked again at the store.  With 32 registers a thread, 8
+//   blocks of 256 fit an SM, so the grid at [8192, 512] is one wave.
+// - Persistent grid: at most the card's resident blocks (SMs x blocks per
+//   SM, read once per device), each staging the table once and striding
+//   over the steps.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), warm (inputs and
+// output in L2) / cold (none of them): [16, 4096] 1.7 / 2.1 us, [8192, 128]
+// 3.0 / 4.0 us, [8192, 512] 6.7-6.9 / 8.8-8.9 us, 64-65% of the bound.
+// Requires W % 16 == 0 and 16-byte-aligned rows (checked by the wrapper;
+// the kernel itself needs W % 4 == 0 and 4-byte-aligned rows).
+constexpr int kSeedThreads = 256;   // one table entry per thread
+constexpr int kSeedUnroll = 4;      // segments per warp step
+constexpr int kSeedMinBlocks = 8;   // 32 registers: a one-wave grid resident
+
+struct SeedStep {
+  int len[kSeedUnroll];
+  uint32_t bytes[kSeedUnroll];
+};
+
+// The segments of one warp step: calls f(k, row, col, live) for each.
+template <typename F>
+__device__ __forceinline__ void seed_walk(int B, int W, int S, uint32_t step,
+                                          int lane, F f) {
+  const uint32_t s0 = step * kSeedUnroll;
+  uint32_t row = s0 / (uint32_t)S;
+  int seg = (int)(s0 - row * (uint32_t)S);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = col + 4 * q;
-      int4 o;
-      o.x = c + 0 < len ? tab[(w[q] >> 0) & 0xFF] : -1;
-      o.y = c + 1 < len ? tab[(w[q] >> 8) & 0xFF] : -1;
-      o.z = c + 2 < len ? tab[(w[q] >> 16) & 0xFF] : -1;
-      o.w = c + 3 < len ? tab[(w[q] >> 24) & 0xFF] : -1;
-      dst[4 * g + q] = o;
+  for (int k = 0; k < kSeedUnroll; ++k) {
+    const int col = seg * 128 + 4 * lane;
+    f(k, row, col, row < (uint32_t)B && col < W);
+    if (++seg == S) {
+      seg = 0;
+      ++row;
     }
+  }
+}
+
+__device__ __forceinline__ void seed_load(const uint8_t* __restrict__ arr,
+                                          const int32_t* __restrict__ lens,
+                                          int B, int W, int S, uint32_t step,
+                                          int lane, SeedStep& s) {
+  seed_walk(B, W, S, step, lane, [&](int k, uint32_t row, int col, bool live) {
+    s.len[k] = row < (uint32_t)B ? __ldg(lens + row) : 0;
+    s.bytes[k] = live ? __ldg(reinterpret_cast<const uint32_t*>(
+                            arr + (int64_t)row * W + col))
+                      : 0u;
+  });
+}
+
+__device__ __forceinline__ int4 seed_tokens4(const int32_t* __restrict__ tab,
+                                             uint32_t w, int c, int len) {
+  int4 o;
+  o.x = c + 0 < len ? tab[(w >> 0) & 0xFF] : -1;
+  o.y = c + 1 < len ? tab[(w >> 8) & 0xFF] : -1;
+  o.z = c + 2 < len ? tab[(w >> 16) & 0xFF] : -1;
+  o.w = c + 3 < len ? tab[(w >> 24) & 0xFF] : -1;
+  return o;
+}
+
+// The step's rows are walked again here rather than kept in registers
+__device__ __forceinline__ void seed_store(const int32_t* __restrict__ tab,
+                                           int32_t* __restrict__ out, int B,
+                                           int W, int S, uint32_t step,
+                                           int lane, const SeedStep& s) {
+  seed_walk(B, W, S, step, lane, [&](int k, uint32_t row, int col, bool live) {
+    if (live)
+      *reinterpret_cast<int4*>(out + (int64_t)row * W + col) =
+          seed_tokens4(tab, s.bytes[k], col, s.len[k]);
+  });
+}
+
+// steps = ceil(B * S / kSeedUnroll) with S = ceil(W / 128) segments a row
+__global__ void __launch_bounds__(kSeedThreads, kSeedMinBlocks)
+    seed_tokens_kernel(const uint8_t* __restrict__ arr,
+                       const int32_t* __restrict__ lens,
+                       const int32_t* __restrict__ table,
+                       int32_t* __restrict__ out, int B, int W, int S,
+                       uint32_t steps) {
+  __shared__ int32_t tab[256];
+  constexpr int kWarps = kSeedThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const uint32_t stride = gridDim.x * kWarps;
+  uint32_t step = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int32_t entry = __ldg(table + threadIdx.x);
+  SeedStep cur;
+  if (step < steps) seed_load(arr, lens, B, W, S, step, lane, cur);
+  tab[threadIdx.x] = entry;
+  __syncthreads();
+  if (step >= steps) return;
+  for (;;) {
+    const uint32_t next = step + stride;
+    const bool more = next < steps;
+    SeedStep nxt;
+    if (more) seed_load(arr, lens, B, W, S, next, lane, nxt);
+    seed_store(tab, out, B, W, S, step, lane, cur);
+    if (!more) return;
+    cur = nxt;
+    step = next;
   }
 }
 
@@ -473,21 +560,48 @@ cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid,
   return cudaGetLastError();
 }
 
+cudaError_t launch_seed(const uint8_t* arr, const int32_t* lens,
+                        const int32_t* table, int32_t* out, int B, int W,
+                        cudaStream_t stream) {
+  if (B <= 0 || W <= 0) return cudaSuccess;
+  const int S = (W + 127) / 128;
+  const int64_t steps = ((int64_t)B * S + kSeedUnroll - 1) / kSeedUnroll;
+  if (steps * kSeedUnroll >= ((int64_t)1 << 32))
+    return cudaErrorInvalidValue;  // 32-bit segment indices
+  // the persistent grid: SMs x resident blocks, read once per device, so
+  // that a launch captured in a CUDA graph makes no attribute call
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int blocks = dev < 64 ? resident[dev] : 0;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, seed_tokens_kernel, kSeedThreads, 0);
+    if (err != cudaSuccess) return err;
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < 64) resident[dev] = blocks;
+  }
+  const int64_t need = (steps + kSeedThreads / 32 - 1) / (kSeedThreads / 32);
+  if (need < blocks) blocks = (int)need;
+  seed_tokens_kernel<<<blocks, kSeedThreads, 0, stream>>>(
+      arr, lens, table, out, B, W, S, (uint32_t)steps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int ctok_seed_tokens(const void* arr, const void* lens, const void* table,
                      void* out, int B, int W, void* stream) {
-  const int64_t n = (int64_t)B * (W / 16);
-  if (n == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;
-  seed_tokens_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  return (int)launch_seed(
       static_cast<const uint8_t*>(arr), static_cast<const int32_t*>(lens),
-      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), B, W);
-  return (int)cudaGetLastError();
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), B, W,
+      (cudaStream_t)stream);
 }
 
 int ctok_merge_fixpoint_qc(const void* tokens_in, const void* wid,

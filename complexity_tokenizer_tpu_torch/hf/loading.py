@@ -3,9 +3,10 @@
 Reads a BPE model (vocab and merges), a ByteLevel pre-tokenizer, the
 normalizer and the added tokens.  Defaults follow the reference: a missing
 normalizer means NFC, a missing pre-tokenizer means ``ByteLevel`` without
-prefix space.  Every other setting of those fields raises
-``NotImplementedError`` naming the field; the decoder and post-processor
-are not read (encode uses neither).
+prefix space.  An added token's ``normalized`` flag is kept and, as in the
+reference's matcher, never read when matching.  Every other setting of
+those fields raises ``NotImplementedError`` naming the field; the decoder
+and post-processor are not read (encode uses neither).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ class AddedToken:
     content: str
     id: int
     special: bool
+    normalized: bool = False
 
 
 @dataclass
@@ -74,14 +76,17 @@ def _pre_tokenizer(value) -> ByteLevel:
 def _added_tokens(items) -> list[AddedToken]:
     out = []
     for tok in items or []:
-        for flag in ("lstrip", "rstrip", "single_word", "normalized"):
+        for flag in ("lstrip", "rstrip", "single_word"):
             if tok.get(flag):
                 raise NotImplementedError(f"added_tokens[].{flag}=True")
         if not tok.get("content"):
             raise ValueError("added_tokens[].content is empty")
         out.append(
             AddedToken(
-                str(tok["content"]), int(tok["id"]), bool(tok.get("special", False))
+                str(tok["content"]),
+                int(tok["id"]),
+                bool(tok.get("special", False)),
+                bool(tok.get("normalized", False)),
             )
         )
     return out

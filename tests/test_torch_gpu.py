@@ -42,14 +42,32 @@ def tok50k():
     return Tokenizer.from_file(BENCH_50K)
 
 
-@pytest.mark.parametrize("B,W", [(8192, 128), (8192, 512), (16, 4096), (3, 16)])
-def test_seed_kernel_matches_plain(B, W):
+@pytest.mark.parametrize(
+    "B,W,skip",
+    [
+        (8192, 128, 0), (8192, 512, 0), (16, 4096, 0), (3, 16, 0),
+        # W not a multiple of the kernel's 128-byte segment
+        (5, 48, 0), (257, 2064, 0), (8193, 144, 0),
+        # one row, 8,193 rows
+        (1, 16, 0), (1, 4096, 0), (8193, 16, 0),
+        # rows handed in as an offset row slice that is still 16-byte aligned
+        (5, 48, 3), (257, 2064, 1), (64, 512, 7),
+    ],
+)
+def test_seed_kernel_matches_plain(B, W, skip):
+    """K1 bit for bit against its plain version, with rows of length 0, 1,
+    15, 16, 17 and W among random lengths."""
     _need_card()
-    rng = np.random.RandomState(B + W)
+    rng = np.random.RandomState(B + W + skip)
     table = rng.randint(-1, 50000, size=256).astype(np.int32)
     table[rng.choice(256, 20, replace=False)] = -1
-    arr = torch.from_numpy(rng.randint(0, 256, size=(B, W)).astype(np.uint8)).cuda()
-    lens = torch.from_numpy(rng.randint(0, W + 1, size=B).astype(np.int32)).cuda()
+    full = torch.from_numpy(rng.randint(0, 256, size=(B + skip, W)).astype(np.uint8)).cuda()
+    lens = rng.randint(0, W + 1, size=B).astype(np.int32)
+    edge = [n for n in (0, 1, 15, 16, 17, W) if n <= W][:B]
+    lens[: len(edge)] = edge
+    arr = full[skip:]
+    assert arr.is_contiguous() and arr.data_ptr() % 16 == 0
+    lens = torch.from_numpy(lens).cuda()
     table = torch.from_numpy(table).cuda()
     before = seed_tokens.launches
     got = seed_tokens(arr, lens, table)

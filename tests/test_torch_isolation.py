@@ -136,7 +136,7 @@ def test_device_path_refuses_ineligible_tables():
         ({"pre_tokenizer": {"type": "ByteLevel", "use_regex": False}}, "use_regex"),
         ({"model": {"type": "WordPiece", "vocab": {}}}, "model.type"),
         ({"added_tokens": [{"id": 3, "content": "<x>", "lstrip": True}]}, "lstrip"),
-        ({"added_tokens": [{"id": 3, "content": "<x>", "normalized": True}]}, "normalized"),
+        ({"added_tokens": [{"id": 3, "content": "<x>", "rstrip": True}]}, "rstrip"),
         ({"added_tokens": [{"id": 3, "content": "<x>", "single_word": True}]}, "single_word"),
     ],
 )

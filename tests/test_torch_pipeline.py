@@ -137,3 +137,57 @@ def test_loaded_variants_match_jax_oracle(patch):
     texts = conformance_corpus()[:12] + ["ﬁ café ①②", "café x", "Hello", ""]
     got = pt.encode_batch(texts, device="cpu")
     assert got == [jt._encode_host(t) for t in texts]
+
+
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_added_token_normalized_flag_matches_jax_oracle(backend):
+    """``added_tokens[].normalized=true`` loads, and is ignored when matching
+    as the JAX matcher ``_find_added_token`` ignores it: the port's ids
+    equal the JAX host oracle's, on texts with and without the tokens and
+    on non-ASCII texts that NFC changes."""
+    import json
+    import unicodedata
+
+    j = json.loads(trained_tokenizer_json())
+    j["added_tokens"][0]["normalized"] = True  # </s>
+    mask_id = len(j["model"]["vocab"])
+    j["added_tokens"].append(
+        {"id": mask_id, "content": "mask", "special": False, "normalized": True}
+    )
+    js = json.dumps(j)
+    pt, jt = Tokenizer.from_str(js), JaxTokenizer.from_str(js)
+    texts = [
+        "hello mask world", "mask", "unmasked</s>c", "x </s> y mask",
+        "cafe\u0301 mask re\u0301sume\u0301",  # NFC composes the accents
+        "plain text", "cafe\u0301 au lait", "ḍ̇ and ﬁ", "", " [MASK] ",
+    ]
+    assert unicodedata.normalize("NFC", texts[4]) != texts[4]
+    got = pt.encode_batch(texts, backend=backend, device="cpu")
+    exp = [jt._encode_host(t) for t in texts]
+    assert got == exp
+    assert exp[1] == [mask_id]
+    assert all(mask_id in exp[i] for i in (0, 2, 3, 4))
+    assert all(mask_id not in exp[i] for i in (5, 6, 7, 8, 9))
+
+
+def test_device_path_refuses_table_not_well_formed():
+    """A merge table where a pair holding merge r's product ranks before r
+    (here "ab c" before "a b") is not well-formed: the device fixpoint would
+    differ from the one-merge-per-step oracle, so backend="device" raises,
+    while backend="host" still equals the JAX host oracle."""
+    import json
+
+    from complexity_tokenizer_tpu_torch.core.bpe import merges_well_formed
+
+    vocab = {"a": 0, "b": 1, "c": 2, "ab": 3, "abc": 4, "ca": 5}
+    js = json.dumps(
+        {"model": {"type": "BPE", "vocab": vocab, "merges": ["ab c", "a b", "c a"]}}
+    )
+    pt, jt = Tokenizer.from_str(js), JaxTokenizer.from_str(js)
+    assert not merges_well_formed(pt.bpe.merge_ranks, pt.bpe.merge_ops)
+    texts = ["abc", "ab abc cab", "cabcab", "", "b a c"]
+    with pytest.raises(NotImplementedError, match="well-formed"):
+        pt.encode_batch(texts, backend="device", device="cpu")
+    exp = [jt._encode_host(t) for t in texts]
+    assert pt.encode_batch(texts, backend="host") == exp
+    assert exp[0] == [4]
