@@ -8,26 +8,45 @@ Phases (each prints its seconds):
 1. device: a CUDA card must be present; prints its name, the device count
    and ``nvidia-smi``'s name and power limit.
 2. build: compiles the kernels of ``complexity_tokenizer_tpu_torch/csrc``
-   with ``nvcc`` and prints the build's seconds and ``-Xptxas -v`` report.
-3. main path: ``Tokenizer.encode_batch(texts, backend="device")`` at the
-   50K vocabulary over the Zipf corpus (plus multilingual pieces, a text
-   over 4,096 bytes and texts holding ``</s>``), compared with the host
-   oracle on every text; the kernels' launch counts are set to 0 just
-   before and read just after, and must both be above 0.  The first
-   ``[B, L]`` batch of every shape the run launched is kept.
-4. kernels: each kernel against its plain PyTorch version on the card, bit
-   for bit, on the kept main-path batch of every shape; K1 also on random
-   bytes (some OOV table entries) at ``[8192, 512]`` and ``[16, 4096]``
-   and on edge shapes (``seed_edge_batches``), and is timed warm, cold
+   (one ``nvcc`` per source, all at once) and, beside them, the native host
+   runtime with ``g++``; prints both builds' seconds and the kernels'
+   ``-Xptxas -v`` report.
+3. text pipeline: ``Tokenizer.pipeline().encode_bytes`` (pre-split, K1, K2
+   over whole texts) at the 50K vocabulary over the Zipf corpus (plus
+   multilingual pieces, a text over 4,096 bytes and texts holding ``</s>``,
+   which go to the host oracle), compared with the oracle on every text;
+   K1's and K2's launch counts are set to 0 just before and read just
+   after.  The first ``[B, L]`` batch of every shape is kept.
+4. word path, the main path, on the same corpus:
+   a. every distinct word through the device: on a fresh native context
+      without warm start, ``collect_miss_words`` -> ``_encode_words_packed``
+      on the card; each word's ids against the host merge of the same words
+      (``NativeEncoder.warm_start``); the first pack of every shape is kept;
+   b. ``encode_batch(texts, backend="device")`` from a fresh
+      ``Tokenizer.from_file`` (warm start on): the first call fills, a
+      second is warm; the launch counts of K1-K4 are set to 0 just before
+      the first and read just after;
+   c. ``encode_batch(texts)`` (``backend="auto"``) from another fresh
+      tokenizer, in five batches, then ``drain_async`` (counts set to 0
+      before, read after); then ``encode_batch`` and
+      ``encode_batch_ragged`` again.
+   Every text's ids equal the host oracle's; every kernel must have been
+   launched.
+5. kernels: each kernel against its plain PyTorch version on the card, bit
+   for bit, on the kept batches and packs of every shape.  K1 also on random
+   bytes (some OOV table entries) at ``[8192, 512]`` and ``[16, 4096]`` and
+   on edge shapes (``seed_edge_batches``), and is timed warm, cold
    (``_time_cold_ms``: no call finds its own lines in L2) and at
-   ``[1, 16]`` (its launch floor);
-   K2 also on ``[16, 4096]`` rows filled with corpus text, on the rows
-   that separate its greedy apply from the JAX rule (``run_rows``) at
-   ``[16, 1024]`` and ``[4, 4096]``, with and without OOV bytes inside
-   the runs, and on one 4,096-byte word of one letter.  Kernels and the
-   library expression are timed by replaying a CUDA graph, K2's plain
-   version with CUDA events around its calls (``_time_ms``).
-5. report: one JSON line of per-kernel numbers, then as the last line
+   ``[1, 16]`` (its launch floor).  K2 also on ``[16, 4096]`` rows filled
+   with corpus text, on the rows that separate its greedy apply from the JAX
+   rule (``run_rows``) at ``[16, 1024]`` and ``[4, 4096]``, with and without
+   OOV bytes inside the runs, and on one 4,096-byte word of one letter.  K3
+   and K4, and the whole fill against its plain versions on the CPU, on the
+   word packs, at the compact capacity and at full capacity; K3 and K4 timed
+   warm and cold.  Kernels and the library expression are timed by replaying
+   a CUDA graph, the plain versions that synchronise with CUDA events around
+   their calls (``_time_ms``).
+6. report: one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits nonzero without the last line.
@@ -41,6 +60,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -248,11 +268,13 @@ def seed_edge_batches(rng) -> list[tuple]:
     return out
 
 
-def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2) -> dict:
-    """K2 against its plain version on the pre-split ``arr`` rows, seeded
-    with ``byte_table`` (the vocabulary's own by default).  The plain
-    version is timed over ``plain_reps`` calls; with 1, the comparison's
-    own call is the warm-up."""
+def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
+                wid=None) -> dict:
+    """K2 against its plain version on the ``arr`` rows, seeded with
+    ``byte_table`` (the vocabulary's own by default), with the word ids
+    ``wid`` (the GPT-2 pre-split's by default).  The plain version is timed
+    over ``plain_reps`` calls; with 1, the comparison's own call is the
+    warm-up."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.merge import (
@@ -263,7 +285,8 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2)
     from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens_plain
 
     B, L = arr.shape
-    _, wid, _ = presplit(arr, lens, tb.class_table)
+    if wid is None:
+        _, wid, _ = presplit(arr, lens, tb.class_table)
     byte_table = tb.byte_token_table if byte_table is None else byte_table
     tokens = seed_tokens_plain(arr, lens, byte_table)
 
@@ -308,6 +331,110 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2)
     )
 
 
+def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> tuple:
+    """K3 and K4 against their plain versions on one word pack (on the
+    card), and the whole fill (K3, K1, K2, K4) against its plain versions on
+    the CPU, byte for byte on the fused buffer, at the compact capacity (3/8
+    of the lanes) and at full capacity.  K3 and K4 are timed warm and cold
+    at the compact capacity, their plain versions warm, and the whole fill
+    warm.  Returns (K3 result, K4 result)."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
+    from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
+    from complexity_tokenizer_tpu_torch.ops.wordfill import (
+        fill_compact,
+        fill_compact_plain,
+        fill_layout,
+        word_fill,
+        word_ids,
+        word_ids_plain,
+    )
+
+    B, W = a.shape
+    cap = B * W * 3 // 8
+    got3 = word_ids(bits, row_len)
+    exp3 = word_ids_plain(bits, row_len)
+    tokens = seed_tokens(a, row_len, tb.byte_token_table)
+    merged, count = merge_words_qc(tokens, got3, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    errs4, match4 = [], True
+    for c in (cap, B * W):
+        got4 = fill_compact(merged, count, c, itemsize)
+        exp4 = fill_compact_plain(merged, count, c, itemsize)
+        fill_card = word_fill(a, bits, row_len, c, tables=tb, itemsize=itemsize)
+        fill_cpu = word_fill(a.cpu(), bits.cpu(), row_len.cpu(), c, tables=cpu_tb,
+                             itemsize=itemsize)
+        torch.cuda.synchronize()
+        errs4.append(_max_abs_err(got4, exp4))
+        match4 &= bool(torch.equal(got4, exp4))
+        if not torch.equal(fill_card.cpu(), fill_cpu):
+            raise AssertionError(f"the fill on the card differs from the CPU's: {label} [{B},{W}] cap {c}")
+    err3 = _max_abs_err(got3, exp3)
+    match3 = bool(torch.equal(got3, exp3))
+    total = int(count.sum())
+    print(
+        f"[word_fill] {label} [{B},{W}] K3 match={match3} K4 match={match4} "
+        f"live={total} cap={cap} ({'spills' if total > cap else 'fits'}); "
+        f"fill on card == fill on CPU at cap {cap} and {B * W}",
+        flush=True,
+    )
+    if not (match3 and match4):
+        raise AssertionError(f"word_ids or fill_compact differ from their plain versions: {label} [{B},{W}]")
+    reps = 200
+    out_bytes = fill_layout(B, W, cap, itemsize)[2]
+    k3_ms = _time_ms(lambda: word_ids(bits, row_len), reps)
+    sets = _cold_sets((bits, row_len), 4 * B * W)
+    k3_cold = _time_cold_ms(word_ids, sets, reps)
+    del sets
+    k3_plain = _time_ms(lambda: word_ids_plain(bits, row_len), 50, graph=False)
+    k4_ms = _time_ms(lambda: fill_compact(merged, count, cap, itemsize), reps)
+    sets = _cold_sets((merged, count), out_bytes)
+    k4_cold = _time_cold_ms(lambda m, n: fill_compact(m, n, cap, itemsize), sets, reps)
+    del sets
+    k4_plain = _time_ms(lambda: fill_compact_plain(merged, count, cap, itemsize), 20, graph=False)
+    fill_ms = _time_ms(lambda: word_fill(a, bits, row_len, cap, tables=tb, itemsize=itemsize), 50)
+    # bytes the functions must move: each input read once, each output
+    # written once; about one operation a lane
+    b3, by3 = _bound(B * W // 8 + 4 * B + 4 * B * W, B * W)
+    b4, by4 = _bound(4 * B * W + 4 * B + out_bytes, B * W)
+    print(
+        f"[word_fill] {label} [{B},{W}] K3 warm={k3_ms:.4f} ms cold={k3_cold:.4f} ms "
+        f"plain={k3_plain:.4f} ms bound={b3:.4f} ms ({by3}); K4 warm={k4_ms:.4f} ms "
+        f"cold={k4_cold:.4f} ms plain={k4_plain:.4f} ms bound={b4:.4f} ms ({by4}); "
+        f"whole fill (K3+K1+K2+K4) warm={fill_ms:.4f} ms",
+        flush=True,
+    )
+    common = dict(inputs=label, shape=[B, W], library_ms=None, fill_ms=fill_ms)
+    return (
+        dict(common, match=match3, max_abs_err=err3, ms=k3_ms, ms_cold=k3_cold,
+             plain_ms=k3_plain, bound_ms=b3, bound_by=by3),
+        dict(common, match=match4, max_abs_err=max(errs4), ms=k4_ms, ms_cold=k4_cold,
+             plain_ms=k4_plain, bound_ms=b4, bound_by=by4, cap=cap, live=total),
+    )
+
+
+def text_pipeline_encode(tok, pipe, texts: list[str]) -> list[list[int]]:
+    """The text pipeline's ids: texts no added token can match through
+    ``pipe.encode_bytes``, the others through the host oracle."""
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
+    flags = tok._added_route_flags(data)
+    fast = [i for i in range(len(texts)) if flags is None or not flags[i]]
+    out = [None] * len(texts)
+    for i, ids in zip(fast, pipe.encode_bytes([data[i] for i in fast])):
+        out[i] = ids
+    return [ids if ids is not None else tok._encode_host(t) for t, ids in zip(texts, out)]
+
+
+def _compare(what: str, texts, got, host) -> None:
+    bad = [i for i, (g, h) in enumerate(zip(got, host)) if g != h]
+    if len(got) != len(host) or bad:
+        i = bad[0] if bad else 0
+        raise AssertionError(
+            f"{what}: {len(bad)} texts differ from the host oracle; first "
+            f"{texts[i][:80]!r}: {got[i][:16]} vs {host[i][:16]}"
+        )
+
+
 def main_corpus(n_texts: int, seed: int) -> list[str]:
     from complexity_tokenizer_tpu_torch.utils.corpus import MULTI_PIECES, zipf_corpus
 
@@ -345,9 +472,13 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
+        from complexity_tokenizer_tpu_torch import native
         from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
+        from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
+        from complexity_tokenizer_tpu_torch.ops.wordfill import fill_compact, word_ids, word_ids_plain
+        from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
         from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
         from complexity_tokenizer_tpu_torch.utils.corpus import RUN_BREAKS, run_rows
         from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
@@ -368,17 +499,37 @@ def main(argv=None) -> int:
     print(smi_line)
     _phase("device", t0)
 
-    # 2. build --------------------------------------------------------------
+    # 2. build: the kernels and the native runtime side by side --------------
     t0 = time.perf_counter()
+    native_build: dict = {}
+
+    def build_native():
+        t1 = time.perf_counter()
+        try:
+            native.load_library()
+            native_build["route"] = "fused extension" if native.load_ext() else "bytes"
+        except BaseException as e:  # raised below, in this thread
+            native_build["error"] = e
+        native_build["seconds"] = time.perf_counter() - t1
+
+    builder = threading.Thread(target=build_native)
+    builder.start()
     lib = kernel_library()
+    builder.join()
+    if "error" in native_build:
+        raise native_build["error"]
     built = f"{lib.build_seconds:.3f} s nvcc" if lib.build_seconds else "reused an earlier build"
     print(f"build: {built} -> {os.path.relpath(lib.path, REPO)}")
     for line in lib.ptxas_log.splitlines():
         if "ptxas info" in line and ("Compiling" in line or "registers" in line or "Function properties" in line):
             print("  " + line.strip())
+    print(
+        f"native runtime: {native_build['seconds']:.3f} s g++ (with the kernels' build) -> "
+        f"{os.path.relpath(native._lib_path, REPO)}; batch route: {native_build['route']}"
+    )
     _phase("build", t0)
 
-    # 3. main path at full width --------------------------------------------
+    # 3. text pipeline ----------------------------------------------------------
     t0 = time.perf_counter()
     if not os.path.exists(TOKENIZER_JSON):
         print(f"chip_smoke: missing {TOKENIZER_JSON}", file=sys.stderr)
@@ -390,9 +541,14 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"pipeline set-up (tables, class table): {time.perf_counter() - t1:.3f} s")
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    t1 = time.perf_counter()
+    host = tok.encode_batch(texts, backend="host")
+    host_s = time.perf_counter() - t1
+    n_vocab = len(tok.bpe.vocab)
+    if not all(0 <= i < n_vocab for h in host for i in h):
+        raise AssertionError("an oracle id lies outside the vocabulary")
 
-    # keep the first [B, L] batch of every shape the main path launches,
-    # so the kernels are checked on exactly those inputs in phase 4
+    # keep the first [B, L] batch of every shape the text pipeline launches
     batches: dict[tuple[int, int], tuple] = {}
     encode_rows = pipe.encode_rows
 
@@ -400,60 +556,200 @@ def main(argv=None) -> int:
         batches.setdefault(arr.shape, (arr.copy(), lens.copy()))
         return encode_rows(arr, lens)
 
+    kernels_of = {"seed_tokens": seed_tokens, "merge_fixpoint_qc": merge_words_qc,
+                  "word_ids": word_ids, "fill_compact": fill_compact}
+
+    def zero_counts():
+        for fn in kernels_of.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in kernels_of.items()}
+
     pipe.encode_rows = keep_batch
-    seed_tokens.launches = 0
-    merge_words_qc.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     try:
-        got = tok.encode_batch(texts, backend="device")
+        got = text_pipeline_encode(tok, pipe, texts)
         torch.cuda.synchronize()
     finally:
         del pipe.encode_rows
     wall = time.perf_counter() - t1
-    launches = {"seed_tokens": seed_tokens.launches, "merge_fixpoint_qc": merge_words_qc.launches}
+    text_launches = read_counts()
     t1 = time.perf_counter()
-    again = tok.encode_batch(texts, backend="device")
+    again = text_pipeline_encode(tok, pipe, texts)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    host = tok.encode_batch(texts, backend="host")
-    host_s = time.perf_counter() - t1
-    bad = [i for i, (g, h) in enumerate(zip(got, host)) if g != h]
-    n_ids = sum(len(g) for g in got)
     shapes = sorted(batches)
     print(
-        f"main path: {len(texts)} texts, {n_bytes} bytes, {n_ids} ids; "
-        f"encode_batch(device) {wall:.3f} s first (batches kept), {wall2:.3f} s second; "
-        f"host oracle {host_s:.3f} s; launches {launches}; "
-        f"batch shapes {[list(x) for x in shapes]}; mismatches {len(bad)}",
+        f"text pipeline: {len(texts)} texts, {n_bytes} bytes, {sum(map(len, host))} ids; "
+        f"encode_bytes {wall:.3f} s first (batches kept), {wall2:.3f} s second; "
+        f"host oracle {host_s:.3f} s; launches {text_launches}; "
+        f"batch shapes {[list(x) for x in shapes]}",
         flush=True,
     )
-    if bad:
-        i = bad[0]
-        raise AssertionError(
-            f"{len(bad)} texts differ from the host oracle; first {texts[i][:80]!r}: "
-            f"{got[i][:16]} vs {host[i][:16]}"
-        )
-    if again != got:
-        raise AssertionError("a second encode_batch gave other ids")
-    n_vocab = len(tok.bpe.vocab)
-    if not all(0 <= i < n_vocab for g in got for i in g):
-        raise AssertionError("an id lies outside the vocabulary")
+    _compare("text pipeline", texts, got, host)
+    _compare("text pipeline, second call", texts, again, host)
+    for name in ("seed_tokens", "merge_fixpoint_qc"):
+        if text_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the text pipeline")
+    _phase("text pipeline", t0)
+
+    # 4. word path ----------------------------------------------------------------
+    # a. every distinct word through the device, on a fresh native context
+    t0 = time.perf_counter()
+
+    def fresh_native():
+        return native.NativeEncoder(tok.bpe.packed_merge_arrays(), byte_token_table(tok.bpe.vocab))
+
+    # keep the first pack of every shape any word-path run launches
+    packs: dict[int, tuple] = {}
+
+    def keep_packs(word_encoder):
+        fill_fn = word_encoder._fn
+
+        def keep_pack(a, bits, row_len):
+            packs.setdefault(a.shape[0], (a.copy(), bits.copy(), row_len.copy()))
+            return fill_fn(a, bits, row_len)
+
+        word_encoder._fn = keep_pack
+
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
+    wp = DeviceWordEncoder(pipe, fresh_native())
+    keep_packs(wp)
+    words, lens = wp.native.collect_miss_words(data, 128)
+    t1 = time.perf_counter()
+    ids, counts = wp._encode_words_packed(words, lens)
+    fill_s = time.perf_counter() - t1
+    exp_ids, exp_counts = fresh_native().warm_start(words, lens)
+    uncovered = int((counts < 0).sum())
+    bounds = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(np.maximum(counts, 0), out=bounds[1:])
+    exp_bounds = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(exp_counts, out=exp_bounds[1:])
+    mismatched = sum(
+        1 for w in range(len(counts))
+        if counts[w] != exp_counts[w]
+        or not np.array_equal(ids[bounds[w] : bounds[w + 1]], exp_ids[exp_bounds[w] : exp_bounds[w + 1]])
+    )
+    fill = wp.last_fill
+    print(
+        f"word path, every distinct word: {len(lens)} words, {int(lens.sum())} bytes "
+        f"(up to 128 bytes each); packs {dict(sorted(fill['packs'].items()))} (rows: count), "
+        f"spills {fill['spills']}, redispatches {fill['spills']}; fill {fill_s:.3f} s; "
+        f"host seconds {({k: round(v, 4) for k, v in fill['seconds'].items()})}; "
+        f"against the host merge: {mismatched} mismatches, {uncovered} uncovered",
+        flush=True,
+    )
+    if mismatched or uncovered or len(lens) == 0:
+        raise AssertionError(f"device word ids: {mismatched} mismatches, {uncovered} uncovered")
+    _phase("word path: every distinct word", t0)
+
+    # b. backend="device" from a fresh tokenizer: the main path
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    tok_d = Tokenizer.from_file(TOKENIZER_JSON)
+    load_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    wp_d = tok_d._get_word_path("cuda")
+    keep_packs(wp_d)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = tok_d.encode_batch(texts, backend="device")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    launches = read_counts()
+    fill_first = dict(wp_d.last_fill)
+    t1 = time.perf_counter()
+    again = tok_d.encode_batch(texts, backend="device")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    print(
+        f"word path, backend=device: from_file {load_s:.3f} s ({tok_d._warm_start_words} words "
+        f"warm-started), word-path set-up {setup_s:.3f} s; first call {first_s:.3f} s "
+        f"({wp_d.words_filled} words filled; packs {dict(sorted(fill_first['packs'].items()))}, "
+        f"spills {fill_first['spills']}; host seconds "
+        f"{({k: round(v, 4) for k, v in fill_first['seconds'].items()})}), warm {warm_s:.3f} s "
+        f"({n_bytes / warm_s / 1e6:.2f} MB/s); assembly route: bytes (ctok_encode_batch); "
+        f"launches {launches}",
+        flush=True,
+    )
+    _compare("backend=device", texts, got, host)
+    _compare("backend=device, second call", texts, again, host)
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    _phase("main path", t0)
+            raise AssertionError(f"kernel {name} was not launched on the main path (backend=device)")
+    if wp_d.words_filled <= 0:
+        raise AssertionError("backend=device filled no word")
+    _phase("word path: backend=device", t0)
 
-    # 4. kernels against their plain versions -------------------------------
+    # c. backend="auto" from another fresh tokenizer
+    t0 = time.perf_counter()
+    tok_a = Tokenizer.from_file(TOKENIZER_JSON)
+    keep_packs(tok_a._get_word_path("cuda"))  # tables on the card before the batches
+    torch.cuda.synchronize()
+    zero_counts()
+    step = -(-len(texts) // 5)
+    got = []
+    batch_s = []
+    for i in range(0, len(texts), step):
+        t1 = time.perf_counter()
+        got += tok_a.encode_batch(texts[i : i + step])
+        batch_s.append(time.perf_counter() - t1)
+    wp_a = tok_a._auto_word_path("cuda")
+    t1 = time.perf_counter()
+    drained = wp_a.drain_async(timeout=600)
+    drain_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    auto_launches = read_counts()
+    _compare("backend=auto", texts, got, host)
+    t1 = time.perf_counter()
+    again = tok_a.encode_batch(texts)
+    auto_warm_s = time.perf_counter() - t1
+    _compare("backend=auto, after the fill", texts, again, host)
+    flat, offs = tok_a.encode_batch_ragged(texts)
+    ragged = [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))]
+    if ragged != again:
+        raise AssertionError("encode_batch_ragged differs from encode_batch")
+    wp_a.drain_async(timeout=600)
+    print(
+        f"word path, backend=auto: 5 batches {[round(x, 3) for x in batch_s]} s, drain "
+        f"{drain_s:.3f} s ({drained} words inserted by the drain, {wp_a.words_filled} filled "
+        f"in all); whole corpus after the fill {auto_warm_s:.3f} s; encode_batch_ragged "
+        f"equal; route: {native_build['route']}; launches {auto_launches}",
+        flush=True,
+    )
+    if wp_a.words_filled <= 0:
+        raise AssertionError("backend=auto filled no word")
+    for name, n in auto_launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path (backend=auto)")
+    _phase("word path: backend=auto", t0)
+
+    # 5. kernels against their plain versions -------------------------------
     t0 = time.perf_counter()
     tb = pipe.tables
+    cpu_tb = tok.pipeline("cpu").tables
+    itemsize = np.dtype(wp._out_dtype).itemsize
     seed_res: list[dict] = []
     merge_res: list[dict] = []
+    k3_res: list[dict] = []
+    k4_res: list[dict] = []
+    for B in sorted(packs):
+        a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
+        r3, r4 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
+        k3_res.append(r3)
+        k4_res.append(r4)
+        seed_res.append(check_seed("word pack", a, row_len, tb.byte_token_table))
+        merge_res.append(check_merge("word pack", tb, a, row_len, wid=word_ids_plain(bits, row_len)))
     for shape in shapes:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
-        seed_res.append(check_seed("main path", arr, lens, tb.byte_token_table))
-        merge_res.append(check_merge("main path", tb, arr, lens))
+        seed_res.append(check_seed("text batch", arr, lens, tb.byte_token_table))
+        merge_res.append(check_merge("text batch", tb, arr, lens))
     rng = np.random.RandomState(args.seed)
     table = rng.randint(0, 50000, size=256).astype(np.int32)
     oov = rng.choice(256, 24, replace=False)
@@ -486,24 +782,33 @@ def main(argv=None) -> int:
     merge_res.append(check_merge("one letter", tb, arr, lens, plain_reps=1))
     _phase("kernels", t0)
 
-    # 5. report --------------------------------------------------------------
-    # the headline numbers are those of the main path's largest batch
-    largest = list(max(shapes, key=lambda x: x[0] * x[1]))
+    # 6. report --------------------------------------------------------------
+    # the headline numbers are those of the word path's largest pack
+    largest = [max(packs), 128]
     kernels = []
-    for name, res, src_line, replaces in (
-        ("seed_tokens", seed_res, "ops/seed.py",
+    for name, res, src, wrapper, replaces in (
+        ("seed_tokens", seed_res, "kernels.cu", "ops/seed.py",
          "complexity_tokenizer_tpu/ops/pallas_kernels.py:70"),
-        ("merge_fixpoint_qc", merge_res, "ops/merge.py",
+        ("merge_fixpoint_qc", merge_res, "kernels.cu", "ops/merge.py",
          "complexity_tokenizer_tpu/ops/merge.py:187"),
+        ("word_ids", k3_res, "wordfill.cu", "ops/wordfill.py",
+         "complexity_tokenizer_tpu/ops/wordpath.py:292"),
+        ("fill_compact", k4_res, "wordfill.cu", "ops/wordfill.py",
+         "complexity_tokenizer_tpu/ops/wordpath.py:317"),
     ):
-        main = next(r for r in res if r["inputs"] == "main path" and r["shape"] == largest)
+        main = next(r for r in res if r["inputs"] == "word pack" and r["shape"] == largest)
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "complexity_tokenizer_tpu_torch/csrc/kernels.cu",
-            "wrapper": "complexity_tokenizer_tpu_torch/" + src_line,
+            "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
+            "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
             "replaces": replaces,
             "launches": launches[name],
+            "launches_by_path": {
+                "text pipeline": text_launches[name],
+                "word path, backend=device": launches[name],
+                "word path, backend=auto": auto_launches[name],
+            },
             "match": all(r["match"] for r in res),
             "max_abs_err": max(r["max_abs_err"] for r in res),
             "shape": largest,
@@ -514,11 +819,10 @@ def main(argv=None) -> int:
             "library_ms": main["library_ms"],
             "checks": res,
         })
+        if "ms_cold" in main:
+            kernels[-1]["ms_cold"] = main["ms_cold"]
         if name == "seed_tokens":
-            kernels[-1].update(
-                ms_cold=main["ms_cold"], bound_share=main["bound_share"],
-                launch_floor_ms=launch_floor_ms,
-            )
+            kernels[-1]["launch_floor_ms"] = launch_floor_ms
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -1,10 +1,13 @@
-"""Carrying the encode tables across: numpy arrays -> tensors on a device.
+"""Carrying the encode tables across: numpy arrays -> tensors on a device,
+and merge arrays -> a native context.
 
 :func:`tables_to_device` takes the table fields as numpy arrays, whichever
 package built them (this port's ``ops/tables.py`` or the JAX package's
 ``DeviceTables``), and returns the :class:`TorchTables` that the port's
-pipeline and kernels read.  The pipeline uses it for its own tables; the
-tests use it to feed both packages the same tables.
+pipeline and kernels read.  :func:`native_from_arrays` does the same for
+the native runtime's merge arrays.  The pipeline and the tokenizer use them
+for their own tables; the tests use them to feed both packages the same
+arrays.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["TorchTables", "tables_to_device"]
+__all__ = ["TorchTables", "tables_to_device", "native_from_arrays"]
 
 
 @dataclass
@@ -65,3 +68,24 @@ def tables_to_device(
         chd_disp=None if chd_disp is None else _tensor(chd_disp, torch.int32, device),
         chd_rows=None if chd_rows is None else _tensor(chd_rows, torch.int32, device),
     )
+
+
+def native_from_arrays(
+    *,
+    pa: np.ndarray,
+    pb: np.ndarray,
+    pr: np.ndarray,
+    rank_new: np.ndarray,
+    byte_token_table: np.ndarray,
+):
+    """Numpy merge arrays -> a native context (``native.NativeEncoder``).
+
+    ``(pa, pb, pr, rank_new)`` are the packed merge arrays
+    (``core.bpe.BpeTokenizer.packed_merge_arrays``, or the JAX package's
+    method of that name): each kept pair, its rank, and each rank's minted
+    id.  ``byte_token_table`` is the [256] int32 byte -> id table.  The
+    tokenizer builds its own context from them; the tests use this to feed
+    both packages the same arrays."""
+    from .native import NativeEncoder
+
+    return NativeEncoder((pa, pb, pr, rank_new), byte_token_table)

@@ -63,6 +63,36 @@ class BpeTokenizer:
         self.merge_ranks, self.merge_ops = build_merge_tables(vocab, merges)
         self._char_ids = {k: v for k, v in self.vocab.items() if len(k) == 1}
 
+    def packed_merge_arrays(self):
+        """(pa, pb, pr, rank_new) int32 arrays for the native runtime: the
+        kept pairs and their ranks in ``merge_ranks`` order, and each rank's
+        minted id (-1 for ranks that were not kept).  Cached: the merge
+        tables do not change after construction."""
+        arrs = getattr(self, "_packed_merge_arrays", None)
+        if arrs is None:
+            import numpy as np
+
+            n = len(self.merge_ranks)
+            flat = np.fromiter(
+                (v for (a, b), r in self.merge_ranks.items() for v in (a, b, r)),
+                np.int32,
+                count=3 * n,
+            )
+            pa = np.ascontiguousarray(flat[0::3])
+            pb = np.ascontiguousarray(flat[1::3])
+            pr = np.ascontiguousarray(flat[2::3])
+            max_rank = max(self.merge_ops) if self.merge_ops else 0
+            rank_new = np.full(max_rank + 1, -1, np.int32)
+            if self.merge_ops:
+                rk = np.fromiter(self.merge_ops.keys(), np.int64, len(self.merge_ops))
+                nv = np.fromiter(
+                    (v[1] for v in self.merge_ops.values()), np.int64, len(self.merge_ops)
+                )
+                rank_new[rk] = nv
+            arrs = (pa, pb, pr, rank_new)
+            self._packed_merge_arrays = arrs
+        return arrs
+
     def encode(self, text: str) -> list[int]:
         char_ids = self._char_ids
         tokens = [char_ids[c] for c in text if c in char_ids]

@@ -67,6 +67,7 @@ class EncodePipeline:
             )
         self.device = torch.device(device)
         self._host_bpe = host_bpe
+        self.max_id = tables.max_id
         self.tables = tables_to_device(
             byte_token_table=tables.byte_token_table,
             qc_t1=tables.qc.t1,

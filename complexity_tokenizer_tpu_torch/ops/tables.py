@@ -16,7 +16,7 @@ from ..core.bpe import BpeTokenizer, merges_well_formed
 from ..utils.bytelevel import bytes_to_unicode
 from .hashtable import QcTable, build_qc_table
 
-__all__ = ["DeviceTables", "build_device_tables"]
+__all__ = ["DeviceTables", "build_device_tables", "byte_token_table"]
 
 
 @dataclass
@@ -24,15 +24,24 @@ class DeviceTables:
     byte_token_table: np.ndarray  # [256] int32; -1 = OOV byte (dropped)
     well_formed: bool
     qc: QcTable | None = None  # None when ids/ranks exceed u16
+    max_id: int = -1  # the largest id a seed or a merge can produce
 
 
-def build_device_tables(bpe: BpeTokenizer) -> DeviceTables:
+def byte_token_table(vocab: dict[str, int]) -> np.ndarray:
+    """[256] int32 byte -> token id of its byte-level character, -1 when
+    the vocabulary lacks it."""
     enc = bytes_to_unicode()
     byte_token = np.full(256, -1, dtype=np.int32)
     for b in range(256):
-        tid = bpe.vocab.get(enc[b])
+        tid = vocab.get(enc[b])
         if tid is not None:
             byte_token[b] = tid
+    return byte_token
+
+
+def build_device_tables(bpe: BpeTokenizer) -> DeviceTables:
+    byte_token = byte_token_table(bpe.vocab)
     wf = merges_well_formed(bpe.merge_ranks, bpe.merge_ops)
     qc = build_qc_table(bpe.merge_ranks, bpe.merge_ops)
-    return DeviceTables(byte_token, wf, qc)
+    minted = max((new_id for _pair, new_id in bpe.merge_ops.values()), default=-1)
+    return DeviceTables(byte_token, wf, qc, max(int(byte_token.max()), minted))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source for Hopper (``sm_90a``) into a
-shared library with a plain C interface, which is loaded with ``ctypes``.
+One ``nvcc`` per source, all started together, compiles each for Hopper
+(``sm_90a``); one more links them into a shared library with a plain C
+interface, which is loaded with ``ctypes``.
 No source includes PyTorch's headers, so the build takes seconds.  It runs
 at first use, into ``build/`` beside the package (listed in
 ``.gitignore``), under a name keyed by the sources and flags, so a later
@@ -29,17 +30,23 @@ _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # arr, lens, table, out, B, W, stream
     "ctok_seed_tokens": (_P, _P, _P, _P, _I, _I, _P),
     # tokens_in, wid, t1, t2, mask, tokens_out, count, B, L, stream
     "ctok_merge_fixpoint_qc": (_P, _P, _P, _P, _U, _P, _P, _I, _I, _P),
+    # bits, row_len, wid, B, W, stream
+    "ctok_word_ids": (_P, _P, _P, _I, _I, _P),
+    # merged, count, out, B, W, cap, itemsize, stream
+    "ctok_fill_compact": (_P, _P, _P, _I, _I, _L, _I, _P),
 }
 
 
@@ -71,7 +78,7 @@ def _nvcc() -> str:
 def _build() -> KernelLibrary:
     sources = sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
     headers = sorted(glob.glob(os.path.join(_SRC_DIR, "*.cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for f in sources + headers:
         with open(f, "rb") as fh:
             h.update(fh.read())
@@ -82,23 +89,35 @@ def _build() -> KernelLibrary:
     seconds = 0.0
     if not os.path.exists(so):
         nvcc = _nvcc()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
+        tmp_dir = tempfile.mkdtemp(dir=_BUILD_DIR)
+        tmp = os.path.join(tmp_dir, "lib.so")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True,
-            text=True,
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        try:
+            objs = [os.path.join(tmp_dir, f"{i}.o") for i in range(len(sources))]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )
+                for src, obj in zip(sources, objs)
+            ]
+            logs = [p.communicate()[0] for p in procs]
+            for src, p, out in zip(sources, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{out}")
+            proc = subprocess.run(
+                [nvcc, *LINK_FLAGS, "-o", tmp, *objs], capture_output=True, text=True
             )
-        with open(log_path, "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: a concurrent process sees a whole file
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+                )
+            seconds = time.perf_counter() - t0
+            with open(log_path, "w") as fh:
+                fh.write("".join(logs) + proc.stdout + proc.stderr)
+            os.replace(tmp, so)  # atomic: a concurrent process sees a whole file
+        finally:
+            shutil.rmtree(tmp_dir, ignore_errors=True)
     with open(log_path) as fh:
         log = fh.read()
     lib = ctypes.CDLL(so)

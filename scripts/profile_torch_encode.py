@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time of the port's device encode goes, on one NVIDIA GPU.
+"""Where the time of the port's encode goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_encode.py [--texts 10000] [--seed 17]
 
-Encodes the ``chip_smoke.py`` corpus at the 50K vocabulary with
-``Tokenizer.encode_batch(backend="device")`` once to warm up, then once
-under ``torch.profiler``, and prints the wall time, the device's busy time
-(the union of kernel intervals) and idle share, and the kernels that take
-the most device time.  Then it times K2 alone (``chip_smoke._time_ms``,
-CUDA-graph replay) on rows that each hold one 4,096-byte word of a single
-repeated letter: the case that took a one-thread-per-word kernel with the
-JAX apply rule (one merge per equal-pair run and step) about two seconds.
-Needs a CUDA card; imports nothing of JAX.
+Encodes the ``chip_smoke.py`` corpus at the 50K vocabulary, each run from a
+fresh ``Tokenizer.from_file`` (warm start on), under ``torch.profiler``:
+
+1. ``backend="device"``, first call (it fills the word caches) and a warm
+   call.  The first call is run stage by stage as ``encode_batch`` runs it,
+   with a host timer around each stage: normalize, prepare bytes, the
+   added-token scan, the miss scan, the length sort, pack, dispatch (copies
+   and launches), harvest (waiting for the fill and unpacking it), spill
+   redispatches, unsort, the cache insert, the native encode of the texts
+   and the oracle for texts that hold an added token.
+2. ``backend="auto"``: the whole corpus as one batch, the background fill
+   drained, then the corpus again.  The serving thread's stages (the fused
+   native encode; the oracle for flagged rows) and the background fill's
+   (miss scan, sort, pack, dispatch, harvest, insert) are timed apart.
+3. The text pipeline (``Tokenizer.pipeline().encode_bytes``), warm.
+
+For each: the wall time, the device's busy time (the union of kernel
+intervals) and idle share, and the kernels that take the most device time.
+Then K2 alone on rows of one 4,096-byte word of one repeated letter.  Needs
+a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +55,49 @@ def _busy_us(events) -> float:
     return busy
 
 
+class Stages:
+    """Host seconds by stage, in the order first seen."""
+
+    def __init__(self):
+        self.s: dict[str, float] = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        self.s[name] = self.s.get(name, 0.0) + seconds
+
+    def run(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.add(name, time.perf_counter() - t0)
+        return out
+
+    def line(self) -> str:
+        total = sum(self.s.values())
+        parts = ", ".join(f"{k} {v * 1e3:.2f}" for k, v in self.s.items())
+        return f"{parts} (sum {total * 1e3:.2f} ms)"
+
+
+def _profiled(label: str, fn, n_bytes: int, table_rows: int = 0):
+    """Run ``fn`` once under torch.profiler; print wall, busy, idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _busy_us(prof.events()) / 1e6
+    print(
+        f"{label}: wall {wall:.4f} s ({n_bytes / wall / 1e6:.3f} MB/s) with the profiler on; "
+        f"device busy {busy * 1e3:.3f} ms, idle share {1 - busy / wall:.4f}",
+        flush=True,
+    )
+    if table_rows:
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=table_rows))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--texts", type=int, default=10_000)
@@ -51,43 +105,103 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_encode: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from chip_smoke import TOKENIZER_JSON, main_corpus
-    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
-
-    print(f"device: {torch.cuda.get_device_name(0)}")
-    tok = Tokenizer.from_file(TOKENIZER_JSON)
-    texts = main_corpus(args.texts, args.seed)
-    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
-    tok.encode_batch(texts)  # warm-up: tables, kernel build, allocator
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tok.encode_batch(texts)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    busy = _busy_us(events) / 1e6
-    print(
-        f"texts {len(texts)} bytes {n_bytes} wall {wall:.4f} s "
-        f"({n_bytes / wall / 1e6:.3f} MB/s) device busy {busy:.6f} s "
-        f"idle share {1 - busy / wall:.4f}"
-    )
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=20)
-    print(table)
-
-    from chip_smoke import _time_ms
+    from chip_smoke import TOKENIZER_JSON, _time_ms, main_corpus
     from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
     from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
     from complexity_tokenizer_tpu_torch.ops.presplit import presplit
     from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
 
-    tb = tok.pipeline("cuda").tables
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    texts = main_corpus(args.texts, args.seed)
+    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    print(f"texts {len(texts)} bytes {n_bytes}")
+    host = Tokenizer.from_file(TOKENIZER_JSON).encode_batch(texts, backend="host")
+
+    # 1. backend="device", stage by stage, as encode_batch runs it
+    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    wp = tok._get_word_path("cuda")  # tables on the card; kernels built
+    torch.cuda.synchronize()
+    st = Stages()
+
+    def device_first_call():
+        normalized = st.run("normalize", lambda: [tok._normalize(t) for t in texts])
+        data = st.run("prepare bytes", tok._prepare_bytes, normalized)
+        flags = st.run("added-token scan", tok._added_route_flags, data)
+        fast = [i for i in range(len(texts)) if flags is None or not flags[i]]
+        fast_data = [data[i] for i in fast]
+        t0 = time.perf_counter()
+        filled = wp.fill_caches(fast_data)
+        fill_s = time.perf_counter() - t0
+        for name, s in wp.last_fill["seconds"].items():
+            st.add(name, s)
+        st.add("fill, rest", fill_s - sum(wp.last_fill["seconds"].values()))
+        ids = st.run("native encode", wp.native.encode_batch, fast_data)
+        out = [None] * len(texts)
+        for i, r in zip(fast, ids):
+            out[i] = r
+        out = st.run("oracle (added tokens)", lambda: [
+            r if r is not None else tok._encode_host(n, already_normalized=True)
+            for r, n in zip(out, normalized)
+        ])
+        return out, filled
+
+    out, filled = _profiled("backend=device, first call (fills)", device_first_call, n_bytes, 12)
+    fill = wp.last_fill
+    print(f"  host ms by stage: {st.line()}")
+    print(f"  words filled {filled}; packs {dict(sorted(fill['packs'].items()))}, spills {fill['spills']}")
+    assert out == host, "backend=device differs from the host oracle"
+    warm = _profiled(
+        "backend=device, warm call", lambda: tok.encode_batch(texts, backend="device"), n_bytes
+    )
+    assert warm == host
+
+    # 2. backend="auto"
+    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    wp = tok._auto_word_path("cuda")
+    torch.cuda.synchronize()
+    st = Stages()
+    native = tok._get_native_encoder()
+    pats = tok._added_patterns
+
+    def auto_first_batch():
+        wp.maybe_fill_async(lambda: tok._prepare_bytes([tok._normalize(t) for t in texts]))
+        rows = st.run("native encode (fused)", native.encode_rows_fused, texts,
+                      tok.pre_tokenizer.add_prefix_space, pats, None, True)
+        wp.batch_done()
+        out = st.run("oracle (flagged rows)", lambda: [
+            r if r is not None else tok._encode_row_exact(t, True) for r, t in zip(rows, texts)
+        ])
+        t0 = time.perf_counter()
+        n = wp.drain_async(timeout=600)
+        st.add("wait for the background fill", time.perf_counter() - t0)
+        return out, n
+
+    (out, drained) = _profiled("backend=auto, first batch and its fill", auto_first_batch, n_bytes, 12)
+    print(f"  serving-thread ms: {st.line()}")
+    bg = Stages()
+    for name, s in wp.last_fill["seconds"].items():
+        bg.add(name, s)
+    print(f"  background fill ms: {bg.line()}; {drained} words inserted")
+    assert out == host, "backend=auto differs from the host oracle"
+    warm = _profiled("backend=auto, corpus again", lambda: tok.encode_batch(texts), n_bytes)
+    assert warm == host
+
+    # 3. the text pipeline, warm
+    pipe = tok.pipeline("cuda")
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
+    flags = tok._added_route_flags(data)
+    fast_data = [d for d, f in zip(data, flags) if not f]
+    pipe.encode_bytes(fast_data)
+    _profiled("text pipeline, warm (texts without added tokens)",
+              lambda: pipe.encode_bytes(fast_data), sum(map(len, fast_data)), 8)
+
+    tb = pipe.tables
     for B in (1, 16):
         arr, lens = pack_texts([b"a" * 4096] * B, 4096, B)
         arr, lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()

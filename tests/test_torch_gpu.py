@@ -17,6 +17,13 @@ from complexity_tokenizer_tpu_torch.ops.merge import merge_fixpoint_qc_plain, me
 from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
 from complexity_tokenizer_tpu_torch.ops.presplit import presplit
 from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens, seed_tokens_plain
+from complexity_tokenizer_tpu_torch.ops.wordfill import (
+    fill_compact,
+    fill_compact_plain,
+    word_fill,
+    word_ids,
+    word_ids_plain,
+)
 from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
 from complexity_tokenizer_tpu_torch.utils.corpus import (
     MULTI_PIECES,
@@ -130,7 +137,132 @@ def test_merge_kernel_matches_plain_on_run_rows(tok50k, B, L, breaks):
 def test_encode_batch_on_card_matches_host(tok50k):
     _need_card()
     texts = zipf_corpus(500, seed=5) + ["a" * 5000, "x </s> y", "", " "]
-    assert tok50k.encode_batch(texts) == tok50k.encode_batch(texts, backend="host")
+    assert tok50k.encode_batch(texts, backend="device") == tok50k.encode_batch(
+        texts, backend="host"
+    )
+
+
+def test_text_pipeline_on_card_matches_host(tok50k):
+    _need_card()
+    texts = zipf_corpus(500, seed=6) + ["a" * 5000, "", " "]
+    data = tok50k._prepare_bytes([tok50k._normalize(t) for t in texts])
+    assert tok50k.pipeline().encode_bytes(data) == tok50k.encode_batch(texts, backend="host")
+
+
+def _start_bits(rng, B, W, lens):
+    """Random start bitmaps whose rows start a word at column 0 (as
+    ctok_pack_seg packs them)."""
+    starts = rng.rand(B, W) < 0.2
+    starts[:, 0] = lens > 0
+    return np.packbits(starts, axis=1, bitorder="little")
+
+
+# word-path packs, then edge shapes: one row, W not a multiple of 128, B not
+# a multiple of the kernel's 8 rows a block
+WORD_SHAPES = [(64, 128), (256, 128), (1024, 128), (1, 8), (3, 200), (1025, 128), (9, 32)]
+
+
+@pytest.mark.parametrize("B,W", WORD_SHAPES)
+def test_word_ids_kernel_matches_plain(B, W):
+    """K3 bit for bit against its plain version, with rows of length 0 and
+    W among random lengths."""
+    _need_card()
+    rng = np.random.RandomState(B * 7 + W)
+    lens = rng.randint(0, W + 1, size=B).astype(np.int32)
+    lens[: min(B, 2)] = [0, W][: min(B, 2)]
+    bits = torch.from_numpy(_start_bits(rng, B, W, lens)).cuda()
+    lens = torch.from_numpy(lens).cuda()
+    before = word_ids.launches
+    got = word_ids(bits, lens)
+    torch.cuda.synchronize()
+    assert word_ids.launches == before + 1
+    assert torch.equal(got, word_ids_plain(bits, lens))
+
+
+def _merged_rows(rng, B, W, dead):
+    merged = rng.randint(0, 65535, size=(B, W)).astype(np.int32)
+    merged[rng.rand(B, W) < dead] = -1
+    merged[0] = -1  # a row with no live id
+    if B > 1:
+        merged[1] = rng.randint(0, 65535, size=W)  # a row of W live ids
+    count = (merged >= 0).sum(axis=1).astype(np.int32)
+    return torch.from_numpy(merged).cuda(), torch.from_numpy(count).cuda()
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("B,W", WORD_SHAPES)
+def test_fill_compact_kernel_matches_plain(B, W, itemsize):
+    """K4 bit for bit against its plain version at the compact capacity
+    (3/8 of the lanes, with and without overflow), at full capacity and at
+    capacity 0."""
+    _need_card()
+    rng = np.random.RandomState(B * 5 + W + itemsize)
+    for dead, cap in ((0.8, B * W * 3 // 8), (0.3, B * W * 3 // 8), (0.3, B * W), (0.5, 0)):
+        merged, count = _merged_rows(rng, B, W, dead)
+        before = fill_compact.launches
+        got = fill_compact(merged, count, cap, itemsize)
+        torch.cuda.synchronize()
+        assert fill_compact.launches == before + 1
+        assert torch.equal(got, fill_compact_plain(merged, count, cap, itemsize)), (dead, cap)
+
+
+def test_word_fill_on_card_matches_cpu(tok50k):
+    """The whole fill (K3, K1, K2, K4) on the card equals the plain
+    versions on the CPU, byte for byte, on packs of corpus words."""
+    _need_card()
+    wp = tok50k._get_word_path("cuda")
+    words = sorted({w.encode() for t in zipf_corpus(3000, seed=9) for w in t.split()})
+    buf = np.frombuffer(b"".join(words), np.uint8)
+    offs = np.zeros(len(words) + 1, np.int64)
+    np.cumsum([len(w) for w in words], out=offs[1:])
+    for B in (64, 256, 1024):
+        arr, marks, _starts, _n_fit, _rows = wp._pack_seg(buf, offs, 0, len(words), B)
+        bits = np.packbits(marks == 1, axis=1, bitorder="little")
+        row_len = (marks > 0).sum(axis=1).astype(np.int32)
+        for cap in (B * 128 * 3 // 8, B * 128):
+            args = [torch.from_numpy(x) for x in (arr, bits, row_len)]
+            cpu_tables = tok50k.pipeline("cpu").tables
+            exp = word_fill(*args, cap, tables=cpu_tables, itemsize=2)
+            got = word_fill(*(x.cuda() for x in args), cap,
+                            tables=wp.pipeline.tables, itemsize=2)
+            assert torch.equal(got.cpu(), exp), (B, cap)
+
+
+def test_word_path_on_card_matches_host_merge(tok50k):
+    """Every distinct word of a corpus through the device on a fresh native
+    context: each word covered, its ids those of the host merge."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.native import NativeEncoder
+    from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
+    from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
+
+    def fresh():
+        return NativeEncoder(tok50k.bpe.packed_merge_arrays(), byte_token_table(tok50k.bpe.vocab))
+
+    texts = zipf_corpus(2000, seed=11) + list(MULTI_PIECES)
+    data = tok50k._prepare_bytes([tok50k._normalize(t) for t in texts])
+    wp = DeviceWordEncoder(tok50k.pipeline("cuda"), fresh())
+    words, lens = wp.native.collect_miss_words(data, 128)
+    assert len(lens) > 1000
+    ids, counts = wp._encode_words_packed(words, lens)
+    exp_ids, exp_counts = fresh().warm_start(words, lens)
+    assert (counts >= 0).all()
+    assert np.array_equal(counts, exp_counts)
+    assert np.array_equal(ids, exp_ids)
+
+
+def test_auto_on_card_matches_host(tok50k):
+    _need_card()
+    tok = Tokenizer.from_file(BENCH_50K)
+    texts = zipf_corpus(800, seed=12) + list(MULTI_PIECES) + ["x </s> y"]
+    host = tok.encode_batch(texts, backend="host")
+    assert tok.encode_batch(texts) == host
+    wp = tok._auto_word_path()
+    wp.drain_async(timeout=300)
+    assert wp.words_filled > 0
+    assert tok.encode_batch(texts) == host
+    flat, offs = tok.encode_batch_ragged(texts)
+    assert [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))] == host
 
 
 def test_wrappers_refuse_bad_inputs_on_card():
@@ -143,3 +275,10 @@ def test_wrappers_refuse_bad_inputs_on_card():
     tab = torch.zeros((64, 2), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):  # table on the wrong device
         merge_words_qc(t, t, tab.cpu(), tab, 64)
+    bits = torch.zeros((2, 16), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError):  # row_len of the wrong dtype
+        word_ids(bits, torch.zeros(2, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError):  # count of the wrong shape
+        fill_compact(t, torch.zeros(3, dtype=torch.int32, device="cuda"), 8, 2)
+    with pytest.raises(ValueError):  # cap past the lanes
+        fill_compact(t, torch.zeros(2, dtype=torch.int32, device="cuda"), 33, 2)

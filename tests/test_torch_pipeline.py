@@ -1,6 +1,8 @@
-"""The slice as a whole: the port's ``encode_batch(backend="device",
-device="cpu")`` vs the JAX ``build_encode_pipeline(tok).encode_batch`` and
-the JAX host oracle ``tok._encode_host``, ids exactly."""
+"""The device paths as a whole: the port's ``encode_batch(backend="device",
+device="cpu")`` (the word path) and its text pipeline
+(``Tokenizer.pipeline("cpu").encode_bytes``) vs the JAX
+``build_encode_pipeline(tok).encode_batch`` and the JAX host oracle
+``tok._encode_host``, ids exactly."""
 
 import os
 
@@ -36,12 +38,26 @@ def bench50k():
     return Tokenizer.from_str(js), jt, build_encode_pipeline(jt)
 
 
+def _text_pipeline(pt, texts):
+    """The text pipeline's ids of the texts no added token can match (the
+    others are the oracle's), as ``encode_batch`` routed them before the
+    word path."""
+    data = pt._prepare_bytes([pt._normalize(t) for t in texts])
+    flags = pt._added_route_flags(data)
+    fast = [i for i in range(len(texts)) if flags is None or not flags[i]]
+    out = [pt._encode_host(t) for t in texts]
+    for i, ids in zip(fast, pt.pipeline("cpu").encode_bytes([data[i] for i in fast])):
+        out[i] = ids
+    return out
+
+
 def _check(tokenizers, texts, with_jax_pipeline=True):
     pt, jt, jp = tokenizers
     got = pt.encode_batch(texts, backend="device", device="cpu")
     host = [jt._encode_host(t) for t in texts]
     for t, g, h in zip(texts, got, host):
         assert g == h, (repr(t[:80]), g[:20], h[:20])
+    assert _text_pipeline(pt, texts) == host
     if with_jax_pipeline:
         assert got == jp.encode_batch(texts)
     assert pt.encode_batch(texts, backend="host") == host
