@@ -11,42 +11,43 @@ Phases (each prints its seconds):
    (one ``nvcc`` per source, all at once) and, beside them, the native host
    runtime with ``g++``; prints both builds' seconds and the kernels'
    ``-Xptxas -v`` report.
-3. text pipeline: ``Tokenizer.pipeline().encode_bytes`` (pre-split, K1, K2
-   over whole texts) at the 50K vocabulary over the Zipf corpus (plus
-   multilingual pieces, a text over 4,096 bytes and texts holding ``</s>``,
-   which go to the host oracle), compared with the oracle on every text;
-   K1's and K2's launch counts are set to 0 just before and read just
-   after.  The first ``[B, L]`` batch of every shape is kept.
-4. word path, the main path, on the same corpus:
-   a. every distinct word through the device: on a fresh native context
-      without warm start, ``collect_miss_words`` -> ``_encode_words_packed``
-      on the card; each word's ids against the host merge of the same words
-      (``NativeEncoder.warm_start``); the first pack of every shape is kept;
-   b. ``encode_batch(texts, backend="device")`` from a fresh
-      ``Tokenizer.from_file`` (warm start on): the first call fills, a
-      second is warm; the launch counts of K1-K4 are set to 0 just before
-      the first and read just after;
-   c. ``encode_batch(texts)`` (``backend="auto"``) from another fresh
-      tokenizer, in five batches, then ``drain_async`` (counts set to 0
-      before, read after); then ``encode_batch`` and
-      ``encode_batch_ragged`` again.
-   Every text's ids equal the host oracle's; every kernel must have been
-   launched.
-5. kernels: each kernel against its plain PyTorch version on the card, bit
-   for bit, on the kept batches and packs of every shape.  K1 also on random
-   bytes (some OOV table entries) at ``[8192, 512]`` and ``[16, 4096]`` and
-   on edge shapes (``seed_edge_batches``), and is timed warm, cold
-   (``_time_cold_ms``: no call finds its own lines in L2) and at
+3. the paths (``drive_paths``), on the Zipf corpus (plus multilingual
+   pieces, a text over 4,096 bytes, one word over 4,096 bytes and texts
+   holding ``</s>``, which go to the host oracle), for two configurations:
+   the 50,000-entry vocabulary (its merge fixpoint is K2, on the u16 cuckoo
+   table) and the 100,000-entry one (ids and ranks past u16: K5, on the CHD
+   table; the word path's ids are int32).  For each: the load cost
+   (``from_file``, the tables with the CHD build, the tables to the card);
+   the text pipeline (``Tokenizer.pipeline().encode_bytes``: pre-split, K1,
+   K2 or K5); every distinct word through the device on a fresh native
+   context, each word's ids against the host merge; ``backend="device"``
+   from a fresh ``Tokenizer.from_file`` (a first call that fills, a warm
+   call); ``backend="auto"`` from another fresh tokenizer in five batches,
+   drained, then the corpus again, ``encode_batch_ragged`` and
+   ``backend="native"``.  Every text's ids equal the host oracle's; the
+   launch counts are set to 0 just before each path and read just after;
+   each path must have launched its kernels (K1, the fixpoint of its table,
+   and on the word path K3 and K4) and not the other fixpoint.  The first
+   ``[B, L]`` batch and word pack of every shape are kept.
+4. kernels: each kernel against its plain PyTorch version on the card, bit
+   for bit, on the kept batches and packs of every shape.  At 50K: K1 also
+   on random bytes (some OOV table entries) at ``[8192, 512]`` and
+   ``[16, 4096]`` and on edge shapes (``seed_edge_batches``), timed warm,
+   cold (``_time_cold_ms``: no call finds its own lines in L2) and at
    ``[1, 16]`` (its launch floor).  K2 also on ``[16, 4096]`` rows filled
    with corpus text, on the rows that separate its greedy apply from the JAX
    rule (``run_rows``) at ``[16, 1024]`` and ``[4, 4096]``, with and without
-   OOV bytes inside the runs, and on one 4,096-byte word of one letter.  K3
-   and K4, and the whole fill against its plain versions on the CPU, on the
-   word packs, at the compact capacity and at full capacity; K3 and K4 timed
-   warm and cold.  Kernels and the library expression are timed by replaying
-   a CUDA graph, the plain versions that synchronise with CUDA events around
-   their calls (``_time_ms``).
-6. report: one JSON line of per-kernel numbers, then as the last line
+   OOV bytes inside the runs, and on one 4,096-byte word of one letter.  K5
+   on the same packs and batches as K2 and on the one-letter word, under
+   the 50K table's CHD form, equal to K2 there, both timed warm and cold.
+   At 100K: K5 on its own packs and batches (warm and cold), on the
+   one-letter word and on edge shapes.  K3 and K4, and the whole fill
+   against its plain versions on the CPU, on the word packs of both
+   (uint16 ids at 50K, int32 at 100K), at the compact capacity and at full
+   capacity; K3 and K4 timed warm and cold.  Kernels and the library
+   expression are timed by replaying a CUDA graph, the plain versions that
+   synchronise with CUDA events around their calls (``_time_ms``).
+5. report: one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits nonzero without the last line.
@@ -65,6 +66,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOKENIZER_JSON = os.path.join(REPO, ".cache", "bench_tokenizer_r4_50k.json")
+# past u16: the CHD fixpoint (scripts/make_bench_tokenizer_100k.py)
+TOKENIZER_100K = os.path.join(REPO, ".cache", "bench_tokenizer_100k.json")
 
 # H100 SXM peaks at the full 700 W.  HBM3 bytes/s: NVIDIA data sheet.
 # int32 operations/s: 132 SMs x 64 INT32 lanes per SM (NVIDIA H100
@@ -76,6 +79,9 @@ COLD_BYTES = 2 * 50 * 2**20
 # int32 operations of one cuckoo probe: two multiply-xor-shift hashes, the
 # key pack and the compares
 OPS_PER_PROBE = 12
+# of one CHD probe: the two hashes, the displacement's add and two masks,
+# the two key compares
+OPS_PER_PROBE_CHD = 14
 
 
 def _phase(name: str, t0: float) -> None:
@@ -269,16 +275,20 @@ def seed_edge_batches(rng) -> list[tuple]:
 
 
 def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
-                wid=None) -> dict:
-    """K2 against its plain version on the ``arr`` rows, seeded with
-    ``byte_table`` (the vocabulary's own by default), with the word ids
-    ``wid`` (the GPT-2 pre-split's by default).  The plain version is timed
-    over ``plain_reps`` calls; with 1, the comparison's own call is the
-    warm-up."""
+                wid=None, table: str = "qc", cold: bool = False) -> dict:
+    """K2 (``table="qc"``) or K5 (``table="chd"``) against its plain version
+    on the ``arr`` rows, seeded with ``byte_table`` (the vocabulary's own by
+    default), with the word ids ``wid`` (the GPT-2 pre-split's by default).
+    K5 on tables that also hold a cuckoo table must also equal K2 there.
+    The kernel is timed warm and, with ``cold``, cold; the plain version
+    over ``plain_reps`` calls (with 1, the comparison's own call is the
+    warm-up; with 0 it is not timed)."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.merge import (
+        merge_fixpoint_chd_plain,
         merge_fixpoint_qc_plain,
+        merge_words,
         merge_words_qc,
     )
     from complexity_tokenizer_tpu_torch.ops.presplit import presplit
@@ -289,58 +299,86 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
         _, wid, _ = presplit(arr, lens, tb.class_table)
     byte_table = tb.byte_token_table if byte_table is None else byte_table
     tokens = seed_tokens_plain(arr, lens, byte_table)
+    if table == "qc":
+        name, args = "merge_fixpoint_qc", (tb.qc_t1, tb.qc_t2, tb.qc_size)
+        kernel_fn, plain_fn = merge_words_qc, merge_fixpoint_qc_plain
+    else:
+        name = "merge_fixpoint_chd"
+        args = (tb.chd_disp, tb.chd_rows, tb.chd_size, tb.chd_n_buckets)
+        kernel_fn, plain_fn = merge_words, merge_fixpoint_chd_plain
 
     def kernel():
-        return merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
-
-    def plain():
-        return merge_fixpoint_qc_plain(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+        return kernel_fn(tokens, wid, *args)
 
     got_t, got_c = kernel()
-    exp_t, exp_c = plain()
+    exp_t, exp_c = plain_fn(tokens, wid, *args)
     torch.cuda.synchronize()
     err = max(_max_abs_err(got_t, exp_t), _max_abs_err(got_c, exp_c))
     match = bool(torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c))
+    equals_k2 = None
+    if table == "chd" and tb.qc_t1 is not None:
+        k2_t, k2_c = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+        equals_k2 = bool(torch.equal(got_t, k2_t) and torch.equal(got_c, k2_c))
     ms = _time_ms(kernel, 20)
-    plain_ms = _time_ms(plain, plain_reps, graph=False, warm=plain_reps > 1)
+    ms_cold = None
+    if cold:
+        sets = _cold_sets((tokens, wid), 4 * B * L + 4 * B)
+        ms_cold = _time_cold_ms(lambda t, w: kernel_fn(t, w, *args), sets, 20)
+        del sets
+    plain_ms = None
+    if plain_reps:
+        plain_ms = _time_ms(lambda: plain_fn(tokens, wid, *args), plain_reps, graph=False,
+                            warm=plain_reps > 1)
     # the least work any fixpoint needs on these rows: every initial
     # adjacent pair of a word probed once, and the up to two new pairs of
-    # each merge; bytes: tokens, wid and both tables in, tokens and counts out
+    # each merge; bytes: tokens and wid in, tokens and counts out, and the
+    # table: K2's two cuckoo tables once, K5's 16-byte row and 4-byte
+    # displacement for each probe
     alive = tokens >= 0
     rows = alive.nonzero()[:, 0]
     wids = wid[alive]
     pairs = int(((rows[1:] == rows[:-1]) & (wids[1:] == wids[:-1])).sum())
     merges = int(alive.sum()) - int(exp_c.sum())
     probes = pairs + 2 * merges
-    table_bytes = 2 * tb.qc_t1.numel() * 4
-    bound_ms, bound_by = _bound(12 * B * L + 4 * B + table_bytes, probes * OPS_PER_PROBE)
+    if table == "qc":
+        table_bytes, ops = 2 * tb.qc_t1.numel() * 4, probes * OPS_PER_PROBE
+    else:
+        table_bytes, ops = probes * (16 + 4), probes * OPS_PER_PROBE_CHD
+    bound_ms, bound_by = _bound(12 * B * L + 4 * B + table_bytes, ops)
+    cold_txt = f" cold={ms_cold:.4f} ms" if ms_cold is not None else ""
+    plain_txt = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
+    k2_txt = f" equals K2={equals_k2}" if equals_k2 is not None else ""
     print(
-        f"[merge_fixpoint_qc] {label} [{B},{L}] match={match} max_abs_err={err} "
-        f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms "
+        f"[{name}] {label} [{B},{L}] match={match} max_abs_err={err}{k2_txt} "
+        f"kernel={ms:.4f} ms{cold_txt} plain={plain_txt} bound={bound_ms:.4f} ms "
         f"({bound_by}; {probes} probes, {merges} merges) "
         f"live={int(exp_c.sum())}/{int(alive.sum())}",
         flush=True,
     )
     if not match:
-        raise AssertionError(
-            f"merge_fixpoint_qc kernel differs from its plain version: {label} [{B},{L}]"
-        )
-    return dict(
+        raise AssertionError(f"{name} kernel differs from its plain version: {label} [{B},{L}]")
+    if equals_k2 is False:
+        raise AssertionError(f"K5 differs from K2 on the same rows: {label} [{B},{L}]")
+    res = dict(
         inputs=label, shape=[B, L], match=match, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
     )
+    if ms_cold is not None:
+        res["ms_cold"] = ms_cold
+    if equals_k2 is not None:
+        res["equals_k2"] = equals_k2
+    return res
 
 
 def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> tuple:
     """K3 and K4 against their plain versions on one word pack (on the
-    card), and the whole fill (K3, K1, K2, K4) against its plain versions on
-    the CPU, byte for byte on the fused buffer, at the compact capacity (3/8
-    of the lanes) and at full capacity.  K3 and K4 are timed warm and cold
-    at the compact capacity, their plain versions warm, and the whole fill
-    warm.  Returns (K3 result, K4 result)."""
+    card), and the whole fill (K3, K1, K2 or K5, K4) against its plain
+    versions on the CPU, byte for byte on the fused buffer, at the compact
+    capacity (3/8 of the lanes) and at full capacity.  K3 and K4 are timed
+    warm and cold at the compact capacity, their plain versions warm, and
+    the whole fill warm.  Returns (K3 result, K4 result)."""
     import torch
 
-    from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
     from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
     from complexity_tokenizer_tpu_torch.ops.wordfill import (
         fill_compact,
@@ -356,7 +394,7 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
     got3 = word_ids(bits, row_len)
     exp3 = word_ids_plain(bits, row_len)
     tokens = seed_tokens(a, row_len, tb.byte_token_table)
-    merged, count = merge_words_qc(tokens, got3, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    merged, count = tb.merge_fixpoint(tokens, got3)
     errs4, match4 = [], True
     for c in (cap, B * W):
         got4 = fill_compact(merged, count, c, itemsize)
@@ -374,6 +412,7 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
     total = int(count.sum())
     print(
         f"[word_fill] {label} [{B},{W}] K3 match={match3} K4 match={match4} "
+        f"(ids of {itemsize} B, largest {int(merged.max())}) "
         f"live={total} cap={cap} ({'spills' if total > cap else 'fits'}); "
         f"fill on card == fill on CPU at cap {cap} and {B * W}",
         flush=True,
@@ -401,7 +440,7 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
         f"[word_fill] {label} [{B},{W}] K3 warm={k3_ms:.4f} ms cold={k3_cold:.4f} ms "
         f"plain={k3_plain:.4f} ms bound={b3:.4f} ms ({by3}); K4 warm={k4_ms:.4f} ms "
         f"cold={k4_cold:.4f} ms plain={k4_plain:.4f} ms bound={b4:.4f} ms ({by4}); "
-        f"whole fill (K3+K1+K2+K4) warm={fill_ms:.4f} ms",
+        f"whole fill (K3+K1+merge+K4) warm={fill_ms:.4f} ms",
         flush=True,
     )
     common = dict(inputs=label, shape=[B, W], library_ms=None, fill_ms=fill_ms)
@@ -409,7 +448,8 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
         dict(common, match=match3, max_abs_err=err3, ms=k3_ms, ms_cold=k3_cold,
              plain_ms=k3_plain, bound_ms=b3, bound_by=by3),
         dict(common, match=match4, max_abs_err=max(errs4), ms=k4_ms, ms_cold=k4_cold,
-             plain_ms=k4_plain, bound_ms=b4, bound_by=by4, cap=cap, live=total),
+             plain_ms=k4_plain, bound_ms=b4, bound_by=by4, cap=cap, live=total,
+             itemsize=itemsize),
     )
 
 
@@ -455,6 +495,246 @@ def main_corpus(n_texts: int, seed: int) -> list[str]:
     return texts
 
 
+KERNEL_NAMES = ("seed_tokens", "merge_fixpoint_qc", "merge_fixpoint_chd", "word_ids",
+                "fill_compact")
+
+
+def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, native) -> dict:
+    """The port's paths on one configuration, each against the host oracle
+    on every text, each with the launch counts set to 0 just before and
+    read just after:
+
+    - the text pipeline (``pipeline().encode_bytes``; the first ``[B, L]``
+      batch of every shape is kept);
+    - every distinct word through the device on a fresh native context
+      without warm start, each word's ids against the host merge of the
+      same words (``NativeEncoder.warm_start``; the first pack of every
+      shape is kept);
+    - ``encode_batch(texts, backend="device")`` from a fresh
+      ``Tokenizer.from_file``, a first call (it fills) and a warm one;
+    - ``encode_batch(texts)`` (``backend="auto"``) from another fresh
+      tokenizer in five batches, then ``drain_async``; then the corpus again
+      and ``encode_batch_ragged``.
+
+    Returns the launch counts by path, the kept batches and packs, the
+    pipeline and the word encoder of the fresh context, and the walls."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
+    from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+
+    def zero_counts():
+        for fn in kernels_of.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in kernels_of.items()}
+
+    out: dict = {}
+    # load cost: the tokenizer, its tables (the CHD build) and the tables on the card
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    tok = Tokenizer.from_file(path)
+    load_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tables = tok.device_tables()
+    tables_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    pipe = tok.pipeline("cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t1
+    fixpoint = "K2 (cuckoo)" if pipe.tables.qc_t1 is not None else "K5 (CHD)"
+    print(
+        f"[{label}] {len(tok.bpe.vocab)} ids, {len(tok.bpe.merge_ranks)} merges, largest rank "
+        f"{max(tok.bpe.merge_ranks.values())}, largest id {tables.max_id}; fixpoint {fixpoint}; "
+        f"from_file {load_s:.3f} s, tables (CHD {tables.chd.size} rows / "
+        f"{tables.chd.n_buckets} buckets, cuckoo {'yes' if tables.qc else 'no'}) {tables_s:.3f} s, "
+        f"tables to the card {upload_s:.3f} s",
+        flush=True,
+    )
+    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    t1 = time.perf_counter()
+    host = tok.encode_batch(texts, backend="host")
+    host_s = time.perf_counter() - t1
+    n_vocab = len(tok.bpe.vocab)
+    if not all(0 <= i < n_vocab for h in host for i in h):
+        raise AssertionError(f"[{label}] an oracle id lies outside the vocabulary")
+
+    # text pipeline: keep the first [B, L] batch of every shape it launches
+    batches: dict[tuple[int, int], tuple] = {}
+    encode_rows = pipe.encode_rows
+
+    def keep_batch(arr, lens):
+        batches.setdefault(arr.shape, (arr.copy(), lens.copy()))
+        return encode_rows(arr, lens)
+
+    pipe.encode_rows = keep_batch
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    try:
+        got = text_pipeline_encode(tok, pipe, texts)
+        torch.cuda.synchronize()
+    finally:
+        del pipe.encode_rows
+    wall = time.perf_counter() - t1
+    out["text pipeline"] = read_counts()
+    t1 = time.perf_counter()
+    again = text_pipeline_encode(tok, pipe, texts)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t1
+    shapes = sorted(batches)
+    print(
+        f"[{label}] text pipeline: {len(texts)} texts, {n_bytes} bytes, {sum(map(len, host))} ids; "
+        f"encode_bytes {wall:.3f} s first (batches kept), {wall2:.3f} s second; "
+        f"host oracle {host_s:.3f} s; launches {out['text pipeline']}; "
+        f"batch shapes {[list(x) for x in shapes]}",
+        flush=True,
+    )
+    _compare(f"[{label}] text pipeline", texts, got, host)
+    _compare(f"[{label}] text pipeline, second call", texts, again, host)
+    _phase(f"{label}: text pipeline", t0)
+
+    # every distinct word through the device, on a fresh native context
+    t0 = time.perf_counter()
+
+    def fresh_native():
+        return native.NativeEncoder(tok.bpe.packed_merge_arrays(), byte_token_table(tok.bpe.vocab))
+
+    packs: dict[int, tuple] = {}
+
+    def keep_packs(word_encoder):
+        fill_fn = word_encoder._fn
+
+        def keep_pack(a, bits, row_len):
+            packs.setdefault(a.shape[0], (a.copy(), bits.copy(), row_len.copy()))
+            return fill_fn(a, bits, row_len)
+
+        word_encoder._fn = keep_pack
+
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
+    wp = DeviceWordEncoder(pipe, fresh_native())
+    keep_packs(wp)
+    words, lens = wp.native.collect_miss_words(data, 128)
+    zero_counts()
+    t1 = time.perf_counter()
+    ids, counts = wp._encode_words_packed(words, lens)
+    fill_s = time.perf_counter() - t1
+    out["every distinct word"] = read_counts()
+    exp_ids, exp_counts = fresh_native().warm_start(words, lens)
+    uncovered = int((counts < 0).sum())
+    bounds = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(np.maximum(counts, 0), out=bounds[1:])
+    exp_bounds = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(exp_counts, out=exp_bounds[1:])
+    mismatched = sum(
+        1 for w in range(len(counts))
+        if counts[w] != exp_counts[w]
+        or not np.array_equal(ids[bounds[w] : bounds[w + 1]], exp_ids[exp_bounds[w] : exp_bounds[w + 1]])
+    )
+    fill = wp.last_fill
+    print(
+        f"[{label}] word path, every distinct word: {len(lens)} words, {int(lens.sum())} bytes "
+        f"(up to 128 bytes each); ids {np.dtype(wp._out_dtype).name}, largest {int(ids.max())}; "
+        f"packs {dict(sorted(fill['packs'].items()))} (rows: count), "
+        f"spills {fill['spills']}, redispatches {fill['spills']}; fill {fill_s:.3f} s; "
+        f"host seconds {({k: round(v, 4) for k, v in fill['seconds'].items()})}; "
+        f"launches {out['every distinct word']}; "
+        f"against the host merge: {mismatched} mismatches, {uncovered} uncovered",
+        flush=True,
+    )
+    if mismatched or uncovered or len(lens) == 0:
+        raise AssertionError(f"[{label}] device word ids: {mismatched} mismatches, {uncovered} uncovered")
+    _phase(f"{label}: every distinct word", t0)
+
+    # backend="device" from a fresh tokenizer
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    tok_d = Tokenizer.from_file(path)
+    load_d = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    wp_d = tok_d._get_word_path("cuda")
+    keep_packs(wp_d)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = tok_d.encode_batch(texts, backend="device")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    out["backend=device"] = read_counts()
+    fill_first = dict(wp_d.last_fill)
+    t1 = time.perf_counter()
+    again = tok_d.encode_batch(texts, backend="device")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    print(
+        f"[{label}] word path, backend=device: from_file {load_d:.3f} s "
+        f"({tok_d._warm_start_words} words warm-started), word-path set-up (tables, "
+        f"CHD build included) {setup_s:.3f} s; first call {first_s:.3f} s "
+        f"({wp_d.words_filled} words filled; packs {dict(sorted(fill_first['packs'].items()))}, "
+        f"spills {fill_first['spills']}; host seconds "
+        f"{({k: round(v, 4) for k, v in fill_first['seconds'].items()})}), warm {warm_s:.3f} s "
+        f"({n_bytes / warm_s / 1e6:.2f} MB/s); assembly route: bytes (ctok_encode_batch); "
+        f"launches {out['backend=device']}",
+        flush=True,
+    )
+    _compare(f"[{label}] backend=device", texts, got, host)
+    _compare(f"[{label}] backend=device, second call", texts, again, host)
+    if wp_d.words_filled <= 0:
+        raise AssertionError(f"[{label}] backend=device filled no word")
+    _phase(f"{label}: backend=device", t0)
+
+    # backend="auto" from another fresh tokenizer
+    t0 = time.perf_counter()
+    tok_a = Tokenizer.from_file(path)
+    keep_packs(tok_a._get_word_path("cuda"))  # tables on the card before the batches
+    torch.cuda.synchronize()
+    zero_counts()
+    step = -(-len(texts) // 5)
+    got = []
+    batch_s = []
+    for i in range(0, len(texts), step):
+        t1 = time.perf_counter()
+        got += tok_a.encode_batch(texts[i : i + step])
+        batch_s.append(time.perf_counter() - t1)
+    wp_a = tok_a._auto_word_path("cuda")
+    t1 = time.perf_counter()
+    drained = wp_a.drain_async(timeout=600)
+    drain_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    out["backend=auto"] = read_counts()
+    _compare(f"[{label}] backend=auto", texts, got, host)
+    t1 = time.perf_counter()
+    again = tok_a.encode_batch(texts)
+    auto_warm_s = time.perf_counter() - t1
+    _compare(f"[{label}] backend=auto, after the fill", texts, again, host)
+    flat, offs = tok_a.encode_batch_ragged(texts)
+    ragged = [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))]
+    if ragged != again:
+        raise AssertionError(f"[{label}] encode_batch_ragged differs from encode_batch")
+    wp_a.drain_async(timeout=600)
+    t1 = time.perf_counter()
+    native_ids = tok_a.encode_batch(texts, backend="native")
+    native_s = time.perf_counter() - t1
+    _compare(f"[{label}] backend=native", texts, native_ids, host)
+    print(
+        f"[{label}] word path, backend=auto: 5 batches {[round(x, 3) for x in batch_s]} s, drain "
+        f"{drain_s:.3f} s ({drained} words inserted by the drain, {wp_a.words_filled} filled "
+        f"in all); whole corpus after the fill {auto_warm_s:.3f} s; encode_batch_ragged "
+        f"equal; backend=native {native_s:.3f} s, equal; launches {out['backend=auto']}",
+        flush=True,
+    )
+    if wp_a.words_filled <= 0:
+        raise AssertionError(f"[{label}] backend=auto filled no word")
+    _phase(f"{label}: backend=auto", t0)
+    return dict(launches=out, batches=batches, shapes=shapes, packs=packs, pipe=pipe, wp=wp,
+                tok=tok)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17, help="corpus and input seed")
@@ -473,13 +753,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     try:
         from complexity_tokenizer_tpu_torch import native
-        from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
+        from complexity_tokenizer_tpu_torch.ops.merge import merge_words, merge_words_qc
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
-        from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
         from complexity_tokenizer_tpu_torch.ops.wordfill import fill_compact, word_ids, word_ids_plain
-        from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
-        from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
         from complexity_tokenizer_tpu_torch.utils.corpus import RUN_BREAKS, run_rows
         from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
     except ImportError as e:
@@ -497,6 +774,10 @@ def main(argv=None) -> int:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line)
+    for path in (TOKENIZER_JSON, TOKENIZER_100K):
+        if not os.path.exists(path):
+            print(f"chip_smoke: missing {path}", file=sys.stderr)
+            return 4
     _phase("device", t0)
 
     # 2. build: the kernels and the native runtime side by side --------------
@@ -529,227 +810,57 @@ def main(argv=None) -> int:
     )
     _phase("build", t0)
 
-    # 3. text pipeline ----------------------------------------------------------
-    t0 = time.perf_counter()
-    if not os.path.exists(TOKENIZER_JSON):
-        print(f"chip_smoke: missing {TOKENIZER_JSON}", file=sys.stderr)
-        return 4
-    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    # 3. the paths at 50K (K2) and at 100K (K5) -----------------------------------
     texts = main_corpus(args.texts, args.seed)
-    t1 = time.perf_counter()
-    pipe = tok.pipeline("cuda")  # tables built and moved to the card
-    torch.cuda.synchronize()
-    print(f"pipeline set-up (tables, class table): {time.perf_counter() - t1:.3f} s")
-    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
-    t1 = time.perf_counter()
-    host = tok.encode_batch(texts, backend="host")
-    host_s = time.perf_counter() - t1
-    n_vocab = len(tok.bpe.vocab)
-    if not all(0 <= i < n_vocab for h in host for i in h):
-        raise AssertionError("an oracle id lies outside the vocabulary")
-
-    # keep the first [B, L] batch of every shape the text pipeline launches
-    batches: dict[tuple[int, int], tuple] = {}
-    encode_rows = pipe.encode_rows
-
-    def keep_batch(arr, lens):
-        batches.setdefault(arr.shape, (arr.copy(), lens.copy()))
-        return encode_rows(arr, lens)
-
     kernels_of = {"seed_tokens": seed_tokens, "merge_fixpoint_qc": merge_words_qc,
-                  "word_ids": word_ids, "fill_compact": fill_compact}
+                  "merge_fixpoint_chd": merge_words, "word_ids": word_ids,
+                  "fill_compact": fill_compact}
+    r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
+    r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
+    # every kernel of a path was launched on it; the fixpoint is the table's
+    for label, r, fixpoint, other in (
+        ("50K", r50, "merge_fixpoint_qc", "merge_fixpoint_chd"),
+        ("100K", r100, "merge_fixpoint_chd", "merge_fixpoint_qc"),
+    ):
+        for path_name, counts in r["launches"].items():
+            need = [fixpoint, "seed_tokens"]
+            if path_name != "text pipeline":
+                need += ["word_ids", "fill_compact"]
+            for name in need:
+                if counts[name] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched on the {label} {path_name}")
+            if counts[other] != 0:
+                raise AssertionError(f"kernel {other} was launched on the {label} {path_name}")
 
-    def zero_counts():
-        for fn in kernels_of.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in kernels_of.items()}
-
-    pipe.encode_rows = keep_batch
-    zero_counts()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    try:
-        got = text_pipeline_encode(tok, pipe, texts)
-        torch.cuda.synchronize()
-    finally:
-        del pipe.encode_rows
-    wall = time.perf_counter() - t1
-    text_launches = read_counts()
-    t1 = time.perf_counter()
-    again = text_pipeline_encode(tok, pipe, texts)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t1
-    shapes = sorted(batches)
-    print(
-        f"text pipeline: {len(texts)} texts, {n_bytes} bytes, {sum(map(len, host))} ids; "
-        f"encode_bytes {wall:.3f} s first (batches kept), {wall2:.3f} s second; "
-        f"host oracle {host_s:.3f} s; launches {text_launches}; "
-        f"batch shapes {[list(x) for x in shapes]}",
-        flush=True,
-    )
-    _compare("text pipeline", texts, got, host)
-    _compare("text pipeline, second call", texts, again, host)
-    for name in ("seed_tokens", "merge_fixpoint_qc"):
-        if text_launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the text pipeline")
-    _phase("text pipeline", t0)
-
-    # 4. word path ----------------------------------------------------------------
-    # a. every distinct word through the device, on a fresh native context
+    # 4. kernels against their plain versions -------------------------------
     t0 = time.perf_counter()
-
-    def fresh_native():
-        return native.NativeEncoder(tok.bpe.packed_merge_arrays(), byte_token_table(tok.bpe.vocab))
-
-    # keep the first pack of every shape any word-path run launches
-    packs: dict[int, tuple] = {}
-
-    def keep_packs(word_encoder):
-        fill_fn = word_encoder._fn
-
-        def keep_pack(a, bits, row_len):
-            packs.setdefault(a.shape[0], (a.copy(), bits.copy(), row_len.copy()))
-            return fill_fn(a, bits, row_len)
-
-        word_encoder._fn = keep_pack
-
-    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
-    wp = DeviceWordEncoder(pipe, fresh_native())
-    keep_packs(wp)
-    words, lens = wp.native.collect_miss_words(data, 128)
-    t1 = time.perf_counter()
-    ids, counts = wp._encode_words_packed(words, lens)
-    fill_s = time.perf_counter() - t1
-    exp_ids, exp_counts = fresh_native().warm_start(words, lens)
-    uncovered = int((counts < 0).sum())
-    bounds = np.zeros(len(counts) + 1, np.int64)
-    np.cumsum(np.maximum(counts, 0), out=bounds[1:])
-    exp_bounds = np.zeros(len(counts) + 1, np.int64)
-    np.cumsum(exp_counts, out=exp_bounds[1:])
-    mismatched = sum(
-        1 for w in range(len(counts))
-        if counts[w] != exp_counts[w]
-        or not np.array_equal(ids[bounds[w] : bounds[w + 1]], exp_ids[exp_bounds[w] : exp_bounds[w + 1]])
-    )
-    fill = wp.last_fill
-    print(
-        f"word path, every distinct word: {len(lens)} words, {int(lens.sum())} bytes "
-        f"(up to 128 bytes each); packs {dict(sorted(fill['packs'].items()))} (rows: count), "
-        f"spills {fill['spills']}, redispatches {fill['spills']}; fill {fill_s:.3f} s; "
-        f"host seconds {({k: round(v, 4) for k, v in fill['seconds'].items()})}; "
-        f"against the host merge: {mismatched} mismatches, {uncovered} uncovered",
-        flush=True,
-    )
-    if mismatched or uncovered or len(lens) == 0:
-        raise AssertionError(f"device word ids: {mismatched} mismatches, {uncovered} uncovered")
-    _phase("word path: every distinct word", t0)
-
-    # b. backend="device" from a fresh tokenizer: the main path
-    t0 = time.perf_counter()
-    t1 = time.perf_counter()
-    tok_d = Tokenizer.from_file(TOKENIZER_JSON)
-    load_s = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    wp_d = tok_d._get_word_path("cuda")
-    keep_packs(wp_d)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t1
-    zero_counts()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    got = tok_d.encode_batch(texts, backend="device")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t1
-    launches = read_counts()
-    fill_first = dict(wp_d.last_fill)
-    t1 = time.perf_counter()
-    again = tok_d.encode_batch(texts, backend="device")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t1
-    print(
-        f"word path, backend=device: from_file {load_s:.3f} s ({tok_d._warm_start_words} words "
-        f"warm-started), word-path set-up {setup_s:.3f} s; first call {first_s:.3f} s "
-        f"({wp_d.words_filled} words filled; packs {dict(sorted(fill_first['packs'].items()))}, "
-        f"spills {fill_first['spills']}; host seconds "
-        f"{({k: round(v, 4) for k, v in fill_first['seconds'].items()})}), warm {warm_s:.3f} s "
-        f"({n_bytes / warm_s / 1e6:.2f} MB/s); assembly route: bytes (ctok_encode_batch); "
-        f"launches {launches}",
-        flush=True,
-    )
-    _compare("backend=device", texts, got, host)
-    _compare("backend=device, second call", texts, again, host)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path (backend=device)")
-    if wp_d.words_filled <= 0:
-        raise AssertionError("backend=device filled no word")
-    _phase("word path: backend=device", t0)
-
-    # c. backend="auto" from another fresh tokenizer
-    t0 = time.perf_counter()
-    tok_a = Tokenizer.from_file(TOKENIZER_JSON)
-    keep_packs(tok_a._get_word_path("cuda"))  # tables on the card before the batches
-    torch.cuda.synchronize()
-    zero_counts()
-    step = -(-len(texts) // 5)
-    got = []
-    batch_s = []
-    for i in range(0, len(texts), step):
-        t1 = time.perf_counter()
-        got += tok_a.encode_batch(texts[i : i + step])
-        batch_s.append(time.perf_counter() - t1)
-    wp_a = tok_a._auto_word_path("cuda")
-    t1 = time.perf_counter()
-    drained = wp_a.drain_async(timeout=600)
-    drain_s = time.perf_counter() - t1
-    torch.cuda.synchronize()
-    auto_launches = read_counts()
-    _compare("backend=auto", texts, got, host)
-    t1 = time.perf_counter()
-    again = tok_a.encode_batch(texts)
-    auto_warm_s = time.perf_counter() - t1
-    _compare("backend=auto, after the fill", texts, again, host)
-    flat, offs = tok_a.encode_batch_ragged(texts)
-    ragged = [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))]
-    if ragged != again:
-        raise AssertionError("encode_batch_ragged differs from encode_batch")
-    wp_a.drain_async(timeout=600)
-    print(
-        f"word path, backend=auto: 5 batches {[round(x, 3) for x in batch_s]} s, drain "
-        f"{drain_s:.3f} s ({drained} words inserted by the drain, {wp_a.words_filled} filled "
-        f"in all); whole corpus after the fill {auto_warm_s:.3f} s; encode_batch_ragged "
-        f"equal; route: {native_build['route']}; launches {auto_launches}",
-        flush=True,
-    )
-    if wp_a.words_filled <= 0:
-        raise AssertionError("backend=auto filled no word")
-    for name, n in auto_launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path (backend=auto)")
-    _phase("word path: backend=auto", t0)
-
-    # 5. kernels against their plain versions -------------------------------
-    t0 = time.perf_counter()
-    tb = pipe.tables
-    cpu_tb = tok.pipeline("cpu").tables
-    itemsize = np.dtype(wp._out_dtype).itemsize
+    tb = r50["pipe"].tables
+    cpu_tb = r50["tok"].pipeline("cpu").tables
+    itemsize = np.dtype(r50["wp"]._out_dtype).itemsize
     seed_res: list[dict] = []
     merge_res: list[dict] = []
+    chd_res: list[dict] = []
     k3_res: list[dict] = []
     k4_res: list[dict] = []
+    packs, batches = r50["packs"], r50["batches"]
+    # 50K: K5 on the same rows as K2 (both tables exist), so the cost of
+    # the dependent probe shows
     for B in sorted(packs):
         a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
         r3, r4 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
         k3_res.append(r3)
         k4_res.append(r4)
         seed_res.append(check_seed("word pack", a, row_len, tb.byte_token_table))
-        merge_res.append(check_merge("word pack", tb, a, row_len, wid=word_ids_plain(bits, row_len)))
-    for shape in shapes:
+        wid = word_ids_plain(bits, row_len)
+        merge_res.append(check_merge("word pack", tb, a, row_len, wid=wid, cold=True))
+        chd_res.append(check_merge("word pack, 50K", tb, a, row_len, wid=wid, table="chd",
+                                   cold=True, plain_reps=0))
+    for shape in r50["shapes"]:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
         seed_res.append(check_seed("text batch", arr, lens, tb.byte_token_table))
-        merge_res.append(check_merge("text batch", tb, arr, lens))
+        merge_res.append(check_merge("text batch", tb, arr, lens, cold=True))
+        chd_res.append(check_merge("text batch, 50K", tb, arr, lens, table="chd", cold=True,
+                                   plain_reps=0))
     rng = np.random.RandomState(args.seed)
     table = rng.randint(0, 50000, size=256).astype(np.int32)
     oov = rng.choice(256, 24, replace=False)
@@ -778,24 +889,64 @@ def main(argv=None) -> int:
                 "run rows, OOV breaks" if with_oov else "run rows", tb, arr, lens,
                 byte_table=oov_table if with_oov else None, plain_reps=1,
             ))
-    arr, lens = (torch.from_numpy(x).cuda() for x in pack_texts([b"a" * 4096], 4096, 1))
-    merge_res.append(check_merge("one letter", tb, arr, lens, plain_reps=1))
-    _phase("kernels", t0)
+    one_letter = [torch.from_numpy(x).cuda() for x in pack_texts([b"a" * 4096], 4096, 1)]
+    merge_res.append(check_merge("one letter", tb, *one_letter, plain_reps=1))
+    chd_res.append(check_merge("one letter, 50K", tb, *one_letter, table="chd", plain_reps=0))
+    _phase("kernels at 50K", t0)
 
-    # 6. report --------------------------------------------------------------
-    # the headline numbers are those of the word path's largest pack
-    largest = [max(packs), 128]
+    # 100K: K5 on its own paths' batches and packs, K4 with int32 ids
+    t0 = time.perf_counter()
+    tb = r100["pipe"].tables
+    cpu_tb = r100["tok"].pipeline("cpu").tables
+    itemsize = np.dtype(r100["wp"]._out_dtype).itemsize
+    if itemsize != 4:
+        raise AssertionError("the 100K word path does not take int32 ids")
+    packs, batches = r100["packs"], r100["batches"]
+    for B in sorted(packs):
+        a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
+        r3, r4 = check_word_fill("word pack, 100K", tb, cpu_tb, a, bits, row_len, itemsize)
+        k3_res.append(r3)
+        k4_res.append(r4)
+        seed_res.append(check_seed("word pack, 100K", a, row_len, tb.byte_token_table, timed=False))
+        chd_res.append(check_merge("word pack", tb, a, row_len, wid=word_ids_plain(bits, row_len),
+                                   table="chd", cold=True))
+    for shape in r100["shapes"]:
+        arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
+        chd_res.append(check_merge("text batch", tb, arr, lens, table="chd", cold=True))
+    chd_res.append(check_merge("one letter", tb, *one_letter, table="chd", plain_reps=1))
+    # edge shapes: one row, three rows of 8, a width that is no multiple of
+    # 16, and run rows with OOV bytes (the random table's and the run
+    # breakers) as tombstones
+    oov_table = tb.byte_token_table.clone()
+    oov_table[torch.from_numpy(oov).cuda()] = -1
+    oov_table[list(RUN_BREAKS)] = -1
+    for B, L in ((1, 16), (3, 8), (5, 200), (16, 1024)):
+        rows = run_rows(corpus_bytes, B, L, B == 16)
+        arr, lens = (torch.from_numpy(x).cuda() for x in pack_texts(rows, L, B))
+        chd_res.append(check_merge(
+            "edge, run rows, OOV breaks" if B == 16 else "edge", tb, arr, lens, table="chd",
+            plain_reps=0, byte_table=oov_table if B == 16 else None,
+        ))
+    _phase("kernels at 100K", t0)
+
+    # 5. report --------------------------------------------------------------
+    # the headline numbers are those of the word path's largest pack (K5:
+    # at 100K, its main path; the others at 50K)
     kernels = []
     for name, res, src, wrapper, replaces in (
         ("seed_tokens", seed_res, "kernels.cu", "ops/seed.py",
          "complexity_tokenizer_tpu/ops/pallas_kernels.py:70"),
         ("merge_fixpoint_qc", merge_res, "kernels.cu", "ops/merge.py",
          "complexity_tokenizer_tpu/ops/merge.py:187"),
+        ("merge_fixpoint_chd", chd_res, "kernels.cu", "ops/merge.py",
+         "complexity_tokenizer_tpu/ops/merge.py:342"),
         ("word_ids", k3_res, "wordfill.cu", "ops/wordfill.py",
          "complexity_tokenizer_tpu/ops/wordpath.py:292"),
         ("fill_compact", k4_res, "wordfill.cu", "ops/wordfill.py",
          "complexity_tokenizer_tpu/ops/wordpath.py:317"),
     ):
+        main_run = r100 if name == "merge_fixpoint_chd" else r50
+        largest = [max(main_run["packs"]), 128]
         main = next(r for r in res if r["inputs"] == "word pack" and r["shape"] == largest)
         kernels.append({
             "name": name,
@@ -803,11 +954,11 @@ def main(argv=None) -> int:
             "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
             "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": main_run["launches"]["backend=device"][name],
             "launches_by_path": {
-                "text pipeline": text_launches[name],
-                "word path, backend=device": launches[name],
-                "word path, backend=auto": auto_launches[name],
+                f"{label} {path_name}": counts[name]
+                for label, r in (("50K", r50), ("100K", r100))
+                for path_name, counts in r["launches"].items()
             },
             "match": all(r["match"] for r in res),
             "max_abs_err": max(r["max_abs_err"] for r in res),

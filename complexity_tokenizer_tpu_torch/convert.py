@@ -17,18 +17,33 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .ops.merge import merge_words, merge_words_qc
+
 __all__ = ["TorchTables", "tables_to_device", "native_from_arrays"]
 
 
 @dataclass
 class TorchTables:
     byte_token_table: torch.Tensor  # [256] int32; -1 = OOV byte
-    qc_t1: torch.Tensor  # [m, 2] int32 bit view of the u32 cuckoo rows
-    qc_t2: torch.Tensor  # [m, 2] int32
-    qc_size: int  # m (power of two)
     class_table: torch.Tensor  # [0x110000] uint8 GPT-2 codepoint classes
-    chd_disp: torch.Tensor | None = None  # [n_buckets] int32, when given
-    chd_rows: torch.Tensor | None = None  # [size, 4] int32, when given
+    qc_t1: torch.Tensor | None = None  # [m, 2] int32 bit view of the u32 cuckoo rows
+    qc_t2: torch.Tensor | None = None  # [m, 2] int32
+    qc_size: int = 0  # m (power of two)
+    chd_disp: torch.Tensor | None = None  # [n_buckets] int32 displacements
+    chd_rows: torch.Tensor | None = None  # [size, 4] int32 rows
+    chd_size: int = 0  # size (power of two)
+    chd_n_buckets: int = 0  # n_buckets (power of two)
+
+    def merge_fixpoint(self, tokens: torch.Tensor, wid: torch.Tensor):
+        """The segmented merge fixpoint over these tables: K2 on the
+        cuckoo table when it is eligible, K5 on the CHD table otherwise
+        (as the JAX package's ``EncodePipeline.merge_fixpoint``).  Returns
+        (tokens, count)."""
+        if self.qc_t1 is not None:
+            return merge_words_qc(tokens, wid, self.qc_t1, self.qc_t2, self.qc_size)
+        return merge_words(
+            tokens, wid, self.chd_disp, self.chd_rows, self.chd_size, self.chd_n_buckets
+        )
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -38,36 +53,61 @@ def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def _power_of_two(name: str, n: int) -> None:
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"{name} {n} is not a power of two")
+
+
 def tables_to_device(
     *,
     byte_token_table: np.ndarray,
-    qc_t1: np.ndarray,
-    qc_t2: np.ndarray,
-    qc_size: int,
     class_table: np.ndarray,
     device,
+    qc_t1: np.ndarray | None = None,
+    qc_t2: np.ndarray | None = None,
+    qc_size: int | None = None,
     chd_disp: np.ndarray | None = None,
     chd_rows: np.ndarray | None = None,
 ) -> TorchTables:
     """Numpy table fields -> :class:`TorchTables` on ``device``.
 
+    Takes the cuckoo arrays, the CHD arrays or both; at least one.
     ``qc_t1``/``qc_t2`` are ``[m, 2]`` uint32 (as built) and are held as
-    their int32 bit view.  The CHD arrays are carried only when given: no
-    kernel of this slice reads them."""
-    for name, t in (("qc_t1", qc_t1), ("qc_t2", qc_t2)):
-        if t.shape != (qc_size, 2):
-            raise ValueError(f"{name} has shape {t.shape}, want {(qc_size, 2)}")
-    if qc_size & (qc_size - 1):
-        raise ValueError(f"qc_size {qc_size} is not a power of two")
-    return TorchTables(
+    their int32 bit view; ``chd_disp`` is ``[n_buckets]`` and ``chd_rows``
+    ``[size, 4]``, both int32, with ``size`` and ``n_buckets`` powers of
+    two."""
+    has_qc = qc_t1 is not None or qc_t2 is not None or qc_size is not None
+    has_chd = chd_disp is not None or chd_rows is not None
+    if not (has_qc or has_chd):
+        raise ValueError("tables_to_device needs the cuckoo or the CHD arrays")
+    out = TorchTables(
         byte_token_table=_tensor(byte_token_table, torch.int32, device),
-        qc_t1=_tensor(qc_t1, torch.int32, device),
-        qc_t2=_tensor(qc_t2, torch.int32, device),
-        qc_size=int(qc_size),
         class_table=_tensor(class_table, torch.uint8, device),
-        chd_disp=None if chd_disp is None else _tensor(chd_disp, torch.int32, device),
-        chd_rows=None if chd_rows is None else _tensor(chd_rows, torch.int32, device),
     )
+    if has_qc:
+        if qc_t1 is None or qc_t2 is None or qc_size is None:
+            raise ValueError("the cuckoo table needs qc_t1, qc_t2 and qc_size")
+        _power_of_two("qc_size", qc_size)
+        for name, t in (("qc_t1", qc_t1), ("qc_t2", qc_t2)):
+            if t.shape != (qc_size, 2):
+                raise ValueError(f"{name} has shape {t.shape}, want {(qc_size, 2)}")
+        out.qc_t1 = _tensor(qc_t1, torch.int32, device)
+        out.qc_t2 = _tensor(qc_t2, torch.int32, device)
+        out.qc_size = int(qc_size)
+    if has_chd:
+        if chd_disp is None or chd_rows is None:
+            raise ValueError("the CHD table needs chd_disp and chd_rows")
+        if chd_disp.ndim != 1 or chd_rows.ndim != 2 or chd_rows.shape[1] != 4:
+            raise ValueError(
+                f"chd_disp {chd_disp.shape} / chd_rows {chd_rows.shape}: want [n_buckets] / [size, 4]"
+            )
+        _power_of_two("CHD n_buckets", chd_disp.shape[0])
+        _power_of_two("CHD size", chd_rows.shape[0])
+        out.chd_disp = _tensor(chd_disp, torch.int32, device)
+        out.chd_rows = _tensor(chd_rows, torch.int32, device)
+        out.chd_size = int(chd_rows.shape[0])
+        out.chd_n_buckets = int(chd_disp.shape[0])
+    return out
 
 
 def native_from_arrays(

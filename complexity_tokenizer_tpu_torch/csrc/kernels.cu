@@ -144,14 +144,19 @@ __global__ void __launch_bounds__(kSeedThreads, kSeedMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// K2: segmented BPE merge fixpoint over the two-choice cuckoo pair table.
+// K2 and K5: segmented BPE merge fixpoint, one walk over two pair tables.
 //
-// Replaces the jax.lax.while_loop of _segmented_fixpoint / merge_words_qc
+// K2 replaces the jax.lax.while_loop of _segmented_fixpoint / merge_words_qc
 // (complexity_tokenizer_tpu/ops/merge.py) with its probe qc_lookup_jnp,
-// mix_hash_jnp and mix_hash2_jnp (ops/hashtable.py), and gives bit for bit
-// the (tokens, count) of its plain twin merge_fixpoint_qc_plain
-// (ops/merge.py): merged ids at the leftmost byte of their span, -1
-// tombstones elsewhere, per-row counts of live ids.
+// mix_hash_jnp and mix_hash2_jnp (ops/hashtable.py): the two-choice cuckoo
+// table of the vocabularies that fit u16 (QcProbe).  K5 replaces the same
+// loop in merge_words (ops/merge.py) with its probe chd_lookup_rows_jnp: the
+// CHD table of the vocabularies past u16 (ChdProbe).  Each gives bit for bit
+// the (tokens, count) of its plain twin merge_fixpoint_qc_plain /
+// merge_fixpoint_chd_plain (ops/merge.py): merged ids at the leftmost byte
+// of their span, -1 tombstones elsewhere, per-row counts of live ids.  The
+// walk below is templated over the probe; only the probe and the width of
+// a cached probe differ.
 //
 // Words.  A word is a maximal run of equal wid >= 0.  A pair is an alive
 // token and the next alive token of the same word (an OOV byte, table entry
@@ -173,24 +178,30 @@ __global__ void __launch_bounds__(kSeedThreads, kSeedMinBlocks)
 // needs about n/2 steps for a run of n.  On a table that is not well-formed
 // the two differ, as the device pipeline's refusal of such tables says.
 //
-// Cached probes.  Each alive position keeps its probed rank<<16|minted (or
-// kMiss) in shared memory, probed once.  Taking the pair at an alive entry
-// changes only its own pair and the pair of the kept entry before it, so
-// only those are probed again; the word's minimum comes from the cached
-// values.  Ranks are unique, so the minimum value is the minimum rank and
-// equal values are equal pairs.  At most two probes per merge.
+// Cached probes.  Each alive position keeps its probed (rank, minted) entry
+// (or a miss) in shared memory, probed once: K2 packs rank<<16|minted in a
+// u32, K5 rank<<32|minted in a u64 (past u16 both need 17 bits or more).
+// Taking the pair at an alive entry changes only its own pair and the pair
+// of the kept entry before it, so only those are probed again; the word's
+// minimum comes from the cached values.  The minimum is taken over the
+// entry's 32-bit key (K2: the whole entry; K5: the rank), kMiss for a miss.
+// Ranks are unique, so the minimum key is the minimum rank and equal keys
+// are equal pairs with one minted id: a taken entry writes its own.  At
+// most two probes per merge.
 //
 // Alive list.  Each word walks a compacted list of its alive positions
 // (uint16 in `aux`, over the word's own range, compacted in place every
 // step), never a scan over tombstones.
 //
-// Work.  One block owns one row in shared memory, 14 B a position: tokens
-// and cached probes 4 B each, the alive lists, the row's word-boundary list
-// (from a block-wide scan) and its short words sorted by length, 2 B each.
+// Work.  One block owns one row in shared memory, 14 B a position for K2
+// and 18 B for K5: tokens 4 B, cached probes 4 B (K2) or 8 B (K5), the alive
+// lists, the row's word-boundary list (from a block-wide scan) and its short
+// words sorted by length, 2 B each.
 // The block has a quarter of the row's width in threads, 64 to 1,024.
 // - Words of more than kWarpWordBytes bytes go to a whole warp each; warps
 //   take 32 boundaries at a time from a shared counter.  A warp word takes
-//   its minimum with __reduce_min_sync, its best pairs as a __ballot_sync
+//   its minimum key with __reduce_min_sync (32-bit only, hence the key),
+//   its best pairs as a __ballot_sync
 //   mask per chunk of 32 alive entries, the greedy pick inside a run of
 //   consecutive best pairs from the mask (the run's start from __clz, its
 //   parity carried across chunks), the compaction from a second ballot, and
@@ -201,12 +212,18 @@ __global__ void __launch_bounds__(kSeedThreads, kSeedMinBlocks)
 //   each step as one pass: pick, compact, probe the changed pairs, minimum.
 //
 // Bound.  Device memory sees each row once in and once out (12 B a
-// position) plus the 8-byte table rows of each probe; the work is the
-// word's initial pairs plus at most two probes per merge.  What limits it is
-// latency and issue: each step of a word is a dependent L2 probe (the table
-// is about a megabyte) after a serial walk of the word in shared memory.
-// Many words are in flight per SM (one per thread, one per warp for a long
-// word, up to 2,048 threads per SM) and each takes few steps.
+// position) plus the table entries of each probe (K2: two 8-byte rows; K5: a
+// 4-byte displacement and a 16-byte row); the work is the word's initial
+// pairs plus at most two probes per merge.  What limits it is latency and
+// issue: each step of a word waits on its probes in L2 (K2's table is about
+// a megabyte, two independent reads; K5's is 4 MB of rows and 256 KB of
+// displacements at 100,000 ids, two dependent reads) after a serial walk
+// of the word in shared memory.  Many words are in flight per SM (one per
+// thread, one per warp for a long word, up to 2,048 threads per SM) and
+// each takes few steps.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py), K5 takes 1.14-1.28x K2's time on the same rows (0.159
+// against 0.132 ms at [8192, 512]); at 100,000 ids 0.168 ms there and
+// 0.022 ms a [1024, 128] word pack.
 constexpr int kWarpWordBytes = 32;  // longer words are walked by a whole warp
 constexpr uint16_t kFlag = 0x8000;  // alive list: probe again; boundaries: gap
 constexpr uint16_t kPosMask = 0x7FFF;
@@ -227,24 +244,63 @@ __device__ __forceinline__ uint32_t mix_hash2(uint32_t a, uint32_t b) {
   return g;
 }
 
-struct Table {
+// A probe policy: the cached Entry, its miss value, the probe, the 32-bit
+// key whose minimum picks a word's best pair, and the minted id.
+
+// K2: the u16 two-choice cuckoo table; an entry is rank << 16 | minted.
+struct QcProbe {
+  using Entry = uint32_t;
+  static constexpr Entry kMissEntry = kMiss;
   const uint2* __restrict__ t1;
   const uint2* __restrict__ t2;
   uint32_t mask;
+
+  // rank << 16 | minted for the pair (a, b), or kMiss.
+  __device__ __forceinline__ Entry probe(int32_t a, int32_t b) const {
+    const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
+    const uint32_t k = (ua << 16) | ub;
+    if (k == kMiss) return kMiss;  // the sentinel key never hits
+    const uint2 r1 = __ldg(t1 + (mix_hash(ua, ub) & mask));
+    const uint2 r2 = __ldg(t2 + (mix_hash2(ua, ub) & mask));
+    if (r1.x == k) return r1.y;
+    if (r2.x == k) return r2.y;
+    return kMiss;
+  }
+  static __device__ __forceinline__ uint32_t key(Entry v) { return v; }
+  static __device__ __forceinline__ int32_t minted(Entry v) {
+    return (int32_t)(v & 0xFFFFu);
+  }
 };
 
-// rank << 16 | minted for the pair (a, b), or kMiss.
-__device__ __forceinline__ uint32_t qc_probe(const Table& tb, int32_t a,
-                                             int32_t b) {
-  const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
-  const uint32_t k = (ua << 16) | ub;
-  if (k == kMiss) return kMiss;  // the sentinel key never hits
-  const uint2 r1 = __ldg(tb.t1 + (mix_hash(ua, ub) & tb.mask));
-  const uint2 r2 = __ldg(tb.t2 + (mix_hash2(ua, ub) & tb.mask));
-  if (r1.x == k) return r1.y;
-  if (r2.x == k) return r2.y;
-  return kMiss;
-}
+// K5: the CHD table, rows (key_a, key_b, rank, minted) of 16 B; an entry is
+// rank << 32 | minted.  Empty rows hold -1 keys, which no pair of ids >= 0
+// matches, and ranks stay below INF_RANK = 0x3FFFFFFF, so a hit's key is
+// never kMiss.
+struct ChdProbe {
+  using Entry = uint64_t;
+  static constexpr Entry kMissEntry = ~0ull;
+  const int32_t* __restrict__ disp;
+  const int4* __restrict__ rows;
+  uint32_t size_mask;
+  uint32_t bucket_mask;
+
+  // slot = (mix2(a, b) + disp[mix1(a, b) & (B - 1)]) & (T - 1): the row
+  // read waits on the displacement read
+  __device__ __forceinline__ Entry probe(int32_t a, int32_t b) const {
+    const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
+    const int32_t d = __ldg(disp + (mix_hash(ua, ub) & bucket_mask));
+    const uint32_t pos = (mix_hash2(ua, ub) + (uint32_t)d) & size_mask;
+    const int4 r = __ldg(rows + pos);
+    if (r.x != a || r.y != b) return kMissEntry;
+    return ((uint64_t)(uint32_t)r.z << 32) | (uint32_t)r.w;
+  }
+  static __device__ __forceinline__ uint32_t key(Entry v) {
+    return (uint32_t)(v >> 32);
+  }
+  static __device__ __forceinline__ int32_t minted(Entry v) {
+    return (int32_t)(uint32_t)v;
+  }
+};
 
 // --- one thread per word ----------------------------------------------------
 
@@ -255,22 +311,24 @@ __device__ __forceinline__ uint32_t qc_probe(const Table& tb, int32_t a,
 // changed the pair) and takes the minimum for the next step.  A cached
 // value read before its entry is reached is the old pair's, which is what
 // the greedy pick compares.
-__device__ void thread_word(int32_t* t, uint32_t* rm, uint16_t* aux_row,
-                            int p, int e, const Table& tb) {
+template <class P>
+__device__ void thread_word(int32_t* t, typename P::Entry* rm,
+                            uint16_t* aux_row, int p, int e, const P& tb) {
+  using Entry = typename P::Entry;
   uint16_t* aux = aux_row + p;
   int m = 0, left = -1;
   uint32_t best = kMiss;
   for (int q = p; q < e; ++q) {
     if (t[q] < 0) continue;
     if (left >= 0) {
-      const uint32_t v = qc_probe(tb, t[left], t[q]);
+      const Entry v = tb.probe(t[left], t[q]);
       rm[left] = v;
-      best = min(best, v);
+      best = min(best, P::key(v));
     }
     aux[m++] = (uint16_t)q;
     left = q;
   }
-  if (left >= 0) rm[left] = kMiss;
+  if (left >= 0) rm[left] = P::kMissEntry;
   while (best != kMiss) {
     uint32_t next = kMiss;
     int out = 0;
@@ -284,26 +342,26 @@ __device__ void thread_word(int32_t* t, uint32_t* rm, uint16_t* aux_row,
         consumed = false;
         continue;
       }
-      const uint32_t v = rm[pos];
-      const bool taken = v == best;
+      const Entry v = rm[pos];
+      const bool taken = P::key(v) == best;
       if (taken) {
-        t[pos] = (int32_t)(v & 0xFFFFu);
+        t[pos] = P::minted(v);
         consumed = true;
       }
       if (lpos >= 0) {  // the pair (lpos, pos) is final
-        uint32_t lv = rm[lpos];
+        Entry lv = rm[lpos];
         if (lchanged || taken) {
-          lv = qc_probe(tb, t[lpos], t[pos]);
+          lv = tb.probe(t[lpos], t[pos]);
           rm[lpos] = lv;
         }
-        next = min(next, lv);
+        next = min(next, P::key(lv));
       }
       aux[out++] = (uint16_t)pos;
       lpos = pos;
       lchanged = taken;
     }
     // the last kept entry has no pair; unless taken, it was the last before
-    if (lchanged) rm[lpos] = kMiss;
+    if (lchanged) rm[lpos] = P::kMissEntry;
     m = out;
     best = next;
   }
@@ -313,9 +371,10 @@ __device__ void thread_word(int32_t* t, uint32_t* rm, uint16_t* aux_row,
 
 // Probes the marked (kFlag) entries of the alive list aux[0, m), a chunk of
 // 32 at a time in parallel, clears their marks and returns the word's
-// minimum cached value.
-__device__ uint32_t warp_probe_pass(const int32_t* t, uint32_t* rm,
-                                    uint16_t* aux, int m, const Table& tb,
+// minimum key.
+template <class P>
+__device__ uint32_t warp_probe_pass(const int32_t* t, typename P::Entry* rm,
+                                    uint16_t* aux, int m, const P& tb,
                                     int lane) {
   uint32_t mn = kMiss;
   for (int base = 0; base < m; base += 32) {
@@ -324,25 +383,26 @@ __device__ uint32_t warp_probe_pass(const int32_t* t, uint32_t* rm,
     const uint16_t an = k + 1 < m ? aux[k + 1] : 0;
     __syncwarp();  // lane k-1 has read slot k before lane k rewrites it
     const int pos = a & kPosMask;
-    uint32_t v = kMiss;
+    typename P::Entry v = P::kMissEntry;
     if (k < m) {
       if (a & kFlag) {
-        if (k + 1 < m) v = qc_probe(tb, t[pos], t[an & kPosMask]);
+        if (k + 1 < m) v = tb.probe(t[pos], t[an & kPosMask]);
         rm[pos] = v;
         aux[k] = (uint16_t)pos;
       } else {
         v = rm[pos];
       }
     }
-    mn = min(mn, v);
+    mn = min(mn, P::key(v));
   }
   __syncwarp();
   return __reduce_min_sync(kFull, mn);
 }
 
 // One greedy step of a warp word; returns the new length of its alive list.
-__device__ int warp_apply(int32_t* t, const uint32_t* rm, uint16_t* aux,
-                          int m, uint32_t best, int lane) {
+template <class P>
+__device__ int warp_apply(int32_t* t, const typename P::Entry* rm,
+                          uint16_t* aux, int m, uint32_t best, int lane) {
   const uint32_t lt = (1u << lane) - 1u;
   int out = 0;
   uint32_t carry = 0;  // the previous chunk's last entry was taken
@@ -350,8 +410,8 @@ __device__ int warp_apply(int32_t* t, const uint32_t* rm, uint16_t* aux,
     const int k = base + lane;
     const bool valid = k < m;
     const int pos = valid ? aux[k] : 0;
-    const uint32_t v = valid ? rm[pos] : kMiss;
-    const uint32_t isb = __ballot_sync(kFull, valid && v == best);
+    const typename P::Entry v = valid ? rm[pos] : P::kMissEntry;
+    const uint32_t isb = __ballot_sync(kFull, valid && P::key(v) == best);
     // taken = best and the entry before not taken: inside a run of
     // consecutive best entries every second one from the run's start, the
     // parity shifted by one where the run goes on from a taken entry
@@ -365,7 +425,7 @@ __device__ int warp_apply(int32_t* t, const uint32_t* rm, uint16_t* aux,
     const uint32_t K = __ballot_sync(kFull, keep);
     const int nidx = out + __popc(K & lt);
     __syncwarp();  // every slot of the chunk is read before any is rewritten
-    if (sel) t[pos] = (int32_t)(v & 0xFFFFu);
+    if (sel) t[pos] = P::minted(v);
     if (valid && consumed) t[pos] = -1;
     if (keep) {
       const bool again = sel || (lane < 31 && ((S >> (lane + 1)) & 1u));
@@ -381,8 +441,10 @@ __device__ int warp_apply(int32_t* t, const uint32_t* rm, uint16_t* aux,
 }
 
 // Runs the word [p, e) of the shared row to its fixpoint on a whole warp.
-__device__ void warp_word(int32_t* t, uint32_t* rm, uint16_t* aux_row, int p,
-                          int e, const Table& tb, int lane) {
+template <class P>
+__device__ void warp_word(int32_t* t, typename P::Entry* rm,
+                          uint16_t* aux_row, int p, int e, const P& tb,
+                          int lane) {
   uint16_t* aux = aux_row + p;
   const uint32_t lt = (1u << lane) - 1u;
   int m = 0;
@@ -396,24 +458,32 @@ __device__ void warp_word(int32_t* t, uint32_t* rm, uint16_t* aux_row, int p,
   __syncwarp();
   uint32_t best = warp_probe_pass(t, rm, aux, m, tb, lane);
   while (best != kMiss) {
-    m = warp_apply(t, rm, aux, m, best, lane);
+    m = warp_apply<P>(t, rm, aux, m, best, lane);
     best = warp_probe_pass(t, rm, aux, m, tb, lane);
   }
 }
 
 // --- the row's block ----------------------------------------------------------
 
-template <int kThreads>
+// 32-bit words of a cached probe
+template <class P>
+constexpr int kEntryWords = (int)(sizeof(typename P::Entry) / 4);
+
+template <class P, int kThreads>
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)
-merge_fixpoint_qc_kernel(const int32_t* __restrict__ tokens_in,
-                         const int32_t* __restrict__ wid, Table tb,
-                         int32_t* __restrict__ tokens_out,
-                         int32_t* __restrict__ count, int L) {
+merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
+                      const int32_t* __restrict__ wid, P tb,
+                      int32_t* __restrict__ tokens_out,
+                      int32_t* __restrict__ count, int L) {
+  using Entry = typename P::Entry;
   constexpr int kWarps = kThreads / 32;
-  extern __shared__ int32_t smem[];
-  int32_t* t = smem;                                       // [L] tokens
-  uint32_t* rm = reinterpret_cast<uint32_t*>(smem + L);    // [L] probes
-  uint16_t* aux = reinterpret_cast<uint16_t*>(smem + 2 * L);  // [L] lists
+  constexpr int kEw = kEntryWords<P>;
+  extern __shared__ __align__(16) int32_t smem[];
+  // [L] tokens and [L] probes; the 8-byte probes of K5 go first, aligned
+  int32_t* t = kEw == 1 ? smem : smem + kEw * L;
+  Entry* rm = reinterpret_cast<Entry*>(kEw == 1 ? smem + L : smem);
+  // [L] lists
+  uint16_t* aux = reinterpret_cast<uint16_t*>(smem + (1 + kEw) * L);
   uint16_t* bnd = aux + L;  // [L + 1] word boundaries (kFlag: a wid -1 run)
   uint16_t* order = bnd + L + 1;  // [L] short words, longest first
   __shared__ int warp_sums[kWarps];
@@ -424,7 +494,7 @@ merge_fixpoint_qc_kernel(const int32_t* __restrict__ tokens_in,
   // word ids sit in rm's space until the boundary list is built
   for (int i = tid; i < L; i += kThreads) {
     t[i] = tokens_in[base + i];
-    rm[i] = (uint32_t)wid[base + i];
+    rm[i] = (Entry)(uint32_t)wid[base + i];
   }
   if (tid == 0) {
     next_chunk = 0;
@@ -533,31 +603,50 @@ merge_fixpoint_qc_kernel(const int32_t* __restrict__ tokens_in,
   if (tid == 0) count[blockIdx.x] = block_count;
 }
 
-template <int kThreads>
-cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid,
-                         Table tb, int32_t* tokens_out, int32_t* count, int B,
-                         int L, cudaStream_t stream) {
-  // tokens and probes 4 B a position, alive lists, boundaries (L + 1) and
-  // the sorted short words 2 B each
-  const size_t smem = (size_t)14 * L + 4;
+template <class P, int kThreads>
+cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid, P tb,
+                         int32_t* tokens_out, int32_t* count, int B, int L,
+                         cudaStream_t stream) {
+  // tokens 4 B and probes 4 or 8 B a position, alive lists, boundaries
+  // (L + 1) and the sorted short words 2 B each
+  const size_t smem = (size_t)(10 + 4 * kEntryWords<P>) * L + 4;
   // the kernel's static shared memory counts against the same 48 KB default
   // limit, so opt in to more dynamic shared memory well before it; once per
   // device and size, so that a launch captured in a CUDA graph makes no
-  // attribute call
+  // attribute call; the opt-in and this cache belong to each instantiation
   static size_t opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (smem > 32 * 1024 && (dev >= 64 || opted[dev] < smem)) {
-    err = cudaFuncSetAttribute(merge_fixpoint_qc_kernel<kThreads>,
+    err = cudaFuncSetAttribute(merge_fixpoint_kernel<P, kThreads>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     if (dev < 64) opted[dev] = smem;
   }
-  merge_fixpoint_qc_kernel<kThreads><<<B, kThreads, smem, stream>>>(
+  merge_fixpoint_kernel<P, kThreads><<<B, kThreads, smem, stream>>>(
       tokens_in, wid, tb, tokens_out, count, L);
   return cudaGetLastError();
+}
+
+// a quarter of the row's width in threads, 64 to 1,024
+template <class P>
+cudaError_t dispatch_merge(const void* tokens_in, const void* wid, P tb,
+                           void* tokens_out, void* count, int B, int L,
+                           void* stream) {
+  if (B == 0 || L == 0) return cudaSuccess;
+  if (L > kPosMask) return cudaErrorInvalidValue;  // uint16 positions
+  const auto* ti = static_cast<const int32_t*>(tokens_in);
+  const auto* wi = static_cast<const int32_t*>(wid);
+  auto* to = static_cast<int32_t*>(tokens_out);
+  auto* co = static_cast<int32_t*>(count);
+  const auto s = (cudaStream_t)stream;
+  if (L <= 256) return launch_merge<P, 64>(ti, wi, tb, to, co, B, L, s);
+  if (L <= 512) return launch_merge<P, 128>(ti, wi, tb, to, co, B, L, s);
+  if (L <= 1024) return launch_merge<P, 256>(ti, wi, tb, to, co, B, L, s);
+  if (L <= 2048) return launch_merge<P, 512>(ti, wi, tb, to, co, B, L, s);
+  return launch_merge<P, 1024>(ti, wi, tb, to, co, B, L, s);
 }
 
 cudaError_t launch_seed(const uint8_t* arr, const int32_t* lens,
@@ -608,21 +697,24 @@ int ctok_merge_fixpoint_qc(const void* tokens_in, const void* wid,
                            const void* t1, const void* t2, unsigned mask,
                            void* tokens_out, void* count, int B, int L,
                            void* stream) {
-  if (B == 0 || L == 0) return (int)cudaSuccess;
-  if (L > kPosMask) return (int)cudaErrorInvalidValue;  // uint16 positions
-  const Table tb{static_cast<const uint2*>(t1), static_cast<const uint2*>(t2),
-                 (uint32_t)mask};
-  const auto* ti = static_cast<const int32_t*>(tokens_in);
-  const auto* wi = static_cast<const int32_t*>(wid);
-  auto* to = static_cast<int32_t*>(tokens_out);
-  auto* co = static_cast<int32_t*>(count);
-  const auto s = (cudaStream_t)stream;
-  // a quarter of the row's width in threads, 64 to 1,024
-  if (L <= 256) return (int)launch_merge<64>(ti, wi, tb, to, co, B, L, s);
-  if (L <= 512) return (int)launch_merge<128>(ti, wi, tb, to, co, B, L, s);
-  if (L <= 1024) return (int)launch_merge<256>(ti, wi, tb, to, co, B, L, s);
-  if (L <= 2048) return (int)launch_merge<512>(ti, wi, tb, to, co, B, L, s);
-  return (int)launch_merge<1024>(ti, wi, tb, to, co, B, L, s);
+  const QcProbe tb{static_cast<const uint2*>(t1),
+                   static_cast<const uint2*>(t2), (uint32_t)mask};
+  return (int)dispatch_merge(tokens_in, wid, tb, tokens_out, count, B, L,
+                             stream);
+}
+
+// rows must be 16-byte aligned (one int4 load a probe; checked by the
+// wrapper)
+int ctok_merge_fixpoint_chd(const void* tokens_in, const void* wid,
+                            const void* disp, const void* rows,
+                            unsigned size_mask, unsigned bucket_mask,
+                            void* tokens_out, void* count, int B, int L,
+                            void* stream) {
+  const ChdProbe tb{static_cast<const int32_t*>(disp),
+                    static_cast<const int4*>(rows), (uint32_t)size_mask,
+                    (uint32_t)bucket_mask};
+  return (int)dispatch_merge(tokens_in, wid, tb, tokens_out, count, B, L,
+                             stream);
 }
 
 const char* ctok_error_string(int code) {

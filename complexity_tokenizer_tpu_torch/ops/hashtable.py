@@ -6,12 +6,15 @@ Two table forms are built on the host with numpy:
   ``(a << 16 | b, rank << 16 | minted)``.  A probe is two independent row
   reads.  Eligible when every id, rank and minted id fits in 16 bits; the
   device fixpoint (``ops/merge.py``) runs on it.
-- :class:`ChdTable`, a compress-hash-displace perfect hash for the
-  vocabularies past u16.  Its device fixpoint is not ported yet.
+- :class:`ChdTable`, a compress-hash-displace perfect hash of ``[T, 4]``
+  int32 rows ``(key_a, key_b, rank, minted)``.  A probe is two dependent
+  reads (the bucket's displacement, then the row).  Built for every
+  table; the device fixpoint runs on it when the cuckoo table is not
+  eligible (vocabularies past u16).
 
-The torch probes (:func:`mix_hash`, :func:`mix_hash2`, :func:`qc_lookup`)
-are bit-identical to the numpy hashes and to the CUDA probe in
-``csrc/kernels.cu``.  torch has no ``>>`` on ``uint32`` on the CPU, so they
+The torch probes (:func:`mix_hash`, :func:`mix_hash2`, :func:`qc_lookup`,
+:func:`chd_lookup_rows`) are bit-identical to the numpy hashes and to the
+CUDA probes in ``csrc/kernels.cu``.  torch has no ``>>`` on ``uint32`` on the CPU, so they
 compute in ``int64`` and keep the low 32 bits with ``& 0xFFFFFFFF``.
 """
 
@@ -31,6 +34,7 @@ __all__ = [
     "mix_hash",
     "mix_hash2",
     "qc_lookup",
+    "chd_lookup_rows",
 ]
 
 INF_RANK = 0x3FFFFFFF
@@ -125,28 +129,33 @@ def _try_build_chd(merge_ranks, merge_ops, size: int) -> ChdTable | None:
     groups = np.split(order, boundaries)
     groups.sort(key=len, reverse=True)
 
-    taken = np.zeros(size, dtype=bool)
+    # largest buckets first, each at the smallest displacement whose slots
+    # are all free; the walk is in plain Python (a bucket holds a few keys)
+    taken = bytearray(size)
     disp = np.zeros(n_buckets, np.int32)
+    slot = np.empty(len(keys), np.int64)
+    h2l = h2.tolist()
+    for grp in groups:
+        idx = grp.tolist()
+        base = [h2l[i] for i in idx]
+        if len(set(base)) != len(base):
+            return None  # no displacement separates equal base slots
+        for d in range(size):
+            if not any(taken[(h + d) & mask] for h in base):
+                break
+        else:
+            return None
+        for i, h in zip(idx, base):
+            p = (h + d) & mask
+            taken[p] = 1
+            slot[i] = p
+        disp[h1[idx[0]]] = d
     rows = np.full((size, 4), -1, dtype=np.int32)
     rows[:, 2] = INF_RANK
-    for grp in groups:
-        base = h2[grp]
-        placed = False
-        for d in range(size):
-            pos = (base + d) & mask
-            if len(grp) > 1 and len(np.unique(pos)) != len(grp):
-                continue
-            if not taken[pos].any():
-                taken[pos] = True
-                disp[h1[grp[0]]] = d
-                rows[pos, 0] = a[grp].astype(np.int32)
-                rows[pos, 1] = b[grp].astype(np.int32)
-                rows[pos, 2] = ranks[grp]
-                rows[pos, 3] = new_ids[grp]
-                placed = True
-                break
-        if not placed:
-            return None
+    rows[slot, 0] = a.astype(np.int32)
+    rows[slot, 1] = b.astype(np.int32)
+    rows[slot, 2] = ranks
+    rows[slot, 3] = new_ids
     return ChdTable(disp, rows, size, n_buckets)
 
 
@@ -287,3 +296,21 @@ def qc_lookup(t1, t2, size: int, a, b, valid):
     rank = torch.where(hit1 | hit2, rm >> 16, INF_RANK).to(torch.int32)
     minted = (rm & 0xFFFF).to(torch.int32)
     return rank, minted
+
+
+def chd_lookup_rows(disp, rows, size: int, n_buckets: int, a, b, valid):
+    """(rank, minted) int32 for each pair ``(a, b)`` via the CHD table.
+
+    ``disp`` is the ``[n_buckets]`` int32 displacement array, ``rows`` the
+    ``[size, 4]`` int32 rows.  A pair hits only when both keys of its row
+    match; a miss, or ``~valid``, gives ``INF_RANK``.  ``minted`` is the
+    row's fourth word whatever the outcome, as in the JAX package's
+    ``chd_lookup_rows_jnp``; it is meaningful only on a hit.
+    """
+    bucket = mix_hash(a, b, n_buckets - 1).long()
+    d = disp[bucket].long()
+    pos = (mix_hash2(a, b, size - 1).long() + d) & (size - 1)
+    row = rows[pos]  # [..., 4]; depends on d
+    hit = (row[..., 0] == a) & (row[..., 1] == b) & valid
+    rank = torch.where(hit, row[..., 2], INF_RANK).to(torch.int32)
+    return rank, row[..., 3].to(torch.int32)

@@ -1,4 +1,8 @@
-"""Segmented BPE merge fixpoint: kernel K2 and its plain version.
+"""Segmented BPE merge fixpoint: kernels K2 and K5 and their plain versions.
+
+K2 (:func:`merge_words_qc`) probes the u16 two-choice cuckoo table, K5
+(:func:`merge_words`) the CHD table of the vocabularies past u16; both run
+the same walk (``csrc/kernels.cu``) and compute the same fixpoint.
 
 Tombstone layout: tokens stay at their byte positions and merged-away
 slots become -1.  Each step merges, in every word at once, occurrences of
@@ -22,9 +26,14 @@ from __future__ import annotations
 import torch
 
 from ..utils.cuda_build import check, kernel_library
-from .hashtable import INF_RANK, qc_lookup
+from .hashtable import INF_RANK, chd_lookup_rows, qc_lookup
 
-__all__ = ["merge_words_qc", "merge_fixpoint_qc_plain"]
+__all__ = [
+    "merge_words_qc",
+    "merge_fixpoint_qc_plain",
+    "merge_words",
+    "merge_fixpoint_chd_plain",
+]
 
 
 def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
@@ -82,17 +91,9 @@ def _segment_min(r: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     return mins[seg]
 
 
-def merge_fixpoint_qc_plain(tokens, wid, t1, t2, size: int):
-    """Plain PyTorch version of K2, on any device.
-
-    Args:
-      tokens: [B, L] int32, -1 = tombstone/pad.
-      wid: [B, L] int32 word ids (-1 past the end).
-      t1, t2: [m, 2] int32 bit views of the cuckoo tables; ``size`` = m.
-    Returns:
-      (tokens, count): ids at their original positions with -1
-      tombstones, and the per-row count of live ids.
-    """
+def _fixpoint_plain(tokens, wid, lookup):
+    """The JAX ``_segmented_fixpoint`` step for step; ``lookup(a, b,
+    valid) -> (rank, minted)`` probes the pair table."""
     seg_start = wid != _shift_right(wid, -2)
     t = tokens
     while True:
@@ -101,7 +102,7 @@ def merge_fixpoint_qc_plain(tokens, wid, t1, t2, size: int):
         t_next = _shift_left(tn_incl, -1)
         w_next = _shift_left(wn_incl, -3)
         pair_valid = alive & (t_next >= 0) & (w_next == wid) & (wid >= 0)
-        r, minted = qc_lookup(t1, t2, size, t, t_next, pair_valid)
+        r, minted = lookup(t, t_next, pair_valid)
         segmin = _segment_min(r, seg_start)
         is_best = (r == segmin) & (segmin < INF_RANK) & pair_valid
         # equal-pair runs: a match whose previous alive pair also matches
@@ -117,6 +118,69 @@ def merge_fixpoint_qc_plain(tokens, wid, t1, t2, size: int):
     return t, count
 
 
+def merge_fixpoint_qc_plain(tokens, wid, t1, t2, size: int):
+    """Plain PyTorch version of K2, on any device.
+
+    Args:
+      tokens: [B, L] int32, -1 = tombstone/pad.
+      wid: [B, L] int32 word ids (-1 past the end).
+      t1, t2: [m, 2] int32 bit views of the cuckoo tables; ``size`` = m.
+    Returns:
+      (tokens, count): ids at their original positions with -1
+      tombstones, and the per-row count of live ids.
+    """
+    return _fixpoint_plain(
+        tokens, wid, lambda a, b, valid: qc_lookup(t1, t2, size, a, b, valid)
+    )
+
+
+def merge_fixpoint_chd_plain(tokens, wid, disp, rows, size: int, n_buckets: int):
+    """Plain PyTorch version of K5, on any device: the JAX ``merge_words``.
+
+    Args as :func:`merge_fixpoint_qc_plain`, with the CHD table:
+    ``disp`` [n_buckets] int32, ``rows`` [size, 4] int32.
+    """
+    return _fixpoint_plain(
+        tokens, wid,
+        lambda a, b, valid: chd_lookup_rows(disp, rows, size, n_buckets, a, b, valid),
+    )
+
+
+def _check_rows(fn: str, tokens, wid, tables, max_L: int) -> None:
+    """The argument checks K2 and K5 share: int32, contiguous, on the
+    tokens' device, of the given shapes; rows that fit shared memory."""
+    B, L = tokens.shape
+    for name, t, shape in (("tokens", tokens, (B, L)), ("wid", wid, (B, L)), *tables):
+        if t.device != tokens.device or t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{fn}: {name} must be int32 {shape} on {tokens.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if L > max_L:
+        raise ValueError(f"{fn}: rows of {L} exceed the kernel's shared memory")
+
+
+def _launch(fn: str, entry: str, tokens, wid, *table_args):
+    """Allocate the outputs and launch the C entry ``entry`` of K2 or K5 on
+    the tokens' current stream.  Returns (tokens, count, launched)."""
+    B, L = tokens.shape
+    out = torch.empty_like(tokens)
+    count = torch.empty(B, dtype=torch.int32, device=tokens.device)
+    if out.numel() == 0:
+        count.zero_()
+        return out, count, False
+    stream = torch.cuda.current_stream(tokens.device).cuda_stream
+    launch = getattr(kernel_library().lib, entry)
+    check(
+        launch(tokens.data_ptr(), wid.data_ptr(), *table_args, out.data_ptr(),
+               count.data_ptr(), B, L, stream),
+        fn,
+    )
+    return out, count, True
+
+
 def merge_words_qc(tokens, wid, t1, t2, size: int):
     """K2 on CUDA tensors, the plain version on CPU tensors.
 
@@ -130,40 +194,46 @@ def merge_words_qc(tokens, wid, t1, t2, size: int):
         return merge_fixpoint_qc_plain(tokens, wid, t1, t2, size)
     if tokens.device.type != "cuda":
         raise ValueError(f"merge_words_qc: unsupported device {tokens.device}")
-    B, L = tokens.shape
-    for name, t, shape in (
-        ("tokens", tokens, (B, L)),
-        ("wid", wid, (B, L)),
-        ("t1", t1, (size, 2)),
-        ("t2", t2, (size, 2)),
-    ):
-        if t.device != tokens.device or t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(
-                f"merge_words_qc: {name} must be int32 {shape} on {tokens.device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"merge_words_qc: {name} must be contiguous")
     if size & (size - 1):
         raise ValueError(f"merge_words_qc: table size {size} is not a power of two")
-    if L > 16384:
-        raise ValueError(f"merge_words_qc: rows of {L} exceed the kernel's shared memory")
-    out = torch.empty_like(tokens)
-    count = torch.empty(B, dtype=torch.int32, device=tokens.device)
-    if out.numel() == 0:
-        count.zero_()
-        return out, count
-    lib = kernel_library().lib
-    stream = torch.cuda.current_stream(tokens.device).cuda_stream
-    check(
-        lib.ctok_merge_fixpoint_qc(
-            tokens.data_ptr(), wid.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-            size - 1, out.data_ptr(), count.data_ptr(), B, L, stream,
-        ),
-        "merge_words_qc",
+    _check_rows("merge_words_qc", tokens, wid,
+                (("t1", t1, (size, 2)), ("t2", t2, (size, 2))), 16384)
+    out, count, launched = _launch(
+        "merge_words_qc", "ctok_merge_fixpoint_qc", tokens, wid,
+        t1.data_ptr(), t2.data_ptr(), size - 1,
     )
-    merge_words_qc.launches += 1
+    merge_words_qc.launches += launched
     return out, count
 
 
 merge_words_qc.launches = 0  # launches of K2 (not of the plain version)
+
+
+def merge_words(tokens, wid, disp, rows, size: int, n_buckets: int):
+    """K5 on CUDA tensors, the plain version on CPU tensors.
+
+    Same arguments and result as :func:`merge_fixpoint_chd_plain` when the
+    table is well-formed, which the device pipeline requires; word ids as
+    for :func:`merge_words_qc`.
+    """
+    if tokens.device.type == "cpu":
+        return merge_fixpoint_chd_plain(tokens, wid, disp, rows, size, n_buckets)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"merge_words: unsupported device {tokens.device}")
+    for name, n in (("table size", size), ("bucket count", n_buckets)):
+        if n <= 0 or n & (n - 1):
+            raise ValueError(f"merge_words: {name} {n} is not a power of two")
+    # 18 B of shared memory a position (the cached probes take 8 B)
+    _check_rows("merge_words", tokens, wid,
+                (("disp", disp, (n_buckets,)), ("rows", rows, (size, 4))), 12288)
+    if rows.data_ptr() % 16:
+        raise ValueError("merge_words: rows must be 16-byte aligned (one int4 load a probe)")
+    out, count, launched = _launch(
+        "merge_words", "ctok_merge_fixpoint_chd", tokens, wid,
+        disp.data_ptr(), rows.data_ptr(), size - 1, n_buckets - 1,
+    )
+    merge_words.launches += launched
+    return out, count
+
+
+merge_words.launches = 0  # launches of K5 (not of the plain version)

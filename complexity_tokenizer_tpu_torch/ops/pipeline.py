@@ -3,13 +3,15 @@
 Batch encode = UTF-8 bytes (normalized and prefixed by the Tokenizer)
 packed into ``[B, L]`` uint8 tensors at bucketed widths -> on the device:
 pre-split (torch ops), byte -> token seed (kernel K1), segmented merge
-fixpoint (kernel K2) -> host unpack to ragged id lists.  Texts longer than
+fixpoint (:meth:`EncodePipeline.merge_fixpoint`: kernel K2 on the u16
+cuckoo table when it is eligible, kernel K5 on the CHD table otherwise)
+-> host unpack to ragged id lists.  Texts longer than
 the widest bucket are cut at word boundaries; one word longer than that
 goes to the host oracle.
 
-Eligibility: BPE + ByteLevel + a well-formed merge table whose cuckoo table
-fits u16.  Anything else raises ``NotImplementedError``: the pipeline never
-falls back.  Texts that may hold an added token are routed to the host tier
+Eligibility: BPE + ByteLevel + a well-formed merge table with a cuckoo or
+a CHD pair table.  Anything else raises ``NotImplementedError``: the
+pipeline never falls back.  Texts that may hold an added token are routed to the host tier
 by the Tokenizer.
 """
 
@@ -23,7 +25,6 @@ from ..core.pretokenizers import gpt2_split_spans
 from ..utils.bytelevel import encode_bytes
 from ..utils.device import resolve_device
 from ..utils.unicode_tables import gpt2_class_table
-from .merge import merge_words_qc
 from .presplit import presplit
 from .seed import seed_tokens
 
@@ -60,22 +61,27 @@ class EncodePipeline:
     """Holds the tables on one device and runs the encode pass there."""
 
     def __init__(self, tables, host_bpe, device):
-        if tables.qc is None:
+        if tables.qc is None and tables.chd is None:
             raise NotImplementedError(
-                "the merge table does not fit the u16 cuckoo table; the CHD "
-                "fixpoint is not ported"
+                "the merge table fits neither the u16 cuckoo table nor a CHD table"
             )
         self.device = torch.device(device)
         self._host_bpe = host_bpe
         self.max_id = tables.max_id
+        qc, chd = tables.qc, tables.chd
         self.tables = tables_to_device(
             byte_token_table=tables.byte_token_table,
-            qc_t1=tables.qc.t1,
-            qc_t2=tables.qc.t2,
-            qc_size=tables.qc.size,
             class_table=gpt2_class_table(),
             device=self.device,
+            **(dict(qc_t1=qc.t1, qc_t2=qc.t2, qc_size=qc.size) if qc is not None else {}),
+            **(dict(chd_disp=chd.disp, chd_rows=chd.rows) if chd is not None else {}),
         )
+
+    def merge_fixpoint(self, tokens: torch.Tensor, wid: torch.Tensor):
+        """The segmented merge fixpoint over this pipeline's pair table: K2
+        when the cuckoo table is eligible, K5 on the CHD table otherwise.
+        Returns (tokens, count)."""
+        return self.tables.merge_fixpoint(tokens, wid)
 
     def encode_rows(self, arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
         """[B, L] uint8 + [B] int32 -> [B, L] int32 ids with -1 tombstones."""
@@ -84,7 +90,7 @@ class EncodePipeline:
         lens_t = torch.from_numpy(lens).to(self.device)
         _start, word_id, _valid = presplit(arr_t, lens_t, tb.class_table)
         tokens = seed_tokens(arr_t, lens_t, tb.byte_token_table)
-        tokens, _count = merge_words_qc(tokens, word_id, tb.qc_t1, tb.qc_t2, tb.qc_size)
+        tokens, _count = self.merge_fixpoint(tokens, word_id)
         return tokens.cpu().numpy()
 
     def _encode_packed(self, data: list[bytes]) -> list[list[int]]:

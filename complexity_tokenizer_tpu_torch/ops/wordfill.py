@@ -7,7 +7,8 @@ JAX package's unphased fill body (``ops/wordpath.py``,
 - K3 (:func:`word_ids`): start bits -> word ids, -1 at and past
   ``row_len``;
 - K1 (``ops/seed.py``): bytes -> token ids, -1 at and past ``row_len``;
-- K2 (``ops/merge.py``): the merge fixpoint, and each row's live count;
+- K2 or K5 (``ops/merge.py``, through ``TorchTables.merge_fixpoint``): the
+  merge fixpoint, and each row's live count;
 - K4 (:func:`fill_compact`): one fused uint8 buffer,
   ``[cap ids (uint16 or int32) | B*W/8 alive bits | int32 total]``, byte
   for byte the JAX body's layout.
@@ -24,7 +25,6 @@ from __future__ import annotations
 import torch
 
 from ..utils.cuda_build import check, kernel_library
-from .merge import merge_words_qc
 from .seed import seed_tokens
 
 __all__ = [
@@ -179,7 +179,7 @@ fill_compact.launches = 0  # launches of K4 (not of the plain version)
 
 
 def word_fill(bytes_bw, start_bits, row_len, cap: int, *, tables, itemsize: int):
-    """The fill of one pack of word rows: K3 -> K1 -> K2 -> K4.
+    """The fill of one pack of word rows: K3 -> K1 -> K2 (or K5) -> K4.
 
     Args:
       bytes_bw: [B, W] uint8 packed words (``ctok_pack_seg``).
@@ -194,5 +194,5 @@ def word_fill(bytes_bw, start_bits, row_len, cap: int, *, tables, itemsize: int)
     """
     wid = word_ids(start_bits, row_len)
     tokens = seed_tokens(bytes_bw, row_len, tables.byte_token_table)
-    merged, count = merge_words_qc(tokens, wid, tables.qc_t1, tables.qc_t2, tables.qc_size)
+    merged, count = tables.merge_fixpoint(tokens, wid)
     return fill_compact(merged, count, cap, itemsize)

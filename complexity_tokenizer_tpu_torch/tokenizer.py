@@ -16,8 +16,8 @@ package:
 ``device="cpu"``, where every kernel wrapper runs its plain version.  Texts
 that may hold an added token go to the oracle, which splits on added
 tokens.  A configuration the device path does not run raises; nothing
-falls back.  The text-level pipeline (pre-split, K1, K2 over whole texts)
-stays available as ``Tokenizer.pipeline(device).encode_bytes``.
+falls back.  The text-level pipeline (pre-split, K1, K2 or K5 over whole
+texts) stays available as ``Tokenizer.pipeline(device).encode_bytes``.
 """
 
 from __future__ import annotations

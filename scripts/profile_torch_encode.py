@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's encode goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_encode.py [--texts 10000] [--seed 17]
+    python3 scripts/profile_torch_encode.py [--texts 10000] [--seed 17] [--vocab 50k|100k]
 
-Encodes the ``chip_smoke.py`` corpus at the 50K vocabulary, each run from a
-fresh ``Tokenizer.from_file`` (warm start on), under ``torch.profiler``:
+Encodes the ``chip_smoke.py`` corpus at the 50K vocabulary (the merge
+fixpoint K2) or, with ``--vocab 100k``, at the 100K one (K5), each run from
+a fresh ``Tokenizer.from_file`` (warm start on), under ``torch.profiler``:
 
 1. ``backend="device"``, first call (it fills the word caches) and a warm
    call.  The first call is run stage by stage as ``encode_batch`` runs it,
@@ -21,7 +22,8 @@ fresh ``Tokenizer.from_file`` (warm start on), under ``torch.profiler``:
 
 For each: the wall time, the device's busy time (the union of kernel
 intervals) and idle share, and the kernels that take the most device time.
-Then K2 alone on rows of one 4,096-byte word of one repeated letter.  Needs
+Then the merge fixpoint alone on rows of one 4,096-byte word of one
+repeated letter.  Needs
 a CUDA card; imports nothing of JAX.
 """
 
@@ -102,6 +104,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--texts", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=17)
+    ap.add_argument("--vocab", choices=("50k", "100k"), default="50k")
     args = ap.parse_args(argv)
 
     import torch
@@ -110,21 +113,21 @@ def main(argv=None) -> int:
         print("profile_torch_encode: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from chip_smoke import TOKENIZER_JSON, _time_ms, main_corpus
-    from complexity_tokenizer_tpu_torch.ops.merge import merge_words_qc
+    from chip_smoke import TOKENIZER_100K, TOKENIZER_JSON, _time_ms, main_corpus
     from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
     from complexity_tokenizer_tpu_torch.ops.presplit import presplit
     from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
     from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
 
-    print(f"device: {torch.cuda.get_device_name(0)}")
+    path = TOKENIZER_100K if args.vocab == "100k" else TOKENIZER_JSON
+    print(f"device: {torch.cuda.get_device_name(0)}; tokenizer {os.path.basename(path)}")
     texts = main_corpus(args.texts, args.seed)
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
     print(f"texts {len(texts)} bytes {n_bytes}")
-    host = Tokenizer.from_file(TOKENIZER_JSON).encode_batch(texts, backend="host")
+    host = Tokenizer.from_file(path).encode_batch(texts, backend="host")
 
     # 1. backend="device", stage by stage, as encode_batch runs it
-    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    tok = Tokenizer.from_file(path)
     wp = tok._get_word_path("cuda")  # tables on the card; kernels built
     torch.cuda.synchronize()
     st = Stages()
@@ -162,7 +165,7 @@ def main(argv=None) -> int:
     assert warm == host
 
     # 2. backend="auto"
-    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    tok = Tokenizer.from_file(path)
     wp = tok._auto_word_path("cuda")
     torch.cuda.synchronize()
     st = Stages()
@@ -207,10 +210,9 @@ def main(argv=None) -> int:
         arr, lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
         _, wid, _ = presplit(arr, lens, tb.class_table)
         tokens = seed_tokens(arr, lens, tb.byte_token_table)
-        ms = _time_ms(
-            lambda: merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size), 3
-        )
-        print(f"K2 one 4096-byte word per row, [{B},4096]: {ms:.3f} ms")
+        ms = _time_ms(lambda: tb.merge_fixpoint(tokens, wid), 3)
+        fixpoint = "K2" if tb.qc_t1 is not None else "K5"
+        print(f"{fixpoint} one 4096-byte word per row, [{B},4096]: {ms:.3f} ms")
     return 0
 
 

@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from complexity_tokenizer_tpu_torch.ops.merge import merge_fixpoint_qc_plain, merge_words_qc
+from complexity_tokenizer_tpu_torch.ops.merge import (
+    merge_fixpoint_chd_plain,
+    merge_fixpoint_qc_plain,
+    merge_words,
+    merge_words_qc,
+)
 from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
 from complexity_tokenizer_tpu_torch.ops.presplit import presplit
 from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens, seed_tokens_plain
@@ -37,6 +42,9 @@ pytestmark = pytest.mark.gpu
 BENCH_50K = os.path.join(
     os.path.dirname(__file__), "..", ".cache", "bench_tokenizer_r4_50k.json"
 )
+BENCH_100K = os.path.join(
+    os.path.dirname(__file__), "..", ".cache", "bench_tokenizer_100k.json"
+)
 
 
 def _need_card():
@@ -47,6 +55,11 @@ def _need_card():
 @pytest.fixture(scope="module")
 def tok50k():
     return Tokenizer.from_file(BENCH_50K)
+
+
+@pytest.fixture(scope="module")
+def tok100k():
+    return Tokenizer.from_file(BENCH_100K)
 
 
 @pytest.mark.parametrize(
@@ -132,6 +145,126 @@ def test_merge_kernel_matches_plain_on_run_rows(tok50k, B, L, breaks):
     exp_t, exp_c = merge_fixpoint_qc_plain(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
     assert torch.equal(got_t, exp_t)
     assert torch.equal(got_c, exp_c)
+
+
+def _corpus_rows(B, L, seed):
+    texts = zipf_corpus(B, seed=seed, lo=max(L // 8, 1), hi=L)
+    texts[: min(B, 4)] = ["a" * L, " ".join(MULTI_PIECES)[:L], "", "aaaa aaaa"][: min(B, 4)]
+    arr, lens = pack_texts([t.encode("utf-8")[:L] for t in texts], L, B)
+    return torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+
+
+def _chd_args(tb):
+    return tb.chd_disp, tb.chd_rows, tb.chd_size, tb.chd_n_buckets
+
+
+@pytest.mark.parametrize(
+    "B,L", [(8192, 128), (2048, 512), (16, 4096), (16, 128), (64, 1024), (64, 2048),
+            (1, 16), (3, 8), (5, 200)]
+)
+def test_chd_merge_kernel_matches_plain(tok100k, B, L):
+    """K5 bit for bit against its plain version at 100K (ids and ranks past
+    u16), on corpus rows with a row of one letter, a multilingual row and an
+    empty row."""
+    _need_card()
+    tb = tok100k.pipeline("cuda").tables
+    assert tb.qc_t1 is None
+    arr, lens = _corpus_rows(B, L, seed=L + 1)
+    _, wid, _ = presplit(arr, lens, tb.class_table)
+    # K1 takes W % 16 == 0 only; K5 any width
+    tokens = seed_tokens_plain(arr, lens, tb.byte_token_table)
+    before = merge_words.launches
+    got_t, got_c = merge_words(tokens, wid, *_chd_args(tb))
+    torch.cuda.synchronize()
+    assert merge_words.launches == before + 1
+    exp_t, exp_c = merge_fixpoint_chd_plain(tokens, wid, *_chd_args(tb))
+    assert torch.equal(got_t, exp_t)
+    assert torch.equal(got_c, exp_c)
+
+
+@pytest.mark.parametrize("breaks", [False, True])
+@pytest.mark.parametrize("B,L", [(16, 1024), (4, 4096), (1, 4096)])
+def test_chd_merge_kernel_matches_plain_on_run_rows(tok100k, B, L, breaks):
+    """K5 on the rows that separate the greedy apply from the JAX rule (as
+    for K2), ``[1, 4096]`` being one word of one letter."""
+    _need_card()
+    tb = tok100k.pipeline("cuda").tables
+    text = " ".join(zipf_corpus(400, seed=L)).encode("utf-8")
+    rows = [b"a" * L] if B == 1 else run_rows(text, B, L, breaks)
+    arr, lens = pack_texts(rows, L, B)
+    arr, lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+    table = tb.byte_token_table.clone()
+    if breaks:
+        rng = np.random.RandomState(L)
+        table[torch.from_numpy(rng.choice(256, 24, replace=False)).cuda()] = -1
+        table[list(RUN_BREAKS)] = -1
+    _, wid, _ = presplit(arr, lens, tb.class_table)
+    tokens = seed_tokens(arr, lens, table)
+    got_t, got_c = merge_words(tokens, wid, *_chd_args(tb))
+    torch.cuda.synchronize()
+    exp_t, exp_c = merge_fixpoint_chd_plain(tokens, wid, *_chd_args(tb))
+    assert torch.equal(got_t, exp_t)
+    assert torch.equal(got_c, exp_c)
+
+
+@pytest.mark.parametrize("B,L", [(8192, 128), (16, 4096), (64, 1024)])
+def test_chd_and_cuckoo_kernels_agree(tok50k, B, L):
+    """At 50K both tables exist: K5 on the CHD table and K2 on the cuckoo
+    table give the same ids on the same rows."""
+    _need_card()
+    tb = tok50k.pipeline("cuda").tables
+    assert tb.qc_t1 is not None and tb.chd_rows is not None
+    arr, lens = _corpus_rows(B, L, seed=L + 2)
+    _, wid, _ = presplit(arr, lens, tb.class_table)
+    tokens = seed_tokens(arr, lens, tb.byte_token_table)
+    k5_t, k5_c = merge_words(tokens, wid, *_chd_args(tb))
+    k2_t, k2_c = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    torch.cuda.synchronize()
+    assert torch.equal(k5_t, k2_t)
+    assert torch.equal(k5_c, k2_c)
+
+
+def test_100k_paths_on_card_match_host(tok100k):
+    """At 100K: backend="device", "auto" (drained, then again) and the text
+    pipeline on the card equal the host oracle, and K5 was launched."""
+    _need_card()
+    tok = Tokenizer.from_file(BENCH_100K)
+    texts = zipf_corpus(500, seed=15) + list(MULTI_PIECES) + ["a" * 5000, "x </s> y", "", " "]
+    host = tok.encode_batch(texts, backend="host")
+    before = merge_words.launches
+    assert tok.encode_batch(texts, backend="device") == host
+    assert merge_words.launches > before
+    auto = Tokenizer.from_file(BENCH_100K)
+    assert auto.encode_batch(texts) == host
+    auto._auto_word_path().drain_async(timeout=300)
+    assert auto.encode_batch(texts) == host
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts[:500]])
+    before = merge_words.launches
+    assert tok.pipeline().encode_bytes(data) == host[:500]
+    assert merge_words.launches > before
+
+
+def test_100k_word_fill_on_card_matches_cpu(tok100k):
+    """The whole fill at 100K (K3, K1, K5, K4 with int32 ids) on the card
+    equals the plain versions on the CPU, byte for byte."""
+    _need_card()
+    wp = tok100k._get_word_path("cuda")
+    assert np.dtype(wp._out_dtype).itemsize == 4
+    words = sorted({w.encode() for t in zipf_corpus(3000, seed=19) for w in t.split()})
+    buf = np.frombuffer(b"".join(words), np.uint8)
+    offs = np.zeros(len(words) + 1, np.int64)
+    np.cumsum([len(w) for w in words], out=offs[1:])
+    cpu_tables = tok100k.pipeline("cpu").tables
+    for B in (64, 256, 1024):
+        arr, marks, _starts, _n_fit, _rows = wp._pack_seg(buf, offs, 0, len(words), B)
+        bits = np.packbits(marks == 1, axis=1, bitorder="little")
+        row_len = (marks > 0).sum(axis=1).astype(np.int32)
+        for cap in (B * 128 * 3 // 8, B * 128):
+            args = [torch.from_numpy(x) for x in (arr, bits, row_len)]
+            exp = word_fill(*args, cap, tables=cpu_tables, itemsize=4)
+            got = word_fill(*(x.cuda() for x in args), cap,
+                            tables=wp.pipeline.tables, itemsize=4)
+            assert torch.equal(got.cpu(), exp), (B, cap)
 
 
 def test_encode_batch_on_card_matches_host(tok50k):
@@ -275,6 +408,17 @@ def test_wrappers_refuse_bad_inputs_on_card():
     tab = torch.zeros((64, 2), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):  # table on the wrong device
         merge_words_qc(t, t, tab.cpu(), tab, 64)
+    disp = torch.zeros(16, dtype=torch.int32, device="cuda")
+    rows = torch.zeros((65, 4), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):  # rows of the wrong shape
+        merge_words(t, t, disp, rows[:32], 64, 16)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        merge_words(t, t, disp, rows.view(-1)[2:258].view(64, 4), 64, 16)
+    with pytest.raises(ValueError):  # a size that is not a power of two
+        merge_words(t, t, disp, rows[:48], 48, 16)
+    long = torch.zeros((1, 16384), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):  # rows past K5's shared memory
+        merge_words(long, long, disp, rows[:64], 64, 16)
     bits = torch.zeros((2, 16), dtype=torch.uint8, device="cuda")
     with pytest.raises(ValueError):  # row_len of the wrong dtype
         word_ids(bits, torch.zeros(2, dtype=torch.int64, device="cuda"))

@@ -117,15 +117,21 @@ def test_pipeline_without_device_raises_without_card(no_card):
 
 
 def test_device_path_refuses_ineligible_tables():
-    """Past u16 the cuckoo table is ineligible and the CHD fixpoint is not
-    ported: backend="device" raises instead of falling back."""
+    """Past u16 the cuckoo table is ineligible: backend="device" runs the CHD
+    fixpoint (K5's plain version on the CPU) and gives the host's ids, and
+    a table with neither a cuckoo nor a CHD table raises."""
     vocab = {"a": 0, "b": 1, "ab": 70000}
     tok = Tokenizer.from_str(
         json.dumps({"model": {"type": "BPE", "vocab": vocab, "merges": ["a b"]}})
     )
-    with pytest.raises(NotImplementedError):
-        tok.encode_batch(["ab"], device="cpu")
+    assert tok.device_tables().qc is None and tok.device_tables().chd is not None
+    assert tok.encode_batch(["ab"], backend="device", device="cpu") == [[70000]]
     assert tok.encode_batch(["ab"], backend="host") == [[70000]]
+    tok.device_tables().chd = None  # as when build_chd_table fails
+    tok._pipelines.clear()
+    tok._word_paths.clear()
+    with pytest.raises(NotImplementedError, match="CHD"):
+        tok.encode_batch(["ab"], backend="device", device="cpu")
 
 
 @pytest.mark.parametrize(

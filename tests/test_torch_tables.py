@@ -67,13 +67,15 @@ def test_qc_table_matches(both):
 
 
 def test_chd_table_matches(both):
-    """The port's CHD builder (no pipeline of this slice reads it) against
-    the table the JAX package's build_device_tables holds."""
-    pt, _, _, tj = both
+    """The port's CHD builder, and the table its build_device_tables holds
+    (K5 reads it past u16), against the table the JAX package's
+    build_device_tables holds."""
+    pt, tp, _, tj = both
     chd = build_chd_table(pt.bpe.merge_ranks, pt.bpe.merge_ops)
-    assert (chd.size, chd.n_buckets) == (tj.chd.size, tj.chd.n_buckets)
-    np.testing.assert_array_equal(chd.disp, tj.chd.disp)
-    np.testing.assert_array_equal(chd.rows, tj.chd.rows)
+    for t in (chd, tp.chd):
+        assert (t.size, t.n_buckets) == (tj.chd.size, tj.chd.n_buckets)
+        np.testing.assert_array_equal(t.disp, tj.chd.disp)
+        np.testing.assert_array_equal(t.rows, tj.chd.rows)
 
 
 def test_class_table_matches():

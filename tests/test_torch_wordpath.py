@@ -195,23 +195,29 @@ def test_async_fill_error_is_raised_in_the_serving_thread(monkeypatch):
 
 
 def test_word_path_refuses_tables_the_device_does_not_run(jt):
-    """Past u16 and not well-formed: "device" and "auto" raise before any
-    encode; "native" and "host" serve the table exactly."""
+    """Not well-formed: "device" and "auto" raise before any encode.  Past
+    u16 they run the CHD fixpoint and give the JAX package's ids.  "native"
+    and "host" serve both tables exactly."""
     past_u16 = {"model": {"type": "BPE", "vocab": {"a": 0, "b": 1, "ab": 70000},
                           "merges": ["a b"]}}
     bad = {"model": {"type": "BPE",
                      "vocab": {"a": 0, "b": 1, "c": 2, "ab": 3, "abc": 4, "ca": 5},
                      "merges": ["ab c", "a b", "c a"]}}
-    for j, match in ((past_u16, "u16"), (bad, "well-formed")):
+    for j, match in ((past_u16, None), (bad, "well-formed")):
         js = json.dumps(j)
         pt, jt2 = Tokenizer.from_str(js), JaxTokenizer.from_str(js)
         texts = ["ab abc cab", "b a c"]
+        exp = [jt2._encode_host(t) for t in texts]
         for backend in ("device", "auto"):
+            if match is None:
+                assert pt.encode_batch(texts, backend=backend, device="cpu") == exp
+                flat, offs = pt.encode_batch_ragged(texts, backend=backend, device="cpu")
+                assert [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))] == exp
+                continue
             with pytest.raises(NotImplementedError, match=match):
                 pt.encode_batch(texts, backend=backend, device="cpu")
             with pytest.raises(NotImplementedError, match=match):
                 pt.encode_batch_ragged(texts, backend=backend, device="cpu")
-        exp = [jt2._encode_host(t) for t in texts]
         for backend in ("native", "host"):
             assert pt.encode_batch(texts, backend=backend) == exp
 
