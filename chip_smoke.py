@@ -17,7 +17,7 @@ Phases (each prints its seconds):
    the 50,000-entry vocabulary (its merge fixpoint is K2, on the u16 cuckoo
    table) and the 100,000-entry one (ids and ranks past u16: K5, on the CHD
    table; the word path's ids are int32).  For each: the load cost
-   (``from_file``, the tables with the CHD build, the tables to the card);
+   (``from_file``, the tables' build, the tables to the card);
    the text pipeline (``Tokenizer.pipeline().encode_bytes``: pre-split, K1,
    K2 or K5); every distinct word through the device on a fresh native
    context, each word's ids against the host merge; ``backend="device"``
@@ -39,7 +39,9 @@ Phases (each prints its seconds):
    rule (``run_rows``) at ``[16, 1024]`` and ``[4, 4096]``, with and without
    OOV bytes inside the runs, and on one 4,096-byte word of one letter.  K5
    on the same packs and batches as K2 and on the one-letter word, under
-   the 50K table's CHD form, equal to K2 there, both timed warm and cold.
+   the 50K vocabulary's CHD table (built for this check: the pipeline
+   builds none where the cuckoo table fits), equal to K2 there, both timed
+   warm and cold.
    At 100K: K5 on its own packs and batches (warm and cold), on the
    one-letter word and on edge shapes.  K3 and K4, and the whole fill
    against its plain versions on the CPU, on the word packs of both
@@ -332,8 +334,9 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
     # the least work any fixpoint needs on these rows: every initial
     # adjacent pair of a word probed once, and the up to two new pairs of
     # each merge; bytes: tokens and wid in, tokens and counts out, and the
-    # table: K2's two cuckoo tables once, K5's 16-byte row and 4-byte
-    # displacement for each probe
+    # table's bytes these probes touch, each once: a probe reads K2's two
+    # 8-byte cuckoo rows, or K5's 4-byte displacement and 16-byte row,
+    # and no probe count needs more than the whole table
     alive = tokens >= 0
     rows = alive.nonzero()[:, 0]
     wids = wid[alive]
@@ -341,9 +344,11 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
     merges = int(alive.sum()) - int(exp_c.sum())
     probes = pairs + 2 * merges
     if table == "qc":
-        table_bytes, ops = 2 * tb.qc_t1.numel() * 4, probes * OPS_PER_PROBE
+        table_bytes = min(probes * 16, 2 * tb.qc_t1.numel() * 4)
+        ops = probes * OPS_PER_PROBE
     else:
-        table_bytes, ops = probes * (16 + 4), probes * OPS_PER_PROBE_CHD
+        table_bytes = min(probes * (4 + 16), 4 * (tb.chd_disp.numel() + tb.chd_rows.numel()))
+        ops = probes * OPS_PER_PROBE_CHD
     bound_ms, bound_by = _bound(12 * B * L + 4 * B + table_bytes, ops)
     cold_txt = f" cold={ms_cold:.4f} ms" if ms_cold is not None else ""
     plain_txt = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
@@ -499,6 +504,23 @@ KERNEL_NAMES = ("seed_tokens", "merge_fixpoint_qc", "merge_fixpoint_chd", "word_
                 "fill_compact")
 
 
+def with_chd_table(tok):
+    """The tables of ``tok``, whose merges fit the u16 cuckoo table, on the
+    card with the vocabulary's CHD table beside the cuckoo table (the
+    pipeline builds a CHD table only past u16): K5 then runs on the rows K2
+    runs on."""
+    from complexity_tokenizer_tpu_torch.convert import tables_to_device
+    from complexity_tokenizer_tpu_torch.ops.hashtable import build_chd_table
+    from complexity_tokenizer_tpu_torch.utils.unicode_tables import gpt2_class_table
+
+    dt = tok.device_tables()
+    chd = build_chd_table(tok.bpe.merge_ranks, tok.bpe.merge_ops)
+    return tables_to_device(
+        byte_token_table=dt.byte_token_table, class_table=gpt2_class_table(), device="cuda",
+        qc_t1=dt.qc.t1, qc_t2=dt.qc.t2, qc_size=dt.qc.size, chd_disp=chd.disp, chd_rows=chd.rows,
+    )
+
+
 def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, native) -> dict:
     """The port's paths on one configuration, each against the host oracle
     on every text, each with the launch counts set to 0 just before and
@@ -546,11 +568,14 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t1
     fixpoint = "K2 (cuckoo)" if pipe.tables.qc_t1 is not None else "K5 (CHD)"
+    pair_table = (
+        f"u16 cuckoo, {tables.qc.size} rows" if tables.qc is not None
+        else f"CHD, {tables.chd.size} rows / {tables.chd.n_buckets} buckets"
+    )
     print(
         f"[{label}] {len(tok.bpe.vocab)} ids, {len(tok.bpe.merge_ranks)} merges, largest rank "
         f"{max(tok.bpe.merge_ranks.values())}, largest id {tables.max_id}; fixpoint {fixpoint}; "
-        f"from_file {load_s:.3f} s, tables (CHD {tables.chd.size} rows / "
-        f"{tables.chd.n_buckets} buckets, cuckoo {'yes' if tables.qc else 'no'}) {tables_s:.3f} s, "
+        f"from_file {load_s:.3f} s, tables ({pair_table}) {tables_s:.3f} s, "
         f"tables to the card {upload_s:.3f} s",
         flush=True,
     )
@@ -673,8 +698,8 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     warm_s = time.perf_counter() - t1
     print(
         f"[{label}] word path, backend=device: from_file {load_d:.3f} s "
-        f"({tok_d._warm_start_words} words warm-started), word-path set-up (tables, "
-        f"CHD build included) {setup_s:.3f} s; first call {first_s:.3f} s "
+        f"({tok_d._warm_start_words} words warm-started), word-path set-up (the tables "
+        f"built and to the card) {setup_s:.3f} s; first call {first_s:.3f} s "
         f"({wp_d.words_filled} words filled; packs {dict(sorted(fill_first['packs'].items()))}, "
         f"spills {fill_first['spills']}; host seconds "
         f"{({k: round(v, 4) for k, v in fill_first['seconds'].items()})}), warm {warm_s:.3f} s "
@@ -836,6 +861,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tb = r50["pipe"].tables
     cpu_tb = r50["tok"].pipeline("cpu").tables
+    tb_chd = with_chd_table(r50["tok"])
     itemsize = np.dtype(r50["wp"]._out_dtype).itemsize
     seed_res: list[dict] = []
     merge_res: list[dict] = []
@@ -843,8 +869,9 @@ def main(argv=None) -> int:
     k3_res: list[dict] = []
     k4_res: list[dict] = []
     packs, batches = r50["packs"], r50["batches"]
-    # 50K: K5 on the same rows as K2 (both tables exist), so the cost of
-    # the dependent probe shows
+    # 50K: K5 on the same rows as K2 (on the vocabulary's CHD table, which
+    # the pipeline does not build where the cuckoo table fits), so the cost
+    # of the dependent probe shows
     for B in sorted(packs):
         a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
         r3, r4 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
@@ -853,13 +880,13 @@ def main(argv=None) -> int:
         seed_res.append(check_seed("word pack", a, row_len, tb.byte_token_table))
         wid = word_ids_plain(bits, row_len)
         merge_res.append(check_merge("word pack", tb, a, row_len, wid=wid, cold=True))
-        chd_res.append(check_merge("word pack, 50K", tb, a, row_len, wid=wid, table="chd",
+        chd_res.append(check_merge("word pack, 50K", tb_chd, a, row_len, wid=wid, table="chd",
                                    cold=True, plain_reps=0))
     for shape in r50["shapes"]:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
         seed_res.append(check_seed("text batch", arr, lens, tb.byte_token_table))
         merge_res.append(check_merge("text batch", tb, arr, lens, cold=True))
-        chd_res.append(check_merge("text batch, 50K", tb, arr, lens, table="chd", cold=True,
+        chd_res.append(check_merge("text batch, 50K", tb_chd, arr, lens, table="chd", cold=True,
                                    plain_reps=0))
     rng = np.random.RandomState(args.seed)
     table = rng.randint(0, 50000, size=256).astype(np.int32)
@@ -891,7 +918,7 @@ def main(argv=None) -> int:
             ))
     one_letter = [torch.from_numpy(x).cuda() for x in pack_texts([b"a" * 4096], 4096, 1)]
     merge_res.append(check_merge("one letter", tb, *one_letter, plain_reps=1))
-    chd_res.append(check_merge("one letter, 50K", tb, *one_letter, table="chd", plain_reps=0))
+    chd_res.append(check_merge("one letter, 50K", tb_chd, *one_letter, table="chd", plain_reps=0))
     _phase("kernels at 50K", t0)
 
     # 100K: K5 on its own paths' batches and packs, K4 with int32 ids

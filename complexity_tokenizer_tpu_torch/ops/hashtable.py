@@ -8,9 +8,9 @@ Two table forms are built on the host with numpy:
   device fixpoint (``ops/merge.py``) runs on it.
 - :class:`ChdTable`, a compress-hash-displace perfect hash of ``[T, 4]``
   int32 rows ``(key_a, key_b, rank, minted)``.  A probe is two dependent
-  reads (the bucket's displacement, then the row).  Built for every
-  table; the device fixpoint runs on it when the cuckoo table is not
-  eligible (vocabularies past u16).
+  reads (the bucket's displacement, then the row).  Built (by
+  ``ops/tables.py``) when the cuckoo table is not eligible (vocabularies
+  past u16); the device fixpoint then runs on it.
 
 The torch probes (:func:`mix_hash`, :func:`mix_hash2`, :func:`qc_lookup`,
 :func:`chd_lookup_rows`) are bit-identical to the numpy hashes and to the

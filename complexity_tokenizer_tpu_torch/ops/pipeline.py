@@ -3,8 +3,8 @@
 Batch encode = UTF-8 bytes (normalized and prefixed by the Tokenizer)
 packed into ``[B, L]`` uint8 tensors at bucketed widths -> on the device:
 pre-split (torch ops), byte -> token seed (kernel K1), segmented merge
-fixpoint (:meth:`EncodePipeline.merge_fixpoint`: kernel K2 on the u16
-cuckoo table when it is eligible, kernel K5 on the CHD table otherwise)
+fixpoint (``TorchTables.merge_fixpoint``: kernel K2 on the u16 cuckoo
+table when it is eligible, kernel K5 on the CHD table otherwise)
 -> host unpack to ragged id lists.  Texts longer than
 the widest bucket are cut at word boundaries; one word longer than that
 goes to the host oracle.
@@ -77,12 +77,6 @@ class EncodePipeline:
             **(dict(chd_disp=chd.disp, chd_rows=chd.rows) if chd is not None else {}),
         )
 
-    def merge_fixpoint(self, tokens: torch.Tensor, wid: torch.Tensor):
-        """The segmented merge fixpoint over this pipeline's pair table: K2
-        when the cuckoo table is eligible, K5 on the CHD table otherwise.
-        Returns (tokens, count)."""
-        return self.tables.merge_fixpoint(tokens, wid)
-
     def encode_rows(self, arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
         """[B, L] uint8 + [B] int32 -> [B, L] int32 ids with -1 tombstones."""
         tb = self.tables
@@ -90,7 +84,7 @@ class EncodePipeline:
         lens_t = torch.from_numpy(lens).to(self.device)
         _start, word_id, _valid = presplit(arr_t, lens_t, tb.class_table)
         tokens = seed_tokens(arr_t, lens_t, tb.byte_token_table)
-        tokens, _count = self.merge_fixpoint(tokens, word_id)
+        tokens, _count = tb.merge_fixpoint(tokens, word_id)
         return tokens.cpu().numpy()
 
     def _encode_packed(self, data: list[bytes]) -> list[list[int]]:

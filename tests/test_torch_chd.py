@@ -7,6 +7,7 @@ past u16, ranks not), and the committed 100,000-entry tokenizer
 (``scripts/make_bench_tokenizer_100k.py``: ids and ranks past u16).  Inputs
 are made with numpy from a seed; every comparison is exact."""
 
+import dataclasses
 import json
 import os
 
@@ -26,7 +27,11 @@ from complexity_tokenizer_tpu.tokenizer import Tokenizer as JaxTokenizer  # noqa
 from complexity_tokenizer_tpu_torch import convert  # noqa: E402
 from complexity_tokenizer_tpu_torch.native import NativeEncoder  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops import merge as M  # noqa: E402
-from complexity_tokenizer_tpu_torch.ops.hashtable import INF_RANK, chd_lookup_rows  # noqa: E402
+from complexity_tokenizer_tpu_torch.ops.hashtable import (  # noqa: E402
+    INF_RANK,
+    build_chd_table,
+    chd_lookup_rows,
+)
 from complexity_tokenizer_tpu_torch.ops.presplit import presplit  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens_plain  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops.tables import (  # noqa: E402
@@ -68,11 +73,18 @@ def _json(name: str) -> str:
 
 @pytest.fixture(scope="module", params=["fixture800", "shifted", "bench100k"])
 def both(request):
-    """(port tokenizer, port tables, JAX tokenizer, JAX tables), built once."""
+    """(port tokenizer, port tables, JAX tokenizer, JAX tables), built once.
+    The port's ``build_device_tables`` builds a CHD table only where the
+    cuckoo table does not fit; the fixture's is built here with
+    ``build_chd_table``."""
     js = _json(request.param)
     pt = Tokenizer.from_str(js)
     jt = JaxTokenizer.from_str(js)
-    return request.param, pt, build_device_tables(pt.bpe), jt, jax_build(jt.bpe)
+    tp = build_device_tables(pt.bpe)
+    assert (tp.chd is None) == (tp.qc is not None)
+    if tp.chd is None:
+        tp = dataclasses.replace(tp, chd=build_chd_table(pt.bpe.merge_ranks, pt.bpe.merge_ops))
+    return request.param, pt, tp, jt, jax_build(jt.bpe)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from complexity_tokenizer_tpu_torch.convert import tables_to_device
+from complexity_tokenizer_tpu_torch.ops.hashtable import build_chd_table
 from complexity_tokenizer_tpu_torch.ops.merge import (
     merge_fixpoint_chd_plain,
     merge_fixpoint_qc_plain,
@@ -36,6 +38,7 @@ from complexity_tokenizer_tpu_torch.utils.corpus import (
     run_rows,
     zipf_corpus,
 )
+from complexity_tokenizer_tpu_torch.utils.unicode_tables import gpt2_class_table
 
 pytestmark = pytest.mark.gpu
 
@@ -209,15 +212,21 @@ def test_chd_merge_kernel_matches_plain_on_run_rows(tok100k, B, L, breaks):
 
 @pytest.mark.parametrize("B,L", [(8192, 128), (16, 4096), (64, 1024)])
 def test_chd_and_cuckoo_kernels_agree(tok50k, B, L):
-    """At 50K both tables exist: K5 on the CHD table and K2 on the cuckoo
-    table give the same ids on the same rows."""
+    """At 50K, where the pipeline holds the cuckoo table alone, K5 on the
+    vocabulary's CHD table (built here) and K2 on the cuckoo table give the
+    same ids on the same rows."""
     _need_card()
     tb = tok50k.pipeline("cuda").tables
-    assert tb.qc_t1 is not None and tb.chd_rows is not None
+    assert tb.qc_t1 is not None and tb.chd_rows is None
+    chd = build_chd_table(tok50k.bpe.merge_ranks, tok50k.bpe.merge_ops)
+    tc = tables_to_device(
+        byte_token_table=tok50k.device_tables().byte_token_table,
+        class_table=gpt2_class_table(), device="cuda", chd_disp=chd.disp, chd_rows=chd.rows,
+    )
     arr, lens = _corpus_rows(B, L, seed=L + 2)
     _, wid, _ = presplit(arr, lens, tb.class_table)
     tokens = seed_tokens(arr, lens, tb.byte_token_table)
-    k5_t, k5_c = merge_words(tokens, wid, *_chd_args(tb))
+    k5_t, k5_c = merge_words(tokens, wid, *_chd_args(tc))
     k2_t, k2_c = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
     torch.cuda.synchronize()
     assert torch.equal(k5_t, k2_t)
