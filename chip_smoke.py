@@ -42,9 +42,13 @@ Phases (each prints its seconds):
    the 50K vocabulary's CHD table (built for this check: the pipeline
    builds none where the cuckoo table fits), equal to K2 there, both timed
    warm and cold.
-   At 100K: K5 on its own packs and batches (warm and cold), on the
-   one-letter word and on edge shapes.  K3 and K4, and the whole fill
-   against its plain versions on the CPU, on the word packs of both
+   At 100K: K5 on its own packs and batches and on the one-letter word
+   (warm and cold) and on edge shapes (cold only at ``[16, 1024]``).
+   Every K2 and K5 line carries its probe and merge counts and the launch's
+   shape on the card (``ops/merge.py:launch_shape``: threads, registers,
+   spilled bytes, shared memory a block, resident blocks per SM).
+   K3 and K4, and the whole fill against its plain versions on the CPU, on
+   the word packs of both
    (uint16 ids at 50K, int32 at 100K), at the compact capacity and at full
    capacity; K3 and K4 timed warm and cold.  Kernels and the library
    expression are timed by replaying a CUDA graph, the plain versions that
@@ -288,6 +292,7 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.merge import (
+        launch_shape,
         merge_fixpoint_chd_plain,
         merge_fixpoint_qc_plain,
         merge_words,
@@ -353,11 +358,15 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
     cold_txt = f" cold={ms_cold:.4f} ms" if ms_cold is not None else ""
     plain_txt = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
     k2_txt = f" equals K2={equals_k2}" if equals_k2 is not None else ""
+    shape = launch_shape(L, chd=table == "chd")
     print(
         f"[{name}] {label} [{B},{L}] match={match} max_abs_err={err}{k2_txt} "
         f"kernel={ms:.4f} ms{cold_txt} plain={plain_txt} bound={bound_ms:.4f} ms "
         f"({bound_by}; {probes} probes, {merges} merges) "
-        f"live={int(exp_c.sum())}/{int(alive.sum())}",
+        f"live={int(exp_c.sum())}/{int(alive.sum())}; launch {shape['threads']} threads, "
+        f"{shape['registers']} registers, {shape['local_bytes']} B spilled a thread, "
+        f"shared {shape['static_smem']} + {shape['dynamic_smem']} B a block, "
+        f"{shape['blocks_per_sm']} blocks per SM",
         flush=True,
     )
     if not match:
@@ -366,7 +375,8 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
         raise AssertionError(f"K5 differs from K2 on the same rows: {label} [{B},{L}]")
     res = dict(
         inputs=label, shape=[B, L], match=match, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, probes=probes, merges=merges,
+        launch=shape,
     )
     if ms_cold is not None:
         res["ms_cold"] = ms_cold
@@ -940,7 +950,8 @@ def main(argv=None) -> int:
     for shape in r100["shapes"]:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
         chd_res.append(check_merge("text batch", tb, arr, lens, table="chd", cold=True))
-    chd_res.append(check_merge("one letter", tb, *one_letter, table="chd", plain_reps=1))
+    chd_res.append(check_merge("one letter", tb, *one_letter, table="chd", plain_reps=1,
+                               cold=True))
     # edge shapes: one row, three rows of 8, a width that is no multiple of
     # 16, and run rows with OOV bytes (the random table's and the run
     # breakers) as tombstones
@@ -950,9 +961,11 @@ def main(argv=None) -> int:
     for B, L in ((1, 16), (3, 8), (5, 200), (16, 1024)):
         rows = run_rows(corpus_bytes, B, L, B == 16)
         arr, lens = (torch.from_numpy(x).cuda() for x in pack_texts(rows, L, B))
+        # cold only where the rows are large enough for a rotation through
+        # twice the L2 to stay a few thousand launches
         chd_res.append(check_merge(
             "edge, run rows, OOV breaks" if B == 16 else "edge", tb, arr, lens, table="chd",
-            plain_reps=0, byte_table=oov_table if B == 16 else None,
+            plain_reps=0, byte_table=oov_table if B == 16 else None, cold=B == 16,
         ))
     _phase("kernels at 100K", t0)
 
@@ -999,6 +1012,8 @@ def main(argv=None) -> int:
         })
         if "ms_cold" in main:
             kernels[-1]["ms_cold"] = main["ms_cold"]
+        if "launch" in main:
+            kernels[-1]["launch"] = main["launch"]
         if name == "seed_tokens":
             kernels[-1]["launch_floor_ms"] = launch_floor_ms
     print(json.dumps({"kernels": kernels}))

@@ -218,16 +218,62 @@ __global__ void __launch_bounds__(kSeedThreads, kSeedMinBlocks)
 // issue: each step of a word waits on its probes in L2 (K2's table is about
 // a megabyte, two independent reads; K5's is 4 MB of rows and 256 KB of
 // displacements at 100,000 ids, two dependent reads) after a serial walk
-// of the word in shared memory.  Many words are in flight per SM (one per
-// thread, one per warp for a long word, up to 2,048 threads per SM) and
-// each takes few steps.  On an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py), K5 takes 1.14-1.28x K2's time on the same rows (0.159
-// against 0.132 ms at [8192, 512]); at 100,000 ids 0.168 ms there and
-// 0.022 ms a [1024, 128] word pack.
+// of the word in shared memory.  A word pack is one wave of blocks, so its
+// time is the serial chain of its slowest word.
+//
+// K5's rounds (ChdProbe::kBatched; K2 keeps the walk described above).
+// The chain of a word is made of round trips to L2, so K5 keeps every
+// probe a step needs in flight at once:
+// - First round.  Once the row is in shared memory (the word starts and
+//   gaps as flags in `aux`, from each lane's word id and its left
+//   neighbour's), every thread probes the pair of each of kChdFirst alive
+//   positions, i = g0 + k * threads + tid: all displacement reads, then
+//   all row reads (ChdProbe::round).  The walks start with their caches
+//   full; a word's n - 1 initial probes cost one round, not n - 1.
+// - A thread word's step queues the pairs it changes (kChdQueue in
+//   registers, `left | right << 16`) and probes them in one round when the
+//   queue is full or the pass ends.
+// - A warp word's step gathers its marked entries from all chunks into one
+//   slot a lane (ballot, nth_set_bit, a shuffle) and probes 32 at a time:
+//   a step of a 128-entry word waits on one round, not four.
+// - No barrier between long and short words: a counting sort puts every
+//   word of two bytes or more in `order` (long words first, then short
+//   ones longest first) before the walks; a warp takes long words one at
+//   a time and, when none is left, short words 32 at a time.
+// - Launch bounds by block size (kChdSmallSmThreads, kChdSmThreads): at
+//   K2's 32 registers the rounds spill, and spills cost more than the
+//   resident blocks they buy; 64- and 1,024-thread blocks get 48
+//   registers, the others 40 (12 blocks of 128 threads an SM).
+// - The search for a pair in the first round stops after kChdReach
+//   tombstones (kPendingEntry): one lane would otherwise walk a run of OOV
+//   bytes alone, 1,000 positions in a row of one OOV letter.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, the same call as
+// K2's walk on these rows; scripts/study_k5_variants.py for the
+// constants), warm at 100,000 ids: 0.0154 ms a [1024, 128] word pack
+// (probe by probe: 0.0226), 0.0233 ms the [256, 128] pack of the longest
+// words (0.0441), 0.029 / 0.032 / 0.148 ms at [16, 4096] / [8192, 128] /
+// [8192, 512] (0.051 / 0.041 / 0.169), one 4,096-byte word of one letter
+// 0.077 ms (0.087).  Still 6-9x the bytes bound at the full packs and
+// batches and about 75x at the small ones: what is left is the serial walk
+// of a word's steps in shared memory and the launch.  At 32 registers
+// (94-110 B spilled a thread) K5 is 13-32% slower; at 48 everywhere,
+// [8192, 512] loses 6% for its fewer resident blocks; a queue of 2 or 8,
+// 128-thread blocks for short rows and a warp threshold of 16 do no better.
 constexpr int kWarpWordBytes = 32;  // longer words are walked by a whole warp
 constexpr uint16_t kFlag = 0x8000;  // alive list: probe again; boundaries: gap
 constexpr uint16_t kPosMask = 0x7FFF;
 constexpr uint32_t kFull = 0xFFFFFFFFu;
+// K5 only (see "K5's rounds" above)
+constexpr int kChdWarpWordBytes = 32;  // longer words are walked by a warp
+constexpr int kChdSmallThreads = 64;   // threads of a block for rows <= 256
+// launch bounds, threads per SM: for the blocks of kChdSmallThreads and
+// for the wider ones (registers a thread: 65,536 over these)
+constexpr int kChdSmallSmThreads = 1024;
+constexpr int kChdSmThreads = 1536;
+constexpr int kChdFirst = 2;           // positions a thread probes per round
+constexpr int kChdQueue = 4;           // a thread word's re-probes per round
+constexpr int kChdReach = 8;  // the first round looks this far for a pair
+static_assert(kChdWarpWordBytes <= 32, "one warp scans the length buckets");
 
 __device__ __forceinline__ uint32_t mix_hash(uint32_t a, uint32_t b) {
   uint32_t h = (a * 0x85EBCA6Bu) ^ (b * 0xC2B2AE35u);
@@ -251,6 +297,7 @@ __device__ __forceinline__ uint32_t mix_hash2(uint32_t a, uint32_t b) {
 struct QcProbe {
   using Entry = uint32_t;
   static constexpr Entry kMissEntry = kMiss;
+  static constexpr bool kBatched = false;  // probes each pair as the walk reaches it
   const uint2* __restrict__ t1;
   const uint2* __restrict__ t2;
   uint32_t mask;
@@ -279,20 +326,44 @@ struct QcProbe {
 struct ChdProbe {
   using Entry = uint64_t;
   static constexpr Entry kMissEntry = ~0ull;
+  // the first round found no alive position within kChdReach: the walk
+  // probes this pair (its key is kMiss's, so it counts for no minimum)
+  static constexpr Entry kPendingEntry = ~1ull;
+  static constexpr bool kBatched = true;  // probes issued in rounds
   const int32_t* __restrict__ disp;
   const int4* __restrict__ rows;
   uint32_t size_mask;
   uint32_t bucket_mask;
 
   // slot = (mix2(a, b) + disp[mix1(a, b) & (B - 1)]) & (T - 1): the row
-  // read waits on the displacement read
-  __device__ __forceinline__ Entry probe(int32_t a, int32_t b) const {
-    const uint32_t ua = (uint32_t)a, ub = (uint32_t)b;
-    const int32_t d = __ldg(disp + (mix_hash(ua, ub) & bucket_mask));
-    const uint32_t pos = (mix_hash2(ua, ub) + (uint32_t)d) & size_mask;
-    const int4 r = __ldg(rows + pos);
+  // read waits on the displacement read.  In two halves, so that a round
+  // issues all its displacement reads before any row read.
+  __device__ __forceinline__ int32_t disp_of(int32_t a, int32_t b) const {
+    return __ldg(disp + (mix_hash((uint32_t)a, (uint32_t)b) & bucket_mask));
+  }
+  __device__ __forceinline__ int4 row_of(int32_t a, int32_t b, int32_t d) const {
+    return __ldg(rows + ((mix_hash2((uint32_t)a, (uint32_t)b) + (uint32_t)d) & size_mask));
+  }
+  static __device__ __forceinline__ Entry entry(int32_t a, int32_t b, int4 r) {
     if (r.x != a || r.y != b) return kMissEntry;
     return ((uint64_t)(uint32_t)r.z << 32) | (uint32_t)r.w;
+  }
+  __device__ __forceinline__ Entry probe(int32_t a, int32_t b) const {
+    return entry(a, b, row_of(a, b, disp_of(a, b)));
+  }
+  // One round over the pairs (a[i], b[i]) with live[i]: every displacement
+  // read, then every row read, then the compares; a dead pair is a miss.
+  template <int N>
+  __device__ __forceinline__ void round(const int32_t (&a)[N], const int32_t (&b)[N],
+                                        const bool (&live)[N], Entry (&v)[N]) const {
+    int32_t d[N];
+    int4 r[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) d[i] = live[i] ? disp_of(a[i], b[i]) : 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = live[i] ? row_of(a[i], b[i], d[i]) : make_int4(-1, -1, 0, 0);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = live[i] ? entry(a[i], b[i], r[i]) : kMissEntry;
   }
   static __device__ __forceinline__ uint32_t key(Entry v) {
     return (uint32_t)(v >> 32);
@@ -463,14 +534,255 @@ __device__ void warp_word(int32_t* t, typename P::Entry* rm,
   }
 }
 
+// --- K5: the walks with their probes in rounds --------------------------------
+
+// Probes the queued pairs q[0, n) (left | right << 16) of a thread word in
+// one round, caches them at their left entries and returns the least key.
+__device__ __forceinline__ uint32_t chd_flush(const int32_t* t, uint64_t* rm,
+                                              const uint32_t (&q)[kChdQueue],
+                                              int n, const ChdProbe& tb) {
+  int32_t a[kChdQueue], b[kChdQueue];
+  bool live[kChdQueue];
+  uint64_t v[kChdQueue];
+#pragma unroll
+  for (int i = 0; i < kChdQueue; ++i) {
+    live[i] = i < n;
+    a[i] = live[i] ? t[q[i] & 0xFFFFu] : 0;
+    b[i] = live[i] ? t[q[i] >> 16] : 0;
+  }
+  tb.round(a, b, live, v);
+  uint32_t mn = kMiss;
+#pragma unroll
+  for (int i = 0; i < kChdQueue; ++i) {
+    if (live[i]) {
+      rm[q[i] & 0xFFFFu] = v[i];
+      mn = min(mn, ChdProbe::key(v[i]));
+    }
+  }
+  return mn;
+}
+
+// thread_word with the cache full from the row's first round: each step's
+// pass queues the pairs it changes instead of probing each as it reaches
+// it, and probes them kChdQueue at a time in one round (the pass writes
+// behind itself only, so a flush in the middle of it is safe).
+__device__ void thread_word_chd(int32_t* t, uint64_t* rm, uint16_t* aux_row,
+                                int p, int e, const ChdProbe& tb) {
+  uint16_t* aux = aux_row + p;
+  int m = 0, left = -1;
+  uint32_t best = kMiss;
+  uint64_t lv = ChdProbe::kMissEntry;  // the entry cached at `left`
+  for (int r = p; r < e; ++r) {
+    if (t[r] < 0) continue;
+    if (lv == ChdProbe::kPendingEntry) {  // a pair the first round left (rare)
+      lv = tb.probe(t[left], t[r]);
+      rm[left] = lv;
+      best = min(best, ChdProbe::key(lv));
+    }
+    lv = rm[r];
+    aux[m++] = (uint16_t)r;
+    best = min(best, ChdProbe::key(lv));
+    left = r;
+  }
+  if (lv == ChdProbe::kPendingEntry) rm[left] = ChdProbe::kMissEntry;
+  while (best != kMiss) {
+    uint32_t next = kMiss;
+    int out = 0, lpos = -1, nq = 0;
+    bool lchanged = false, consumed = false;
+    uint32_t q[kChdQueue] = {};
+    uint32_t lkey = kMiss;  // the key cached at lpos
+    for (int k = 0; k < m; ++k) {
+      const int pos = aux[k];
+      if (consumed) {
+        t[pos] = -1;
+        consumed = false;
+        continue;
+      }
+      const uint64_t v = rm[pos];
+      const bool taken = ChdProbe::key(v) == best;
+      if (taken) {
+        t[pos] = ChdProbe::minted(v);
+        consumed = true;
+      }
+      if (lpos >= 0) {  // the pair (lpos, pos) is final
+        if (lchanged || taken) {
+#pragma unroll
+          for (int i = kChdQueue - 1; i > 0; --i) q[i] = q[i - 1];
+          q[0] = (uint32_t)lpos | ((uint32_t)pos << 16);
+          if (++nq == kChdQueue) {
+            next = min(next, chd_flush(t, rm, q, nq, tb));
+            nq = 0;
+          }
+        } else {
+          next = min(next, lkey);
+        }
+      }
+      aux[out++] = (uint16_t)pos;
+      lpos = pos;
+      lkey = ChdProbe::key(v);
+      lchanged = taken;
+    }
+    if (lchanged) rm[lpos] = ChdProbe::kMissEntry;
+    if (nq) next = min(next, chd_flush(t, rm, q, nq, tb));
+    m = out;
+    best = next;
+  }
+}
+
+// The n-th set bit (from 0) of x, which has more than n.
+__device__ __forceinline__ int nth_set_bit(uint32_t x, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(x & ((1u << s) - 1u));
+    if (n >= c) {
+      n -= c;
+      x >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+constexpr uint32_t kNoRight = 0xFFFFu;  // a slot's pair has no right entry
+
+// One lane's probe of its slot (left | right << 16), cached at the left.
+__device__ __forceinline__ uint32_t chd_slot_probe(const int32_t* t, uint64_t* rm,
+                                                   uint32_t slot, const ChdProbe& tb) {
+  const uint32_t l = slot & 0xFFFFu, r = slot >> 16;
+  const uint64_t v = r == kNoRight ? ChdProbe::kMissEntry : tb.probe(t[l], t[r]);
+  rm[l] = v;
+  return ChdProbe::key(v);
+}
+
+// warp_probe_pass in rounds: the marked (kFlag) entries of all chunks are
+// gathered, in order, into one slot a lane (the chunk's ballot, the n-th
+// marked entry's lane from nth_set_bit, a shuffle), and a round of 32
+// probes goes out only when the slots are full or the list ends.  Clears
+// the marks; returns the word's minimum key.
+__device__ uint32_t warp_probe_chd(const int32_t* t, uint64_t* rm, uint16_t* aux,
+                                   int m, const ChdProbe& tb, int lane) {
+  uint32_t mn = kMiss;
+  int cnt = 0;        // slots filled (the same in every lane)
+  uint32_t slot = 0;  // this lane's pair
+  for (int base = 0; base < m; base += 32) {
+    const int k = base + lane;
+    const uint16_t a = k < m ? aux[k] : 0;
+    const uint32_t right = k + 1 < m ? (uint32_t)(aux[k + 1] & kPosMask) : kNoRight;
+    const bool marked = k < m && (a & kFlag);
+    const int pos = a & kPosMask;
+    if (k < m && !marked) mn = min(mn, ChdProbe::key(rm[pos]));
+    const uint32_t F = __ballot_sync(kFull, marked);
+    const int n = __popc(F);
+    const uint32_t pk = (uint32_t)pos | (right << 16);
+    // lanes cnt.. take the chunk's marked entries in order
+    int j = lane - cnt;
+    uint32_t got = __shfl_sync(kFull, pk, j >= 0 && j < n ? nth_set_bit(F, j) : lane);
+    if (j >= 0 && j < n) slot = got;
+    __syncwarp();  // every lane has read its entries before the marks go
+    if (marked) aux[k] = (uint16_t)pos;
+    if (cnt + n >= 32) {  // the slots are full: one round of 32 probes
+      mn = min(mn, chd_slot_probe(t, rm, slot, tb));
+      const int used = 32 - cnt;  // the chunk's entries in that round
+      j = lane + used;
+      got = __shfl_sync(kFull, pk, j < n ? nth_set_bit(F, j) : lane);
+      if (j < n) slot = got;
+      cnt = n - used;
+    } else {
+      cnt += n;
+    }
+  }
+  if (lane < cnt) mn = min(mn, chd_slot_probe(t, rm, slot, tb));
+  __syncwarp();
+  return __reduce_min_sync(kFull, mn);
+}
+
+// warp_word with the cache full from the row's first round.
+__device__ void warp_word_chd(int32_t* t, uint64_t* rm, uint16_t* aux_row,
+                              int p, int e, const ChdProbe& tb, int lane) {
+  uint16_t* aux = aux_row + p;
+  const uint32_t lt = (1u << lane) - 1u;
+  int m = 0;
+  uint32_t mn = kMiss;
+  bool pending = false;
+  for (int base = p; base < e; base += 32) {
+    const int q = base + lane;
+    const bool alive = q < e && t[q] >= 0;
+    const uint32_t A = __ballot_sync(kFull, alive);
+    if (alive) {
+      const uint64_t v = rm[q];
+      const bool pend = v == ChdProbe::kPendingEntry;  // probed below
+      aux[m + __popc(A & lt)] = (uint16_t)(q | (pend ? kFlag : 0));
+      mn = min(mn, ChdProbe::key(v));
+      pending |= pend;
+    }
+    m += __popc(A);
+  }
+  __syncwarp();
+  uint32_t best = __any_sync(kFull, pending) ? warp_probe_chd(t, rm, aux, m, tb, lane)
+                                             : __reduce_min_sync(kFull, mn);
+  while (best != kMiss) {
+    m = warp_apply<ChdProbe>(t, rm, aux, m, best, lane);
+    best = warp_probe_chd(t, rm, aux, m, tb, lane);
+  }
+}
+
 // --- the row's block ----------------------------------------------------------
 
 // 32-bit words of a cached probe
 template <class P>
 constexpr int kEntryWords = (int)(sizeof(typename P::Entry) / 4);
 
-template <class P, int kThreads>
-__global__ void __launch_bounds__(kThreads, 2048 / kThreads)
+// K5's row: the position flags in aux until the walks take it over
+constexpr uint16_t kStartBit = 1;  // the word id changes here
+constexpr uint16_t kGapBit = 2;    // word id -1
+
+// K5's first round: every thread probes the pair of each alive position
+// i = g0 + k * kThreads + tid (k < kChdFirst) with the next alive position
+// of its word, all displacement reads, then all row reads; the last alive
+// position of a word caches a miss.  The search for the next alive position
+// stops after kChdReach tombstones (one lane would otherwise walk a whole
+// run of OOV bytes alone): such a position caches kPendingEntry, and its
+// word's walk probes the pair.
+template <int kThreads>
+__device__ __forceinline__ void chd_first_round(const int32_t* t, uint64_t* rm,
+                                                const uint16_t* flags, int L,
+                                                const ChdProbe& tb, int tid) {
+  for (int g0 = 0; g0 < L; g0 += kChdFirst * kThreads) {
+    int32_t a[kChdFirst], b[kChdFirst];
+    bool live[kChdFirst];
+    uint64_t v[kChdFirst];
+#pragma unroll
+    for (int k = 0; k < kChdFirst; ++k) {
+      const int i = g0 + k * kThreads + tid;
+      live[k] = false;
+      a[k] = b[k] = 0;
+      if (i < L && t[i] >= 0 && !(flags[i] & kGapBit)) {
+        int q = i + 1;
+        const int reach = min(L, i + 1 + kChdReach);
+        while (q < reach && !(flags[q] & kStartBit) && t[q] < 0) ++q;
+        if (q == L || (flags[q] & kStartBit)) {
+          rm[i] = ChdProbe::kMissEntry;
+        } else if (t[q] < 0) {  // a run of tombstones longer than the reach
+          rm[i] = ChdProbe::kPendingEntry;
+        } else {
+          live[k] = true;
+          a[k] = t[i];
+          b[k] = t[q];
+        }
+      }
+    }
+    tb.round(a, b, live, v);
+#pragma unroll
+    for (int k = 0; k < kChdFirst; ++k)
+      if (live[k]) rm[g0 + k * kThreads + tid] = v[k];
+  }
+}
+
+// kMinBlocks: the launch bound, resident blocks per SM (K2: 2048 threads,
+// so 32 registers; K5: min_blocks_chd)
+template <class P, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
                       const int32_t* __restrict__ wid, P tb,
                       int32_t* __restrict__ tokens_out,
@@ -491,10 +803,25 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   __shared__ int next_chunk, next_word, n_short, block_count;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t base = (int64_t)blockIdx.x * L;
-  // word ids sit in rm's space until the boundary list is built
-  for (int i = tid; i < L; i += kThreads) {
-    t[i] = tokens_in[base + i];
-    rm[i] = (Entry)(uint32_t)wid[base + i];
+  if constexpr (P::kBatched) {
+    // the word starts and gaps as flags in aux, from each lane's word id
+    // and its left neighbour's
+    for (int i0 = 0; i0 < L; i0 += kThreads) {
+      const int i = i0 + tid;
+      const int32_t w = i < L ? wid[base + i] : -1;
+      int32_t left = __shfl_up_sync(kFull, w, 1);
+      if (lane == 0) left = i > 0 && i < L ? wid[base + i - 1] : ~w;
+      if (i < L) {
+        t[i] = tokens_in[base + i];
+        aux[i] = (uint16_t)((i == 0 || w != left ? kStartBit : 0) | (w < 0 ? kGapBit : 0));
+      }
+    }
+  } else {
+    // word ids sit in rm's space until the boundary list is built
+    for (int i = tid; i < L; i += kThreads) {
+      t[i] = tokens_in[base + i];
+      rm[i] = (Entry)(uint32_t)wid[base + i];
+    }
   }
   if (tid == 0) {
     next_chunk = 0;
@@ -503,13 +830,22 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   }
   for (int n = tid; n <= kWarpWordBytes; n += kThreads) by_len[n] = 0;
   __syncthreads();
+  if constexpr (P::kBatched) chd_first_round<kThreads>(t, rm, aux, L, tb, tid);
+  auto starts = [&](int q) {
+    if constexpr (P::kBatched) return (aux[q] & kStartBit) != 0;
+    else return q == 0 || rm[q] != rm[q - 1];
+  };
+  auto gap = [&](int q) {
+    if constexpr (P::kBatched) return (aux[q] & kGapBit) != 0;
+    else return (int32_t)rm[q] < 0;
+  };
 
   // boundary list: every position where the word id changes, in order,
   // from a block-wide exclusive scan of each thread's slice
   const int slice = (L + kThreads - 1) / kThreads;
   const int lo = min(L, tid * slice), hi = min(L, lo + slice);
   int c = 0;
-  for (int q = lo; q < hi; ++q) c += q == 0 || rm[q] != rm[q - 1];
+  for (int q = lo; q < hi; ++q) c += starts(q);
   int incl = c;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -531,61 +867,117 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   int off = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - c;
   const int nb = warp_sums[kWarps - 1];
   for (int q = lo; q < hi; ++q)
-    if (q == 0 || rm[q] != rm[q - 1])
-      bnd[off++] = (uint16_t)(q | ((int32_t)rm[q] < 0 ? kFlag : 0));
+    if (starts(q)) bnd[off++] = (uint16_t)(q | (gap(q) ? kFlag : 0));
   if (tid == 0) bnd[nb] = (uint16_t)L;
   __syncthreads();
 
-  // long words: a whole warp each
-  for (;;) {
-    int c0 = 0;
-    if (lane == 0) c0 = atomicAdd(&next_chunk, 32);
-    c0 = __shfl_sync(kFull, c0, 0);
-    if (c0 >= nb) break;
-    const int k = c0 + lane;
-    bool is_long = false;
-    if (k < nb) {
+  if constexpr (P::kBatched) {
+    // every word of two or more bytes in `order`, by a counting sort:
+    // bucket 0 the long words, then the short ones longest first
+    constexpr int kBuckets = kChdWarpWordBytes;
+    auto bucket = [](int n) { return n > kChdWarpWordBytes ? 0 : kChdWarpWordBytes + 1 - n; };
+    for (int k = tid; k < nb; k += kThreads) {
       const int s = bnd[k];
-      is_long = !(s & kFlag) && (bnd[k + 1] & kPosMask) - s > kWarpWordBytes;
+      const int n = (bnd[k + 1] & kPosMask) - s;
+      if (!(s & kFlag) && n > 1) atomicAdd(&by_len[bucket(n)], 1);
     }
-    for (uint32_t lm = __ballot_sync(kFull, is_long); lm; lm &= lm - 1) {
-      const int j = c0 + __ffs(lm) - 1;
-      warp_word(t, rm, aux, bnd[j], bnd[j + 1] & kPosMask, tb, lane);
+    __shared__ int n_long;
+    __syncthreads();
+    if (warp == 0) {  // exclusive scan of the buckets
+      const int x = lane < kBuckets ? by_len[lane] : 0;
+      int s = x;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, s, o);
+        if (lane >= o) s += y;
+      }
+      const int longs = __shfl_sync(kFull, x, 0);
+      if (lane < kBuckets) by_len[lane] = s - x;
+      if (lane == 31) {
+        n_long = longs;
+        n_short = s - longs;
+      }
     }
-  }
-  // short words, one thread each, longest first: a counting sort by length
-  // puts words of one length side by side, so the lanes of a warp walk words
-  // of about equal work; warps take 32 of them at a time
-  for (int k = tid; k < nb; k += kThreads) {
-    const int s = bnd[k];
-    const int n = (bnd[k + 1] & kPosMask) - s;
-    if (!(s & kFlag) && n <= kWarpWordBytes) atomicAdd(&by_len[n], 1);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int acc = 0;
-    for (int n = kWarpWordBytes; n > 0; --n) {
-      const int words = by_len[n];
-      by_len[n] = acc;
-      acc += words;
+    __syncthreads();
+    for (int k = tid; k < nb; k += kThreads) {
+      const int s = bnd[k];
+      const int n = (bnd[k + 1] & kPosMask) - s;
+      if (!(s & kFlag) && n > 1) order[atomicAdd(&by_len[bucket(n)], 1)] = (uint16_t)k;
     }
-    n_short = acc;
-  }
-  __syncthreads();
-  for (int k = tid; k < nb; k += kThreads) {
-    const int s = bnd[k];
-    const int n = (bnd[k + 1] & kPosMask) - s;
-    if (!(s & kFlag) && n <= kWarpWordBytes) order[atomicAdd(&by_len[n], 1)] = (uint16_t)k;
-  }
-  __syncthreads();
-  for (;;) {
-    int c0 = 0;
-    if (lane == 0) c0 = atomicAdd(&next_word, 32);
-    c0 = __shfl_sync(kFull, c0, 0);
-    if (c0 >= n_short) break;
-    if (c0 + lane < n_short) {
-      const int k = order[c0 + lane];
-      thread_word(t, rm, aux, bnd[k], bnd[k + 1] & kPosMask, tb);
+    __syncthreads();
+    // The warps take the long words one at a time (a whole warp each); a
+    // warp that finds none left goes straight on to the short words, 32 at
+    // a time (a lane each), with no barrier between the two
+    for (;;) {
+      int j = 0;
+      if (lane == 0) j = atomicAdd(&next_chunk, 1);
+      j = __shfl_sync(kFull, j, 0);
+      if (j >= n_long) break;
+      const int k = order[j];
+      warp_word_chd(t, rm, aux, bnd[k], bnd[k + 1] & kPosMask, tb, lane);
+    }
+    for (;;) {
+      int c0 = 0;
+      if (lane == 0) c0 = atomicAdd(&next_word, 32);
+      c0 = __shfl_sync(kFull, c0, 0);
+      if (c0 >= n_short) break;
+      if (c0 + lane < n_short) {
+        const int k = order[n_long + c0 + lane];
+        thread_word_chd(t, rm, aux, bnd[k], bnd[k + 1] & kPosMask, tb);
+      }
+    }
+  } else {
+    // long words: a whole warp each
+    for (;;) {
+      int c0 = 0;
+      if (lane == 0) c0 = atomicAdd(&next_chunk, 32);
+      c0 = __shfl_sync(kFull, c0, 0);
+      if (c0 >= nb) break;
+      const int k = c0 + lane;
+      bool is_long = false;
+      if (k < nb) {
+        const int s = bnd[k];
+        is_long = !(s & kFlag) && (bnd[k + 1] & kPosMask) - s > kWarpWordBytes;
+      }
+      for (uint32_t lm = __ballot_sync(kFull, is_long); lm; lm &= lm - 1) {
+        const int j = c0 + __ffs(lm) - 1;
+        warp_word(t, rm, aux, bnd[j], bnd[j + 1] & kPosMask, tb, lane);
+      }
+    }
+    // short words, one thread each, longest first: a counting sort by length
+    // puts words of one length side by side, so the lanes of a warp walk words
+    // of about equal work; warps take 32 of them at a time
+    for (int k = tid; k < nb; k += kThreads) {
+      const int s = bnd[k];
+      const int n = (bnd[k + 1] & kPosMask) - s;
+      if (!(s & kFlag) && n <= kWarpWordBytes) atomicAdd(&by_len[n], 1);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int acc = 0;
+      for (int n = kWarpWordBytes; n > 0; --n) {
+        const int words = by_len[n];
+        by_len[n] = acc;
+        acc += words;
+      }
+      n_short = acc;
+    }
+    __syncthreads();
+    for (int k = tid; k < nb; k += kThreads) {
+      const int s = bnd[k];
+      const int n = (bnd[k + 1] & kPosMask) - s;
+      if (!(s & kFlag) && n <= kWarpWordBytes) order[atomicAdd(&by_len[n], 1)] = (uint16_t)k;
+    }
+    __syncthreads();
+    for (;;) {
+      int c0 = 0;
+      if (lane == 0) c0 = atomicAdd(&next_word, 32);
+      c0 = __shfl_sync(kFull, c0, 0);
+      if (c0 >= n_short) break;
+      if (c0 + lane < n_short) {
+        const int k = order[c0 + lane];
+        thread_word(t, rm, aux, bnd[k], bnd[k + 1] & kPosMask, tb);
+      }
     }
   }
   __syncthreads();
@@ -603,10 +995,16 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   if (tid == 0) count[blockIdx.x] = block_count;
 }
 
+constexpr int min_blocks_chd(int threads) {
+  return (threads == kChdSmallThreads ? kChdSmallSmThreads : kChdSmThreads) / threads;
+}
+
 template <class P, int kThreads>
 cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid, P tb,
                          int32_t* tokens_out, int32_t* count, int B, int L,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int* info) {
+  constexpr int kMinBlocks = P::kBatched ? min_blocks_chd(kThreads) : 2048 / kThreads;
+  const auto kernel = merge_fixpoint_kernel<P, kThreads, kMinBlocks>;
   // tokens 4 B and probes 4 or 8 B a position, alive lists, boundaries
   // (L + 1) and the sorted short words 2 B each
   const size_t smem = (size_t)(10 + 4 * kEntryWords<P>) * L + 4;
@@ -619,22 +1017,34 @@ cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid, P tb,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (smem > 32 * 1024 && (dev >= 64 || opted[dev] < smem)) {
-    err = cudaFuncSetAttribute(merge_fixpoint_kernel<P, kThreads>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     if (dev < 64) opted[dev] = smem;
   }
-  merge_fixpoint_kernel<P, kThreads><<<B, kThreads, smem, stream>>>(
+  if (info) {  // the launch's shape instead of a launch
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    const int shape[] = {kThreads, fa.numRegs, (int)fa.sharedSizeBytes, (int)smem,
+                         (int)fa.localSizeBytes, blocks};
+    for (int i = 0; i < 6; ++i) info[i] = shape[i];
+    return cudaSuccess;
+  }
+  kernel<<<B, kThreads, smem, stream>>>(
       tokens_in, wid, tb, tokens_out, count, L);
   return cudaGetLastError();
 }
 
-// a quarter of the row's width in threads, 64 to 1,024
+// a quarter of the row's width in threads, 64 to 1,024; with `info`, the
+// launch's shape instead of a launch
 template <class P>
 cudaError_t dispatch_merge(const void* tokens_in, const void* wid, P tb,
                            void* tokens_out, void* count, int B, int L,
-                           void* stream) {
+                           void* stream, int* info = nullptr) {
   if (B == 0 || L == 0) return cudaSuccess;
   if (L > kPosMask) return cudaErrorInvalidValue;  // uint16 positions
   const auto* ti = static_cast<const int32_t*>(tokens_in);
@@ -642,11 +1052,12 @@ cudaError_t dispatch_merge(const void* tokens_in, const void* wid, P tb,
   auto* to = static_cast<int32_t*>(tokens_out);
   auto* co = static_cast<int32_t*>(count);
   const auto s = (cudaStream_t)stream;
-  if (L <= 256) return launch_merge<P, 64>(ti, wi, tb, to, co, B, L, s);
-  if (L <= 512) return launch_merge<P, 128>(ti, wi, tb, to, co, B, L, s);
-  if (L <= 1024) return launch_merge<P, 256>(ti, wi, tb, to, co, B, L, s);
-  if (L <= 2048) return launch_merge<P, 512>(ti, wi, tb, to, co, B, L, s);
-  return launch_merge<P, 1024>(ti, wi, tb, to, co, B, L, s);
+  constexpr int kSmall = P::kBatched ? kChdSmallThreads : 64;
+  if (L <= 256) return launch_merge<P, kSmall>(ti, wi, tb, to, co, B, L, s, info);
+  if (L <= 512) return launch_merge<P, 128>(ti, wi, tb, to, co, B, L, s, info);
+  if (L <= 1024) return launch_merge<P, 256>(ti, wi, tb, to, co, B, L, s, info);
+  if (L <= 2048) return launch_merge<P, 512>(ti, wi, tb, to, co, B, L, s, info);
+  return launch_merge<P, 1024>(ti, wi, tb, to, co, B, L, s, info);
 }
 
 cudaError_t launch_seed(const uint8_t* arr, const int32_t* lens,
@@ -715,6 +1126,17 @@ int ctok_merge_fixpoint_chd(const void* tokens_in, const void* wid,
                     (uint32_t)bucket_mask};
   return (int)dispatch_merge(tokens_in, wid, tb, tokens_out, count, B, L,
                              stream);
+}
+
+// The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L: info
+// gets threads a block, registers a thread, static and dynamic shared
+// bytes a block, local (spill) bytes a thread and resident blocks per SM.
+int ctok_merge_fixpoint_info(int chd, int L, int* info) {
+  if (chd)
+    return (int)dispatch_merge(nullptr, nullptr, ChdProbe{}, nullptr, nullptr, 1, L,
+                               nullptr, info);
+  return (int)dispatch_merge(nullptr, nullptr, QcProbe{}, nullptr, nullptr, 1, L,
+                             nullptr, info);
 }
 
 const char* ctok_error_string(int code) {

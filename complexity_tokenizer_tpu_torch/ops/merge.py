@@ -23,6 +23,8 @@ fixpoint, bit for bit, in far fewer steps.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils.cuda_build import check, kernel_library
@@ -33,6 +35,7 @@ __all__ = [
     "merge_fixpoint_qc_plain",
     "merge_words",
     "merge_fixpoint_chd_plain",
+    "launch_shape",
 ]
 
 
@@ -237,3 +240,18 @@ def merge_words(tokens, wid, disp, rows, size: int, n_buckets: int):
 
 
 merge_words.launches = 0  # launches of K5 (not of the plain version)
+
+
+_SHAPE_KEYS = ("threads", "registers", "static_smem", "dynamic_smem", "local_bytes",
+               "blocks_per_sm")
+
+
+def launch_shape(L: int, chd: bool = True) -> dict:
+    """How the card launches K5 (``chd``) or K2 on rows of ``L``: threads a
+    block, registers a thread, static and dynamic shared bytes a block,
+    local (spill) bytes a thread, and resident blocks per SM.  Needs a
+    card; launches nothing."""
+    info = (ctypes.c_int * len(_SHAPE_KEYS))()
+    check(kernel_library().lib.ctok_merge_fixpoint_info(int(chd), L, ctypes.addressof(info)),
+          "launch_shape")
+    return dict(zip(_SHAPE_KEYS, info))

@@ -233,6 +233,164 @@ def test_chd_and_cuckoo_kernels_agree(tok50k, B, L):
     assert torch.equal(k5_c, k2_c)
 
 
+@pytest.fixture(scope="module")
+def chd50k(tok50k):
+    """The 50K tables on the card with the vocabulary's CHD table beside
+    the cuckoo table, so that K5 runs on the rows K2 runs on."""
+    _need_card()
+    dt = tok50k.device_tables()
+    chd = build_chd_table(tok50k.bpe.merge_ranks, tok50k.bpe.merge_ops)
+    return tables_to_device(
+        byte_token_table=dt.byte_token_table, class_table=gpt2_class_table(), device="cuda",
+        qc_t1=dt.qc.t1, qc_t2=dt.qc.t2, qc_size=dt.qc.size, chd_disp=chd.disp, chd_rows=chd.rows,
+    )
+
+
+def _letters(n, seed):
+    """n lowercase bytes of corpus words run together: text-like pairs."""
+    text = "".join(zipf_corpus(max(8, n // 40), seed=seed)).encode("utf-8")
+    letters = bytes(c for c in text if 0x61 <= c <= 0x7A)
+    while len(letters) < n:
+        letters += letters
+    return letters[:n]
+
+
+def _word_rows(words_per_row, L, seed=0):
+    """[B, L] bytes and word ids on the card: each row's words side by
+    side, each its own word id, -1 past them."""
+    B = len(words_per_row)
+    arr = np.zeros((B, L), np.uint8)
+    wid = np.full((B, L), -1, np.int32)
+    for r, words in enumerate(words_per_row):
+        pos = 0
+        for w, word in enumerate(words):
+            assert pos + len(word) <= L
+            arr[r, pos : pos + len(word)] = np.frombuffer(word, np.uint8)
+            wid[r, pos : pos + len(word)] = w
+            pos += len(word)
+    return torch.from_numpy(arr).cuda(), torch.from_numpy(wid).cuda()
+
+
+def _check_k5(tok100k, chd50k, arr, wid, oov=()):
+    """K5 bit for bit against its plain version at 100K, and at 50K
+    against its plain version and K2, on the rows ``arr`` (bytes) with the
+    word ids ``wid``; the bytes ``oov`` are OOV (tombstones from the
+    start).  Tokens are the seed of each vocabulary's byte table, -1 where
+    the word id is -1."""
+    _need_card()
+    for tb, k2 in ((tok100k.pipeline("cuda").tables, False), (chd50k, True)):
+        table = tb.byte_token_table.clone()
+        if oov:
+            table[list(oov)] = -1
+        tokens = torch.where(wid >= 0, table[arr.long()], -1).to(torch.int32).contiguous()
+        args = _chd_args(tb)
+        before = merge_words.launches
+        got_t, got_c = merge_words(tokens, wid, *args)
+        torch.cuda.synchronize()
+        assert merge_words.launches == before + 1
+        exp_t, exp_c = merge_fixpoint_chd_plain(tokens, wid, *args)
+        assert torch.equal(got_t, exp_t)
+        assert torch.equal(got_c, exp_c)
+        if k2:
+            k2_t, k2_c = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+            torch.cuda.synchronize()
+            assert torch.equal(got_t, k2_t)
+            assert torch.equal(got_c, k2_c)
+    return got_t
+
+
+def test_k5_row_of_every_word_length(tok100k, chd50k):
+    """One row holding words of every length from 1 to 128 (8,256 bytes),
+    each on the path its length picks (a lane, or a warp past 32 bytes),
+    with the row's first probe round in three groups of the block's
+    positions."""
+    letters = _letters(8256, seed=31)
+    words, off = [], 0
+    for n in range(1, 129):
+        words.append(letters[off : off + n])
+        off += n
+    arr, wid = _word_rows([words], 8256)
+    _check_k5(tok100k, chd50k, arr, wid)
+
+
+@pytest.mark.parametrize("L", [64, 256, 257, 512])
+def test_k5_words_at_the_thresholds(tok100k, chd50k, L):
+    """Words of 31 to 34 bytes (the lane / warp threshold of 32) and of
+    one and two bytes, in rows of 256 bytes (64 threads a block) and 257
+    (128 threads), and in narrower and wider rows; text words and runs of
+    one letter."""
+    rng = np.random.RandomState(L)
+    rows = []
+    for r in range(24):
+        letters = _letters(4 * L, seed=r)
+        words, n = [], 0
+        while True:
+            size = int(rng.choice([1, 2, 31, 32, 33, 34, 3, 8]))
+            if n + size > L:
+                break
+            word = letters[n : n + size] if r % 3 else bytes([letters[n]]) * size
+            words.append(word)
+            n += size
+        rows.append(words)
+    arr, wid = _word_rows(rows, L)
+    _check_k5(tok100k, chd50k, arr, wid)
+
+
+def test_k5_oov_bytes_and_words_that_never_merge(tok100k, chd50k):
+    """OOV bytes inside words (tombstones from the start, also at the
+    32-entry chunk edges of warp words, and in runs longer than the first
+    round's reach), words made only of bytes whose pairs are all misses,
+    and words of one OOV byte between them."""
+    rng = np.random.RandomState(7)
+    rows = []
+    for r in range(32):
+        letters = bytearray(_letters(600, seed=40 + r))
+        for q in rng.choice(600, 40, replace=False):
+            letters[q] = ord("Q")  # made OOV below
+        for q in (31, 32, 33, 63, 64):
+            letters[q] = ord("Z")
+        words = [bytes(letters[:100]), bytes(letters[100:103]), b"Q",
+                 bytes(rng.randint(0xF5, 0x100, size=40).astype(np.uint8)),
+                 bytes(rng.randint(0xF5, 0x100, size=7).astype(np.uint8)),
+                 bytes(letters[103:140]), b"QQQQ", bytes(letters[140:160]),
+                 # OOV runs longer than the first round's reach (8), inside a
+                 # lane's word and inside a warp's
+                 bytes(letters[160:163]) + b"Q" * 20 + bytes(letters[163:167]),
+                 b"x" + b"Q" * 120 + bytes(letters[167:180]),
+                 bytes(letters[180:182]) + b"Q" * 9 + bytes(letters[182:184])]
+        rows.append(words)
+    arr, wid = _word_rows(rows, 512)
+    _check_k5(tok100k, chd50k, arr, wid, oov=(ord("Q"), ord("Z")))
+
+
+def test_k5_row_at_the_wrapper_limit(tok100k, chd50k):
+    """One word of 12,288 bytes (the wrapper's limit: its shared memory)
+    runs; a row of 12,289 raises before any launch."""
+    arr, wid = _word_rows([[_letters(12288, seed=5)]], 12288)
+    _check_k5(tok100k, chd50k, arr, wid)
+    tb = tok100k.pipeline("cuda").tables
+    over = torch.zeros((1, 12289), dtype=torch.int32, device="cuda")
+    before = merge_words.launches
+    with pytest.raises(ValueError):
+        merge_words(over, over, *_chd_args(tb))
+    assert merge_words.launches == before
+
+
+@pytest.mark.parametrize("L", [256, 1024, 4096])
+def test_k5_long_word_finishes_after_the_short_words(tok100k, chd50k, L):
+    """Rows of one long word (a run of one letter, or text) among many
+    short words, the long word first or last: the short words are done
+    long before it, with no barrier between them."""
+    rows = []
+    for r in range(16):
+        letters = _letters(L, seed=60 + r)
+        long = b"a" * (L // 2) if r % 2 else letters[: L // 2]
+        shorts = [letters[L // 2 + i : L // 2 + i + 5] for i in range(0, L // 2 - 5, 5)]
+        rows.append([long] + shorts if r % 4 < 2 else shorts + [long])
+    arr, wid = _word_rows(rows, L)
+    _check_k5(tok100k, chd50k, arr, wid)
+
+
 def test_100k_paths_on_card_match_host(tok100k):
     """At 100K: backend="device", "auto" (drained, then again) and the text
     pipeline on the card equal the host oracle, and K5 was launched."""
