@@ -26,9 +26,10 @@ Phases (each prints its seconds):
    drained, then the corpus again, ``encode_batch_ragged`` and
    ``backend="native"``.  Every text's ids equal the host oracle's; the
    launch counts are set to 0 just before each path and read just after;
-   each path must have launched its kernels (K1, the fixpoint of its table,
-   and on the word path K3 and K4) and not the other fixpoint.  The first
-   ``[B, L]`` batch and word pack of every shape are kept.
+   each path must have launched its kernels and no other: the text pipeline
+   K1 and the fixpoint of its table, the word paths K6 and K4 (the fill in
+   two launches) and not K1, K2, K3 or K5.  The first ``[B, L]`` batch and
+   word pack of every shape are kept.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -47,12 +48,19 @@ Phases (each prints its seconds):
    Every K2 and K5 line carries its probe and merge counts and the launch's
    shape on the card (``ops/merge.py:launch_shape``: threads, registers,
    spilled bytes, shared memory a block, resident blocks per SM).
-   K3 and K4, and the whole fill against its plain versions on the CPU, on
-   the word packs of both
-   (uint16 ids at 50K, int32 at 100K), at the compact capacity and at full
-   capacity; K3 and K4 timed warm and cold.  Kernels and the library
-   expression are timed by replaying a CUDA graph, the plain versions that
-   synchronise with CUDA events around their calls (``_time_ms``).
+   On the word packs of both vocabularies (uint16 ids at 50K, int32 at
+   100K): K6 (the word path's merge from the packed bytes) against its
+   plain version on the card and on the CPU and against K3 -> K1 -> the
+   fixpoint, timed warm and cold with its bound and launch shape; the fill
+   (K6, then K4) against the four-launch chain (K3 -> K1 -> K2 or K5 ->
+   K4) and against its plain versions on the card and on the CPU at the
+   compact capacity and at full capacity, the fill and the chain timed in
+   turns, warm and cold; K3 and K4 against their plain versions, timed
+   warm and cold.  K6 and the fill also on both probes with both id widths
+   (the 50K CHD table, and int32 ids at 50K) and on ``edge_word_pack``
+   rows.  Kernels and the library expression are timed by replaying a CUDA
+   graph, the plain versions that synchronise with CUDA events around
+   their calls (``_time_ms``).
 5. report: one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -280,6 +288,26 @@ def seed_edge_batches(rng) -> list[tuple]:
     return out
 
 
+def _probe_work(tb, table: str, tokens, wid, count) -> tuple:
+    """The least work any fixpoint needs on these rows: every initial
+    adjacent pair of a word probed once, and the up to two new pairs of
+    each merge.  Returns (probes, merges, table bytes, operations): the
+    table's bytes these probes touch, each once (a probe reads K2's two
+    8-byte cuckoo rows, or K5's 4-byte displacement and 16-byte row; no
+    probe count needs more than the whole table), and their operations."""
+    alive = tokens >= 0
+    rows = alive.nonzero()[:, 0]
+    wids = wid[alive]
+    pairs = int(((rows[1:] == rows[:-1]) & (wids[1:] == wids[:-1])).sum())
+    merges = int(alive.sum()) - int(count.sum())
+    probes = pairs + 2 * merges
+    if table == "qc":
+        return (probes, merges, min(probes * 16, 2 * tb.qc_t1.numel() * 4),
+                probes * OPS_PER_PROBE)
+    return (probes, merges, min(probes * (4 + 16), 4 * (tb.chd_disp.numel() + tb.chd_rows.numel())),
+            probes * OPS_PER_PROBE_CHD)
+
+
 def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
                 wid=None, table: str = "qc", cold: bool = False) -> dict:
     """K2 (``table="qc"``) or K5 (``table="chd"``) against its plain version
@@ -336,24 +364,7 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
     if plain_reps:
         plain_ms = _time_ms(lambda: plain_fn(tokens, wid, *args), plain_reps, graph=False,
                             warm=plain_reps > 1)
-    # the least work any fixpoint needs on these rows: every initial
-    # adjacent pair of a word probed once, and the up to two new pairs of
-    # each merge; bytes: tokens and wid in, tokens and counts out, and the
-    # table's bytes these probes touch, each once: a probe reads K2's two
-    # 8-byte cuckoo rows, or K5's 4-byte displacement and 16-byte row,
-    # and no probe count needs more than the whole table
-    alive = tokens >= 0
-    rows = alive.nonzero()[:, 0]
-    wids = wid[alive]
-    pairs = int(((rows[1:] == rows[:-1]) & (wids[1:] == wids[:-1])).sum())
-    merges = int(alive.sum()) - int(exp_c.sum())
-    probes = pairs + 2 * merges
-    if table == "qc":
-        table_bytes = min(probes * 16, 2 * tb.qc_t1.numel() * 4)
-        ops = probes * OPS_PER_PROBE
-    else:
-        table_bytes = min(probes * (4 + 16), 4 * (tb.chd_disp.numel() + tb.chd_rows.numel()))
-        ops = probes * OPS_PER_PROBE_CHD
+    probes, merges, table_bytes, ops = _probe_work(tb, table, tokens, wid, exp_c)
     bound_ms, bound_by = _bound(12 * B * L + 4 * B + table_bytes, ops)
     cold_txt = f" cold={ms_cold:.4f} ms" if ms_cold is not None else ""
     plain_txt = f"{plain_ms:.4f} ms" if plain_ms is not None else "not timed"
@@ -363,7 +374,7 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
         f"[{name}] {label} [{B},{L}] match={match} max_abs_err={err}{k2_txt} "
         f"kernel={ms:.4f} ms{cold_txt} plain={plain_txt} bound={bound_ms:.4f} ms "
         f"({bound_by}; {probes} probes, {merges} merges) "
-        f"live={int(exp_c.sum())}/{int(alive.sum())}; launch {shape['threads']} threads, "
+        f"live={int(exp_c.sum())}/{int((tokens >= 0).sum())}; launch {shape['threads']} threads, "
         f"{shape['registers']} registers, {shape['local_bytes']} B spilled a thread, "
         f"shared {shape['static_smem']} + {shape['dynamic_smem']} B a block, "
         f"{shape['blocks_per_sm']} blocks per SM",
@@ -386,22 +397,33 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
 
 
 def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> tuple:
-    """K3 and K4 against their plain versions on one word pack (on the
-    card), and the whole fill (K3, K1, K2 or K5, K4) against its plain
-    versions on the CPU, byte for byte on the fused buffer, at the compact
-    capacity (3/8 of the lanes) and at full capacity.  K3 and K4 are timed
-    warm and cold at the compact capacity, their plain versions warm, and
-    the whole fill warm.  Returns (K3 result, K4 result)."""
+    """The word path's fill on one pack (on the card).  K6 (the merge from
+    the packed bytes) against its plain version on the card and on the CPU
+    and against K3 -> K1 -> the fixpoint (merged rows and counts); the fill
+    (K6, then K4) against the four-launch chain (K3 -> K1 -> K2 or K5 ->
+    K4) and its plain versions on the card and on the CPU, byte for byte on
+    the fused buffer, at the compact capacity (3/8 of the lanes) and at
+    full capacity; K3 and K4 against their plain versions.  K3, K4 and K6
+    are timed warm and cold, the fill and the chain in turns (fill, chain,
+    chain, fill) warm and cold at the compact capacity, the plain versions
+    warm.  K6's bound counts the pack's bytes, start bits, lengths and byte
+    table in, the merged rows and counts out and the table bytes its probes
+    touch, once each.  Returns (K3, K4, K6 results)."""
     import torch
 
+    from complexity_tokenizer_tpu_torch.ops.merge import launch_shape
     from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
     from complexity_tokenizer_tpu_torch.ops.wordfill import (
         fill_compact,
         fill_compact_plain,
         fill_layout,
         word_fill,
+        word_fill_chain,
+        word_fill_plain,
         word_ids,
         word_ids_plain,
+        word_merge,
+        word_merge_plain,
     )
 
     B, W = a.shape
@@ -410,30 +432,40 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
     exp3 = word_ids_plain(bits, row_len)
     tokens = seed_tokens(a, row_len, tb.byte_token_table)
     merged, count = tb.merge_fixpoint(tokens, got3)
-    errs4, match4 = [], True
+    got6 = word_merge(a, bits, row_len, tables=tb)
+    errs6 = []
+    match6 = True
+    for exp6 in (word_merge_plain(a, bits, row_len, tables=tb), (merged, count),
+                 word_merge(a.cpu(), bits.cpu(), row_len.cpu(), tables=cpu_tb)):
+        for g, e in zip(got6, exp6):
+            errs6.append(_max_abs_err(g.cpu(), e.cpu()))
+            match6 &= bool(torch.equal(g.cpu(), e.cpu()))
+    errs4, match4, match_fill = [], True, True
     for c in (cap, B * W):
         got4 = fill_compact(merged, count, c, itemsize)
         exp4 = fill_compact_plain(merged, count, c, itemsize)
-        fill_card = word_fill(a, bits, row_len, c, tables=tb, itemsize=itemsize)
-        fill_cpu = word_fill(a.cpu(), bits.cpu(), row_len.cpu(), c, tables=cpu_tb,
-                             itemsize=itemsize)
+        fill = word_fill(a, bits, row_len, c, tables=tb, itemsize=itemsize)
+        chain = word_fill_chain(a, bits, row_len, c, tables=tb, itemsize=itemsize)
+        plain = word_fill_plain(a, bits, row_len, c, tables=tb, itemsize=itemsize)
+        cpu = word_fill(a.cpu(), bits.cpu(), row_len.cpu(), c, tables=cpu_tb, itemsize=itemsize)
         torch.cuda.synchronize()
         errs4.append(_max_abs_err(got4, exp4))
         match4 &= bool(torch.equal(got4, exp4))
-        if not torch.equal(fill_card.cpu(), fill_cpu):
-            raise AssertionError(f"the fill on the card differs from the CPU's: {label} [{B},{W}] cap {c}")
+        match_fill &= bool(torch.equal(fill, chain) and torch.equal(fill, plain)
+                           and torch.equal(fill.cpu(), cpu))
     err3 = _max_abs_err(got3, exp3)
     match3 = bool(torch.equal(got3, exp3))
     total = int(count.sum())
+    table = "qc" if tb.qc_t1 is not None else "chd"
     print(
-        f"[word_fill] {label} [{B},{W}] K3 match={match3} K4 match={match4} "
-        f"(ids of {itemsize} B, largest {int(merged.max())}) "
-        f"live={total} cap={cap} ({'spills' if total > cap else 'fits'}); "
-        f"fill on card == fill on CPU at cap {cap} and {B * W}",
+        f"[word_fill] {label} [{B},{W}] K6 == plain (card) == K3+K1+fixpoint == plain (CPU): "
+        f"{match6}; fill (K6+K4) == chain == plain (card) == plain (CPU): {match_fill}; "
+        f"K3 match={match3} K4 match={match4} (ids of {itemsize} B, largest {int(merged.max())}) "
+        f"live={total} cap={cap} ({'spills' if total > cap else 'fits'}); at cap {cap} and {B * W}",
         flush=True,
     )
-    if not (match3 and match4):
-        raise AssertionError(f"word_ids or fill_compact differ from their plain versions: {label} [{B},{W}]")
+    if not (match3 and match4 and match6 and match_fill):
+        raise AssertionError(f"the fill's kernels differ from their plain versions: {label} [{B},{W}]")
     reps = 200
     out_bytes = fill_layout(B, W, cap, itemsize)[2]
     k3_ms = _time_ms(lambda: word_ids(bits, row_len), reps)
@@ -446,26 +478,113 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
     k4_cold = _time_cold_ms(lambda m, n: fill_compact(m, n, cap, itemsize), sets, reps)
     del sets
     k4_plain = _time_ms(lambda: fill_compact_plain(merged, count, cap, itemsize), 20, graph=False)
-    fill_ms = _time_ms(lambda: word_fill(a, bits, row_len, cap, tables=tb, itemsize=itemsize), 50)
+
+    def k6_fn(x, y, z):
+        return word_merge(x, y, z, tables=tb)
+
+    def fill_fn(x, y, z):
+        return word_fill(x, y, z, cap, tables=tb, itemsize=itemsize)
+
+    def chain_fn(x, y, z):
+        return word_fill_chain(x, y, z, cap, tables=tb, itemsize=itemsize)
+
+    k6_ms = _time_ms(lambda: k6_fn(a, bits, row_len), 50)
+    sets = _cold_sets((a, bits, row_len), 4 * B * W + 4 * B)
+    k6_cold = _time_cold_ms(k6_fn, sets, 50)
+    del sets
+    fill_ms, chain_ms = [], []
+    for fn, res in ((fill_fn, fill_ms), (chain_fn, chain_ms), (chain_fn, chain_ms),
+                    (fill_fn, fill_ms)):
+        res.append(_time_ms(lambda fn=fn: fn(a, bits, row_len), 50))
+    # the intermediates (the chain's word ids, tokens and merged tokens, 12
+    # B a lane; the fill's merged tokens, 4 B) count as outputs of each call
+    sets = _cold_sets((a, bits, row_len), out_bytes + 12 * B * W)
+    fill_cold, chain_cold = [], []
+    for fn, res in ((fill_fn, fill_cold), (chain_fn, chain_cold), (chain_fn, chain_cold),
+                    (fill_fn, fill_cold)):
+        res.append(_time_cold_ms(fn, sets, 50))
+    del sets
+    k6_plain = _time_ms(lambda: word_merge_plain(a, bits, row_len, tables=tb), 3, graph=False)
     # bytes the functions must move: each input read once, each output
     # written once; about one operation a lane
     b3, by3 = _bound(B * W // 8 + 4 * B + 4 * B * W, B * W)
     b4, by4 = _bound(4 * B * W + 4 * B + out_bytes, B * W)
+    probes, merges, table_bytes, ops = _probe_work(tb, table, tokens, got3, count)
+    b6, by6 = _bound(B * W + B * W // 8 + 4 * B + 4 * 256 + 4 * B * W + 4 * B + table_bytes, ops)
+    shape = launch_shape(W, chd=table == "chd", fill=True)
+    print(
+        f"[word_fill] {label} [{B},{W}] K6 warm={k6_ms:.4f} ms cold={k6_cold:.4f} ms "
+        f"plain={k6_plain:.4f} ms bound={b6:.4f} ms ({by6}; {probes} probes, {merges} merges; "
+        f"warm share {b6 / k6_ms:.3f}); launch {shape['threads']} threads, {shape['registers']} "
+        f"registers, {shape['local_bytes']} B spilled a thread, shared {shape['static_smem']} + "
+        f"{shape['dynamic_smem']} B a block, {shape['blocks_per_sm']} blocks per SM; fill "
+        f"(K6+K4) warm={min(fill_ms):.4f}-{max(fill_ms):.4f} ms cold={min(fill_cold):.4f}-"
+        f"{max(fill_cold):.4f} ms; chain (K3+K1+fixpoint+K4) warm={min(chain_ms):.4f}-"
+        f"{max(chain_ms):.4f} ms cold={min(chain_cold):.4f}-{max(chain_cold):.4f} ms",
+        flush=True,
+    )
     print(
         f"[word_fill] {label} [{B},{W}] K3 warm={k3_ms:.4f} ms cold={k3_cold:.4f} ms "
         f"plain={k3_plain:.4f} ms bound={b3:.4f} ms ({by3}); K4 warm={k4_ms:.4f} ms "
-        f"cold={k4_cold:.4f} ms plain={k4_plain:.4f} ms bound={b4:.4f} ms ({by4}); "
-        f"whole fill (K3+K1+merge+K4) warm={fill_ms:.4f} ms",
+        f"cold={k4_cold:.4f} ms plain={k4_plain:.4f} ms bound={b4:.4f} ms ({by4})",
         flush=True,
     )
-    common = dict(inputs=label, shape=[B, W], library_ms=None, fill_ms=fill_ms)
+    common = dict(inputs=label, shape=[B, W], library_ms=None)
     return (
         dict(common, match=match3, max_abs_err=err3, ms=k3_ms, ms_cold=k3_cold,
              plain_ms=k3_plain, bound_ms=b3, bound_by=by3),
         dict(common, match=match4, max_abs_err=max(errs4), ms=k4_ms, ms_cold=k4_cold,
              plain_ms=k4_plain, bound_ms=b4, bound_by=by4, cap=cap, live=total,
              itemsize=itemsize),
+        dict(common, match=match6 and match_fill, max_abs_err=max(errs6), ms=k6_ms,
+             ms_cold=k6_cold, fill_ms=fill_ms, fill_ms_cold=fill_cold, chain_ms=chain_ms,
+             chain_ms_cold=chain_cold, plain_ms=k6_plain, bound_ms=b6, bound_by=by6,
+             probes=probes, merges=merges, launch=shape, cap=cap, live=total,
+             itemsize=itemsize),
     )
+
+
+def check_k6_probes(label: str, tables: list, a, bits, row_len) -> None:
+    """K6 against K3 -> K1 -> the fixpoint on one pack, merged rows and
+    counts bit for bit, for each (probe, tables) of ``tables`` ("qc": the
+    cuckoo table, K2's walk; "chd": the CHD table, K5's walk); then K4 on
+    K6's rows against the plain K4 on the chain's, byte for byte, with
+    uint16 and int32 ids at the compact and the full capacity."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_words, merge_words_qc
+    from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
+    from complexity_tokenizer_tpu_torch.ops.wordfill import (
+        fill_compact,
+        fill_compact_plain,
+        word_ids,
+        word_merge_chd,
+        word_merge_qc,
+    )
+
+    B, W = a.shape
+    for probe, tb in tables:
+        if probe == "qc":
+            pair = (tb.qc_t1, tb.qc_t2, tb.qc_size)
+            k6_fn, fixpoint = word_merge_qc, merge_words_qc
+        else:
+            pair = (tb.chd_disp, tb.chd_rows, tb.chd_size, tb.chd_n_buckets)
+            k6_fn, fixpoint = word_merge_chd, merge_words
+        got = k6_fn(a, bits, row_len, tb.byte_token_table, *pair)
+        tokens = seed_tokens(a, row_len, tb.byte_token_table)
+        exp = fixpoint(tokens, word_ids(bits, row_len), *pair)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, e) for g, e in zip(got, exp)):
+            raise AssertionError(f"K6 differs from K3 -> K1 -> fixpoint: {label} [{B},{W}] {probe}")
+        for itemsize in (2, 4):
+            for cap in (B * W * 3 // 8, B * W):
+                if not torch.equal(fill_compact(*got, cap, itemsize),
+                                   fill_compact_plain(*exp, cap, itemsize)):
+                    raise AssertionError(f"the fill differs from the chain: {label} [{B},{W}] "
+                                         f"{probe} ids of {itemsize} B cap {cap}")
+    print(f"[word_fill] {label} [{B},{W}] K6 == K3 -> K1 -> fixpoint, and the fill == the "
+          f"chain with ids of 2 and 4 B at both capacities, on {', '.join(p for p, _ in tables)}",
+          flush=True)
 
 
 def text_pipeline_encode(tok, pipe, texts: list[str]) -> list[list[int]]:
@@ -511,7 +630,7 @@ def main_corpus(n_texts: int, seed: int) -> list[str]:
 
 
 KERNEL_NAMES = ("seed_tokens", "merge_fixpoint_qc", "merge_fixpoint_chd", "word_ids",
-                "fill_compact")
+                "fill_compact", "word_merge")
 
 
 def with_chd_table(tok):
@@ -791,8 +910,13 @@ def main(argv=None) -> int:
         from complexity_tokenizer_tpu_torch.ops.merge import merge_words, merge_words_qc
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
-        from complexity_tokenizer_tpu_torch.ops.wordfill import fill_compact, word_ids, word_ids_plain
-        from complexity_tokenizer_tpu_torch.utils.corpus import RUN_BREAKS, run_rows
+        from complexity_tokenizer_tpu_torch.ops.wordfill import (
+            fill_compact,
+            word_ids,
+            word_ids_plain,
+            word_merge,
+        )
+        from complexity_tokenizer_tpu_torch.utils.corpus import RUN_BREAKS, edge_word_pack, run_rows
         from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -849,23 +973,21 @@ def main(argv=None) -> int:
     texts = main_corpus(args.texts, args.seed)
     kernels_of = {"seed_tokens": seed_tokens, "merge_fixpoint_qc": merge_words_qc,
                   "merge_fixpoint_chd": merge_words, "word_ids": word_ids,
-                  "fill_compact": fill_compact}
+                  "fill_compact": fill_compact, "word_merge": word_merge}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
-    # every kernel of a path was launched on it; the fixpoint is the table's
-    for label, r, fixpoint, other in (
-        ("50K", r50, "merge_fixpoint_qc", "merge_fixpoint_chd"),
-        ("100K", r100, "merge_fixpoint_chd", "merge_fixpoint_qc"),
-    ):
+    # every kernel of a path was launched on it and no other: the text
+    # pipeline runs K1 and the fixpoint of its table, the word paths one K6
+    # (K3, K1 and the fixpoint folded into it) and one K4 a pack
+    for label, r, fixpoint in (("50K", r50, "merge_fixpoint_qc"), ("100K", r100, "merge_fixpoint_chd")):
         for path_name, counts in r["launches"].items():
-            need = [fixpoint, "seed_tokens"]
-            if path_name != "text pipeline":
-                need += ["word_ids", "fill_compact"]
-            for name in need:
-                if counts[name] <= 0:
-                    raise AssertionError(f"kernel {name} was not launched on the {label} {path_name}")
-            if counts[other] != 0:
-                raise AssertionError(f"kernel {other} was launched on the {label} {path_name}")
+            text = path_name == "text pipeline"
+            need = [fixpoint, "seed_tokens"] if text else ["word_merge", "fill_compact"]
+            for name, n in counts.items():
+                if (n > 0) != (name in need):
+                    raise AssertionError(f"kernel {name} was launched {n} times on the {label} {path_name}")
+            if not text and counts["word_merge"] != counts["fill_compact"]:
+                raise AssertionError(f"K6 and K4 launched unequally on the {label} {path_name}")
 
     # 4. kernels against their plain versions -------------------------------
     t0 = time.perf_counter()
@@ -878,20 +1000,30 @@ def main(argv=None) -> int:
     chd_res: list[dict] = []
     k3_res: list[dict] = []
     k4_res: list[dict] = []
+    k6_res: list[dict] = []
     packs, batches = r50["packs"], r50["batches"]
     # 50K: K5 on the same rows as K2 (on the vocabulary's CHD table, which
     # the pipeline does not build where the cuckoo table fits), so the cost
     # of the dependent probe shows
     for B in sorted(packs):
         a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
-        r3, r4 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
+        r3, r4, r6 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
         k3_res.append(r3)
         k4_res.append(r4)
+        k6_res.append(r6)
+        check_k6_probes("word pack", [("qc", tb), ("chd", tb_chd)], a, bits, row_len)
         seed_res.append(check_seed("word pack", a, row_len, tb.byte_token_table))
         wid = word_ids_plain(bits, row_len)
         merge_res.append(check_merge("word pack", tb, a, row_len, wid=wid, cold=True))
         chd_res.append(check_merge("word pack, 50K", tb_chd, a, row_len, wid=wid, table="chd",
                                    cold=True, plain_reps=0))
+    # K6 at the fill's edges (edge_word_pack): runs before the first start
+    # bit, rows of length 0 and 128, OOV bytes and runs, a one-letter word
+    corpus_words = [w.encode("utf-8") for t in texts[:2000] for w in t.split()]
+    edge_packs = [tuple(torch.from_numpy(x).cuda() for x in edge_word_pack(corpus_words, B, seed=B))
+                  for B in (1, 7, 1024)]
+    for pack in edge_packs:
+        check_k6_probes("edge rows", [("qc", tb), ("chd", tb_chd)], *pack)
     for shape in r50["shapes"]:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
         seed_res.append(check_seed("text batch", arr, lens, tb.byte_token_table))
@@ -941,12 +1073,16 @@ def main(argv=None) -> int:
     packs, batches = r100["packs"], r100["batches"]
     for B in sorted(packs):
         a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
-        r3, r4 = check_word_fill("word pack, 100K", tb, cpu_tb, a, bits, row_len, itemsize)
+        r3, r4, r6 = check_word_fill("word pack, 100K", tb, cpu_tb, a, bits, row_len, itemsize)
         k3_res.append(r3)
         k4_res.append(r4)
+        k6_res.append(r6)
+        check_k6_probes("word pack, 100K", [("chd", tb)], a, bits, row_len)
         seed_res.append(check_seed("word pack, 100K", a, row_len, tb.byte_token_table, timed=False))
         chd_res.append(check_merge("word pack", tb, a, row_len, wid=word_ids_plain(bits, row_len),
                                    table="chd", cold=True))
+    for pack in edge_packs:
+        check_k6_probes("edge rows, 100K", [("chd", tb)], *pack)
     for shape in r100["shapes"]:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
         chd_res.append(check_merge("text batch", tb, arr, lens, table="chd", cold=True))
@@ -971,19 +1107,24 @@ def main(argv=None) -> int:
 
     # 5. report --------------------------------------------------------------
     # the headline numbers are those of the word path's largest pack (K5:
-    # at 100K, its main path; the others at 50K)
+    # at 100K; the others at 50K); launches those of the path that runs the
+    # kernel (K1 and the fixpoint: the text pipeline; K6 and K4:
+    # backend="device"; K3, folded into K6: backend="device", where it
+    # shows 0)
     kernels = []
-    for name, res, src, wrapper, replaces in (
+    for name, res, src, wrapper, replaces, path_name in (
         ("seed_tokens", seed_res, "kernels.cu", "ops/seed.py",
-         "complexity_tokenizer_tpu/ops/pallas_kernels.py:70"),
+         "complexity_tokenizer_tpu/ops/pallas_kernels.py:70", "text pipeline"),
         ("merge_fixpoint_qc", merge_res, "kernels.cu", "ops/merge.py",
-         "complexity_tokenizer_tpu/ops/merge.py:187"),
+         "complexity_tokenizer_tpu/ops/merge.py:187", "text pipeline"),
         ("merge_fixpoint_chd", chd_res, "kernels.cu", "ops/merge.py",
-         "complexity_tokenizer_tpu/ops/merge.py:342"),
+         "complexity_tokenizer_tpu/ops/merge.py:342", "text pipeline"),
         ("word_ids", k3_res, "wordfill.cu", "ops/wordfill.py",
-         "complexity_tokenizer_tpu/ops/wordpath.py:292"),
+         "complexity_tokenizer_tpu/ops/wordpath.py:292", "backend=device"),
         ("fill_compact", k4_res, "wordfill.cu", "ops/wordfill.py",
-         "complexity_tokenizer_tpu/ops/wordpath.py:317"),
+         "complexity_tokenizer_tpu/ops/wordpath.py:317", "backend=device"),
+        ("word_merge", k6_res, "kernels.cu", "ops/wordfill.py",
+         "complexity_tokenizer_tpu/ops/wordpath.py:259", "backend=device"),
     ):
         main_run = r100 if name == "merge_fixpoint_chd" else r50
         largest = [max(main_run["packs"]), 128]
@@ -994,7 +1135,8 @@ def main(argv=None) -> int:
             "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
             "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
             "replaces": replaces,
-            "launches": main_run["launches"]["backend=device"][name],
+            "launches": main_run["launches"][path_name][name],
+            "launches_path": f"{'100K' if main_run is r100 else '50K'} {path_name}",
             "launches_by_path": {
                 f"{label} {path_name}": counts[name]
                 for label, r in (("50K", r50), ("100K", r100))
@@ -1014,6 +1156,11 @@ def main(argv=None) -> int:
             kernels[-1]["ms_cold"] = main["ms_cold"]
         if "launch" in main:
             kernels[-1]["launch"] = main["launch"]
+        if name == "word_merge":
+            for key in ("fill_ms", "fill_ms_cold", "chain_ms", "chain_ms_cold"):
+                kernels[-1][key] = min(main[key])
+        if name == "word_ids":
+            kernels[-1]["folded_into"] = "word_merge"
         if name == "seed_tokens":
             kernels[-1]["launch_floor_ms"] = launch_floor_ms
     print(json.dumps({"kernels": kernels}))

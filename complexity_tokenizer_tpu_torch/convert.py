@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .ops.merge import merge_words, merge_words_qc
+from .ops.wordfill import word_merge_chd, word_merge_qc
 
 __all__ = ["TorchTables", "tables_to_device", "native_from_arrays"]
 
@@ -44,6 +45,16 @@ class TorchTables:
         return merge_words(
             tokens, wid, self.chd_disp, self.chd_rows, self.chd_size, self.chd_n_buckets
         )
+
+    def word_merge(self, bytes_bw, start_bits, row_len):
+        """The merge of one pack of word rows over these tables (K6, or its
+        plain version on CPU tensors), on the table ``merge_fixpoint``
+        picks.  Returns (merged, count) (``ops/wordfill.py:word_merge``)."""
+        if self.qc_t1 is not None:
+            return word_merge_qc(bytes_bw, start_bits, row_len, self.byte_token_table,
+                                 self.qc_t1, self.qc_t2, self.qc_size)
+        return word_merge_chd(bytes_bw, start_bits, row_len, self.byte_token_table,
+                              self.chd_disp, self.chd_rows, self.chd_size, self.chd_n_buckets)
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:

@@ -334,6 +334,7 @@ struct ChdProbe {
   const int4* __restrict__ rows;
   uint32_t size_mask;
   uint32_t bucket_mask;
+  uint32_t zero = 0;  // 0 at run time, which ptxas cannot see (round)
 
   // slot = (mix2(a, b) + disp[mix1(a, b) & (B - 1)]) & (T - 1): the row
   // read waits on the displacement read.  In two halves, so that a round
@@ -353,6 +354,11 @@ struct ChdProbe {
   }
   // One round over the pairs (a[i], b[i]) with live[i]: every displacement
   // read, then every row read, then the compares; a dead pair is a miss.
+  // Each row read takes every displacement (masked by `zero`), and each
+  // compare every row, so that ptxas cannot issue a pair's row read right
+  // after its own displacement read and compare it before the next pair's
+  // reads: in K6's kernel it did, two L2 latencies a pair instead of two a
+  // round.
   template <int N>
   __device__ __forceinline__ void round(const int32_t (&a)[N], const int32_t (&b)[N],
                                         const bool (&live)[N], Entry (&v)[N]) const {
@@ -360,10 +366,22 @@ struct ChdProbe {
     int4 r[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) d[i] = live[i] ? disp_of(a[i], b[i]) : 0;
+    int32_t all_d = 0;
 #pragma unroll
-    for (int i = 0; i < N; ++i) r[i] = live[i] ? row_of(a[i], b[i], d[i]) : make_int4(-1, -1, 0, 0);
+    for (int i = 0; i < N; ++i) all_d ^= d[i];
+    all_d &= (int32_t)zero;
 #pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = live[i] ? entry(a[i], b[i], r[i]) : kMissEntry;
+    for (int i = 0; i < N; ++i)
+      r[i] = live[i] ? row_of(a[i], b[i], d[i] + all_d) : make_int4(-1, -1, 0, 0);
+    int32_t all_r = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) all_r ^= r[i].x;
+    all_r &= (int32_t)zero;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      r[i].x ^= all_r;
+      v[i] = live[i] ? entry(a[i], b[i], r[i]) : kMissEntry;
+    }
   }
   static __device__ __forceinline__ uint32_t key(Entry v) {
     return (uint32_t)(v >> 32);
@@ -779,17 +797,103 @@ __device__ __forceinline__ void chd_first_round(const int32_t* t, uint64_t* rm,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6: the word path's merge, from the packed bytes.
+//
+// Replaces the start-bit unpack, the word-id cumsum, the byte seed and the
+// merge fixpoint of the JAX package's unphased fill body
+// (complexity_tokenizer_tpu/ops/wordpath.py, DeviceWordEncoder.
+// _local_fill_body): packed word rows -> the merged rows [B, L] int32 and
+// their live counts [B], what K3 -> K1 -> K2 or K5 write.  K4 (wordfill.cu)
+// then compacts them into the fused buffer: the fill is two launches,
+// where it was four.  K6 is the fixpoint kernel below with a second row
+// policy, FillRows: where the row comes from.  TokenRows (K2, K5) reads
+// tokens and word ids.
+//
+// The prologue (K3 and K1): block r reads row_len, the row's bytes and its
+// start bits coalesced, and puts t[i] = byte_table[byte] (-1 at and past
+// row_len, and for an OOV byte) and the word start / gap flags straight
+// into shared memory; no word id or seed token goes through device
+// memory.  The flags are K3's word ids without the ids: a position at or
+// past row_len, or before the row's first start bit, has word id -1 (a
+// gap); a start is position 0, a set bit before row_len, and row_len
+// itself when a word ends there.  The epilogue is the fixpoint's own.
+//
+// Bound: latency, as the fixpoint's.  With K4 after it, 2.8-3.7 us more
+// than the fixpoint alone on tokens and word ids, K4's launch most of it.
+// A one-launch design that also did K4's work (a decoupled look-back over
+// the rows' counts, a row ticket, a scratch zeroed by the block counted
+// last) took 3.7-8.1 us more than the fixpoint alone, and 1.7-4.4 us more
+// than this kernel and K4 together on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md): its look-back waited on the slowest rows, and its ticket and
+// fences came before every row's stores.
+
+// K2 and K5: the kernel's own arguments tokens_in, wid
+struct TokenRows {
+  static constexpr bool kFill = false;
+};
+
+struct FillRows {
+  static constexpr bool kFill = true;
+  const uint8_t* __restrict__ bytes;       // [B, L]
+  const uint8_t* __restrict__ start_bits;  // [B, L / 8], little endian
+  const int32_t* __restrict__ row_len;     // [B]
+  const int32_t* __restrict__ byte_table;  // [256], -1 = OOV
+};
+
+// K6's prologue: puts row `row`'s tokens in t and its start / gap flags in
+// aux.  The bytes, start bits and length of the row are loaded together,
+// and the table entry of every byte, before the length masks them.
+template <int kThreads>
+__device__ __forceinline__ void fill_load(const FillRows& io, int32_t* t, uint16_t* aux,
+                                          int64_t row, int L, int tid) {
+  __shared__ int s_first;
+  if (tid == 0) s_first = L;
+  __syncthreads();
+  const uint8_t* rb = io.bytes + row * L;
+  const uint8_t* sb = io.start_bits + row * (L / 8);
+  const int len = min(max(__ldg(io.row_len + row), 0), L);
+  int first = L;  // this thread's first start
+#pragma unroll 4
+  for (int i = tid; i < L; i += kThreads) {
+    const uint8_t b = __ldg(rb + i);
+    const bool bit = (__ldg(sb + (i >> 3)) >> (i & 7)) & 1;
+    const int32_t v = __ldg(io.byte_table + b);
+    const bool set = i < len && bit;
+    t[i] = i < len ? v : -1;
+    aux[i] = set ? kStartBit : 0;
+    if (set) first = min(first, i);
+  }
+  first = __reduce_min_sync(kFull, first);
+  if ((tid & 31) == 0 && first < L) atomicMin(&s_first, first);
+  __syncthreads();
+  first = s_first;  // the row's first start, L if none
+  for (int i = tid; i < L; i += kThreads) {
+    const bool start = i == 0 || (aux[i] & kStartBit) || (i == len && first < len);
+    const bool gap = i >= len || i < first;
+    aux[i] = (uint16_t)((start ? kStartBit : 0) | (gap ? kGapBit : 0));
+  }
+}
+
 // kMinBlocks: the launch bound, resident blocks per SM (K2: 2048 threads,
-// so 32 registers; K5: min_blocks_chd)
-template <class P, int kThreads, int kMinBlocks>
+// so 32 registers; K5: min_blocks_chd).  R: TokenRows (K2, K5: the rows
+// are tokens_in / wid) or FillRows (K6: the rows are io's, and tokens_in
+// and wid are null).  Both write tokens_out / count.
+template <class P, int kThreads, int kMinBlocks, class R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
-                      const int32_t* __restrict__ wid, P tb,
+                      const int32_t* __restrict__ wid, P tb_arg,
                       int32_t* __restrict__ tokens_out,
-                      int32_t* __restrict__ count, int L) {
+                      int32_t* __restrict__ count, int L, R io) {
+  // K5 keeps its rounds as ptxas schedules them; its `zero` is folded
+  // away here, so that the masks of ChdProbe::round exist in K6 only
+  P tb = tb_arg;
+  if constexpr (P::kBatched && !R::kFill) tb.zero = 0;
   using Entry = typename P::Entry;
   constexpr int kWarps = kThreads / 32;
   constexpr int kEw = kEntryWords<P>;
+  // the word starts and gaps as flags in aux (K5, K6), or word ids in rm
+  constexpr bool kFlags = P::kBatched || R::kFill;
   extern __shared__ __align__(16) int32_t smem[];
   // [L] tokens and [L] probes; the 8-byte probes of K5 go first, aligned
   int32_t* t = kEw == 1 ? smem : smem + kEw * L;
@@ -803,7 +907,9 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   __shared__ int next_chunk, next_word, n_short, block_count;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t base = (int64_t)blockIdx.x * L;
-  if constexpr (P::kBatched) {
+  if constexpr (R::kFill) {
+    fill_load<kThreads>(io, t, aux, blockIdx.x, L, tid);
+  } else if constexpr (P::kBatched) {
     // the word starts and gaps as flags in aux, from each lane's word id
     // and its left neighbour's
     for (int i0 = 0; i0 < L; i0 += kThreads) {
@@ -832,11 +938,11 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   __syncthreads();
   if constexpr (P::kBatched) chd_first_round<kThreads>(t, rm, aux, L, tb, tid);
   auto starts = [&](int q) {
-    if constexpr (P::kBatched) return (aux[q] & kStartBit) != 0;
+    if constexpr (kFlags) return (aux[q] & kStartBit) != 0;
     else return q == 0 || rm[q] != rm[q - 1];
   };
   auto gap = [&](int q) {
-    if constexpr (P::kBatched) return (aux[q] & kGapBit) != 0;
+    if constexpr (kFlags) return (aux[q] & kGapBit) != 0;
     else return (int32_t)rm[q] < 0;
   };
 
@@ -999,12 +1105,12 @@ constexpr int min_blocks_chd(int threads) {
   return (threads == kChdSmallThreads ? kChdSmallSmThreads : kChdSmThreads) / threads;
 }
 
-template <class P, int kThreads>
+template <class P, int kThreads, class R>
 cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid, P tb,
                          int32_t* tokens_out, int32_t* count, int B, int L,
-                         cudaStream_t stream, int* info) {
+                         cudaStream_t stream, int* info, R io) {
   constexpr int kMinBlocks = P::kBatched ? min_blocks_chd(kThreads) : 2048 / kThreads;
-  const auto kernel = merge_fixpoint_kernel<P, kThreads, kMinBlocks>;
+  const auto kernel = merge_fixpoint_kernel<P, kThreads, kMinBlocks, R>;
   // tokens 4 B and probes 4 or 8 B a position, alive lists, boundaries
   // (L + 1) and the sorted short words 2 B each
   const size_t smem = (size_t)(10 + 4 * kEntryWords<P>) * L + 4;
@@ -1035,16 +1141,16 @@ cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid, P tb,
     return cudaSuccess;
   }
   kernel<<<B, kThreads, smem, stream>>>(
-      tokens_in, wid, tb, tokens_out, count, L);
+      tokens_in, wid, tb, tokens_out, count, L, io);
   return cudaGetLastError();
 }
 
 // a quarter of the row's width in threads, 64 to 1,024; with `info`, the
 // launch's shape instead of a launch
-template <class P>
+template <class P, class R = TokenRows>
 cudaError_t dispatch_merge(const void* tokens_in, const void* wid, P tb,
                            void* tokens_out, void* count, int B, int L,
-                           void* stream, int* info = nullptr) {
+                           void* stream, int* info = nullptr, R io = R{}) {
   if (B == 0 || L == 0) return cudaSuccess;
   if (L > kPosMask) return cudaErrorInvalidValue;  // uint16 positions
   const auto* ti = static_cast<const int32_t*>(tokens_in);
@@ -1053,11 +1159,23 @@ cudaError_t dispatch_merge(const void* tokens_in, const void* wid, P tb,
   auto* co = static_cast<int32_t*>(count);
   const auto s = (cudaStream_t)stream;
   constexpr int kSmall = P::kBatched ? kChdSmallThreads : 64;
-  if (L <= 256) return launch_merge<P, kSmall>(ti, wi, tb, to, co, B, L, s, info);
-  if (L <= 512) return launch_merge<P, 128>(ti, wi, tb, to, co, B, L, s, info);
-  if (L <= 1024) return launch_merge<P, 256>(ti, wi, tb, to, co, B, L, s, info);
-  if (L <= 2048) return launch_merge<P, 512>(ti, wi, tb, to, co, B, L, s, info);
-  return launch_merge<P, 1024>(ti, wi, tb, to, co, B, L, s, info);
+  if (L <= 256) return launch_merge<P, kSmall>(ti, wi, tb, to, co, B, L, s, info, io);
+  if (L <= 512) return launch_merge<P, 128>(ti, wi, tb, to, co, B, L, s, info, io);
+  if (L <= 1024) return launch_merge<P, 256>(ti, wi, tb, to, co, B, L, s, info, io);
+  if (L <= 2048) return launch_merge<P, 512>(ti, wi, tb, to, co, B, L, s, info, io);
+  return launch_merge<P, 1024>(ti, wi, tb, to, co, B, L, s, info, io);
+}
+
+// K6 for one probe; with `info`, the launch's shape instead of a launch
+template <class P>
+cudaError_t dispatch_word_merge(const void* bytes, const void* start_bits, const void* row_len,
+                                const void* byte_table, P tb, void* tokens_out, void* count,
+                                int B, int L, void* stream, int* info = nullptr) {
+  if (L % 8) return cudaErrorInvalidValue;  // a start-bit byte per 8 positions
+  const FillRows io{static_cast<const uint8_t*>(bytes), static_cast<const uint8_t*>(start_bits),
+                    static_cast<const int32_t*>(row_len),
+                    static_cast<const int32_t*>(byte_table)};
+  return dispatch_merge(nullptr, nullptr, tb, tokens_out, count, B, L, stream, info, io);
 }
 
 cudaError_t launch_seed(const uint8_t* arr, const int32_t* lens,
@@ -1128,10 +1246,43 @@ int ctok_merge_fixpoint_chd(const void* tokens_in, const void* wid,
                              stream);
 }
 
-// The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L: info
-// gets threads a block, registers a thread, static and dynamic shared
-// bytes a block, local (spill) bytes a thread and resident blocks per SM.
-int ctok_merge_fixpoint_info(int chd, int L, int* info) {
+// K6, the word path's merge from the packed bytes, on the cuckoo table
+// (K2's walk) or on the CHD table (K5's): bytes [B, L] uint8, start_bits
+// [B, L/8] uint8, row_len [B] int32, byte_table [256] int32 -> tokens_out
+// [B, L] int32 (merged ids, -1 elsewhere), count [B] int32 (live ids a row).
+int ctok_word_merge_qc(const void* bytes, const void* start_bits, const void* row_len,
+                       const void* byte_table, const void* t1, const void* t2, unsigned mask,
+                       void* tokens_out, void* count, int B, int L, void* stream) {
+  const QcProbe tb{static_cast<const uint2*>(t1),
+                   static_cast<const uint2*>(t2), (uint32_t)mask};
+  return (int)dispatch_word_merge(bytes, start_bits, row_len, byte_table, tb, tokens_out,
+                                  count, B, L, stream);
+}
+
+// rows 16-byte aligned, as for ctok_merge_fixpoint_chd
+int ctok_word_merge_chd(const void* bytes, const void* start_bits, const void* row_len,
+                        const void* byte_table, const void* disp, const void* rows,
+                        unsigned size_mask, unsigned bucket_mask, void* tokens_out,
+                        void* count, int B, int L, void* stream) {
+  const ChdProbe tb{static_cast<const int32_t*>(disp),
+                    static_cast<const int4*>(rows), (uint32_t)size_mask,
+                    (uint32_t)bucket_mask};
+  return (int)dispatch_word_merge(bytes, start_bits, row_len, byte_table, tb, tokens_out,
+                                  count, B, L, stream);
+}
+
+// The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L, or with
+// fill = 1 that of K6 on the same table: info gets threads a block,
+// registers a thread, static and dynamic shared bytes a block, local
+// (spill) bytes a thread and resident blocks per SM.
+int ctok_merge_fixpoint_info(int chd, int fill, int L, int* info) {
+  if (fill) {
+    if (chd)
+      return (int)dispatch_word_merge(nullptr, nullptr, nullptr, nullptr, ChdProbe{}, nullptr,
+                                      nullptr, 1, L, nullptr, info);
+    return (int)dispatch_word_merge(nullptr, nullptr, nullptr, nullptr, QcProbe{}, nullptr,
+                                    nullptr, 1, L, nullptr, info);
+  }
   if (chd)
     return (int)dispatch_merge(nullptr, nullptr, ChdProbe{}, nullptr, nullptr, 1, L,
                                nullptr, info);

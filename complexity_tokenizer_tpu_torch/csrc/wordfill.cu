@@ -1,7 +1,11 @@
 // Hand-written CUDA kernels of the word path's fill, for Hopper (sm_90a):
 // K3 (word ids from start bits) and K4 (compaction into the fused buffer).
-// Around them the fill runs K1 (kernels.cu, the byte seed) and K2
-// (kernels.cu, the merge fixpoint).  Plain C interface, loaded with ctypes
+// With K1 (kernels.cu, the byte seed) and K2 or K5 (kernels.cu, the merge
+// fixpoint) between them they make the fill in four launches.  The word
+// path runs K6 (kernels.cu: K3, K1 and the fixpoint in one launch) and
+// then K4; K3 stays as a piece of the JAX fill body and, in the four
+// launches (ops/wordfill.py:word_fill_chain), as the yardstick of K6.
+// Plain C interface, loaded with ctypes
 // by complexity_tokenizer_tpu_torch/utils/cuda_build.py; no PyTorch headers.
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() of its launch.

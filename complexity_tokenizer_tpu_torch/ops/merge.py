@@ -246,12 +246,13 @@ _SHAPE_KEYS = ("threads", "registers", "static_smem", "dynamic_smem", "local_byt
                "blocks_per_sm")
 
 
-def launch_shape(L: int, chd: bool = True) -> dict:
-    """How the card launches K5 (``chd``) or K2 on rows of ``L``: threads a
-    block, registers a thread, static and dynamic shared bytes a block,
-    local (spill) bytes a thread, and resident blocks per SM.  Needs a
-    card; launches nothing."""
+def launch_shape(L: int, chd: bool = True, fill: bool = False) -> dict:
+    """How the card launches K5 (``chd``) or K2 on rows of ``L`` or, with
+    ``fill``, K6 (the word path's merge from the packed bytes,
+    ``ops/wordfill.py``) on the same table: threads a block, registers a
+    thread, static and dynamic shared bytes a block, local (spill) bytes a
+    thread, and resident blocks per SM.  Needs a card; launches nothing."""
     info = (ctypes.c_int * len(_SHAPE_KEYS))()
-    check(kernel_library().lib.ctok_merge_fixpoint_info(int(chd), L, ctypes.addressof(info)),
-          "launch_shape")
+    check(kernel_library().lib.ctok_merge_fixpoint_info(
+        int(chd), int(fill), L, ctypes.addressof(info)), "launch_shape")
     return dict(zip(_SHAPE_KEYS, info))

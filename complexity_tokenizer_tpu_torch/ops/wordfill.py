@@ -1,23 +1,35 @@
-"""The word path's device fill: kernels K3 and K4 and the fill they frame.
+"""The word path's device fill: kernels K6 and K4, and K3 beside them.
 
 ``word_fill(bytes_bw, start_bits, row_len, cap, ...)`` is the twin of the
 JAX package's unphased fill body (``ops/wordpath.py``,
-``DeviceWordEncoder._local_fill_body``): packed word rows ``[B, W]`` ->
+``DeviceWordEncoder._local_fill_body``): packed word rows ``[B, W]`` -> one
+fused uint8 buffer, ``[cap ids (uint16 or int32) | B*W/8 alive bits | int32
+total]``, byte for byte the JAX body's layout.  On the card it is two
+launches:
 
-- K3 (:func:`word_ids`): start bits -> word ids, -1 at and past
-  ``row_len``;
-- K1 (``ops/seed.py``): bytes -> token ids, -1 at and past ``row_len``;
-- K2 or K5 (``ops/merge.py``, through ``TorchTables.merge_fixpoint``): the
-  merge fixpoint, and each row's live count;
-- K4 (:func:`fill_compact`): one fused uint8 buffer,
-  ``[cap ids (uint16 or int32) | B*W/8 alive bits | int32 total]``, byte
-  for byte the JAX body's layout.
+- K6 (:func:`word_merge`, ``csrc/kernels.cu``: the merge fixpoint with the
+  row policy ``FillRows``), through ``TorchTables.word_merge``, which picks
+  the cuckoo or the CHD table as ``merge_fixpoint`` does: the packed bytes
+  and start bits -> the merged rows ``[B, W]`` int32 and their live counts.
+  It folds three steps into one launch:
+  - K3 (:func:`word_ids`): start bits -> word ids, -1 at and past
+    ``row_len``;
+  - K1 (``ops/seed.py``): bytes -> token ids, -1 at and past ``row_len``;
+  - K2 or K5 (``ops/merge.py``): the merge fixpoint, and each row's live
+    count.
+- K4 (:func:`fill_compact`): the fused buffer.
+
+K3 stays a kernel of its own, with its plain version: no path launches
+it, but :func:`word_fill_chain` (K3 -> K1 -> fixpoint -> K4, four
+launches) is K6's yardstick on the card.  :func:`fill_row_flags` is the
+plain model of K6's prologue: the word starts and gaps it derives from the
+start bits without word ids.
 
 K3 counts word starts within each row where the JAX body counts over the
 flattened pack: equal for K2 on rows packed by ``ctok_pack_seg`` (the
-kernel's note in ``csrc/wordfill.cu`` gives the reason).  Each kernel has a
-plain PyTorch version beside it; the wrapper runs it for a CPU tensor and,
-for a CUDA tensor, launches the kernel or raises.
+kernel's note in ``csrc/wordfill.cu`` gives the reason).  Each wrapper runs
+its plain version for a CPU tensor and, for a CUDA tensor, launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,15 +37,23 @@ from __future__ import annotations
 import torch
 
 from ..utils.cuda_build import check, kernel_library
-from .seed import seed_tokens
+from .merge import merge_fixpoint_chd_plain, merge_fixpoint_qc_plain
+from .seed import seed_tokens, seed_tokens_plain
 
 __all__ = [
     "word_ids",
     "word_ids_plain",
+    "fill_row_flags",
     "fill_compact",
     "fill_compact_plain",
     "fill_layout",
+    "word_merge",
+    "word_merge_plain",
+    "word_merge_qc",
+    "word_merge_chd",
     "word_fill",
+    "word_fill_plain",
+    "word_fill_chain",
 ]
 
 
@@ -178,11 +198,154 @@ def fill_compact(
 fill_compact.launches = 0  # launches of K4 (not of the plain version)
 
 
+def fill_row_flags(start_bits: torch.Tensor, row_len: torch.Tensor):
+    """Plain model of K6's prologue, on any device: the word starts and
+    gaps of each row, from the start bits and ``row_len`` alone.
+
+    A position is a gap (word id -1 in :func:`word_ids_plain`) at or past
+    ``row_len`` and before the row's first start bit; a start (where the
+    word id changes) at column 0, at a set bit before ``row_len``, and at
+    ``row_len`` when a word ends there.  Returns (starts, gaps), [B, W]
+    bool."""
+    B, nb = start_bits.shape
+    W = nb * 8
+    pos = torch.arange(W, device=start_bits.device)[None, :]
+    bits = start_bits.repeat_interleave(8, dim=1).to(torch.int32)
+    n = row_len.clamp(0, W)[:, None]
+    valid = pos < n
+    set_bit = valid & (((bits >> (pos % 8).to(torch.int32)) & 1) == 1)
+    first = torch.where(set_bit, pos, W).amin(dim=1, keepdim=True)  # W: no start
+    gaps = ~valid | (pos < first)
+    starts = (pos == 0) | set_bit | ((pos == n) & (first < n))
+    return starts, gaps
+
+
+def _merge_plain(bytes_bw, start_bits, row_len, byte_table, fixpoint):
+    wid = word_ids_plain(start_bits, row_len)
+    tokens = seed_tokens_plain(bytes_bw, row_len, byte_table)
+    return fixpoint(tokens, wid)
+
+
+def word_merge_plain(bytes_bw, start_bits, row_len, *, tables):
+    """Plain PyTorch version of K6, on any device: the plain versions of K3,
+    K1 and the fixpoint of ``tables`` (as ``TorchTables.merge_fixpoint``
+    picks it), one after the other.  Returns (merged [B, W] int32, count
+    [B] int32)."""
+    if tables.qc_t1 is not None:
+        def fixpoint(t, w):
+            return merge_fixpoint_qc_plain(t, w, tables.qc_t1, tables.qc_t2, tables.qc_size)
+    else:
+        def fixpoint(t, w):
+            return merge_fixpoint_chd_plain(
+                t, w, tables.chd_disp, tables.chd_rows, tables.chd_size, tables.chd_n_buckets
+            )
+    return _merge_plain(bytes_bw, start_bits, row_len, tables.byte_token_table, fixpoint)
+
+
+def word_merge(bytes_bw, start_bits, row_len, *, tables):
+    """K6 on CUDA tensors (one launch), :func:`word_merge_plain` on CPU
+    tensors: packed word rows -> (merged [B, W] int32, -1 at dead lanes;
+    count [B] int32, the live ids of each row), on the table of ``tables``
+    that ``merge_fixpoint`` picks.  Arguments as :func:`word_fill`."""
+    return tables.word_merge(bytes_bw, start_bits, row_len)
+
+
+word_merge.launches = 0  # launches of K6 (not of the plain version)
+
+
+def _launch_merge(fn: str, entry: str, max_W: int, bytes_bw, start_bits, row_len, byte_table,
+                  tables, table_args):
+    """Checks the arguments of K6 on CUDA tensors and launches it on the
+    bytes' current stream; ``tables`` are (name, tensor, shape) of the pair
+    table, ``table_args`` its C arguments.  Returns (merged, count)."""
+    if bytes_bw.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {bytes_bw.device}")
+    B, W = bytes_bw.shape
+    if W % 8 or W > max_W:
+        raise ValueError(f"{fn}: W={W} must be a multiple of 8 and at most {max_W}")
+    _check_args(fn, bytes_bw, (
+        ("bytes_bw", bytes_bw, torch.uint8, (B, W)),
+        ("start_bits", start_bits, torch.uint8, (B, W // 8)),
+        ("row_len", row_len, torch.int32, (B,)),
+        ("byte_table", byte_table, torch.int32, (256,)),
+        *((name, t, torch.int32, shape) for name, t, shape in tables),
+    ))
+    merged = torch.empty((B, W), dtype=torch.int32, device=bytes_bw.device)
+    count = torch.empty(B, dtype=torch.int32, device=bytes_bw.device)
+    if merged.numel() == 0:
+        return merged, count.zero_()
+    stream = torch.cuda.current_stream(bytes_bw.device).cuda_stream
+    check(
+        getattr(kernel_library().lib, entry)(
+            bytes_bw.data_ptr(), start_bits.data_ptr(), row_len.data_ptr(), byte_table.data_ptr(),
+            *table_args, merged.data_ptr(), count.data_ptr(), B, W, stream,
+        ),
+        fn,
+    )
+    word_merge.launches += 1
+    return merged, count
+
+
+def word_merge_qc(bytes_bw, start_bits, row_len, byte_table, t1, t2, size: int):
+    """K6 on the u16 cuckoo table (K2's walk) for CUDA tensors, the plain
+    composition for CPU tensors; arguments as :func:`word_fill`, with the
+    byte table and the cuckoo table of ``TorchTables``."""
+    if bytes_bw.device.type == "cpu":
+        return _merge_plain(bytes_bw, start_bits, row_len, byte_table,
+                            lambda t, w: merge_fixpoint_qc_plain(t, w, t1, t2, size))
+    if size <= 0 or size & (size - 1):
+        raise ValueError(f"word_merge_qc: table size {size} is not a power of two")
+    return _launch_merge(
+        "word_merge_qc", "ctok_word_merge_qc", 16384, bytes_bw, start_bits, row_len, byte_table,
+        (("t1", t1, (size, 2)), ("t2", t2, (size, 2))), (t1.data_ptr(), t2.data_ptr(), size - 1),
+    )
+
+
+def word_merge_chd(bytes_bw, start_bits, row_len, byte_table, disp, rows, size: int,
+                   n_buckets: int):
+    """K6 on the CHD table (K5's walk) for CUDA tensors, the plain
+    composition for CPU tensors; arguments as :func:`word_merge_qc`, with
+    the CHD table."""
+    if bytes_bw.device.type == "cpu":
+        return _merge_plain(
+            bytes_bw, start_bits, row_len, byte_table,
+            lambda t, w: merge_fixpoint_chd_plain(t, w, disp, rows, size, n_buckets),
+        )
+    for name, n in (("table size", size), ("bucket count", n_buckets)):
+        if n <= 0 or n & (n - 1):
+            raise ValueError(f"word_merge_chd: {name} {n} is not a power of two")
+    if rows.data_ptr() % 16:
+        raise ValueError("word_merge_chd: rows must be 16-byte aligned (one int4 load a probe)")
+    return _launch_merge(
+        "word_merge_chd", "ctok_word_merge_chd", 12288, bytes_bw, start_bits, row_len, byte_table,
+        (("disp", disp, (n_buckets,)), ("rows", rows, (size, 4))),
+        (disp.data_ptr(), rows.data_ptr(), size - 1, n_buckets - 1),
+    )
+
+
+def word_fill_plain(bytes_bw, start_bits, row_len, cap: int, *, tables, itemsize: int):
+    """Plain PyTorch version of the fill, on any device: the plain versions
+    of K3, K1, the fixpoint of ``tables`` and K4, one after the other."""
+    merged, count = word_merge_plain(bytes_bw, start_bits, row_len, tables=tables)
+    return fill_compact_plain(merged, count, cap, itemsize)
+
+
+def word_fill_chain(bytes_bw, start_bits, row_len, cap: int, *, tables, itemsize: int):
+    """The fill as four launches, K3 -> K1 -> K2 or K5 -> K4 (on CPU
+    tensors their plain versions): the yardstick of K6, which no path
+    runs."""
+    wid = word_ids(start_bits, row_len)
+    tokens = seed_tokens(bytes_bw, row_len, tables.byte_token_table)
+    merged, count = tables.merge_fixpoint(tokens, wid)
+    return fill_compact(merged, count, cap, itemsize)
+
+
 def word_fill(bytes_bw, start_bits, row_len, cap: int, *, tables, itemsize: int):
-    """The fill of one pack of word rows: K3 -> K1 -> K2 (or K5) -> K4.
+    """The fill of one pack of word rows: K6 then K4 on CUDA tensors (two
+    launches), their plain versions on CPU tensors.
 
     Args:
-      bytes_bw: [B, W] uint8 packed words (``ctok_pack_seg``).
+      bytes_bw: [B, W] uint8 packed words (``ctok_pack_seg``); W % 8 == 0.
       start_bits: [B, W/8] uint8 word-start bitmap, little endian.
       row_len: [B] int32 content length of each row.
       cap: id slots of the fused buffer (``B*W*3/8``, or ``B*W`` when a
@@ -192,7 +355,5 @@ def word_fill(bytes_bw, start_bits, row_len, cap: int, *, tables, itemsize: int)
     Returns:
       the fused uint8 buffer of :func:`fill_compact`.
     """
-    wid = word_ids(start_bits, row_len)
-    tokens = seed_tokens(bytes_bw, row_len, tables.byte_token_table)
-    merged, count = tables.merge_fixpoint(tokens, wid)
+    merged, count = word_merge(bytes_bw, start_bits, row_len, tables=tables)
     return fill_compact(merged, count, cap, itemsize)

@@ -5,8 +5,8 @@ The native runtime (``native/``) finds the distinct pre-split words that
 its shared caches do not hold; they are sorted by length and packed back
 to back into dense ``[B, 128]`` byte rows (a word never spans two rows,
 ``ctok_pack_seg``), with a start bitmap and each row's content length.
-Each pack goes through the fill (``ops/wordfill.py``: K3 -> K1 -> K2 or
-K5 -> K4) and comes back as one fused byte buffer, in one copy into pinned
+Each pack goes through the fill (``ops/wordfill.py``: K6, then K4, on
+the card) and comes back as one fused byte buffer, in one copy into pinned
 host memory.  The results go into the shared caches, and the native runtime
 assembles every text from them.
 

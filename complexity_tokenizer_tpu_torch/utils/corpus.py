@@ -4,14 +4,17 @@ The same texts as the repository's ``bench.py`` makes (``_zipf_lexicon``,
 ``_zipf_corpus``, ``_MULTI_PIECES``), kept here so that the port and
 ``chip_smoke.py`` need nothing of the JAX package.  Deterministic for a
 seed.  Also the rows of long runs that separate the merge kernel's apply
-rule from the JAX one (:func:`run_rows`).
+rule from the JAX one (:func:`run_rows`), and word packs that reach the
+word path's fill at its edges (:func:`edge_word_pack`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["MULTI_PIECES", "RUN_BREAKS", "run_rows", "zipf_lexicon", "zipf_corpus"]
+__all__ = [
+    "MULTI_PIECES", "RUN_BREAKS", "edge_word_pack", "run_rows", "zipf_lexicon", "zipf_corpus",
+]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
 # marks), mixed scripts, contractions and whitespace runs
@@ -132,3 +135,76 @@ def run_rows(text: bytes, B: int, L: int, breaks: bool = False) -> list[bytes]:
         )
         for r in rows
     ]
+
+
+# words holding bytes that the benchmark vocabularies have no token for
+# (control bytes, digits, ``!``, ``#``, ``%``, ``&``): tombstones inside
+# their words from the seed on, alone and in runs
+OOV_WORDS = (b"ab\x01cd", b"x0y1z", b"\x07", b"the!re", b"!!!!!!!!", b"a#b%c&d")
+
+
+def edge_word_pack(words: list[bytes], B: int, W: int = 128, seed: int = 0):
+    """``B`` word rows of ``W`` bytes that reach the word path's fill at its
+    edges, as numpy (bytes uint8 [B, W], start bits uint8 [B, W / 8] little
+    endian, row_len int32 [B]).
+
+    Row 0 holds a 6-byte run before its first start bit (word id -1 where
+    the word ids are counted within each row; the JAX fill body counts over
+    the whole pack, which gives -1 there in row 0 only).  The others cycle
+    through: words packed from column 0 as ``ctok_pack_seg`` packs them; a
+    row of length 0; a full row (its last word ends at ``W``); words with
+    OOV bytes inside (:data:`OOV_WORDS`); a one-byte run before the first
+    start bit; an 80-byte word of one letter and a run of 10 OOV bytes;
+    ``abab...``.  The words come from ``words`` in turn (those of at most
+    ``W`` bytes).  Past each row's length, bytes and start bits are
+    random."""
+    rng = np.random.RandomState(seed)
+    arr = rng.randint(0, 256, size=(B, W)).astype(np.uint8)
+    starts = rng.rand(B, W) < 0.3
+    row_len = np.zeros(B, np.int32)
+    pool = [w for w in words if 0 < len(w) <= W]
+    k = 0
+
+    def packed(room: int) -> list:
+        nonlocal k
+        segs = []
+        while len(pool[k % len(pool)]) <= room:
+            w = pool[k % len(pool)]
+            k += 1
+            segs.append((w, True))
+            room -= len(w)
+        k += 1  # the word that did not fit goes on to the next row
+        return segs
+
+    for r in range(B):
+        kind = r % 8
+        if r == 0:
+            segs = [(b"thethe"[:W], False)] + packed(W - 6)
+        elif kind == 1:
+            continue  # length 0
+        elif kind == 2:
+            segs = packed(W)
+            room = W - sum(len(w) for w, _ in segs)
+            if room:
+                segs.append((bytes(pool[k % len(pool)] * W)[:room], True))
+        elif kind == 3:
+            segs = [(w, True) for w in OOV_WORDS] + packed(W - sum(map(len, OOV_WORDS)))
+        elif kind == 4:
+            segs = [(b"q", False)] + packed(W - 1)
+        elif kind == 5:
+            segs = [(b"a" * 80, True), (b"!" * 10, True)] + packed(W - 90)
+        elif kind == 6:
+            segs = [(b"ab" * 20, True)] + packed(W - 40)
+        else:
+            segs = packed(W - 1)
+        pos = 0
+        for w, start in segs:
+            w = w[: W - pos]
+            if not w:
+                break
+            arr[r, pos : pos + len(w)] = np.frombuffer(w, np.uint8)
+            starts[r, pos : pos + len(w)] = False
+            starts[r, pos] = start
+            pos += len(w)
+        row_len[r] = pos
+    return arr, np.packbits(starts, axis=1, bitorder="little"), row_len

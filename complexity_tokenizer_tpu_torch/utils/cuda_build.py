@@ -45,8 +45,13 @@ _SIGNATURES = {
     "ctok_merge_fixpoint_qc": (_P, _P, _P, _P, _U, _P, _P, _I, _I, _P),
     # tokens_in, wid, disp, rows, size_mask, bucket_mask, tokens_out, count, B, L, stream
     "ctok_merge_fixpoint_chd": (_P, _P, _P, _P, _U, _U, _P, _P, _I, _I, _P),
-    # chd, L, info[6]
-    "ctok_merge_fixpoint_info": (_I, _I, _P),
+    # chd, fill, L, info[6]
+    "ctok_merge_fixpoint_info": (_I, _I, _I, _P),
+    # bytes, start_bits, row_len, byte_table, t1, t2, mask, tokens_out, count, B, L, stream
+    "ctok_word_merge_qc": (_P, _P, _P, _P, _P, _P, _U, _P, _P, _I, _I, _P),
+    # bytes, start_bits, row_len, byte_table, disp, rows, size_mask, bucket_mask,
+    # tokens_out, count, B, L, stream
+    "ctok_word_merge_chd": (_P, _P, _P, _P, _P, _P, _U, _U, _P, _P, _I, _I, _P),
     # bits, row_len, wid, B, W, stream
     "ctok_word_ids": (_P, _P, _P, _I, _I, _P),
     # merged, count, out, B, W, cap, itemsize, stream

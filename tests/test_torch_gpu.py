@@ -24,17 +24,24 @@ from complexity_tokenizer_tpu_torch.ops.merge import (
 from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
 from complexity_tokenizer_tpu_torch.ops.presplit import presplit
 from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens, seed_tokens_plain
+from complexity_tokenizer_tpu_torch.ops.merge import launch_shape
 from complexity_tokenizer_tpu_torch.ops.wordfill import (
     fill_compact,
     fill_compact_plain,
     word_fill,
+    word_fill_plain,
     word_ids,
     word_ids_plain,
+    word_merge,
+    word_merge_chd,
+    word_merge_plain,
+    word_merge_qc,
 )
 from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
 from complexity_tokenizer_tpu_torch.utils.corpus import (
     MULTI_PIECES,
     RUN_BREAKS,
+    edge_word_pack,
     run_rows,
     zipf_corpus,
 )
@@ -393,14 +400,15 @@ def test_k5_long_word_finishes_after_the_short_words(tok100k, chd50k, L):
 
 def test_100k_paths_on_card_match_host(tok100k):
     """At 100K: backend="device", "auto" (drained, then again) and the text
-    pipeline on the card equal the host oracle, and K5 was launched."""
+    pipeline on the card equal the host oracle; the word path launched K6
+    (K5's walk inside it) and the text pipeline K5."""
     _need_card()
     tok = Tokenizer.from_file(BENCH_100K)
     texts = zipf_corpus(500, seed=15) + list(MULTI_PIECES) + ["a" * 5000, "x </s> y", "", " "]
     host = tok.encode_batch(texts, backend="host")
-    before = merge_words.launches
+    before = word_merge.launches
     assert tok.encode_batch(texts, backend="device") == host
-    assert merge_words.launches > before
+    assert word_merge.launches > before
     auto = Tokenizer.from_file(BENCH_100K)
     assert auto.encode_batch(texts) == host
     auto._auto_word_path().drain_async(timeout=300)
@@ -593,3 +601,190 @@ def test_wrappers_refuse_bad_inputs_on_card():
         fill_compact(t, torch.zeros(3, dtype=torch.int32, device="cuda"), 8, 2)
     with pytest.raises(ValueError):  # cap past the lanes
         fill_compact(t, torch.zeros(2, dtype=torch.int32, device="cuda"), 33, 2)
+
+
+# --- K6: the word path's fill in one launch ---------------------------------
+
+
+def _fill_tables(name, tok50k, tok100k, chd50k):
+    """(probe, tables) of a configuration: the 50K cuckoo table (K2's walk),
+    the 50K CHD table (K5's walk on ids that fit u16), the 100K CHD table."""
+    if name == "qc50k":
+        return "qc", tok50k.pipeline("cuda").tables
+    if name == "chd50k":
+        return "chd", chd50k
+    return "chd", tok100k.pipeline("cuda").tables
+
+
+def _k6(probe, tb, args):
+    """K6 on a pack: (merged, count)."""
+    if probe == "qc":
+        return word_merge_qc(*args, tb.byte_token_table, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    return word_merge_chd(*args, tb.byte_token_table, *_chd_args(tb))
+
+
+def _fill(probe, tb, args, cap, itemsize):
+    """The fill of the word path: K6, then K4."""
+    return fill_compact(*_k6(probe, tb, args), cap, itemsize)
+
+
+def _chain(probe, tb, args, cap, itemsize):
+    """The parent's fill, four launches: K3 -> K1 -> K2 or K5 -> K4."""
+    a, bits, row_len = args
+    wid = word_ids(bits, row_len)
+    tokens = seed_tokens(a, row_len, tb.byte_token_table)
+    if probe == "qc":
+        merged, count = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    else:
+        merged, count = merge_words(tokens, wid, *_chd_args(tb))
+    return fill_compact(merged, count, cap, itemsize)
+
+
+def _fill_pack(kind, B, seed):
+    """Word rows [B, 128] on the card: ``edge_word_pack`` rows of corpus
+    words (every edge case of the fill: runs before the first start bit,
+    rows of length 0 and 128, OOV bytes and runs, a long one-letter word),
+    rows of one 128-byte word of one letter, or ``edge_word_pack`` rows of
+    ``.`` runs (a byte in no merge: the compact capacity spills)."""
+    if kind == "one_letter":
+        a = np.full((B, 128), ord("a"), np.uint8)
+        starts = np.zeros((B, 128), bool)
+        starts[:, 0] = True
+        packed = (a, np.packbits(starts, axis=1, bitorder="little"), np.full(B, 128, np.int32))
+    else:
+        words = ([w.encode() for t in zipf_corpus(400, seed=seed) for w in t.split()]
+                 if kind == "edges" else [b"." * n for n in range(1, 24)])
+        packed = edge_word_pack(words, B, seed=seed)
+    return tuple(torch.from_numpy(x).cuda() for x in packed)
+
+
+@pytest.mark.parametrize("kind", ["edges", "one_letter", "dots"])
+@pytest.mark.parametrize("B", [1, 7, 64, 256, 1024])
+@pytest.mark.parametrize(
+    "config,itemsize", [("qc50k", 2), ("qc50k", 4), ("chd50k", 2), ("chd100k", 4)]
+)
+def test_k6_matches_the_four_launch_chain(tok50k, tok100k, chd50k, config, itemsize, B, kind):
+    """K6 then K4 equal K3 -> K1 -> fixpoint -> K4 and the plain composition
+    byte for byte, on both probes and both id widths, at the compact and the
+    full capacity; K6's merged rows and counts equal the chain's and its
+    plain version's; one launch of each a call."""
+    _need_card()
+    probe, tb = _fill_tables(config, tok50k, tok100k, chd50k)
+    args = _fill_pack(kind, B, seed=B)
+    a, bits, row_len = args
+    merged, count = _k6(probe, tb, args)
+    wid = word_ids(bits, row_len)
+    tokens = seed_tokens(a, row_len, tb.byte_token_table)
+    if probe == "qc":
+        exp_merged, exp_count = merge_words_qc(tokens, wid, tb.qc_t1, tb.qc_t2, tb.qc_size)
+    else:
+        exp_merged, exp_count = merge_words(tokens, wid, *_chd_args(tb))
+    assert torch.equal(merged, exp_merged) and torch.equal(count, exp_count)
+    if config != "chd50k":
+        plain = word_merge_plain(*args, tables=tb)
+        assert torch.equal(merged, plain[0]) and torch.equal(count, plain[1])
+    for cap in (B * 128 * 3 // 8, B * 128):
+        before = (word_merge.launches, fill_compact.launches)
+        got = _fill(probe, tb, args, cap, itemsize)
+        torch.cuda.synchronize()
+        assert (word_merge.launches, fill_compact.launches) == (before[0] + 1, before[1] + 1)
+        exp = _chain(probe, tb, args, cap, itemsize)
+        assert torch.equal(got, exp), (cap,)
+        if config != "chd50k":
+            plain = word_fill_plain(*args, cap, tables=tb, itemsize=itemsize)
+            assert torch.equal(got, plain), (cap,)
+    total = int(got[-4:].cpu().numpy().view(np.int32)[0])
+    if kind == "dots" and B > 1:
+        assert total > B * 128 * 3 // 8  # the compact capacity spilled
+
+
+def test_k6_graph_replays_give_the_same_buffer(tok100k):
+    """The fill (K6, K4) captured in a CUDA graph and replayed twice gives
+    the eager buffer each time."""
+    _need_card()
+    tb = tok100k.pipeline("cuda").tables
+    args = _fill_pack("edges", 256, seed=3)
+    cap = 256 * 128 * 3 // 8
+    exp = word_fill(*args, cap, tables=tb, itemsize=4).clone()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        word_fill(*args, cap, tables=tb, itemsize=4)
+    s.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = word_fill(*args, cap, tables=tb, itemsize=4)
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, exp)
+
+
+def test_k6_on_two_streams_at_once(tok50k):
+    """Fills of two packs on two streams, issued in turns with no
+    synchronisation between them, each give their own right buffer."""
+    _need_card()
+    tb = tok50k.pipeline("cuda").tables
+    packs = [_fill_pack("edges", 1024, seed=5), _fill_pack("dots", 256, seed=6)]
+    caps = [1024 * 128 * 3 // 8, 256 * 128]
+    exp = [_chain("qc", tb, p, c, 2) for p, c in zip(packs, caps)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[k].append(word_fill(*packs[k], caps[k], tables=tb, itemsize=2))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for got in outs[k]:
+            assert torch.equal(got, exp[k])
+
+
+def test_word_path_fills_in_two_launches_a_pack(tok50k):
+    """On backend="device" every pack's fill is one K6 and one K4 launch,
+    and K3, K1 and the standalone fixpoint are not launched."""
+    _need_card()
+    tok = Tokenizer.from_file(BENCH_50K)
+    texts = zipf_corpus(1500, seed=21) + list(MULTI_PIECES)
+    host = tok.encode_batch(texts, backend="host")
+    wp = tok._get_word_path("cuda")
+    counted = (word_merge, fill_compact, word_ids, seed_tokens, merge_words_qc, merge_words)
+    before = [fn.launches for fn in counted]
+    assert tok.encode_batch(texts, backend="device") == host
+    launched = [fn.launches - b for fn, b in zip(counted, before)]
+    fill = wp.last_fill
+    assert wp.words_filled > 0
+    assert launched[0] == launched[1] == sum(fill["packs"].values()) + fill["spills"] > 0
+    assert launched[2:] == [0] * 4
+
+
+@pytest.mark.parametrize("chd", [False, True])
+def test_k6_launch_shape(chd):
+    """K6's launch at the word path's rows: K2's or K5's threads a block
+    and shared memory, no more registers than the launch bound allows."""
+    _need_card()
+    walk = launch_shape(128, chd=chd)
+    fill = launch_shape(128, chd=chd, fill=True)
+    assert fill["threads"] == walk["threads"]
+    assert fill["dynamic_smem"] == walk["dynamic_smem"]
+    assert fill["blocks_per_sm"] >= 1
+
+
+def test_k6_refuses_bad_inputs(tok50k):
+    _need_card()
+    tb = tok50k.pipeline("cuda").tables
+    a, bits, row_len = _fill_pack("edges", 4, seed=7)
+    with pytest.raises(ValueError):  # cap past the lanes
+        word_fill(a, bits, row_len, 4 * 128 + 1, tables=tb, itemsize=2)
+    with pytest.raises(ValueError):  # ids of 3 bytes
+        word_fill(a, bits, row_len, 8, tables=tb, itemsize=3)
+    with pytest.raises(ValueError):  # row_len of the wrong dtype
+        word_fill(a, bits, row_len.long(), 8, tables=tb, itemsize=2)
+    with pytest.raises(ValueError):  # start bits of the wrong width
+        word_fill(a, bits[:, :8].contiguous(), row_len, 8, tables=tb, itemsize=2)
+    with pytest.raises(ValueError):  # W not a multiple of 8
+        word_fill(a[:, :20].contiguous(), bits[:, :2].contiguous(), row_len, 8, tables=tb,
+                  itemsize=2)

@@ -1,9 +1,13 @@
-"""The word path's fill (``ops/wordfill.py``: K3 -> K1 -> K2 -> K4) on the
-CPU against the JAX package's fill body ``DeviceWordEncoder._fn`` /
-``_fn_full``: the fused buffer byte for byte, on packs of words made from a
-numpy seed."""
+"""The word path's fill (``ops/wordfill.py``: on the CPU the plain versions
+of K6 and K4, K3 -> K1 -> K2 or K5 -> K4) against the JAX package's fill body
+``DeviceWordEncoder._fn`` / ``_fn_full`` / ``_local_fill_body``: the fused
+buffer byte for byte, on packs of words made from a numpy seed, at the
+800-entry fixture, the 50K configuration (uint16 ids, the cuckoo table) and
+the 100K one (int32 ids, the CHD table).  Also K6's prologue flags
+(``fill_row_flags``) against the word ids of K3's plain version."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -20,11 +24,22 @@ from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens_plain  # noqa: E
 from complexity_tokenizer_tpu_torch.ops.wordfill import (  # noqa: E402
     fill_compact,
     fill_layout,
+    fill_row_flags,
     word_fill,
+    word_fill_plain,
     word_ids,
+    word_ids_plain,
+    word_merge,
+    word_merge_plain,
 )
 from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer  # noqa: E402
 from complexity_tokenizer_tpu_torch.utils.bytelevel import bytes_to_unicode  # noqa: E402
+from complexity_tokenizer_tpu_torch.utils.corpus import edge_word_pack, zipf_corpus  # noqa: E402
+
+BENCH = {
+    name: os.path.join(os.path.dirname(__file__), "..", ".cache", f)
+    for name, f in (("50k", "bench_tokenizer_r4_50k.json"), ("100k", "bench_tokenizer_100k.json"))
+}
 
 
 @pytest.fixture(scope="module")
@@ -179,3 +194,113 @@ def test_int32_ids_when_an_id_reaches_65535():
 def test_u16_ids_below_65535(toks):
     _pt, _jt, pwp, jwp = toks
     assert pwp._out_dtype == jwp._out_dtype == np.uint16
+
+
+@pytest.fixture(scope="module", params=["50k", "100k"])
+def bench(request):
+    """(name, port word path on the CPU, JAX word path) of a benchmark
+    configuration; the JAX tokenizer is loaded from the string (its
+    ``from_file`` writes a warm-cache file beside the JSON)."""
+    with open(BENCH[request.param], encoding="utf-8") as f:
+        js = f.read()
+    pt, jt = Tokenizer.from_str(js), JaxTokenizer.from_str(js)
+    jt.use_device = True
+    return request.param, pt, pt._get_word_path("cpu"), jt._get_word_path()
+
+
+def _word_pool(kind: str, seed: int, tok=None) -> list[bytes]:
+    """Corpus words (``text``), or random words of the bytes that have a
+    token but take part in no merge of ``tok`` (``unmerged``)."""
+    if kind == "text":
+        return [w.encode() for t in zipf_corpus(200, seed=seed) for w in t.split()]
+    table = tok.device_tables().byte_token_table
+    in_merges = {i for pair in tok.bpe.merge_ranks for i in pair}
+    lone = [b for b in range(256) if table[b] >= 0 and table[b] not in in_merges]
+    assert lone
+    rng = np.random.RandomState(seed)
+    return [bytes(rng.choice(lone, rng.randint(1, 24)).astype(np.uint8)) for _ in range(400)]
+
+
+@pytest.mark.parametrize("words", ["text", "unmerged"])
+@pytest.mark.parametrize("B", [1, 7])
+def test_word_fill_plain_equals_jax_fill_body_on_edge_rows(bench, B, words):
+    """The fill's plain version (and ``word_fill`` on the CPU) equal the JAX
+    unphased fill body byte for byte at the compact capacity (3/8) and at
+    full capacity, on ``edge_word_pack`` rows: a run before row 0's first
+    start bit, a row of length 0, a full row, OOV bytes inside words and in
+    a run, a one-byte run before a later row's first start bit, a long word
+    of one letter.  Words that cannot merge fill their rows with live ids:
+    those packs spill at 3/8."""
+    name, pt, pwp, jwp = bench
+    itemsize = np.dtype(pwp._out_dtype).itemsize
+    assert pwp._out_dtype == jwp._out_dtype
+    assert itemsize == (2 if name == "50k" else 4)
+    assert (pwp.pipeline.tables.qc_t1 is None) == (name == "100k")
+    a, bits, row_len = edge_word_pack(_word_pool(words, B, pt), B, seed=B)
+    assert row_len[0] > 6 and not np.unpackbits(bits[0], bitorder="little")[:6].any()
+    args = [torch.from_numpy(x) for x in (a, bits, row_len)]
+    for num, den in ((3, 8), (1, 1)):
+        cap = B * 128 * num // den
+        exp = np.asarray(jax.jit(jwp._local_fill_body(num, den, 0))(a, bits, row_len))
+        got = word_fill_plain(*args, cap, tables=pwp.pipeline.tables, itemsize=itemsize)
+        assert got.dtype == torch.uint8 and got.numpy().tobytes() == exp.tobytes()
+        via = word_fill(*args, cap, tables=pwp.pipeline.tables, itemsize=itemsize)
+        assert torch.equal(via, got)
+        total = int(got[-4:].numpy().view(np.int32)[0])
+        if words == "unmerged" and num == 3:
+            assert total > cap  # the spill the host redispatches
+
+
+def test_word_merge_on_cpu_is_k3_k1_and_the_fixpoint(bench):
+    """K6's plain version (``word_merge`` on CPU tensors) is K3's, K1's and
+    the table's fixpoint's plain versions one after the other, and launches
+    nothing."""
+    _name, _pt, pwp, _jwp = bench
+    tables = pwp.pipeline.tables
+    a, bits, row_len = (torch.from_numpy(x) for x in edge_word_pack(_word_pool("text", 3), 7, seed=3))
+    before = word_merge.launches
+    merged, count = word_merge(a, bits, row_len, tables=tables)
+    assert word_merge.launches == before
+    tokens = seed_tokens_plain(a, row_len, tables.byte_token_table)
+    exp_merged, exp_count = tables.merge_fixpoint(tokens, word_ids_plain(bits, row_len))
+    assert merged.dtype == count.dtype == torch.int32
+    assert torch.equal(merged, exp_merged) and torch.equal(count, exp_count)
+    plain = word_merge_plain(a, bits, row_len, tables=tables)
+    assert torch.equal(plain[0], merged) and torch.equal(plain[1], count)
+
+
+def _expected_flags(wid: torch.Tensor):
+    """Word starts (where the word id changes, and column 0) and gaps (word
+    id -1) of K3's word ids."""
+    left = torch.full_like(wid, -2)
+    left[:, 1:] = wid[:, :-1]
+    return wid != left, wid == -1
+
+
+@pytest.mark.parametrize("W", [8, 128, 256])
+def test_fill_row_flags_mark_where_word_ids_change(W):
+    """K6's prologue rule (``fill_row_flags``) marks exactly the positions
+    where K3's word ids change, and the gaps where they are -1: rows of
+    length 0, 1 and W, rows whose first start bit lies late or past the
+    length, a row with no start bit, and the edge rows of the fill."""
+    rng = np.random.RandomState(W)
+    B = 64
+    starts = rng.rand(B, W) < 0.15
+    lens = rng.randint(0, W + 1, size=B).astype(np.int32)
+    lens[:4] = [0, W, 1, W]
+    starts[3, : W // 2] = False  # the first start late in a full row
+    starts[4] = False  # no start at all
+    starts[5, : lens[5]] = False  # a start only past the length
+    starts[5, lens[5]:] = True
+    bits = np.packbits(starts, axis=1, bitorder="little")
+    cases = [(bits, lens)]
+    cases.append(edge_word_pack(_word_pool("text", W), 16, W, seed=W)[1:])
+    for k, (b, n) in enumerate(cases):
+        b, n = torch.from_numpy(b), torch.from_numpy(n)
+        got_starts, got_gaps = fill_row_flags(b, n)
+        exp_starts, exp_gaps = _expected_flags(word_ids_plain(b, n))
+        assert torch.equal(got_starts, exp_starts)
+        assert torch.equal(got_gaps, exp_gaps)
+        if k == 0:
+            assert got_gaps[0].all() and got_gaps[4].all() and got_gaps[5].all()
+            assert got_gaps[3, : W // 2].all() and got_starts[:, 0].all()
