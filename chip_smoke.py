@@ -30,6 +30,17 @@ Phases (each prints its seconds):
    K1 and the fixpoint of its table, the word paths K6 and K4 (the fill in
    two launches) and not K1, K2, K3 or K5.  The first ``[B, L]`` batch and
    word pack of every shape are kept.
+   Then decode (``drive_decode``) at both vocabularies, on the ids the
+   corpus encoded to (every seventh row framed by special ids): the device
+   pipeline (``decode_pipeline("cuda")``, K7) in its batch and ragged
+   forms, ``skip_special`` both ways, each row against the host decode and
+   the native decoder, launching K7 and no encode kernel; the public decode
+   entry points (the native route) for every ``skip_special_tokens`` x
+   ``clean_up_tokenization_spaces``, launching nothing.  And the entry layer
+   at 50K (``drive_added_tokens``): added tokens with ``lstrip`` and
+   ``rstrip`` after a first ``backend="device"`` call, which rebuilds the
+   tables and the word path; ``"device"``, ``"auto"`` and ``encode`` on
+   texts that hold them, against the host oracle.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -60,7 +71,11 @@ Phases (each prints its seconds):
    (the 50K CHD table, and int32 ids at 50K) and on ``edge_word_pack``
    rows.  Kernels and the library expression are timed by replaying a CUDA
    graph, the plain versions that synchronise with CUDA events around
-   their calls (``_time_ms``).
+   their calls (``_time_ms``).  K7 (``check_decode``) at both vocabularies
+   on the corpus's rows, random ids at ``[8192, 128]`` and ``[16, 4096]``
+   (1% special ids), and edge rows (pads, negatives, ids >= V, specials,
+   empty and one-id rows, rows across its 1,024-id tiles), skip_special
+   both ways, timed warm and cold beside its bytes bound.
 5. report: one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -886,7 +901,240 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
         raise AssertionError(f"[{label}] backend=auto filled no word")
     _phase(f"{label}: backend=auto", t0)
     return dict(launches=out, batches=batches, shapes=shapes, packs=packs, pipe=pipe, wp=wp,
-                tok=tok)
+                tok=tok, host=host)
+
+
+def _ragged_on_card(rows):
+    """Rows of ids -> (ids int32 [N], row offsets int64 [B + 1]) on the card."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    offs = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    flat = np.fromiter(itertools.chain.from_iterable(rows), np.int64, count=int(offs[-1]))
+    return torch.from_numpy(flat.astype(np.int32)).cuda(), torch.from_numpy(offs).cuda()
+
+
+def _decode_bytes_moved(ids, offs, tabs, skip: bool, out_numel: int) -> int:
+    """The bytes K7's function must move: the ids and row offsets in, the
+    table entries of the distinct kept ids (their bytes, two offsets and,
+    with ``skip``, the special flag; at most the whole table), the buffer
+    out."""
+    import torch
+
+    arena, offsets, special = tabs
+    V = special.numel()
+    ids64 = ids.long()
+    ok = (ids64 >= 0) & (ids64 < V)
+    distinct = torch.unique(ids64[ok])
+    if skip:
+        distinct = distinct[special[distinct] == 0]
+    touched = int((offsets[distinct + 1] - offsets[distinct]).sum()) + 16 * distinct.numel()
+    if skip:
+        touched += int(torch.unique(ids64[ok]).numel())
+    whole = arena.numel() + 8 * offsets.numel() + (V if skip else 0)
+    return 4 * ids.numel() + 8 * offs.numel() + min(touched, whole) + out_numel
+
+
+def check_decode(label: str, tabs, ids, offs, skip: bool, timed: bool = True) -> dict:
+    """K7 (two launches) against its plain version on the card, bit for bit.
+    With ``timed``: warm (graph replay of both launches on the same
+    buffers, given the total) and cold (``_time_cold_ms`` over copies of
+    the ids and offsets; the table stays shared, as K2's does), its plain
+    version (CUDA events; it reads its output size back), and its bound."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.decode import decode_gather, decode_gather_plain
+
+    B, N = offs.numel() - 1, ids.numel()
+    got = decode_gather(ids, offs, *tabs, skip)
+    exp = decode_gather_plain(ids, offs, *tabs, skip)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, exp)
+    match = bool(torch.equal(got, exp))
+    total = got.numel() - 8 * (B + 1)
+    print(f"[decode_gather] {label} B={B} ids={N} skip_special={skip} bytes={total} "
+          f"match={match} max_abs_err={err}", flush=True)
+    if not match:
+        raise AssertionError(f"decode_gather kernel differs from its plain version: {label}")
+    res = dict(inputs=label, shape=[B, N], skip_special=skip, match=match, max_abs_err=err,
+               bytes_out=total)
+    if not timed:
+        return res
+    reps = 50 if N >= 1 << 18 else 200
+
+    def fn(i, o):
+        return decode_gather(i, o, *tabs, skip, total=total)
+
+    ms = _time_ms(lambda: fn(ids, offs), reps)
+    sets = _cold_sets((ids, offs), got.numel())
+    ms_cold = _time_cold_ms(fn, sets, reps)
+    del sets
+    plain_ms = _time_ms(lambda: decode_gather_plain(ids, offs, *tabs, skip), 5, graph=False)
+    moved = _decode_bytes_moved(ids, offs, tabs, skip, got.numel())
+    bound_ms, bound_by = _bound(moved, 0)
+    print(
+        f"[decode_gather] {label} B={B} ids={N} kernel warm={ms:.4f} ms cold={ms_cold:.4f} ms "
+        f"plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; {moved} bytes; "
+        f"cold share {bound_ms / ms_cold:.3f}); library: none",
+        flush=True,
+    )
+    return dict(res, ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms_cold, library_ms=None)
+
+
+def _with_specials(tok, host: list[list[int]]) -> list[list[int]]:
+    """The corpus's ids, every seventh row framed by the first and last
+    special token, so that ``skip_special`` drops something."""
+    sp = sorted(tok.special_tokens.values())
+    return [[sp[0]] + r + [sp[-1]] if i % 7 == 0 else r for i, r in enumerate(host)]
+
+
+def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> dict:
+    """Decode at one vocabulary, on the ids the corpus encoded to (framed by
+    specials every seventh row), each route against the host decode
+    (``_decode_impl``), with the launch counts set to 0 just before each
+    route and read just after:
+
+    - the device pipeline, ``decode_pipeline("cuda").decode_batch`` and
+      ``decode_ragged``, ``skip_special`` both ways, also against the native
+      decoder's rows: it must launch K7 and no encode kernel;
+    - the public entry points (the native route) for every
+      ``skip_special_tokens`` x ``clean_up_tokenization_spaces``: they must
+      launch nothing.
+
+    Returns the launch counts by route, the walls and the rows."""
+    import numpy as np
+    import torch
+
+    def zero_counts():
+        for fn in kernels_of.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in kernels_of.items()}
+
+    t0 = time.perf_counter()
+    rows = _with_specials(tok, host)
+    offs = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    flat = np.concatenate([np.asarray(r, np.int32) for r in rows])
+    walls: dict = {}
+    out: dict = {}
+    t1 = time.perf_counter()
+    pipe = tok.decode_pipeline("cuda")
+    torch.cuda.synchronize()
+    walls["decode tables to the card"] = time.perf_counter() - t1
+    nd = tok._get_native_decoder()
+    if nd is None:
+        raise AssertionError(f"[{label}] the native decoder is not eligible")
+    mismatches = 0
+    zero_counts()
+    for skip in (False, True):
+        t1 = time.perf_counter()
+        host_txt = [tok._decode_impl(r, skip, False) for r in rows]
+        walls[f"host, skip={skip}"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        native_txt, flagged = nd.decode_batch(rows, skip, False)
+        walls[f"native decoder, skip={skip}"] = time.perf_counter() - t1
+        for i in flagged:
+            native_txt[i] = tok._decode_impl(rows[i], skip, False)
+        for name in ("batch", "ragged"):
+            t1 = time.perf_counter()
+            got = pipe.decode_batch(rows, skip) if name == "batch" else pipe.decode_ragged(flat, offs, skip)
+            walls[f"device pipeline {name}, skip={skip}"] = time.perf_counter() - t1
+            bad = sum(g != h or g != n for g, h, n in zip(got, host_txt, native_txt))
+            mismatches += bad + abs(len(got) - len(host_txt))
+        if native_txt != host_txt:
+            raise AssertionError(f"[{label}] the native decoder differs from the host decode")
+    torch.cuda.synchronize()
+    out["device decode"] = read_counts()
+    # the public entry points: the native route
+    zero_counts()
+    for skip in (False, True):
+        for cleanup in (False, True):
+            host_txt = [tok._decode_impl(r, skip, cleanup) for r in rows]
+            t1 = time.perf_counter()
+            got = tok.decode_batch_with_options(rows, skip, cleanup)
+            walls[f"decode_batch_with_options, skip={skip}, cleanup={cleanup}"] = time.perf_counter() - t1
+            ragged = tok.decode_batch_ragged(flat, offs, skip, cleanup)
+            mismatches += sum(g != h for g, h in zip(got, host_txt))
+            mismatches += sum(g != h for g, h in zip(ragged, host_txt))
+            mismatches += sum(tok.batch_decode(rows[:200], skip, cleanup)[i] != host_txt[i] for i in range(200))
+    mismatches += sum(tok.decode(r) != tok._decode_impl(r, False, True) for r in rows[:500])
+    out["native decode"] = read_counts()
+    print(
+        f"[{label}] decode: {len(rows)} rows, {len(flat)} ids; walls "
+        f"{({k: round(v, 4) for k, v in walls.items()})}; launches {out}; "
+        f"{mismatches} mismatches",
+        flush=True,
+    )
+    if mismatches:
+        raise AssertionError(f"[{label}] decode: {mismatches} rows differ from the host decode")
+    for route, counts in out.items():
+        for name, n in counts.items():
+            if (n > 0) != (route == "device decode" and name == "decode_gather"):
+                raise AssertionError(f"kernel {name} was launched {n} times on the {label} {route}")
+    _phase(f"{label}: decode", t0)
+    return dict(launches=out, walls=walls, rows=rows, tables=(pipe.arena, pipe.offsets, pipe.special))
+
+
+def drive_added_tokens(path: str, texts: list[str], kernels_of: dict) -> dict:
+    """The entry layer on the card at 50K: a tokenizer encodes with
+    ``backend="device"`` (tables, word path, fill), then takes added tokens
+    with ``lstrip`` and ``rstrip`` (``add_token_with_config``), which drop
+    its tables, word path and native context; then ``encode_batch`` with
+    ``"device"`` and ``"auto"`` and ``encode`` on corpus texts that hold the
+    tokens, each against the host oracle."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    base = texts[:2000]
+    tok = Tokenizer.from_file(path)
+    tok.encode_batch(base, backend="device")
+    wp0, tables0 = tok._get_word_path("cuda"), tok._tables
+    V = max(tok.id_to_token_map) + 1
+
+    def add_tokens(t):
+        t.add_token_with_config("zqxlst", V, False, lstrip=True)
+        t.add_token_with_config("zqxrst", V + 1, False, rstrip=True)
+        t.add_token_with_config("qqmid", V + 2, True, lstrip=True, rstrip=True)
+
+    add_tokens(tok)
+    forms = ("zqxlst {}", "{} zqxlst", "zqxrst{}", "{} zqxrst", "zqxrst", "{}qqmid", "qqmid", "{} zqxrstx")
+    mixed = [forms[i % len(forms)].format(t) if i % 3 == 0 else t for i, t in enumerate(base)]
+    host = [tok._encode_host(t) for t in mixed]
+    matched = sum(1 for h in host if any(i >= V for i in h))
+    for fn in kernels_of.values():
+        fn.launches = 0
+    got = tok.encode_batch(mixed, backend="device")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels_of.items()}
+    _compare("[50K] added tokens, backend=device", mixed, got, host)
+    wp1 = tok._get_word_path("cuda")
+    if wp1 is wp0 or tok._tables is tables0 or launches["word_merge"] == 0:
+        raise AssertionError("[50K] adding tokens did not rebuild the tables and the word path")
+    tok_a = Tokenizer.from_file(path)
+    add_tokens(tok_a)
+    got = tok_a.encode_batch(mixed)
+    tok_a._auto_word_path("cuda").drain_async(timeout=600)
+    _compare("[50K] added tokens, backend=auto", mixed, got, host)
+    _compare("[50K] added tokens, backend=auto, after the fill", mixed, tok_a.encode_batch(mixed), host)
+    _compare("[50K] added tokens, encode", mixed, [tok.encode(t) for t in mixed], host)
+    print(
+        f"[50K] added tokens (lstrip, rstrip, both): {len(mixed)} texts, {matched} hold a matched "
+        f"token; the tables and the word path rebuilt; backend=device launches {launches}; "
+        f"backend=auto, encode: equal to the host oracle",
+        flush=True,
+    )
+    if matched == 0:
+        raise AssertionError("[50K] no added token matched")
+    _phase("50K: added tokens", t0)
+    return dict(launches=launches, matched=matched)
 
 
 def main(argv=None) -> int:
@@ -907,6 +1155,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     try:
         from complexity_tokenizer_tpu_torch import native
+        from complexity_tokenizer_tpu_torch.ops.decode import decode_gather
         from complexity_tokenizer_tpu_torch.ops.merge import merge_words, merge_words_qc
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
@@ -973,9 +1222,13 @@ def main(argv=None) -> int:
     texts = main_corpus(args.texts, args.seed)
     kernels_of = {"seed_tokens": seed_tokens, "merge_fixpoint_qc": merge_words_qc,
                   "merge_fixpoint_chd": merge_words, "word_ids": word_ids,
-                  "fill_compact": fill_compact, "word_merge": word_merge}
+                  "fill_compact": fill_compact, "word_merge": word_merge,
+                  "decode_gather": decode_gather}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
+    d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
+    d100 = drive_decode("100K", r100["tok"], r100["host"], kernels_of)
+    added = drive_added_tokens(TOKENIZER_JSON, texts, kernels_of)
     # every kernel of a path was launched on it and no other: the text
     # pipeline runs K1 and the fixpoint of its table, the word paths one K6
     # (K3, K1 and the fixpoint folded into it) and one K4 a pack
@@ -1105,6 +1358,39 @@ def main(argv=None) -> int:
         ))
     _phase("kernels at 100K", t0)
 
+    # K7 against its plain version: the corpus's rows, random ids at
+    # [8192, 128] and [16, 4096], edge rows; at both vocabularies
+    t0 = time.perf_counter()
+    k7_res: list[dict] = []
+    for label, d in (("50K", d50), ("100K", d100)):
+        tabs = d["tables"]
+        V = tabs[2].numel()
+        ids, offs = _ragged_on_card(d["rows"])
+        k7_res.append(check_decode(f"corpus rows, {label}", tabs, ids, offs, False))
+        k7_res.append(check_decode(f"corpus rows, {label}", tabs, ids, offs, True, timed=False))
+        special = torch.nonzero(tabs[2]).flatten().cpu().numpy()
+        for B, T in ((8192, 128), (16, 4096)):
+            rand = rng.randint(0, V, size=(B, T))
+            rand[rng.rand(B, T) < 0.01] = rng.choice(special, size=1)[0]
+            ids = torch.from_numpy(rand.astype(np.int32).ravel()).cuda()
+            offs = torch.arange(0, B * T + 1, T, dtype=torch.int64, device="cuda")
+            k7_res.append(check_decode(f"random ids, {label}", tabs, ids, offs, False))
+            k7_res.append(check_decode(f"random ids, {label}", tabs, ids, offs, True, timed=False))
+        edge = [[], [], [0], [V - 1], [-1], [V], [int(special[0])], [-(2**31)], [2**31 - 1]]
+        for n in (1023, 1024, 1025, 4096, 3, 2055):
+            r = rng.randint(0, V, size=n)
+            what = rng.randint(0, 10, size=n)
+            r = np.where(what == 0, -1, np.where(what == 1, V + rng.randint(0, 100, size=n), r))
+            r = np.where(what == 2, -rng.randint(2, 50, size=n), r)
+            r = np.where(what == 3, rng.choice(special, size=n), r)
+            edge += [r.tolist()] + [[]] * int(rng.randint(0, 3))
+        ids, offs = _ragged_on_card(edge + [[], []])
+        for skip in (False, True):
+            k7_res.append(check_decode(f"edge rows, {label}", tabs, ids, offs, skip, timed=False))
+        ids, offs = _ragged_on_card([[]] * 4)
+        k7_res.append(check_decode(f"empty rows, {label}", tabs, ids, offs, False, timed=False))
+    _phase("decode kernel", t0)
+
     # 5. report --------------------------------------------------------------
     # the headline numbers are those of the word path's largest pack (K5:
     # at 100K; the others at 50K); launches those of the path that runs the
@@ -1163,6 +1449,32 @@ def main(argv=None) -> int:
             kernels[-1]["folded_into"] = "word_merge"
         if name == "seed_tokens":
             kernels[-1]["launch_floor_ms"] = launch_floor_ms
+    main = next(r for r in k7_res if r["inputs"] == "corpus rows, 50K" and "ms" in r)
+    kernels.append({
+        "name": "decode_gather",
+        "route": "cuda",
+        "source": "complexity_tokenizer_tpu_torch/csrc/decode.cu",
+        "wrapper": "complexity_tokenizer_tpu_torch/ops/decode.py",
+        "replaces": "complexity_tokenizer_tpu/ops/decode.py:71",
+        "launches": d50["launches"]["device decode"]["decode_gather"],
+        "launches_path": "50K device decode (decode_batch and decode_ragged, skip_special both ways)",
+        "launches_per_call": 2,
+        "launches_by_path": {
+            f"{label} {route}": counts["decode_gather"]
+            for label, d in (("50K", d50), ("100K", d100))
+            for route, counts in d["launches"].items()
+        },
+        "match": all(r["match"] for r in k7_res),
+        "max_abs_err": max(r["max_abs_err"] for r in k7_res),
+        "shape": main["shape"],
+        "ms": main["ms"],
+        "ms_cold": main["ms_cold"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "checks": k7_res,
+    })
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -1,13 +1,14 @@
-"""Carrying the encode tables across: numpy arrays -> tensors on a device,
-and merge arrays -> a native context.
+"""Carrying the tables across: numpy arrays -> tensors on a device, merge
+arrays -> a native context, and padded decode tables -> the decode arena.
 
 :func:`tables_to_device` takes the table fields as numpy arrays, whichever
 package built them (this port's ``ops/tables.py`` or the JAX package's
 ``DeviceTables``), and returns the :class:`TorchTables` that the port's
 pipeline and kernels read.  :func:`native_from_arrays` does the same for
-the native runtime's merge arrays.  The pipeline and the tokenizer use them
-for their own tables; the tests use them to feed both packages the same
-arrays.
+the native runtime's merge arrays, and :func:`decode_tables_from_padded`
+for the JAX package's padded decode tables.  The pipeline and the
+tokenizer use them for their own tables; the tests use them to feed both
+packages the same arrays.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from .ops.merge import merge_words, merge_words_qc
 from .ops.wordfill import word_merge_chd, word_merge_qc
 
-__all__ = ["TorchTables", "tables_to_device", "native_from_arrays"]
+__all__ = ["TorchTables", "tables_to_device", "native_from_arrays", "decode_tables_from_padded"]
 
 
 @dataclass
@@ -140,3 +141,24 @@ def native_from_arrays(
     from .native import NativeEncoder
 
     return NativeEncoder((pa, pb, pr, rank_new), byte_token_table)
+
+
+def decode_tables_from_padded(mat: np.ndarray, lens: np.ndarray, special: np.ndarray):
+    """The JAX package's decode tables (``ops/decode.py:build_decode_tables``:
+    ``mat`` [V, W] uint8 with id i's bytes in ``mat[i, :lens[i]]``, ``lens``
+    [V] int32, ``special`` [V] bool) -> the port's
+    :class:`~.ops.decode.DecodeTables` (the byte arena, its [V + 1]
+    offsets and the uint8 special mask)."""
+    from .ops.decode import DecodeTables
+
+    mat = np.asarray(mat, np.uint8)
+    lens = np.asarray(lens, np.int64)
+    V = mat.shape[0]
+    if mat.ndim != 2 or lens.shape != (V,) or np.shape(special) != (V,):
+        raise ValueError(f"mat {mat.shape}, lens {lens.shape}, special {np.shape(special)}: want [V, W], [V], [V]")
+    if lens.min(initial=0) < 0 or lens.max(initial=0) > mat.shape[1]:
+        raise ValueError("lens must lie in [0, W]")
+    offsets = np.zeros(V + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    arena = mat[np.arange(mat.shape[1])[None, :] < lens[:, None]]  # row-major: id order
+    return DecodeTables(arena, offsets, np.asarray(special, bool).astype(np.uint8))

@@ -1,22 +1,32 @@
-"""tokenizer.json -> the parts of a byte-level BPE tokenizer this port runs.
+"""tokenizer.json -> the parts of a BPE tokenizer this port runs.
 
-Reads a BPE model (vocab and merges), a ByteLevel pre-tokenizer, the
-normalizer and the added tokens.  Defaults follow the reference: a missing
-normalizer means NFC, a missing pre-tokenizer means ``ByteLevel`` without
-prefix space.  An added token's ``normalized`` flag is kept and, as in the
-reference's matcher, never read when matching.  Every other setting of
-those fields raises ``NotImplementedError`` naming the field; the decoder
-and post-processor are not read (encode uses neither).
+Reads a BPE model (vocab and merges), the normalizer, the pre-tokenizer,
+the decoder and the added tokens with their flags.  Defaults and
+fallbacks follow the reference: a missing normalizer means NFC, a missing
+pre-tokenizer ``ByteLevel`` without prefix space, a missing decoder
+``ByteLevel``; an unknown ``type`` string loads as None (no normalizer,
+no pre-tokenizer, or no decoder).  ``ByteLevel``'s ``use_regex`` is not
+read: the GPT-2 split always runs, as in the JAX package.  A model other
+than BPE raises ``NotImplementedError``; the post-processor is not read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from ..core import decoders as D
 from ..core import normalizers as N
-from ..core.pretokenizers import ByteLevel
+from ..core import pretokenizers as PT
 
-__all__ = ["AddedToken", "TokenizerSpec", "parse_merges", "load_spec"]
+__all__ = [
+    "AddedToken",
+    "TokenizerSpec",
+    "load_spec",
+    "parse_decoder",
+    "parse_merges",
+    "parse_normalizer",
+    "parse_pre_tokenizer",
+]
 
 
 @dataclass(frozen=True)
@@ -24,6 +34,9 @@ class AddedToken:
     content: str
     id: int
     special: bool
+    single_word: bool = False
+    lstrip: bool = False
+    rstrip: bool = False
     normalized: bool = False
 
 
@@ -31,8 +44,9 @@ class AddedToken:
 class TokenizerSpec:
     vocab: dict[str, int]
     merges: list[tuple[str, str]]
-    normalizer: N.UnicodeNormalizer | None
-    pre_tokenizer: ByteLevel
+    normalizer: N.Normalizer | None
+    pre_tokenizer: PT.PreTokenizer | None
+    decoder: D.Decoder | None = None
     added_tokens: list[AddedToken] = field(default_factory=list)
 
 
@@ -52,33 +66,132 @@ def parse_merges(raw_merges) -> list[tuple[str, str]]:
     return merges
 
 
-def _normalizer(value) -> N.UnicodeNormalizer | None:
-    if not isinstance(value, dict) or "type" not in value:
-        return N.UnicodeNormalizer("NFC")  # the reference's default
-    t = value.get("type") or ""
-    if t in N.FORMS:
-        return N.UnicodeNormalizer(t)
-    raise NotImplementedError(f"normalizer.type={t!r}")
+def _get_bool(obj: dict, key: str, default: bool) -> bool:
+    v = obj.get(key)
+    return v if isinstance(v, bool) else default
 
 
-def _pre_tokenizer(value) -> ByteLevel:
+def _first_char(value, default: str) -> str:
+    return value[0] if isinstance(value, str) and value else default
+
+
+def parse_normalizer(value) -> N.Normalizer | None:
     if not isinstance(value, dict) or "type" not in value:
-        return ByteLevel(add_prefix_space=False)
+        return N.NFC()  # the reference's default
     t = value.get("type") or ""
-    if t != "ByteLevel":
-        raise NotImplementedError(f"pre_tokenizer.type={t!r}")
-    if value.get("use_regex", True) is False:
-        raise NotImplementedError("pre_tokenizer.use_regex=False")
-    aps = value.get("add_prefix_space", False)
-    return ByteLevel(add_prefix_space=aps if isinstance(aps, bool) else False)
+    simple = {
+        "NFC": N.NFC, "NFD": N.NFD, "NFKC": N.NFKC, "NFKD": N.NFKD,
+        "Lowercase": N.Lowercase, "Strip": N.Strip, "StripAccents": N.StripAccents,
+    }
+    if t in simple:
+        return simple[t]()
+    if t == "Replace":
+        pat = value.get("pattern")
+        pattern = (pat.get("String") or "") if isinstance(pat, dict) else ""
+        return N.Replace(pattern=pattern, replacement=value.get("content") or "")
+    if t == "Prepend":
+        return N.Prepend(value.get("prepend") or "")
+    if t == "Sequence":
+        items = value.get("normalizers")
+        parsed = [p for p in map(parse_normalizer, items) if p is not None] if isinstance(items, list) else []
+        return N.Sequence(parsed) if parsed else None
+    if t == "BertNormalizer":
+        sa = value.get("strip_accents")
+        return N.BertNormalizer(
+            clean_text=_get_bool(value, "clean_text", True),
+            handle_chinese_chars=_get_bool(value, "handle_chinese_chars", True),
+            strip_accents=sa if isinstance(sa, bool) else None,
+            lowercase=_get_bool(value, "lowercase", True),
+        )
+    if t == "Precompiled":
+        s = value.get("precompiled_charsmap")
+        return N.Precompiled(charsmap=[(s, s)] if isinstance(s, str) else [])
+    return None
+
+
+_SPLIT_BEHAVIORS = {
+    "Isolated": PT.SplitBehavior.ISOLATED,
+    "MergedWithPrevious": PT.SplitBehavior.MERGED_WITH_PREVIOUS,
+    "MergedWithNext": PT.SplitBehavior.MERGED_WITH_NEXT,
+    "Contiguous": PT.SplitBehavior.CONTIGUOUS,
+}
+
+
+def parse_pre_tokenizer(value) -> PT.PreTokenizer | None:
+    if not isinstance(value, dict) or "type" not in value:
+        return PT.ByteLevel(add_prefix_space=False)
+    t = value.get("type") or ""
+    if t == "ByteLevel":
+        return PT.ByteLevel(add_prefix_space=_get_bool(value, "add_prefix_space", False))
+    if t == "Metaspace":
+        return PT.Metaspace(
+            replacement=_first_char(value.get("replacement"), "▁"),
+            add_prefix_space=_get_bool(value, "add_prefix_space", True),
+        )
+    simple = {
+        "Whitespace": PT.Whitespace, "WhitespaceSplit": PT.WhitespaceSplit,
+        "Punctuation": PT.Punctuation, "BertPreTokenizer": PT.BertPreTokenizer,
+        "UnicodeScripts": PT.UnicodeScripts,
+    }
+    if t in simple:
+        return simple[t]()
+    if t == "CharDelimiterSplit":
+        return PT.CharDelimiterSplit(delimiter=_first_char(value.get("delimiter"), " "))
+    if t == "Digits":
+        return PT.Digits(individual_digits=_get_bool(value, "individual_digits", False))
+    if t == "Split":
+        pat = value.get("pattern")
+        return PT.Split(
+            pattern=(pat.get("Regex") or "") if isinstance(pat, dict) else "",
+            behavior=_SPLIT_BEHAVIORS.get(value.get("behavior") or "Removed", PT.SplitBehavior.REMOVED),
+            invert=_get_bool(value, "invert", False),
+        )
+    if t == "Sequence":
+        items = value.get("pretokenizers")
+        parsed = [p for p in map(parse_pre_tokenizer, items) if p is not None] if isinstance(items, list) else []
+        return PT.Sequence(parsed) if parsed else None
+    return None
+
+
+def parse_decoder(value) -> D.Decoder | None:
+    if not isinstance(value, dict) or "type" not in value:
+        return D.ByteLevel()
+    t = value.get("type") or ""
+    if t == "ByteLevel":
+        return D.ByteLevel()
+    if t == "Metaspace":
+        return D.Metaspace(
+            replacement=_first_char(value.get("replacement"), "▁"),
+            add_prefix_space=_get_bool(value, "add_prefix_space", True),
+        )
+    if t == "WordPiece":
+        return D.WordPiece(prefix=value.get("prefix") or "##", cleanup=_get_bool(value, "cleanup", True))
+    if t == "BPE":
+        return D.BPEDecoder(suffix=value.get("suffix") or "</w>")
+    if t == "CTC":
+        wdt = value.get("word_delimiter_token")
+        return D.CTC(
+            pad_token=value.get("pad_token") or "<pad>",
+            word_delimiter_token=wdt if isinstance(wdt, str) else None,
+        )
+    if t == "Fuse":
+        return D.Fuse()
+    if t == "Strip":
+        return D.Strip(
+            content=_first_char(value.get("content"), " "),
+            start=int(value.get("start") or 0),
+            stop=int(value.get("stop") or 0),
+        )
+    if t == "Sequence":
+        items = value.get("decoders")
+        parsed = [p for p in map(parse_decoder, items) if p is not None] if isinstance(items, list) else []
+        return D.Sequence(parsed) if parsed else None
+    return None
 
 
 def _added_tokens(items) -> list[AddedToken]:
     out = []
     for tok in items or []:
-        for flag in ("lstrip", "rstrip", "single_word"):
-            if tok.get(flag):
-                raise NotImplementedError(f"added_tokens[].{flag}=True")
         if not tok.get("content"):
             raise ValueError("added_tokens[].content is empty")
         out.append(
@@ -86,7 +199,10 @@ def _added_tokens(items) -> list[AddedToken]:
                 str(tok["content"]),
                 int(tok["id"]),
                 bool(tok.get("special", False)),
-                bool(tok.get("normalized", False)),
+                single_word=bool(tok.get("single_word", False)),
+                lstrip=bool(tok.get("lstrip", False)),
+                rstrip=bool(tok.get("rstrip", False)),
+                normalized=bool(tok.get("normalized", False)),
             )
         )
     return out
@@ -102,7 +218,8 @@ def load_spec(j: dict) -> TokenizerSpec:
     return TokenizerSpec(
         vocab=vocab,
         merges=parse_merges(model.get("merges")),
-        normalizer=_normalizer(j.get("normalizer")),
-        pre_tokenizer=_pre_tokenizer(j.get("pre_tokenizer")),
+        normalizer=parse_normalizer(j.get("normalizer")),
+        pre_tokenizer=parse_pre_tokenizer(j.get("pre_tokenizer")),
+        decoder=parse_decoder(j.get("decoder")),
         added_tokens=_added_tokens(j.get("added_tokens")),
     )

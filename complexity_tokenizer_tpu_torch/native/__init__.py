@@ -1,7 +1,7 @@
 """ctypes bindings for the port's copy of the native host runtime
 (``ctok_host.cpp``): the GPT-2 pre-split, the word caches, the host merge
-loop, the miss-word scan, the segment packer of the word path and the
-multi-pattern added-token scan.
+loop, the miss-word scan, the segment packer of the word path, the
+multi-pattern added-token scan and the ByteLevel batch decoder.
 
 Built at first use with ``g++`` into ``build/torch_native/`` beside the
 package, under a name keyed by the source, the flags, the CPU that
@@ -28,7 +28,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["load_library", "load_ext", "NativeEncoder", "match_any"]
+__all__ = ["load_library", "load_ext", "NativeEncoder", "NativeDecoder", "match_any"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ctok_host.cpp")
@@ -56,6 +56,9 @@ _SIGNATURES = {
     "ctok_cache_insert_batch": (None, (_P, _P, _P, _I64, _P, _P)),
     "ctok_warm_start": (_I64, (_P, _P, _P, _I64, _P, _P, _I32)),
     "ctok_pack_seg": (_I64, (_P, _P, _I64, _I64, _I64, _P, _P, _P, _P)),
+    "ctok_decoder_new": (_P, (_P, _P, _I64, _P, _P, _I64)),
+    "ctok_decoder_free": (None, (_P,)),
+    "ctok_decode_batch": (_I64, (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _I64)),
 }
 
 
@@ -207,6 +210,22 @@ class NativeEncoder:
         if getattr(self, "_ctx", None):
             self._lib.ctok_free(self._ctx)
             self._ctx = None
+
+    def encode_one_fused(self, text: str, add_prefix_space: bool,
+                         patterns: list[bytes] | None) -> list[int] | None:
+        """One text's ids in one native call (UTF-8 view, prefix space,
+        added-token gate, encode, list build).  None when an added-token
+        pattern occurs in the text's bytes (the caller's oracle encodes
+        it).  Without the extension: the same steps over the bytes."""
+        ext = load_ext()
+        if ext is not None:
+            return ext.encode_one(self._ctx, text, int(bool(add_prefix_space)), patterns)
+        if add_prefix_space and text and not text.startswith(" "):
+            text = " " + text
+        data = text.encode("utf-8")
+        if patterns and match_any([data], patterns)[0]:
+            return None
+        return self.encode(data)
 
     def encode(self, data: bytes) -> list[int]:
         n = len(data)
@@ -408,6 +427,90 @@ class NativeEncoder:
             self._ctx, texts, int(bool(add_prefix_space)), patterns or [],
             int(n_threads), int(bool(ascii_norm)),
         )
+
+
+class NativeDecoder:
+    """Native ByteLevel batch decoder: each id's raw bytes from an arena,
+    a strict UTF-8 check, the reference's cleanup table and the
+    whitespace split-join.  Rows of invalid UTF-8 are flagged back (None)
+    for the caller's lossy host decode."""
+
+    def __init__(self, arena: np.ndarray, offsets: np.ndarray, special_mask: np.ndarray):
+        """``arena`` uint8 and ``offsets`` int64 ``[V + 1]``: id i's bytes
+        are ``arena[offsets[i]:offsets[i + 1]]``; ``special_mask`` uint8
+        ``[V]``, 1 where ``skip_special_tokens`` drops the id."""
+        from ..utils.unicode_tables import gpt2_class_table
+
+        lib = load_library()
+        self._lib = lib
+        n = len(offsets) - 1
+        arena = np.ascontiguousarray(arena, np.uint8)
+        offsets = np.ascontiguousarray(offsets, np.int64)
+        sm = np.ascontiguousarray(special_mask, np.uint8)
+        if n < 0 or len(sm) != n or int(offsets[-1]) > arena.size:
+            raise ValueError("inconsistent decoder tables")
+        if arena.size == 0:
+            arena = np.zeros(1, np.uint8)
+        # the context copies the arena, offsets and mask, and borrows the
+        # class table for its lifetime
+        self._cls = np.ascontiguousarray(gpt2_class_table())
+        self._ctx = lib.ctok_decoder_new(
+            _ptr(arena), _ptr(offsets), n, _ptr(sm), _ptr(self._cls), len(self._cls)
+        )
+
+    def __del__(self):
+        if getattr(self, "_ctx", None):
+            self._lib.ctok_decoder_free(self._ctx)
+            self._ctx = None
+
+    def decode_batch(self, batch, skip_special_tokens: bool, cleanup: bool):
+        """(texts, flagged): rows of ids -> strings; flagged rows are None."""
+        from itertools import chain
+
+        row_offsets = np.zeros(len(batch) + 1, np.int64)
+        np.cumsum([len(r) for r in batch], out=row_offsets[1:])
+        total = int(row_offsets[-1])
+        ids_flat = np.fromiter(chain.from_iterable(batch), np.int32, count=total)
+        return self.decode_ragged(ids_flat, row_offsets, skip_special_tokens, cleanup)
+
+    def decode_ragged(self, ids_flat, row_offsets, skip_special_tokens: bool, cleanup: bool):
+        """(texts, flagged) from ragged rows: row i's ids are
+        ``ids_flat[row_offsets[i]:row_offsets[i + 1]]``."""
+        ids_flat = np.ascontiguousarray(ids_flat, np.int32)
+        row_offsets = np.ascontiguousarray(row_offsets, np.int64)
+        n = len(row_offsets) - 1
+        if n < 0 or (n > 0 and (row_offsets[0] < 0 or np.any(np.diff(row_offsets) < 0)
+                                or row_offsets[-1] > ids_flat.size)):
+            raise ValueError("inconsistent ragged decode input")
+        if ids_flat.size == 0:
+            ids_flat = np.zeros(1, np.int32)
+        ext = load_ext()
+        if ext is not None:
+            texts, flagged = ext.decode_ragged(
+                self._ctx, ids_flat, row_offsets, int(skip_special_tokens), int(cleanup)
+            )
+            return texts, (list(flagged) if flagged is not None else [])
+        cap = max(int(row_offsets[-1]) * 16 + 64, 1024)
+        while True:
+            out = np.empty(cap, np.uint8)
+            out_offsets = np.zeros(n + 1, np.int64)
+            flags = np.zeros(max(n, 1), np.uint8)
+            written = self._lib.ctok_decode_batch(
+                self._ctx, _ptr(ids_flat), _ptr(row_offsets), n, int(skip_special_tokens),
+                int(cleanup), _ptr(out), _ptr(out_offsets), _ptr(flags), cap,
+            )
+            if written >= 0:
+                break
+            cap *= 4
+        buf = out[:written].tobytes()
+        texts: list[str | None] = [None] * n
+        flagged: list[int] = []
+        for i in range(n):
+            if flags[i]:
+                flagged.append(i)
+            else:
+                texts[i] = buf[out_offsets[i] : out_offsets[i + 1]].decode("utf-8")
+        return texts, flagged
 
 
 def match_any(data: list[bytes], patterns: list[bytes],

@@ -1363,6 +1363,289 @@ inline int64_t encode_text_span(const Ctx* c, WordCache* cache,
 }
 
 
+// ---------------------------------------------------------------------------
+// Native ByteLevel decoder (decoders.rs:94-119 + the cleanup table of
+// huggingface/mod.rs:749-769): ids -> per-id raw bytes (precomputed arena)
+// -> strict-UTF-8 check -> ASCII replace table -> unicode-whitespace
+// split-join.  Rows containing invalid UTF-8 are flagged for the exact
+// Python path (from_utf8_lossy replacement semantics), keeping this code
+// simple and byte-exact.
+// ---------------------------------------------------------------------------
+struct DecCtx {
+    std::vector<uint8_t> arena;  // padded by 8 slack bytes for wide copies
+    std::vector<int64_t> offs;  // n_ids + 1
+    std::vector<uint8_t> skip;  // 1 = special token (skippable)
+    // packed per-id entry: offset (low 32) | len (bits 32..62) | special
+    // (bit 63) — one load instead of two offs[] loads + a skip[] load
+    std::vector<uint64_t> ent;
+    int64_t n_ids = 0;
+    const uint8_t* cls_table = nullptr;  // borrowed; caller keeps alive
+    int64_t cls_size = 0;
+};
+
+constexpr uint64_t kDecSpecialBit = 1ull << 63;
+
+inline bool all_ascii(const uint8_t* p, int64_t n) {
+    int64_t i = 0;
+#ifdef CTOK_SSE2
+    __m128i acc = _mm_setzero_si128();
+    for (; i + 16 <= n; i += 16)
+        acc = _mm_or_si128(acc, _mm_loadu_si128((const __m128i*)(p + i)));
+    if (_mm_movemask_epi8(acc)) return false;
+#endif
+    uint8_t tail = 0;
+    for (; i < n; ++i) tail |= p[i];
+    return tail < 0x80;
+}
+
+inline bool utf8_valid(const uint8_t* p, int64_t n) {
+    int64_t i = 0;
+    while (i < n) {
+        uint8_t b = p[i];
+        if (b < 0x80) { ++i; continue; }
+        int len;
+        uint32_t cp, min_cp;
+        if ((b & 0xE0) == 0xC0) { len = 2; cp = b & 0x1F; min_cp = 0x80; }
+        else if ((b & 0xF0) == 0xE0) { len = 3; cp = b & 0x0F; min_cp = 0x800; }
+        else if ((b & 0xF8) == 0xF0) { len = 4; cp = b & 0x07; min_cp = 0x10000; }
+        else return false;
+        if (i + len > n) return false;
+        for (int k = 1; k < len; ++k) {
+            if ((p[i + k] & 0xC0) != 0x80) return false;
+            cp = (cp << 6) | (p[i + k] & 0x3F);
+        }
+        if (cp < min_cp || cp > 0x10FFFF || (cp >= 0xD800 && cp <= 0xDFFF))
+            return false;
+        i += len;
+    }
+    return true;
+}
+
+struct Pat { const char* a; const char* b; };
+static const Pat kCleanupTable[] = {
+    {" .", "."}, {" ,", ","}, {" !", "!"}, {" ?", "?"}, {" :", ":"},
+    {" ;", ";"}, {"\" ", "\""}, {" \"", "\""}, {"' ", "'"}, {" '", "'"},
+    {"( ", "("}, {" )", ")"}, {"[ ", "["}, {" ]", "]"}, {" - ", "-"}};
+constexpr size_t kNCleanup = sizeof(kCleanupTable) / sizeof(Pat);
+
+// One exact occurrence scan over the row replaces the 15 per-pattern
+// memmem sweeps for the (overwhelmingly common) rows where no pattern
+// occurs.  ``by_first[b]`` is the bitmask of patterns starting with byte
+// b, so non-trigger bytes cost one table load.  Sequential replace
+// semantics stay exact: the scan gates only the patterns checked BEFORE
+// any replacement fires; once one fires (string changed), the remaining
+// patterns run unconditionally.
+struct CleanupTrig {
+    // first_idx[b] >= 0 iff some pattern starts with byte b; second_mask
+    // then resolves the full (2-byte) pattern with one load on the next
+    // byte — every table entry is distinct per (first, second) pair, so
+    // no inner loop over candidate patterns is needed.  The single 3-byte
+    // pattern (" - ") gets a dedicated bit re-checked on the third byte.
+    int8_t first_idx[256];
+    uint32_t second_mask[kNCleanup][256];  // >= #distinct first bytes
+    uint32_t three_byte_bits = 0;
+    CleanupTrig() {
+        std::memset(first_idx, -1, sizeof(first_idx));
+        std::memset(second_mask, 0, sizeof(second_mask));
+        int8_t next = 0;
+        for (size_t p = 0; p < kNCleanup; ++p) {
+            uint8_t f = (uint8_t)kCleanupTable[p].a[0];
+            if (first_idx[f] < 0) first_idx[f] = next++;
+            second_mask[first_idx[f]][(uint8_t)kCleanupTable[p].a[1]] |=
+                1u << p;
+            if (kCleanupTable[p].a[2] != 0) three_byte_bits |= 1u << p;
+        }
+    }
+};
+static const CleanupTrig kCleanupTrig;
+
+inline uint32_t cleanup_occurrence(const uint8_t* s, size_t n,
+                                   bool* needs_wsj) {
+    // needs_wsj: whether split_whitespace+join(" ") could change the row —
+    // leading/trailing/consecutive whitespace, ASCII ws other than ' ',
+    // or any non-ASCII byte (conservative: unicode ws lives there).
+    // Replacements only delete interior spaces, so a row that does not
+    // need the join before the replace chain cannot need it after.
+    uint32_t occ = 0;
+    bool wsj = false;
+    bool prev_ws = true;  // leading ws counts
+    for (size_t i = 0; i < n; ++i) {
+        uint8_t b = s[i];
+        bool is_sp = b == ' ';
+        wsj |= (b >= 0x80) | (b >= 9 && b <= 13) | (is_sp & prev_ws);
+        prev_ws = is_sp;
+        int8_t fi = kCleanupTrig.first_idx[b];
+        if (fi >= 0 && i + 1 < n) {
+            uint32_t cand = kCleanupTrig.second_mask[fi][s[i + 1]];
+            if (cand & kCleanupTrig.three_byte_bits) {
+                uint32_t tb = cand & kCleanupTrig.three_byte_bits;
+                while (tb) {
+                    int p = __builtin_ctz(tb);
+                    tb &= tb - 1;
+                    if (!(i + 2 < n &&
+                          s[i + 2] == (uint8_t)kCleanupTable[p].a[2]))
+                        cand &= ~(1u << p);
+                }
+            }
+            occ |= cand;
+        }
+    }
+    *needs_wsj = wsj | prev_ws;  // trailing ws counts
+    return occ;
+}
+
+// Sequential replace with the reference's str.replace semantics.  Returns
+// false (dst untouched) when the pattern does not occur — the common case
+// is one SIMD memmem sweep and no copy at all.
+inline bool replace_pass(const uint8_t* base, size_t n,
+                         std::vector<uint8_t>& dst, const char* pat,
+                         size_t pl, const char* rep, size_t rl) {
+    if (pl == 0 || pl > n) return false;
+    const uint8_t* hit =
+        (const uint8_t*)memmem(base, n, pat, pl);
+    if (!hit) return false;
+    dst.clear();
+    size_t i = 0;
+    while (hit) {
+        size_t at = (size_t)(hit - base);
+        dst.insert(dst.end(), base + i, base + at);
+        dst.insert(dst.end(), rep, rep + rl);
+        i = at + pl;
+        if (i + pl > n) break;
+        hit = (const uint8_t*)memmem(base + i, n - i, pat, pl);
+    }
+    dst.insert(dst.end(), base + i, base + n);
+    return true;
+}
+
+// whitespace split + single-space join (tokenizer._split_whitespace_join):
+// the cls_table's CL_WS class is exactly the whitespace set
+inline void ws_split_join(const DecCtx* d, const uint8_t* src, size_t n,
+                          std::vector<uint8_t>& dst) {
+    dst.clear();
+    size_t i = 0;
+    bool in_word = false;
+    while (i < n) {
+        uint8_t b = src[i];
+        int len = 1;
+        bool is_ws;
+        if (b < 0x80) {
+            is_ws = (b >= 9 && b <= 13) || b == 32;
+        } else {
+            uint32_t cp;
+            len = decode_cp(src, (int64_t)n, (int64_t)i, &cp);
+            is_ws = (int64_t)cp < d->cls_size && d->cls_table[cp] == CL_WS;
+        }
+        if (is_ws) {
+            in_word = false;
+        } else {
+            if (!in_word) {
+                if (!dst.empty()) dst.push_back(' ');
+                in_word = true;
+            }
+            dst.insert(dst.end(), src + i, src + i + len);
+        }
+        i += (size_t)len;
+    }
+}
+
+// Decode rows [lo, hi) into outb (back to back) with per-row byte sizes
+// in sz; out_flags[r] = 1 marks invalid-UTF-8 rows (empty output).  The
+// id gather writes through a slack-padded scratch buffer in unchecked
+// 8-byte copies (the arena carries 8 slack bytes past every token).
+inline void decode_rows_range(const DecCtx* d, const int32_t* ids_flat,
+                              const int64_t* row_offsets, int64_t lo,
+                              int64_t hi, int32_t skip_special,
+                              int32_t cleanup, std::vector<uint8_t>& outb,
+                              std::vector<int64_t>& sz, uint8_t* out_flags) {
+    sz.resize((size_t)(hi - lo));
+    std::vector<uint8_t> buf_a(1024);
+    std::vector<uint8_t> scratch[2];
+    const uint8_t* arena = d->arena.data();
+    const uint64_t* ent = d->ent.data();
+    const uint64_t n_ids = (uint64_t)d->n_ids;
+    const uint64_t skip_bit = skip_special ? kDecSpecialBit : 0;
+    for (int64_t r = lo; r < hi; ++r) {
+        out_flags[r] = 0;
+        size_t pos = 0;
+        for (int64_t k = row_offsets[r]; k < row_offsets[r + 1]; ++k) {
+            uint64_t id = (uint64_t)(int64_t)ids_flat[k];
+            if (id >= n_ids) continue;  // unknown / negative: dropped
+            uint64_t e = ent[(size_t)id];
+            if (e & skip_bit) continue;
+            size_t len = (size_t)((e >> 32) & 0x7FFFFFFFu);
+            if (pos + len + 8 > buf_a.size())
+                buf_a.resize(std::max(buf_a.size() * 2, pos + len + 64));
+            const uint8_t* src = arena + (uint32_t)e;
+            std::memcpy(buf_a.data() + pos, src, 8);
+            if (len > 8)
+                std::memcpy(buf_a.data() + pos + 8, src + 8, len - 8);
+            pos += len;
+        }
+        if (!all_ascii(buf_a.data(), (int64_t)pos) &&
+            !utf8_valid(buf_a.data(), (int64_t)pos)) {
+            out_flags[r] = 1;
+            sz[(size_t)(r - lo)] = 0;
+            continue;
+        }
+        const uint8_t* cur = buf_a.data();
+        size_t cur_n = pos;
+        if (cleanup) {
+            bool needs_wsj = false;
+            uint32_t occ = cleanup_occurrence(cur, cur_n, &needs_wsj);
+            bool fired = false;
+            int which = 0;
+            for (size_t pi = 0; occ != 0 && pi < kNCleanup; ++pi) {
+                if (!fired && !((occ >> pi) & 1)) continue;
+                const Pat& rp = kCleanupTable[pi];
+                if (replace_pass(cur, cur_n, scratch[which], rp.a,
+                                 std::strlen(rp.a), rp.b,
+                                 std::strlen(rp.b))) {
+                    cur = scratch[which].data();
+                    cur_n = scratch[which].size();
+                    which ^= 1;
+                    fired = true;
+                }
+            }
+            if (needs_wsj || fired) {
+                ws_split_join(d, cur, cur_n, scratch[which]);
+                cur = scratch[which].data();
+                cur_n = scratch[which].size();
+            }
+        }
+        sz[(size_t)(r - lo)] = (int64_t)cur_n;
+        outb.insert(outb.end(), cur, cur + cur_n);
+    }
+}
+
+// Thread fan-out over contiguous row ranges; bufs/sizes are per-thread.
+inline int decode_shards(const DecCtx* d, const int32_t* ids_flat,
+                         const int64_t* row_offsets, int64_t n_rows,
+                         int32_t skip_special, int32_t cleanup,
+                         uint8_t* out_flags,
+                         std::vector<std::vector<uint8_t>>& bufs,
+                         std::vector<std::vector<int64_t>>& sizes) {
+    int n_threads = (int)std::thread::hardware_concurrency();
+    if (n_threads < 1) n_threads = 1;
+    if (n_threads > kMaxThreads) n_threads = kMaxThreads;
+    if (n_rows < n_threads * 8) n_threads = 1;
+    bufs.resize((size_t)n_threads);
+    sizes.resize((size_t)n_threads);
+    int64_t total_ids = row_offsets[n_rows];
+    auto worker = [&](int tid) {
+        int64_t lo = n_rows * tid / n_threads;
+        int64_t hi = n_rows * (tid + 1) / n_threads;
+        bufs[(size_t)tid].reserve(
+            (size_t)((total_ids / (n_rows ? n_rows : 1) + 8) * (hi - lo) *
+                     4));
+        decode_rows_range(d, ids_flat, row_offsets, lo, hi, skip_special,
+                          cleanup, bufs[(size_t)tid], sizes[(size_t)tid],
+                          out_flags);
+    };
+    pool().run(n_threads, worker);
+    return n_threads;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1449,6 +1732,62 @@ void ctok_compact(const int32_t* src, const int64_t* offsets,
         pos += cnt;
     }
     dst_offsets[n_texts] = pos;
+}
+
+// ---- decoder C ABI ----
+
+void* ctok_decoder_new(const uint8_t* bytes_buf, const int64_t* id_offsets,
+                       int64_t n_ids, const uint8_t* special_mask,
+                       const uint8_t* cls_table, int64_t cls_size) {
+    DecCtx* d = new DecCtx();
+    d->n_ids = n_ids;
+    d->offs.assign(id_offsets, id_offsets + n_ids + 1);
+    d->arena.assign(bytes_buf, bytes_buf + id_offsets[n_ids]);
+    d->arena.resize(d->arena.size() + 8, 0);  // wide-copy slack
+    d->skip.assign(special_mask, special_mask + n_ids);
+    d->cls_table = cls_table;
+    d->cls_size = cls_size;
+    d->ent.resize((size_t)n_ids);
+    for (int64_t i = 0; i < n_ids; ++i) {
+        uint64_t off = (uint64_t)id_offsets[i];
+        uint64_t len = (uint64_t)(id_offsets[i + 1] - id_offsets[i]);
+        d->ent[(size_t)i] = off | (len << 32) |
+                            (special_mask[i] ? kDecSpecialBit : 0);
+    }
+    return d;
+}
+
+void ctok_decoder_free(void* p) { delete (DecCtx*)p; }
+
+// Decode rows of ids into out (final UTF-8 bytes, rows delimited by
+// out_offsets).  Rows with invalid UTF-8 get out_flags[i] = 1 and empty
+// output (caller uses the exact lossy Python path).  Returns total bytes
+// written, or -1 if cap would overflow (caller retries with a larger cap).
+int64_t ctok_decode_batch(void* p, const int32_t* ids_flat,
+                          const int64_t* row_offsets, int64_t n_rows,
+                          int32_t skip_special, int32_t cleanup,
+                          uint8_t* out, int64_t* out_offsets,
+                          uint8_t* out_flags, int64_t cap) {
+    DecCtx* d = (DecCtx*)p;
+    // contiguous row ranges per thread; each thread builds its own buffer
+    // and per-row sizes, then blocks concatenate in order
+    std::vector<std::vector<uint8_t>> bufs;
+    std::vector<std::vector<int64_t>> sizes;
+    int n_threads = decode_shards(d, ids_flat, row_offsets, n_rows,
+                                  skip_special, cleanup, out_flags, bufs,
+                                  sizes);
+    int64_t pos = 0;
+    for (int t = 0; t < n_threads; ++t) {
+        if (pos + (int64_t)bufs[(size_t)t].size() > cap) return -1;
+        std::memcpy(out + pos, bufs[(size_t)t].data(), bufs[(size_t)t].size());
+        int64_t lo = n_rows * t / n_threads;
+        for (size_t j = 0; j < sizes[(size_t)t].size(); ++j) {
+            out_offsets[lo + (int64_t)j] = pos;
+            pos += sizes[(size_t)t][j];
+        }
+    }
+    out_offsets[n_rows] = pos;
+    return pos;
 }
 
 // Collect the distinct words in the corpus that are not yet in any cache
@@ -2155,7 +2494,182 @@ static PyObject* ctok_py_encode_rows(PyObject* self, PyObject* args) {
     return rows;
 }
 
+// Single-text encode with minimal overhead: cached UTF-8 view, optional
+// prefix space, added-token gate, encode, PyList build — one C call.
+// Returns None when an added-token pattern matches (caller's host path).
+static PyObject* ctok_py_encode_one(PyObject*, PyObject* args) {
+    unsigned long long addr;
+    PyObject* text_obj;
+    int aps;
+    PyObject* pats_obj;
+    if (!PyArg_ParseTuple(args, "KUiO", &addr, &text_obj, &aps, &pats_obj))
+        return nullptr;
+    Ctx* c = (Ctx*)(uintptr_t)addr;
+    Py_ssize_t sz;
+    const char* u = PyUnicode_AsUTF8AndSize(text_obj, &sz);
+    if (!u) return nullptr;
+    const uint8_t* data = (const uint8_t*)u;
+    int64_t n = (int64_t)sz;
+    // stack buffer for short texts, heap for long
+    uint8_t stack_buf[1024];
+    std::unique_ptr<uint8_t[]> heap_buf;
+    bool need_prefix = aps && n > 0 && data[0] != ' ';
+    if (need_prefix) {
+        uint8_t* b;
+        if (n + 1 <= (int64_t)sizeof(stack_buf)) {
+            b = stack_buf;
+        } else {
+            heap_buf.reset(new uint8_t[(size_t)n + 1]);
+            b = heap_buf.get();
+        }
+        b[0] = ' ';
+        std::memcpy(b + 1, data, (size_t)n);
+        data = b;
+        ++n;
+    }
+    // added-token gate
+    Py_ssize_t n_pats = 0;
+    if (pats_obj != Py_None) {
+        PyObject* pats_seq =
+            PySequence_Fast(pats_obj, "patterns must be a sequence");
+        if (!pats_seq) return nullptr;
+        n_pats = PySequence_Fast_GET_SIZE(pats_seq);
+        for (Py_ssize_t p = 0; p < n_pats; ++p) {
+            char* pb;
+            Py_ssize_t pl;
+            if (PyBytes_AsStringAndSize(PySequence_Fast_GET_ITEM(pats_seq, p),
+                                        &pb, &pl) < 0) {
+                Py_DECREF(pats_seq);
+                return nullptr;
+            }
+            if (pl > 0 && pl <= n &&
+                memmem(data, (size_t)n, pb, (size_t)pl)) {
+                Py_DECREF(pats_seq);
+                Py_RETURN_NONE;
+            }
+        }
+        Py_DECREF(pats_seq);
+    }
+    int32_t stack_out[1024];
+    std::unique_ptr<int32_t[]> heap_out;
+    int32_t* out = stack_out;
+    if (n > (int64_t)(sizeof(stack_out) / sizeof(int32_t))) {
+        heap_out.reset(new int32_t[(size_t)(n > 0 ? n : 1)]);
+        out = heap_out.get();
+    }
+    std::vector<int32_t> scratch;
+    scratch.reserve(64);
+    int64_t m;
+    {
+        std::lock_guard<std::mutex> lk(c->work_mu);
+        m = encode_text(c, &c->caches[0], &c->short_caches[0], data, n, out,
+                        scratch);
+    }
+    PyObject* lst = PyList_New((Py_ssize_t)m);
+    if (!lst) return nullptr;
+    for (int64_t i = 0; i < m; ++i) {
+        PyObject* v = cached_long(out[i]);
+        if (!v) {
+            Py_DECREF(lst);
+            return nullptr;
+        }
+        PyList_SET_ITEM(lst, (Py_ssize_t)i, v);
+    }
+    return lst;
+}
+
+// Ragged batch decode with direct str materialization: runs
+// ctok_decode_batch with the GIL released, then builds the result list
+// straight from the C output buffer (no intermediate bytes copy, no
+// per-row Python slicing).  Rows flagged invalid-UTF-8 come back as None
+// plus their indices, for the caller's exact lossy host path.
+static PyObject* ctok_py_decode_ragged(PyObject*, PyObject* args) {
+    unsigned long long addr;
+    PyObject* ids_obj;
+    PyObject* offs_obj;
+    int skip_special, cleanup;
+    if (!PyArg_ParseTuple(args, "KOOii", &addr, &ids_obj, &offs_obj,
+                          &skip_special, &cleanup))
+        return nullptr;
+    Py_buffer ids_buf, offs_buf;
+    if (PyObject_GetBuffer(ids_obj, &ids_buf, PyBUF_C_CONTIGUOUS) < 0)
+        return nullptr;
+    if (PyObject_GetBuffer(offs_obj, &offs_buf, PyBUF_C_CONTIGUOUS) < 0) {
+        PyBuffer_Release(&ids_buf);
+        return nullptr;
+    }
+    const int32_t* ids_flat = (const int32_t*)ids_buf.buf;
+    const int64_t* row_offsets = (const int64_t*)offs_buf.buf;
+    int64_t n = (int64_t)(offs_buf.len / (Py_ssize_t)sizeof(int64_t)) - 1;
+    if (n < 0 ||
+        (n > 0 && (row_offsets[n] < 0 ||
+                   row_offsets[n] > (int64_t)(ids_buf.len /
+                                              (Py_ssize_t)sizeof(int32_t))))) {
+        PyBuffer_Release(&ids_buf);
+        PyBuffer_Release(&offs_buf);
+        PyErr_SetString(PyExc_ValueError, "inconsistent ragged decode input");
+        return nullptr;
+    }
+    std::vector<uint8_t> flags((size_t)(n > 0 ? n : 1), 0);
+    std::vector<std::vector<uint8_t>> bufs;
+    std::vector<std::vector<int64_t>> sizes;
+    int n_threads = 1;
+    Py_BEGIN_ALLOW_THREADS
+    n_threads = decode_shards((const DecCtx*)(uintptr_t)addr, ids_flat,
+                              row_offsets, n, skip_special, cleanup,
+                              flags.data(), bufs, sizes);
+    Py_END_ALLOW_THREADS
+    PyBuffer_Release(&ids_buf);
+    PyBuffer_Release(&offs_buf);
+    PyObject* lst = PyList_New((Py_ssize_t)n);
+    if (!lst) return nullptr;
+    PyObject* flagged = nullptr;
+    for (int t = 0; t < n_threads; ++t) {
+        int64_t lo = n * t / n_threads;
+        const uint8_t* base = bufs[(size_t)t].data();
+        int64_t pos = 0;
+        for (size_t j = 0; j < sizes[(size_t)t].size(); ++j) {
+            int64_t i = lo + (int64_t)j;
+            if (flags[(size_t)i]) {
+                Py_INCREF(Py_None);
+                PyList_SET_ITEM(lst, (Py_ssize_t)i, Py_None);
+                if (!flagged) flagged = PyList_New(0);
+                PyObject* idx = PyLong_FromLongLong((long long)i);
+                if (!idx || !flagged || PyList_Append(flagged, idx) < 0) {
+                    Py_XDECREF(idx);
+                    Py_XDECREF(flagged);
+                    Py_DECREF(lst);
+                    return nullptr;
+                }
+                Py_DECREF(idx);
+            } else {
+                PyObject* s = PyUnicode_DecodeUTF8(
+                    (const char*)base + pos,
+                    (Py_ssize_t)sizes[(size_t)t][j], nullptr);
+                if (!s) {
+                    Py_XDECREF(flagged);
+                    Py_DECREF(lst);
+                    return nullptr;
+                }
+                PyList_SET_ITEM(lst, (Py_ssize_t)i, s);
+            }
+            pos += sizes[(size_t)t][j];
+        }
+    }
+    if (!flagged) {
+        flagged = Py_None;
+        Py_INCREF(Py_None);
+    }
+    return Py_BuildValue("(NN)", lst, flagged);
+}
+
 static PyMethodDef CtokExtMethods[] = {
+    {"decode_ragged", ctok_py_decode_ragged, METH_VARARGS,
+     "decode_ragged(dec_ctx, ids_flat, row_offsets, skip_special, cleanup)"
+     " -> (list[str|None], flagged indices or None)"},
+    {"encode_one", ctok_py_encode_one, METH_VARARGS,
+     "encode_one(ctx, text, add_prefix_space, patterns_or_None) -> "
+     "list[int] | None (None = added-token candidate)"},
     {"encode_rows", ctok_py_encode_rows, METH_VARARGS,
      "encode_rows(ctx, texts, add_prefix_space, patterns, n_threads) -> "
      "list[list[int]] (None rows = added-token candidates)"},

@@ -9,8 +9,8 @@ table when it is eligible, kernel K5 on the CHD table otherwise)
 the widest bucket are cut at word boundaries; one word longer than that
 goes to the host oracle.
 
-Eligibility: BPE + ByteLevel + a well-formed merge table with a cuckoo or
-a CHD pair table.  Anything else raises ``NotImplementedError``: the
+Eligibility: BPE + the ByteLevel pre-tokenizer + a well-formed merge table
+with a cuckoo or a CHD pair table.  Anything else raises ``NotImplementedError``: the
 pipeline never falls back.  Texts that may hold an added token are routed to the host tier
 by the Tokenizer.
 """
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..convert import tables_to_device
-from ..core.pretokenizers import gpt2_split_spans
+from ..core.pretokenizers import ByteLevel, gpt2_split_spans
 from ..utils.bytelevel import encode_bytes
 from ..utils.device import resolve_device
 from ..utils.unicode_tables import gpt2_class_table
@@ -161,6 +161,11 @@ def build_encode_pipeline(tokenizer, device=None) -> EncodePipeline:
     Raises ``NotImplementedError`` for a configuration the device path does
     not run, and ``RuntimeError`` when CUDA is asked for without a card."""
     dev = resolve_device(device)
+    if not isinstance(tokenizer.pre_tokenizer, ByteLevel):
+        raise NotImplementedError(
+            f"the device path runs the ByteLevel pre-tokenizer, not "
+            f"{type(tokenizer.pre_tokenizer).__name__}"
+        )
     if not tokenizer.bpe.vocab:
         raise NotImplementedError("empty vocabulary")
     tables = tokenizer.device_tables()

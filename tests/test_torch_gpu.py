@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from complexity_tokenizer_tpu_torch.convert import tables_to_device
+from complexity_tokenizer_tpu_torch.ops.decode import decode_gather, decode_gather_plain
 from complexity_tokenizer_tpu_torch.ops.hashtable import build_chd_table
 from complexity_tokenizer_tpu_torch.ops.merge import (
     merge_fixpoint_chd_plain,
@@ -788,3 +789,100 @@ def test_k6_refuses_bad_inputs(tok50k):
     with pytest.raises(ValueError):  # W not a multiple of 8
         word_fill(a[:, :20].contiguous(), bits[:, :2].contiguous(), row_len, 8, tables=tb,
                   itemsize=2)
+
+
+# K7, the decode gather
+
+
+def _decode_tensors(tok, device="cuda"):
+    pipe = tok.decode_pipeline(device)
+    return pipe.arena, pipe.offsets, pipe.special
+
+
+def _ragged(rows):
+    offs = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    flat = np.concatenate([np.asarray(r, np.int64) for r in rows]) if offs[-1] else np.zeros(0)
+    return (torch.from_numpy(flat.astype(np.int32)).cuda(), torch.from_numpy(offs).cuda())
+
+
+def _decode_edge_rows(V, special, rng):
+    """Empty rows first and last, one-id rows, pads, negatives, ids >= V,
+    specials, rows across tile edges (1,024 ids) and a 4,096-id row."""
+    rows = [[], [], [0], [V - 1], [-1], [V], [special[0]], [-(2**31)], [2**31 - 1]]
+    for n in (1023, 1024, 1025, 4096, 3, 2048 + 7):
+        r = rng.randint(0, V, size=n)
+        kinds = rng.randint(0, 10, size=n)
+        r = np.where(kinds == 0, -1, r)
+        r = np.where(kinds == 1, V + rng.randint(0, 100, size=n), r)
+        r = np.where(kinds == 2, rng.choice(special, size=n), r)
+        rows.append(r.tolist())
+        rows += [[]] * int(rng.randint(0, 3))
+    return rows + [[], []]
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("vocab", ["50k", "100k"])
+def test_k7_matches_plain_on_edge_rows(tok50k, tok100k, vocab, skip):
+    """K7 (two launches) bit for bit against its plain version on the card
+    and on the CPU."""
+    _need_card()
+    tok = tok50k if vocab == "50k" else tok100k
+    tabs = _decode_tensors(tok)
+    V = tabs[2].shape[0]
+    rng = np.random.RandomState(V % 1000 + skip)
+    special = sorted(tok.special_tokens.values())
+    for rows in (_decode_edge_rows(V, special, rng), [[]] * 5, [[1, 2, 3]], [[]] * 3 + [[5]]):
+        ids, offs = _ragged(rows)
+        before = decode_gather.launches
+        got = decode_gather(ids, offs, *tabs, skip)
+        torch.cuda.synchronize()
+        assert decode_gather.launches == before + (2 if ids.numel() else 0)
+        assert torch.equal(got, decode_gather_plain(ids, offs, *tabs, skip))
+        cpu = decode_gather_plain(ids.cpu(), offs.cpu(), *(t.cpu() for t in tabs), skip)
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_k7_given_total_writes_no_byte_past_it(tok50k):
+    """With a caller's total (a graph's replay) the kernel stops at it."""
+    _need_card()
+    tabs = _decode_tensors(tok50k)
+    rows = [tok50k.encode(t) for t in zipf_corpus(50, seed=8)]
+    ids, offs = _ragged(rows)
+    full = decode_gather(ids, offs, *tabs, False)
+    B = len(rows)
+    total = full.numel() - 8 * (B + 1)
+    short = decode_gather(ids, offs, *tabs, False, total=total // 2)
+    torch.cuda.synchronize()
+    assert short.numel() == 8 * (B + 1) + total // 2
+    assert torch.equal(short, full[: short.numel()])
+
+
+def test_decode_pipeline_on_card_matches_host(tok50k, tok100k):
+    """decode_pipeline("cuda") (K7) and its ragged form equal the host
+    decode and the native decoder's rows, both skip settings."""
+    _need_card()
+    texts = zipf_corpus(300, seed=9) + list(MULTI_PIECES) + ["a </s> b <s>", ""]
+    for tok in (tok50k, tok100k):
+        rows = [tok.encode(t) for t in texts] + [[tok.special_tokens["</s>"], 5, -1, 10**6]]
+        ids, offs = _ragged(rows)
+        for skip in (False, True):
+            host = [tok._decode_impl(r, skip, False) for r in rows]
+            pipe = tok.decode_pipeline("cuda")
+            assert pipe.decode_batch(rows, skip) == host
+            assert pipe.decode_ragged(ids.cpu().numpy(), offs.cpu().numpy(), skip) == host
+            native, flagged = tok._get_native_decoder().decode_batch(rows, skip, False)
+            assert flagged == [] and native == host
+
+
+def test_k7_refuses_bad_inputs(tok50k):
+    _need_card()
+    arena, offsets, special = _decode_tensors(tok50k)
+    ids = torch.zeros(4, dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 4], dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):  # ids of the wrong dtype
+        decode_gather(ids.long(), offs, arena, offsets, special, False)
+    with pytest.raises(ValueError):  # offsets on the CPU
+        decode_gather(ids, offs.cpu(), arena, offsets, special, False)
+    with pytest.raises(ValueError):  # offsets not [V + 1]
+        decode_gather(ids, offs, arena, offsets[:-1], special, False)
