@@ -946,7 +946,11 @@ def check_decode(label: str, tabs, ids, offs, skip: bool, timed: bool = True) ->
     version (CUDA events; it reads its output size back), and its bound."""
     import torch
 
-    from complexity_tokenizer_tpu_torch.ops.decode import decode_gather, decode_gather_plain
+    from complexity_tokenizer_tpu_torch.ops.decode import (
+        decode_gather,
+        decode_gather_plain,
+        decode_gather_sized,
+    )
 
     B, N = offs.numel() - 1, ids.numel()
     got = decode_gather(ids, offs, *tabs, skip)
@@ -966,7 +970,7 @@ def check_decode(label: str, tabs, ids, offs, skip: bool, timed: bool = True) ->
     reps = 50 if N >= 1 << 18 else 200
 
     def fn(i, o):
-        return decode_gather(i, o, *tabs, skip, total=total)
+        return decode_gather_sized(i, o, *tabs, skip, total)
 
     ms = _time_ms(lambda: fn(ids, offs), reps)
     sets = _cold_sets((ids, offs), got.numel())
@@ -1031,6 +1035,7 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
     if nd is None:
         raise AssertionError(f"[{label}] the native decoder is not eligible")
     mismatches = 0
+    device_calls = 0
     zero_counts()
     for skip in (False, True):
         t1 = time.perf_counter()
@@ -1045,12 +1050,18 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
             t1 = time.perf_counter()
             got = pipe.decode_batch(rows, skip) if name == "batch" else pipe.decode_ragged(flat, offs, skip)
             walls[f"device pipeline {name}, skip={skip}"] = time.perf_counter() - t1
+            device_calls += 1
             bad = sum(g != h or g != n for g, h, n in zip(got, host_txt, native_txt))
             mismatches += bad + abs(len(got) - len(host_txt))
         if native_txt != host_txt:
             raise AssertionError(f"[{label}] the native decoder differs from the host decode")
     torch.cuda.synchronize()
     out["device decode"] = read_counts()
+    k7 = out["device decode"]["decode_gather"]
+    if k7 % device_calls:
+        raise AssertionError(
+            f"[{label}] K7 launched {k7} times in {device_calls} device decode calls")
+    per_call = k7 // device_calls
     # the public entry points: the native route
     zero_counts()
     for skip in (False, True):
@@ -1067,7 +1078,7 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
     out["native decode"] = read_counts()
     print(
         f"[{label}] decode: {len(rows)} rows, {len(flat)} ids; walls "
-        f"{({k: round(v, 4) for k, v in walls.items()})}; launches {out}; "
+        f"{({k: round(v, 4) for k, v in walls.items()})}; launches {out}, {per_call} a device decode call; "
         f"{mismatches} mismatches",
         flush=True,
     )
@@ -1078,7 +1089,8 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
             if (n > 0) != (route == "device decode" and name == "decode_gather"):
                 raise AssertionError(f"kernel {name} was launched {n} times on the {label} {route}")
     _phase(f"{label}: decode", t0)
-    return dict(launches=out, walls=walls, rows=rows, tables=(pipe.arena, pipe.offsets, pipe.special))
+    return dict(launches=out, launches_per_call=per_call, walls=walls, rows=rows,
+                tables=(pipe.arena, pipe.offsets, pipe.special))
 
 
 def drive_added_tokens(path: str, texts: list[str], kernels_of: dict) -> dict:
@@ -1458,7 +1470,7 @@ def main(argv=None) -> int:
         "replaces": "complexity_tokenizer_tpu/ops/decode.py:71",
         "launches": d50["launches"]["device decode"]["decode_gather"],
         "launches_path": "50K device decode (decode_batch and decode_ragged, skip_special both ways)",
-        "launches_per_call": 2,
+        "launches_per_call": d50["launches_per_call"],
         "launches_by_path": {
             f"{label} {route}": counts["decode_gather"]
             for label, d in (("50K", d50), ("100K", d100))

@@ -151,13 +151,13 @@ decode_totals_kernel(const int32_t* __restrict__ ids, i64 n, Table t,
 }
 
 // launch 2: the bytes and the row offsets.  out holds the B + 1 int64 row
-// offsets, then cap bytes; no byte is written at or past cap.
+// offsets, then tile_off[n_tiles] bytes.
 __global__ void __launch_bounds__(kThreads)
 decode_scatter_kernel(const int32_t* __restrict__ ids, i64 n,
                       const i64* __restrict__ row_off, int B, Table t,
                       const uint8_t* __restrict__ arena,
                       const i64* __restrict__ tile_off,
-                      uint8_t* __restrict__ out, i64 cap) {
+                      uint8_t* __restrict__ out) {
   __shared__ i64 s_start[kTile];
   __shared__ int32_t s_len[kTile];
   __shared__ int32_t s_pos[kTile];
@@ -213,9 +213,8 @@ decode_scatter_kernel(const int32_t* __restrict__ ids, i64 n,
     const i64 dst = tile_base + s_pos[i];
 #pragma unroll
     for (int b = 0; b < kStage; ++b)
-      if (b < len && dst + b < cap) bytes[dst + b] = v[b];
-    for (int b = kStage; b < len; ++b)
-      if (dst + b < cap) bytes[dst + b] = __ldg(src + b);
+      if (b < len) bytes[dst + b] = v[b];
+    for (int b = kStage; b < len; ++b) bytes[dst + b] = __ldg(src + b);
   }
   const i64 total = tile_off[gridDim.x];
   i64* out_off = reinterpret_cast<i64*>(out);
@@ -251,12 +250,12 @@ int ctok_decode_totals(const void* ids, long long n, const void* arena,
   return (int)cudaGetLastError();
 }
 
-// launch 2.  out: int64 [B + 1] row offsets, then cap bytes.
+// launch 2.  out: int64 [B + 1] row offsets, then the total bytes.
 int ctok_decode_scatter(const void* ids, long long n, const void* row_off, int B,
                         const void* arena, const void* off, const void* special,
                         int V, int skip_special, const void* scratch, void* out,
-                        long long cap, void* stream) {
-  if (n <= 0 || B < 0 || V <= 0 || cap < 0) return (int)cudaErrorInvalidValue;
+                        void* stream) {
+  if (n <= 0 || B < 0 || V <= 0) return (int)cudaErrorInvalidValue;
   const long long tiles = (n + kTile - 1) / kTile;
   if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   const Table t{static_cast<const i64*>(off), static_cast<const uint8_t*>(special), V,
@@ -264,7 +263,7 @@ int ctok_decode_scatter(const void* ids, long long n, const void* row_off, int B
   decode_scatter_kernel<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const int32_t*>(ids), n, static_cast<const i64*>(row_off), B, t,
       static_cast<const uint8_t*>(arena), static_cast<const i64*>(scratch),
-      static_cast<uint8_t*>(out), cap);
+      static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -33,6 +33,7 @@ __all__ = [
     "decode_arena",
     "decode_gather",
     "decode_gather_plain",
+    "decode_gather_sized",
     "special_mask",
     "split_rows",
 ]
@@ -109,26 +110,8 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"decode_gather: {name} must be contiguous")
 
 
-def decode_gather(ids, row_offsets, arena, offsets, special, skip_special: bool,
-                  total: int | None = None):
-    """K7 on CUDA tensors (two launches), the plain version on CPU tensors.
-
-    Args:
-      ids: [N] int32 flat ids; any value (ids outside ``[0, V)`` are dropped).
-      row_offsets: [B + 1] int64, non-decreasing, from 0 to N: row r's ids are
-        ``ids[row_offsets[r]:row_offsets[r + 1]]``.
-      arena, offsets, special: the :class:`DecodeTables` on the device.
-      skip_special: drop the ids that ``special`` marks.
-      total: the output's byte count when the caller knows it (a CUDA graph
-        cannot read it back between the launches); None reads it after the
-        first launch.  The kernel writes no byte past it.
-    Returns:
-      uint8 [8 (B + 1) + total]: the int64 row byte offsets, then the bytes.
-    """
-    if ids.device.type == "cpu":
-        return decode_gather_plain(ids, row_offsets, arena, offsets, special, skip_special)
-    if ids.device.type != "cuda":
-        raise ValueError(f"decode_gather: unsupported device {ids.device}")
+def _checked(ids, row_offsets, arena, offsets, special) -> tuple[int, int, int]:
+    """(V, n, B) of K7's CUDA inputs, after checking their types and shapes."""
     dev = ids.device
     _check("ids", ids, torch.int32, 1, dev)
     _check("row_offsets", row_offsets, torch.int64, 1, dev)
@@ -138,37 +121,87 @@ def decode_gather(ids, row_offsets, arena, offsets, special, skip_special: bool,
     V = special.shape[0]
     if offsets.shape[0] != V + 1 or V < 1 or V >= 2**31:
         raise ValueError(f"decode_gather: offsets [{offsets.shape[0]}] must be [V + 1] for V = {V}")
-    n = ids.shape[0]
     B = row_offsets.shape[0] - 1
     if B < 0 or B >= 2**31:
         raise ValueError("decode_gather: row_offsets must hold B + 1 entries")
-    if n == 0:  # no id: every row is empty, no launch
-        return torch.zeros(8 * (B + 1), dtype=torch.uint8, device=dev)
-    lib = kernel_library().lib
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    return V, ids.shape[0], B
+
+
+def _launch_totals(ids, arena, offsets, special, V: int, skip_special: bool):
+    """K7's first launch: (scratch, tiles); scratch[tiles] is the byte total."""
+    n = ids.shape[0]
     tiles = -(-n // _TILE)
-    scratch = torch.empty(tiles + 2, dtype=torch.int64, device=dev)
+    scratch = torch.empty(tiles + 2, dtype=torch.int64, device=ids.device)
     check(
-        lib.ctok_decode_totals(
+        kernel_library().lib.ctok_decode_totals(
             ids.data_ptr(), n, arena.data_ptr(), offsets.data_ptr(), special.data_ptr(),
-            V, int(bool(skip_special)), scratch.data_ptr(), stream,
+            V, int(bool(skip_special)), scratch.data_ptr(),
+            torch.cuda.current_stream(ids.device).cuda_stream,
         ),
         "decode_gather (totals)",
     )
     decode_gather.launches += 1
-    if total is None:
-        total = int(scratch[tiles])  # the one read back between the launches
-    out = torch.empty(8 * (B + 1) + total, dtype=torch.uint8, device=dev)
+    return scratch, tiles
+
+
+def _launch_scatter(ids, row_offsets, arena, offsets, special, V: int, skip_special: bool,
+                    scratch, total: int):
+    """K7's second launch into a new buffer of ``total`` bytes."""
+    B = row_offsets.shape[0] - 1
+    out = torch.empty(8 * (B + 1) + total, dtype=torch.uint8, device=ids.device)
     check(
-        lib.ctok_decode_scatter(
-            ids.data_ptr(), n, row_offsets.data_ptr(), B, arena.data_ptr(),
+        kernel_library().lib.ctok_decode_scatter(
+            ids.data_ptr(), ids.shape[0], row_offsets.data_ptr(), B, arena.data_ptr(),
             offsets.data_ptr(), special.data_ptr(), V, int(bool(skip_special)),
-            scratch.data_ptr(), out.data_ptr(), total, stream,
+            scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(ids.device).cuda_stream,
         ),
         "decode_gather (scatter)",
     )
     decode_gather.launches += 1
     return out
+
+
+def decode_gather(ids, row_offsets, arena, offsets, special, skip_special: bool):
+    """K7 on CUDA tensors (two launches), the plain version on CPU tensors.
+
+    Args:
+      ids: [N] int32 flat ids; any value (ids outside ``[0, V)`` are dropped).
+      row_offsets: [B + 1] int64, non-decreasing, from 0 to N: row r's ids are
+        ``ids[row_offsets[r]:row_offsets[r + 1]]``.
+      arena, offsets, special: the :class:`DecodeTables` on the device.
+      skip_special: drop the ids that ``special`` marks.
+    Returns:
+      uint8 [8 (B + 1) + total]: the int64 row byte offsets, then the bytes.
+    """
+    if ids.device.type == "cpu":
+        return decode_gather_plain(ids, row_offsets, arena, offsets, special, skip_special)
+    if ids.device.type != "cuda":
+        raise ValueError(f"decode_gather: unsupported device {ids.device}")
+    V, n, B = _checked(ids, row_offsets, arena, offsets, special)
+    if n == 0:  # no id: every row is empty, no launch
+        return torch.zeros(8 * (B + 1), dtype=torch.uint8, device=ids.device)
+    scratch, tiles = _launch_totals(ids, arena, offsets, special, V, skip_special)
+    total = int(scratch[tiles])  # the one read back between the launches
+    return _launch_scatter(ids, row_offsets, arena, offsets, special, V, skip_special,
+                           scratch, total)
+
+
+def decode_gather_sized(ids, row_offsets, arena, offsets, special, skip_special: bool,
+                        total: int):
+    """K7's two launches on CUDA tensors with the output's byte count given,
+    so that both can be captured in one CUDA graph (which cannot read the
+    total back between them).  ``total`` must be the byte count that
+    :func:`decode_gather` finds for the same inputs: the kernel writes every
+    kept byte."""
+    if ids.device.type != "cuda":
+        raise ValueError(f"decode_gather_sized: unsupported device {ids.device}")
+    V, n, _B = _checked(ids, row_offsets, arena, offsets, special)
+    if n == 0:
+        raise ValueError("decode_gather_sized: no id to launch on")
+    scratch, _tiles = _launch_totals(ids, arena, offsets, special, V, skip_special)
+    return _launch_scatter(ids, row_offsets, arena, offsets, special, V, skip_special,
+                           scratch, total)
 
 
 decode_gather.launches = 0  # launches of K7's two kernels (not of the plain version)

@@ -507,7 +507,7 @@ class Tokenizer:
             if native is not None:
                 wp = self._auto_word_path(dev) if backend == "auto" else None
                 return self._encode_native(texts, native, wp)
-        if backend == "device" or (backend == "auto" and self._fast_tiers_run()):
+        if backend == "device":
             wp = self._get_word_path(dev)
             normalized, data, fast_idx = self._device_split(texts)
             out: list[list[int] | None] = [None] * len(texts)

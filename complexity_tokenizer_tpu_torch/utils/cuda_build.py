@@ -59,7 +59,7 @@ _SIGNATURES = {
     # ids, n, arena, off, special, V, skip_special, scratch, stream
     "ctok_decode_totals": (_P, _L, _P, _P, _P, _I, _I, _P, _P),
     # ids, n, row_off, B, arena, off, special, V, skip_special, scratch, out, cap, stream
-    "ctok_decode_scatter": (_P, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _L, _P),
+    "ctok_decode_scatter": (_P, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P),
 }
 
 

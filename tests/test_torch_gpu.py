@@ -14,7 +14,11 @@ import pytest
 import torch
 
 from complexity_tokenizer_tpu_torch.convert import tables_to_device
-from complexity_tokenizer_tpu_torch.ops.decode import decode_gather, decode_gather_plain
+from complexity_tokenizer_tpu_torch.ops.decode import (
+    decode_gather,
+    decode_gather_plain,
+    decode_gather_sized,
+)
 from complexity_tokenizer_tpu_torch.ops.hashtable import build_chd_table
 from complexity_tokenizer_tpu_torch.ops.merge import (
     merge_fixpoint_chd_plain,
@@ -843,19 +847,21 @@ def test_k7_matches_plain_on_edge_rows(tok50k, tok100k, vocab, skip):
         assert torch.equal(got.cpu(), cpu)
 
 
-def test_k7_given_total_writes_no_byte_past_it(tok50k):
-    """With a caller's total (a graph's replay) the kernel stops at it."""
+def test_k7_sized_launches_equal_decode_gather(tok50k):
+    """decode_gather_sized, given the total that decode_gather found (as a
+    graph's capture is), gives decode_gather's buffer and launches twice."""
     _need_card()
     tabs = _decode_tensors(tok50k)
     rows = [tok50k.encode(t) for t in zipf_corpus(50, seed=8)]
     ids, offs = _ragged(rows)
-    full = decode_gather(ids, offs, *tabs, False)
-    B = len(rows)
-    total = full.numel() - 8 * (B + 1)
-    short = decode_gather(ids, offs, *tabs, False, total=total // 2)
-    torch.cuda.synchronize()
-    assert short.numel() == 8 * (B + 1) + total // 2
-    assert torch.equal(short, full[: short.numel()])
+    for skip in (False, True):
+        full = decode_gather(ids, offs, *tabs, skip)
+        total = full.numel() - 8 * len(rows) - 8
+        before = decode_gather.launches
+        sized = decode_gather_sized(ids, offs, *tabs, skip, total)
+        torch.cuda.synchronize()
+        assert decode_gather.launches == before + 2
+        assert torch.equal(sized, full)
 
 
 def test_decode_pipeline_on_card_matches_host(tok50k, tok100k):
