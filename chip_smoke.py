@@ -10,7 +10,8 @@ Phases (each prints its seconds):
 2. build: compiles the kernels of ``complexity_tokenizer_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) and, beside them, the native host
    runtime with ``g++``; prints both builds' seconds and the kernels'
-   ``-Xptxas -v`` report.
+   ``-Xptxas -v`` report, and K7's launch shape (registers, shared bytes,
+   blocks per SM).
 3. the paths (``drive_paths``), on the Zipf corpus (plus multilingual
    pieces, a text over 4,096 bytes, one word over 4,096 bytes and texts
    holding ``</s>``, which go to the host oracle), for two configurations:
@@ -71,11 +72,15 @@ Phases (each prints its seconds):
    (the 50K CHD table, and int32 ids at 50K) and on ``edge_word_pack``
    rows.  Kernels and the library expression are timed by replaying a CUDA
    graph, the plain versions that synchronise with CUDA events around
-   their calls (``_time_ms``).  K7 (``check_decode``) at both vocabularies
-   on the corpus's rows, random ids at ``[8192, 128]`` and ``[16, 4096]``
-   (1% special ids), and edge rows (pads, negatives, ids >= V, specials,
-   empty and one-id rows, rows across its 1,024-id tiles), skip_special
-   both ways, timed warm and cold beside its bytes bound.
+   their calls (``_time_ms``).  K7 (``check_decode``, one launch a call) at
+   both vocabularies on the corpus's rows, random ids at ``[8192, 128]``
+   and ``[16, 4096]`` (1% special ids), and edge rows (pads, negatives, ids
+   >= V, specials, empty and one-id rows, rows across its 1,024-id tiles),
+   skip_special both ways, timed warm and cold beside its bytes bound; then
+   on the long-token vocabulary (``utils/corpus.py:long_token_vocab``:
+   tokens past the 12 bytes an entry holds inline, one past the 16 KB
+   staging window) with random ids, edge rows and tiles that start at every
+   residue mod 16; K7's state is zero again after each call.
 5. report: one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -917,6 +922,24 @@ def _ragged_on_card(rows):
     return torch.from_numpy(flat.astype(np.int32)).cuda(), torch.from_numpy(offs).cuda()
 
 
+def _decode_edge_rows(V: int, special, rng) -> list[list[int]]:
+    """K7's edge rows: empty rows first and last, one-id rows (0, V - 1,
+    -1, V, a special, the int32 extremes), and rows of 3 to 4,096 ids across
+    its 1,024-id tiles with pads, ids >= V, negatives and specials, some
+    followed by empty rows."""
+    import numpy as np
+
+    edge = [[], [], [0], [V - 1], [-1], [V], [int(special[0])], [-(2**31)], [2**31 - 1]]
+    for n in (1023, 1024, 1025, 4096, 3, 2055):
+        r = rng.randint(0, V, size=n)
+        what = rng.randint(0, 10, size=n)
+        r = np.where(what == 0, -1, np.where(what == 1, V + rng.randint(0, 100, size=n), r))
+        r = np.where(what == 2, -rng.randint(2, 50, size=n), r)
+        r = np.where(what == 3, rng.choice(special, size=n), r)
+        edge += [r.tolist()] + [[]] * int(rng.randint(0, 3))
+    return edge + [[], []]
+
+
 def _decode_bytes_moved(ids, offs, tabs, skip: bool, out_numel: int) -> int:
     """The bytes K7's function must move: the ids and row offsets in, the
     table entries of the distinct kept ids (their bytes, two offsets and,
@@ -938,23 +961,31 @@ def _decode_bytes_moved(ids, offs, tabs, skip: bool, out_numel: int) -> int:
     return 4 * ids.numel() + 8 * offs.numel() + min(touched, whole) + out_numel
 
 
-def check_decode(label: str, tabs, ids, offs, skip: bool, timed: bool = True) -> dict:
-    """K7 (two launches) against its plain version on the card, bit for bit.
-    With ``timed``: warm (graph replay of both launches on the same
-    buffers, given the total) and cold (``_time_cold_ms`` over copies of
-    the ids and offsets; the table stays shared, as K2's does), its plain
-    version (CUDA events; it reads its output size back), and its bound."""
+def check_decode(label: str, pipe, ids, offs, skip: bool, timed: bool = True,
+                 bound_tables=None) -> dict:
+    """K7 (one launch) against its plain version on the card, bit for bit,
+    on a decode pipeline's tables (its entries and padded arena), with the
+    capacity the pipeline gives (``N`` times the longest token).  With
+    ``timed``: warm (graph replay on the same buffers and state) and cold
+    (``_time_cold_ms`` over copies of the ids and offsets, each call a
+    buffer of its own; the table stays shared, as K2's does), its plain
+    version (CUDA events; it reads its output size back), and its bound
+    from ``bound_tables`` (the arena, offsets and special mask on the
+    card)."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.decode import (
         decode_gather,
         decode_gather_plain,
-        decode_gather_sized,
+        decode_state,
+        live_part,
     )
 
     B, N = offs.numel() - 1, ids.numel()
-    got = decode_gather(ids, offs, *tabs, skip)
-    exp = decode_gather_plain(ids, offs, *tabs, skip)
+    cap = N * pipe.max_len
+    state = decode_state(N, ids.device)
+    got = live_part(decode_gather(ids, offs, pipe.entries, pipe.arena, skip, cap, state=state), B)
+    exp = decode_gather_plain(ids, offs, pipe.entries, pipe.arena, skip)
     torch.cuda.synchronize()
     err = _max_abs_err(got, exp)
     match = bool(torch.equal(got, exp))
@@ -963,6 +994,8 @@ def check_decode(label: str, tabs, ids, offs, skip: bool, timed: bool = True) ->
           f"match={match} max_abs_err={err}", flush=True)
     if not match:
         raise AssertionError(f"decode_gather kernel differs from its plain version: {label}")
+    if state.any():
+        raise AssertionError(f"decode_gather left its state nonzero: {label}")
     res = dict(inputs=label, shape=[B, N], skip_special=skip, match=match, max_abs_err=err,
                bytes_out=total)
     if not timed:
@@ -970,14 +1003,15 @@ def check_decode(label: str, tabs, ids, offs, skip: bool, timed: bool = True) ->
     reps = 50 if N >= 1 << 18 else 200
 
     def fn(i, o):
-        return decode_gather_sized(i, o, *tabs, skip, total)
+        return decode_gather(i, o, pipe.entries, pipe.arena, skip, cap, state=state)
 
     ms = _time_ms(lambda: fn(ids, offs), reps)
-    sets = _cold_sets((ids, offs), got.numel())
+    sets = _cold_sets((ids, offs), 8 * (B + 1) + cap)
     ms_cold = _time_cold_ms(fn, sets, reps)
     del sets
-    plain_ms = _time_ms(lambda: decode_gather_plain(ids, offs, *tabs, skip), 5, graph=False)
-    moved = _decode_bytes_moved(ids, offs, tabs, skip, got.numel())
+    plain_ms = _time_ms(lambda: decode_gather_plain(ids, offs, pipe.entries, pipe.arena, skip), 5,
+                        graph=False)
+    moved = _decode_bytes_moved(ids, offs, bound_tables, skip, got.numel())
     bound_ms, bound_by = _bound(moved, 0)
     print(
         f"[decode_gather] {label} B={B} ids={N} kernel warm={ms:.4f} ms cold={ms_cold:.4f} ms "
@@ -1089,8 +1123,10 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
             if (n > 0) != (route == "device decode" and name == "decode_gather"):
                 raise AssertionError(f"kernel {name} was launched {n} times on the {label} {route}")
     _phase(f"{label}: decode", t0)
-    return dict(launches=out, launches_per_call=per_call, walls=walls, rows=rows,
-                tables=(pipe.arena, pipe.offsets, pipe.special))
+    bound_tables = tuple(torch.from_numpy(x).cuda() for x in (pipe.tables.arena, pipe.tables.offsets,
+                                                              pipe.tables.special))
+    return dict(launches=out, launches_per_call=per_call, walls=walls, rows=rows, pipe=pipe,
+                bound_tables=bound_tables)
 
 
 def drive_added_tokens(path: str, texts: list[str], kernels_of: dict) -> dict:
@@ -1167,7 +1203,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     try:
         from complexity_tokenizer_tpu_torch import native
-        from complexity_tokenizer_tpu_torch.ops.decode import decode_gather
+        from complexity_tokenizer_tpu_torch.ops.decode import (
+            DecodePipeline,
+            build_decode_tables,
+            decode_gather,
+            decode_launch_shape,
+        )
         from complexity_tokenizer_tpu_torch.ops.merge import merge_words, merge_words_qc
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
@@ -1177,7 +1218,12 @@ def main(argv=None) -> int:
             word_ids_plain,
             word_merge,
         )
-        from complexity_tokenizer_tpu_torch.utils.corpus import RUN_BREAKS, edge_word_pack, run_rows
+        from complexity_tokenizer_tpu_torch.utils.corpus import (
+            RUN_BREAKS,
+            edge_word_pack,
+            long_token_vocab,
+            run_rows,
+        )
         from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -1224,6 +1270,10 @@ def main(argv=None) -> int:
     for line in lib.ptxas_log.splitlines():
         if "ptxas info" in line and ("Compiling" in line or "registers" in line or "Function properties" in line):
             print("  " + line.strip())
+    k7_shape = decode_launch_shape()
+    print(f"  K7 decode_gather: {k7_shape['threads']} threads, {k7_shape['registers']} registers, "
+          f"{k7_shape['static_smem']} B shared, {k7_shape['local_bytes']} B local a thread, "
+          f"{k7_shape['blocks_per_sm']} blocks per SM")
     print(
         f"native runtime: {native_build['seconds']:.3f} s g++ (with the kernels' build) -> "
         f"{os.path.relpath(native._lib_path, REPO)}; batch route: {native_build['route']}"
@@ -1371,36 +1421,41 @@ def main(argv=None) -> int:
     _phase("kernels at 100K", t0)
 
     # K7 against its plain version: the corpus's rows, random ids at
-    # [8192, 128] and [16, 4096], edge rows; at both vocabularies
+    # [8192, 128] and [16, 4096], edge rows; at both vocabularies; then the
+    # long-token vocabulary (tokens past the entry's 12 inline bytes, one
+    # past the 16 KB staging window) and tiles at every residue mod 16
     t0 = time.perf_counter()
     k7_res: list[dict] = []
     for label, d in (("50K", d50), ("100K", d100)):
-        tabs = d["tables"]
-        V = tabs[2].numel()
+        pipe, btabs = d["pipe"], d["bound_tables"]
+        V = pipe.V
         ids, offs = _ragged_on_card(d["rows"])
-        k7_res.append(check_decode(f"corpus rows, {label}", tabs, ids, offs, False))
-        k7_res.append(check_decode(f"corpus rows, {label}", tabs, ids, offs, True, timed=False))
-        special = torch.nonzero(tabs[2]).flatten().cpu().numpy()
+        k7_res.append(check_decode(f"corpus rows, {label}", pipe, ids, offs, False, bound_tables=btabs))
+        k7_res.append(check_decode(f"corpus rows, {label}", pipe, ids, offs, True, timed=False))
+        special = np.nonzero(pipe.tables.special)[0]
         for B, T in ((8192, 128), (16, 4096)):
             rand = rng.randint(0, V, size=(B, T))
             rand[rng.rand(B, T) < 0.01] = rng.choice(special, size=1)[0]
             ids = torch.from_numpy(rand.astype(np.int32).ravel()).cuda()
             offs = torch.arange(0, B * T + 1, T, dtype=torch.int64, device="cuda")
-            k7_res.append(check_decode(f"random ids, {label}", tabs, ids, offs, False))
-            k7_res.append(check_decode(f"random ids, {label}", tabs, ids, offs, True, timed=False))
-        edge = [[], [], [0], [V - 1], [-1], [V], [int(special[0])], [-(2**31)], [2**31 - 1]]
-        for n in (1023, 1024, 1025, 4096, 3, 2055):
-            r = rng.randint(0, V, size=n)
-            what = rng.randint(0, 10, size=n)
-            r = np.where(what == 0, -1, np.where(what == 1, V + rng.randint(0, 100, size=n), r))
-            r = np.where(what == 2, -rng.randint(2, 50, size=n), r)
-            r = np.where(what == 3, rng.choice(special, size=n), r)
-            edge += [r.tolist()] + [[]] * int(rng.randint(0, 3))
-        ids, offs = _ragged_on_card(edge + [[], []])
+            k7_res.append(check_decode(f"random ids, {label}", pipe, ids, offs, False,
+                                       bound_tables=btabs))
+            k7_res.append(check_decode(f"random ids, {label}", pipe, ids, offs, True, timed=False))
+        ids, offs = _ragged_on_card(_decode_edge_rows(V, special, rng))
         for skip in (False, True):
-            k7_res.append(check_decode(f"edge rows, {label}", tabs, ids, offs, skip, timed=False))
+            k7_res.append(check_decode(f"edge rows, {label}", pipe, ids, offs, skip, timed=False))
         ids, offs = _ragged_on_card([[]] * 4)
-        k7_res.append(check_decode(f"empty rows, {label}", tabs, ids, offs, False, timed=False))
+        k7_res.append(check_decode(f"empty rows, {label}", pipe, ids, offs, False, timed=False))
+    lpipe = DecodePipeline(build_decode_tables(*long_token_vocab()), "cuda")
+    V = lpipe.V
+    special = np.nonzero(lpipe.tables.special)[0]
+    rows = [rng.randint(-3, V + 3, size=n).tolist() for n in (0, 300, 3000, 1025, 0)] + [[9, 3, 9]]
+    rows += _decode_edge_rows(V, special, rng)
+    for r in range(16):  # tile 1 at residue r: r one-byte ids (id 1), ids of no bytes (15)
+        rows += [[1] * r + [15] * (1024 - r) + rng.randint(0, V, size=50).tolist()]
+    ids, offs = _ragged_on_card(rows)
+    for skip in (False, True):
+        k7_res.append(check_decode("long tokens", lpipe, ids, offs, skip, timed=False))
     _phase("decode kernel", t0)
 
     # 5. report --------------------------------------------------------------
@@ -1485,6 +1540,7 @@ def main(argv=None) -> int:
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "launch": k7_shape,
         "checks": k7_res,
     })
     print(json.dumps({"kernels": kernels}))

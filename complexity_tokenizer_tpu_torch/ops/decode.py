@@ -5,19 +5,27 @@ The twin of the JAX package's ``ops/decode.py``.  The host builds, once per
 tokenizer, a byte arena of every id's RAW output bytes (the byte-level
 alphabet reversed, other ASCII chars kept, other chars dropped): bytes plus
 int64 offsets ``[V + 1]``, the layout the native decoder takes too, and a
-``[V]`` special mask.  A batch goes to the device ragged (flat int32 ids,
-int64 row offsets) in one copy; K7 keeps the ids with ``0 <= id < V`` that
-are not skipped specials and writes the kept ids' bytes back to back with
-each row's byte offset; the result comes back in one copy into pinned
-memory, and the host decodes each row's UTF-8 with ``"replace"``, as JAX
-does.  Nothing is padded to ``[B, T]`` or ``[B, T, W]``.
+``[V]`` special mask; from them, K7's table of one 16-byte entry per id
+(:func:`decode_entries`: length, special flag, and the bytes inline up to
+12, else the start in the arena).  A batch goes to the device ragged (flat
+int32 ids, int64 row offsets) in one copy; K7 keeps the ids with
+``0 <= id < V`` that are not skipped specials and writes the kept ids'
+bytes back to back with each row's byte offset; the host reads the byte
+total, then the live part comes back in one copy into pinned memory, and
+the host decodes each row's UTF-8 with ``"replace"``, as JAX does.  Nothing
+is padded to ``[B, T]`` or ``[B, T, W]``.
 
 Output layout of :func:`decode_gather` (and of its plain version): one
-uint8 tensor, the ``B + 1`` int64 row byte offsets, then the bytes.
+uint8 tensor, the ``B + 1`` int64 row byte offsets (the last is the byte
+total), then the bytes.  On the card the buffer is sized before the total
+is known, by the caller's capacity; only its live part
+(:func:`live_part`) holds the result.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,15 +39,22 @@ __all__ = [
     "DecodePipeline",
     "build_decode_tables",
     "decode_arena",
+    "decode_entries",
     "decode_gather",
     "decode_gather_plain",
-    "decode_gather_sized",
+    "decode_launch_shape",
+    "decode_state",
+    "live_part",
     "special_mask",
     "split_rows",
 ]
 
 # ids a block of K7 takes (csrc/decode.cu: kTile)
 _TILE = 1024
+# bytes of a token that its K7 table entry holds inline (csrc/decode.cu: kInline)
+_INLINE = 12
+# K7 takes tokens shorter than this, so that a tile's bytes fit an int32
+_MAX_TOKEN = 1 << 20
 
 
 @dataclass
@@ -79,28 +94,60 @@ def build_decode_tables(vocab_r: dict[int, str], special_ids=()) -> DecodeTables
     return DecodeTables(arena, offsets, special_mask(len(offsets) - 1, special_ids))
 
 
-def decode_gather_plain(ids, row_offsets, arena, offsets, special, skip_special: bool):
-    """Plain PyTorch version of K7, on any device: gather each id's bytes,
-    mask the dropped ids, compact the kept bytes stably (flat, in id
-    order).  Returns the uint8 buffer of :func:`decode_gather`."""
+def decode_entries(tables: DecodeTables) -> np.ndarray:
+    """K7's table: one 16-byte entry per id, int32 ``[V, 4]``, built from
+    ``arena``, ``offsets`` and ``special`` (which stay as they are).
+
+    Word 0 holds the id's byte length (bits 0-30) and its special flag (bit
+    31).  A token of at most 12 bytes has its bytes in entry bytes 4-15
+    (byte b of the token at entry byte 4 + b, the rest 0); a longer one has
+    its start in ``arena`` there instead, as an int64 in words 1-2 (low word
+    first), and word 3 is 0."""
+    offsets = tables.offsets
+    V = tables.V
+    lens = np.diff(offsets)
+    if lens.size and int(lens.max()) >= _MAX_TOKEN:
+        raise ValueError(f"decode_entries: a token of {int(lens.max())} bytes (limit {_MAX_TOKEN - 1})")
+    ent = np.zeros((V, 4), np.uint32)
+    ent[:, 0] = lens.astype(np.uint32) | (tables.special.astype(np.uint32) << 31)
+    short = lens <= _INLINE
+    col = np.arange(_INLINE)
+    take = short[:, None] & (col < lens[:, None])
+    ent.view(np.uint8).reshape(V, 16)[:, 4:][take] = tables.arena[(offsets[:-1, None] + col)[take]]
+    start = offsets[:-1][~short]
+    ent[~short, 1] = (start & 0xFFFFFFFF).astype(np.uint32)
+    ent[~short, 2] = (start >> 32).astype(np.uint32)
+    return ent.view(np.int32)
+
+
+def decode_gather_plain(ids, row_offsets, entries, arena, skip_special: bool):
+    """Plain PyTorch version of K7, on any device: each id's entry, the
+    dropped ids masked, the kept bytes compacted stably (flat, in id order),
+    each read inline from its entry or from ``arena``.  Returns the uint8
+    buffer of :func:`decode_gather`, exactly as long as its live part."""
     dev = ids.device
-    V = special.shape[0]
+    V = entries.shape[0]
     ids = ids.long()
     ok = (ids >= 0) & (ids < V)
-    safe = torch.where(ok, ids, 0)
-    keep = ok & ~((special[safe] != 0) & bool(skip_special))
-    start = offsets[safe]
-    tok_len = torch.where(keep, offsets[safe + 1] - start, 0)
+    ent = entries[torch.where(ok, ids, 0)]
+    word0 = ent[:, 0].long() & 0xFFFFFFFF
+    length = word0 & 0x7FFFFFFF
+    keep = ok & ~((word0 >> 31 != 0) & bool(skip_special))
+    tok_len = torch.where(keep, length, 0)
     ends = torch.zeros(ids.numel() + 1, dtype=torch.int64, device=dev)
     torch.cumsum(tok_len, 0, out=ends[1:])
     tok_of_byte = torch.repeat_interleave(torch.arange(ids.numel(), device=dev), tok_len)
     within = torch.arange(tok_of_byte.numel(), device=dev) - ends[tok_of_byte]
-    out_bytes = arena[start[tok_of_byte] + within]
+    inline = ent[:, 1:].contiguous().view(torch.uint8)  # [N, 12]
+    long_tok = length[tok_of_byte] > _INLINE
+    out_bytes = inline[tok_of_byte, torch.where(long_tok, 0, within)]
+    start = (ent[:, 1].long() & 0xFFFFFFFF) | (ent[:, 2].long() << 32)
+    out_bytes[long_tok] = arena[(start[tok_of_byte] + within)[long_tok]]
     out_offsets = ends[row_offsets.long()]
     return torch.cat([out_offsets.view(torch.uint8), out_bytes])
 
 
-def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device, align: int = 1) -> None:
     if t.device != device or t.dtype != dtype or t.dim() != ndim:
         raise ValueError(
             f"decode_gather: {name} must be {dtype} with {ndim} dims on {device}, "
@@ -108,103 +155,105 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"decode_gather: {name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"decode_gather: {name} must start on a {align}-byte boundary")
 
 
-def _checked(ids, row_offsets, arena, offsets, special) -> tuple[int, int, int]:
-    """(V, n, B) of K7's CUDA inputs, after checking their types and shapes."""
-    dev = ids.device
-    _check("ids", ids, torch.int32, 1, dev)
-    _check("row_offsets", row_offsets, torch.int64, 1, dev)
-    _check("arena", arena, torch.uint8, 1, dev)
-    _check("offsets", offsets, torch.int64, 1, dev)
-    _check("special", special, torch.uint8, 1, dev)
-    V = special.shape[0]
-    if offsets.shape[0] != V + 1 or V < 1 or V >= 2**31:
-        raise ValueError(f"decode_gather: offsets [{offsets.shape[0]}] must be [V + 1] for V = {V}")
-    B = row_offsets.shape[0] - 1
-    if B < 0 or B >= 2**31:
-        raise ValueError("decode_gather: row_offsets must hold B + 1 entries")
-    return V, ids.shape[0], B
+def decode_state(n: int, device) -> torch.Tensor:
+    """K7's state for up to ``n`` ids: int64 ``[tiles + 2]`` zeros (a tile
+    ticket, a count of finished tiles, a status word per tile).  K7 leaves
+    it zero, so one state serves every later call of as many ids or fewer,
+    one call at a time."""
+    return torch.zeros(-(-max(n, 1) // _TILE) + 2, dtype=torch.int64, device=device)
 
 
-def _launch_totals(ids, arena, offsets, special, V: int, skip_special: bool):
-    """K7's first launch: (scratch, tiles); scratch[tiles] is the byte total."""
-    n = ids.shape[0]
-    tiles = -(-n // _TILE)
-    scratch = torch.empty(tiles + 2, dtype=torch.int64, device=ids.device)
-    check(
-        kernel_library().lib.ctok_decode_totals(
-            ids.data_ptr(), n, arena.data_ptr(), offsets.data_ptr(), special.data_ptr(),
-            V, int(bool(skip_special)), scratch.data_ptr(),
-            torch.cuda.current_stream(ids.device).cuda_stream,
-        ),
-        "decode_gather (totals)",
-    )
-    decode_gather.launches += 1
-    return scratch, tiles
-
-
-def _launch_scatter(ids, row_offsets, arena, offsets, special, V: int, skip_special: bool,
-                    scratch, total: int):
-    """K7's second launch into a new buffer of ``total`` bytes."""
-    B = row_offsets.shape[0] - 1
-    out = torch.empty(8 * (B + 1) + total, dtype=torch.uint8, device=ids.device)
-    check(
-        kernel_library().lib.ctok_decode_scatter(
-            ids.data_ptr(), ids.shape[0], row_offsets.data_ptr(), B, arena.data_ptr(),
-            offsets.data_ptr(), special.data_ptr(), V, int(bool(skip_special)),
-            scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(ids.device).cuda_stream,
-        ),
-        "decode_gather (scatter)",
-    )
-    decode_gather.launches += 1
-    return out
-
-
-def decode_gather(ids, row_offsets, arena, offsets, special, skip_special: bool):
-    """K7 on CUDA tensors (two launches), the plain version on CPU tensors.
+def decode_gather(ids, row_offsets, entries, arena, skip_special: bool, capacity: int,
+                  out=None, state=None):
+    """K7 on CUDA tensors (one launch), the plain version on CPU tensors.
 
     Args:
       ids: [N] int32 flat ids; any value (ids outside ``[0, V)`` are dropped).
       row_offsets: [B + 1] int64, non-decreasing, from 0 to N: row r's ids are
         ``ids[row_offsets[r]:row_offsets[r + 1]]``.
-      arena, offsets, special: the :class:`DecodeTables` on the device.
-      skip_special: drop the ids that ``special`` marks.
+      entries: [V, 4] int32, :func:`decode_entries` on the device.
+      arena: uint8, the decode tables' arena on the device, padded with zeros
+        to a multiple of 16 bytes (K7 reads it 16 aligned bytes at a time).
+      skip_special: drop the ids that the entries mark special.
+      capacity: (CUDA) the bytes the output may hold after its row offsets:
+        N times the longest token always suffices; K7 writes none past it.
+      out: (CUDA) a uint8 buffer of at least ``8 (B + 1) + capacity`` bytes
+        to write into; a new one when None.
+      state: (CUDA) :func:`decode_state` for at least N ids; a new one (a
+        memset) when None.  Calls that share a state must not overlap.
     Returns:
-      uint8 [8 (B + 1) + total]: the int64 row byte offsets, then the bytes.
+      CUDA: uint8 ``[8 (B + 1) + capacity]``, the int64 row byte offsets
+      (the last the byte total) then the bytes; :func:`live_part` is the
+      result.  CPU: exactly the live part.
     """
     if ids.device.type == "cpu":
-        return decode_gather_plain(ids, row_offsets, arena, offsets, special, skip_special)
+        return decode_gather_plain(ids, row_offsets, entries, arena, skip_special)
     if ids.device.type != "cuda":
         raise ValueError(f"decode_gather: unsupported device {ids.device}")
-    V, n, B = _checked(ids, row_offsets, arena, offsets, special)
+    dev = ids.device
+    _check("ids", ids, torch.int32, 1, dev)
+    _check("row_offsets", row_offsets, torch.int64, 1, dev)
+    _check("entries", entries, torch.int32, 2, dev, 16)  # read 16 bytes at a time
+    _check("arena", arena, torch.uint8, 1, dev, 16)
+    V, n, B = entries.shape[0], ids.shape[0], row_offsets.shape[0] - 1
+    if entries.shape[1] != 4 or V < 1 or V >= 2**31:
+        raise ValueError(f"decode_gather: entries {tuple(entries.shape)} must be [V, 4]")
+    if arena.numel() % 16:
+        raise ValueError("decode_gather: the arena must be padded to a multiple of 16 bytes")
+    if B < 0 or B >= 2**31:
+        raise ValueError("decode_gather: row_offsets must hold B + 1 entries")
+    if capacity < 0:
+        raise ValueError("decode_gather: capacity must be >= 0")
+    need = 8 * (B + 1) + capacity
+    if out is None:
+        out = torch.empty(need, dtype=torch.uint8, device=dev)
+    else:
+        _check("out", out, torch.uint8, 1, dev, 8)  # the row offsets are int64
+        if out.numel() < need:
+            raise ValueError(f"decode_gather: out holds {out.numel()} bytes, {need} needed")
+        out = out[:need]
     if n == 0:  # no id: every row is empty, no launch
-        return torch.zeros(8 * (B + 1), dtype=torch.uint8, device=ids.device)
-    scratch, tiles = _launch_totals(ids, arena, offsets, special, V, skip_special)
-    total = int(scratch[tiles])  # the one read back between the launches
-    return _launch_scatter(ids, row_offsets, arena, offsets, special, V, skip_special,
-                           scratch, total)
+        out[: 8 * (B + 1)].zero_()
+        return out
+    tiles = -(-n // _TILE)
+    if state is None:
+        state = decode_state(n, dev)
+    _check("state", state, torch.int64, 1, dev)
+    if state.numel() < tiles + 2:
+        raise ValueError(f"decode_gather: the state holds {state.numel()} words, {tiles + 2} needed")
+    check(
+        kernel_library().lib.ctok_decode_gather(
+            ids.data_ptr(), n, row_offsets.data_ptr(), B, entries.data_ptr(), arena.data_ptr(), V,
+            int(bool(skip_special)), state.data_ptr(), out.data_ptr(), capacity,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "decode_gather",
+    )
+    decode_gather.launches += 1
+    return out
 
 
-def decode_gather_sized(ids, row_offsets, arena, offsets, special, skip_special: bool,
-                        total: int):
-    """K7's two launches on CUDA tensors with the output's byte count given,
-    so that both can be captured in one CUDA graph (which cannot read the
-    total back between them).  ``total`` must be the byte count that
-    :func:`decode_gather` finds for the same inputs: the kernel writes every
-    kept byte."""
-    if ids.device.type != "cuda":
-        raise ValueError(f"decode_gather_sized: unsupported device {ids.device}")
-    V, n, _B = _checked(ids, row_offsets, arena, offsets, special)
-    if n == 0:
-        raise ValueError("decode_gather_sized: no id to launch on")
-    scratch, _tiles = _launch_totals(ids, arena, offsets, special, V, skip_special)
-    return _launch_scatter(ids, row_offsets, arena, offsets, special, V, skip_special,
-                           scratch, total)
+decode_gather.launches = 0  # launches of K7 (not of the plain version)
 
 
-decode_gather.launches = 0  # launches of K7's two kernels (not of the plain version)
+def decode_launch_shape() -> dict:
+    """How the card launches K7: threads a block, registers a thread,
+    static shared bytes a block, local (stack) bytes a thread, resident
+    blocks per SM.  Needs a card; launches nothing."""
+    info = (ctypes.c_int * 5)()
+    check(kernel_library().lib.ctok_decode_info(ctypes.addressof(info)), "decode_launch_shape")
+    return dict(zip(("threads", "registers", "static_smem", "local_bytes", "blocks_per_sm"), info))
+
+
+def live_part(buf: torch.Tensor, B: int) -> torch.Tensor:
+    """The result in a :func:`decode_gather` buffer: its row offsets and
+    its byte total's bytes (reads the total: on the card, a sync)."""
+    total = int(buf[8 * B : 8 * (B + 1)].view(torch.int64)[0])
+    return buf[: 8 * (B + 1) + total]
 
 
 def split_rows(buf: np.ndarray, B: int) -> list[bytes]:
@@ -221,11 +270,17 @@ class DecodePipeline:
         self.device = torch.device(device)
         self.tables = tables
         self.V = tables.V
-        to = dict(device=self.device)
-        arena = tables.arena if tables.arena.size else np.zeros(1, np.uint8)
-        self.arena = torch.from_numpy(arena).to(**to)
-        self.offsets = torch.from_numpy(tables.offsets).to(**to)
-        self.special = torch.from_numpy(tables.special).to(**to)
+        lens = np.diff(tables.offsets)
+        self.max_len = int(lens.max()) if lens.size else 0  # the longest token's bytes
+        arena = np.zeros(-(-max(tables.arena.size, 1) // 16) * 16, np.uint8)  # K7 reads 16 at a time
+        arena[: tables.arena.size] = tables.arena
+        self.entries = torch.from_numpy(decode_entries(tables)).to(self.device)
+        self.arena = torch.from_numpy(arena).to(self.device)
+        # K7's output buffer and state on the card, grown as calls need;
+        # one call at a time uses them
+        self._lock = threading.Lock()
+        self._out: torch.Tensor | None = None
+        self._state: torch.Tensor | None = None
 
     def decode_ragged_bytes(self, flat_ids, row_offsets, skip_special: bool = False) -> list[bytes]:
         """Each row's raw bytes from ragged rows (flat ids, int64 row offsets
@@ -251,13 +306,26 @@ class DecodePipeline:
         dev = stage.to(self.device, non_blocking=cuda)
         offs_t = dev[: 8 * (B + 1)].view(torch.int64)
         ids_t = dev[8 * (B + 1) :].view(torch.int32)
-        out = decode_gather(ids_t, offs_t, self.arena, self.offsets, self.special, skip_special)
-        if cuda:
-            host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            out = host
-        return split_rows(out.numpy(), B)
+        if not cuda:
+            out = decode_gather(ids_t, offs_t, self.entries, self.arena, skip_special, 0)
+            return split_rows(out.numpy(), B)
+        stream = torch.cuda.current_stream(self.device)
+        with self._lock:
+            capacity = n * self.max_len
+            if self._out is None or self._out.numel() < 8 * (B + 1) + capacity:
+                self._out = torch.empty(8 * (B + 1) + capacity, dtype=torch.uint8, device=self.device)
+            if self._state is None or self._state.numel() < -(-n // _TILE) + 2:
+                self._state = decode_state(n, self.device)
+            out = decode_gather(ids_t, offs_t, self.entries, self.arena, skip_special, capacity,
+                                out=self._out, state=self._state)
+            # the byte total, then the row offsets and the live bytes
+            total = torch.empty(1, dtype=torch.int64, pin_memory=True)
+            total.copy_(out[8 * B : 8 * (B + 1)].view(torch.int64), non_blocking=True)
+            stream.synchronize()
+            host = torch.empty(8 * (B + 1) + int(total[0]), dtype=torch.uint8, pin_memory=True)
+            host.copy_(out[: host.numel()], non_blocking=True)
+            stream.synchronize()
+        return split_rows(host.numpy(), B)
 
     def decode_ragged(self, flat_ids, row_offsets, skip_special: bool = False) -> list[str]:
         return [

@@ -5,15 +5,19 @@ The same texts as the repository's ``bench.py`` makes (``_zipf_lexicon``,
 ``chip_smoke.py`` need nothing of the JAX package.  Deterministic for a
 seed.  Also the rows of long runs that separate the merge kernel's apply
 rule from the JAX one (:func:`run_rows`), and word packs that reach the
-word path's fill at its edges (:func:`edge_word_pack`).
+word path's fill at its edges (:func:`edge_word_pack`), and a decode
+vocabulary of long tokens (:func:`long_token_vocab`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .bytelevel import bytes_to_unicode
+
 __all__ = [
-    "MULTI_PIECES", "RUN_BREAKS", "edge_word_pack", "run_rows", "zipf_lexicon", "zipf_corpus",
+    "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "edge_word_pack", "long_token_vocab",
+    "run_rows", "zipf_lexicon", "zipf_corpus",
 ]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
@@ -208,3 +212,31 @@ def edge_word_pack(words: list[bytes], B: int, W: int = 128, seed: int = 0):
             pos += len(w)
         row_len[r] = pos
     return arr, np.packbits(starts, axis=1, bitorder="little"), row_len
+
+
+# token lengths of long_token_vocab: empty, one byte, the decode kernel's
+# 12-byte inline width and past it, and far past it
+LONG_TOKEN_LENGTHS = (0, 1, 12, 13, 16, 40, 300)
+
+
+def long_token_vocab(V: int = 600, seed: int = 0, window_token: int = 20_000):
+    """A decode vocabulary whose tokens run past the 12 bytes that the
+    decode kernel (K7) keeps inline: ``(vocab_r, special_ids)``, ids ->
+    byte-level token strings.  Of every 16 ids, seven take the lengths of
+    :data:`LONG_TOKEN_LENGTHS` in turn, eight a random length of 2 to 11
+    bytes, and one is missing from the vocabulary (no bytes); id 9 holds
+    ``window_token`` bytes, more than the kernel's 16 KB staging window;
+    ids 3 and 21 are special.  The bytes are random, all 256 values."""
+    rng = np.random.RandomState(seed)
+    enc = bytes_to_unicode()
+    vocab_r: dict[int, str] = {}
+    for i in range(V):
+        kind = i % 16
+        if kind == 15:
+            continue
+        n = LONG_TOKEN_LENGTHS[kind % 7] if kind < 7 else int(rng.randint(2, 12))
+        if i == 9:
+            n = window_token
+        vocab_r[i] = "".join(enc[b] for b in rng.randint(0, 256, size=n).tolist())
+    vocab_r[V - 1] = enc[ord("z")]  # V - 1 is in the vocabulary
+    return vocab_r, [3, 21]

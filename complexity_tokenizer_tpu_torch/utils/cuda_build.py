@@ -56,10 +56,10 @@ _SIGNATURES = {
     "ctok_word_ids": (_P, _P, _P, _I, _I, _P),
     # merged, count, out, B, W, cap, itemsize, stream
     "ctok_fill_compact": (_P, _P, _P, _I, _I, _L, _I, _P),
-    # ids, n, arena, off, special, V, skip_special, scratch, stream
-    "ctok_decode_totals": (_P, _L, _P, _P, _P, _I, _I, _P, _P),
-    # ids, n, row_off, B, arena, off, special, V, skip_special, scratch, out, cap, stream
-    "ctok_decode_scatter": (_P, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P),
+    # ids, n, row_off, B, entries, arena, V, skip_special, state, out, cap, stream
+    "ctok_decode_gather": (_P, _L, _P, _I, _P, _P, _I, _I, _P, _P, _L, _P),
+    # info[5]
+    "ctok_decode_info": (_P,),
 }
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's encode goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_encode.py [--texts 10000] [--seed 17] [--vocab 50k|100k]
+    python3 scripts/profile_torch_encode.py [--texts 10000] [--seed 17] [--vocab 50k|100k] [--decode]
 
 Encodes the ``chip_smoke.py`` corpus at the 50K vocabulary (the merge
 fixpoint K2) or, with ``--vocab 100k``, at the 100K one (K5), each run from
@@ -23,7 +23,9 @@ a fresh ``Tokenizer.from_file`` (warm start on), under ``torch.profiler``:
 For each: the wall time, the device's busy time (the union of kernel
 intervals) and idle share, and the kernels that take the most device time.
 Then the merge fixpoint alone on rows of one 4,096-byte word of one
-repeated letter.  Needs
+repeated letter.  With ``--decode``, instead: the device decode
+(``decode_pipeline("cuda").decode_ragged``, K7) of the corpus's ids in
+ragged form, once to warm and once profiled, with its host stages.  Needs
 a CUDA card; imports nothing of JAX.
 """
 
@@ -105,6 +107,7 @@ def main(argv=None) -> int:
     ap.add_argument("--texts", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--vocab", choices=("50k", "100k"), default="50k")
+    ap.add_argument("--decode", action="store_true", help="profile the device decode only")
     args = ap.parse_args(argv)
 
     import torch
@@ -124,6 +127,8 @@ def main(argv=None) -> int:
     texts = main_corpus(args.texts, args.seed)
     n_bytes = sum(len(t.encode("utf-8")) for t in texts)
     print(f"texts {len(texts)} bytes {n_bytes}")
+    if args.decode:
+        return profile_decode(path, texts)
     host = Tokenizer.from_file(path).encode_batch(texts, backend="host")
 
     # 1. backend="device", stage by stage, as encode_batch runs it
@@ -213,6 +218,38 @@ def main(argv=None) -> int:
         ms = _time_ms(lambda: tb.merge_fixpoint(tokens, wid), 3)
         fixpoint = "K2" if tb.qc_t1 is not None else "K5"
         print(f"{fixpoint} one 4096-byte word per row, [{B},4096]: {ms:.3f} ms")
+    return 0
+
+
+def profile_decode(path: str, texts: list[str]) -> int:
+    """The device decode of the corpus's ids (ragged, every seventh row
+    framed by specials, as ``chip_smoke.py`` makes them) under the
+    profiler: wall, device busy and idle share, host ms by stage."""
+    import numpy as np
+
+    from chip_smoke import _with_specials
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer.from_file(path)
+    rows = _with_specials(tok, tok.encode_batch(texts, backend="native"))
+    offs = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offs[1:])
+    flat = np.concatenate([np.asarray(r, np.int32) for r in rows])
+    pipe = tok.decode_pipeline("cuda")
+    exp = [tok._decode_impl(r, False, False) for r in rows]
+    if pipe.decode_ragged(flat, offs) != exp:  # warm: the kernels built, the buffers grown
+        raise AssertionError("the device decode differs from the host decode")
+    st = Stages()
+
+    def ragged():
+        raw = st.run("copies, K7, reads back, rows split", pipe.decode_ragged_bytes, flat, offs)
+        return st.run("UTF-8 decode", lambda: [b.decode("utf-8", "replace") for b in raw])
+
+    got = _profiled(f"device decode, ragged ({len(rows)} rows, {len(flat)} ids)", ragged,
+                    len(flat) * 4, 8)
+    print(f"  host ms by stage: {st.line()}")
+    if got != exp:
+        raise AssertionError("the device decode differs from the host decode")
     return 0
 
 

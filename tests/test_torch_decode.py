@@ -1,10 +1,12 @@
 """Decode in the port against the JAX package, strings and bytes exactly:
-K7's plain version against ``DecodePipeline._decode_fn``, the device
-pipeline on the CPU, the native decoder, every decode entry point on every
-route and option, the decode tables carried across (``convert.py``), and
-twins of ``tests/test_device_decode.py``."""
+K7's plain version against ``DecodePipeline._decode_fn``, K7's table of
+16-byte entries against the arena it is built from, the device pipeline on
+the CPU, the native decoder, every decode entry point on every route and
+option, the decode tables carried across (``convert.py``), and twins of
+``tests/test_device_decode.py``."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -22,13 +24,20 @@ from complexity_tokenizer_tpu.tokenizer import Tokenizer as JaxTokenizer  # noqa
 from complexity_tokenizer_tpu_torch.convert import decode_tables_from_padded  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops.decode import (  # noqa: E402
     DecodePipeline,
+    DecodeTables,
     build_decode_tables,
+    decode_entries,
     decode_gather,
     decode_gather_plain,
+    special_mask,
     split_rows,
 )
 from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer  # noqa: E402
 from complexity_tokenizer_tpu_torch.utils.bytelevel import bytes_to_unicode  # noqa: E402
+from complexity_tokenizer_tpu_torch.utils.corpus import (  # noqa: E402
+    LONG_TOKEN_LENGTHS,
+    long_token_vocab,
+)
 
 TEXTS = [t for t in conformance_corpus() if t] + [SAMPLE_TEXT, "a </s> b <s>", "<pad><unk>"]
 
@@ -70,8 +79,7 @@ def _padded(rows):
 def _port_gather(tables, flat, offsets, skip):
     out = decode_gather_plain(
         torch.from_numpy(np.asarray(flat, np.int32)), torch.from_numpy(np.asarray(offsets, np.int64)),
-        torch.from_numpy(tables.arena), torch.from_numpy(tables.offsets),
-        torch.from_numpy(tables.special), skip,
+        torch.from_numpy(decode_entries(tables)), torch.from_numpy(tables.arena), skip,
     )
     return split_rows(out.numpy(), len(offsets) - 1)
 
@@ -231,9 +239,85 @@ def test_decode_tables_carried_across(pair):
 def test_decode_gather_without_ids_launches_nothing():
     tables = build_decode_tables({0: "a"})
     empty = torch.zeros(0, dtype=torch.int32)
-    out = decode_gather(empty, torch.zeros(4, dtype=torch.int64), *(
-        torch.from_numpy(x) for x in (tables.arena, tables.offsets, tables.special)), False)
+    out = decode_gather(empty, torch.zeros(4, dtype=torch.int64),
+                        torch.from_numpy(decode_entries(tables)), torch.from_numpy(tables.arena),
+                        False, 0)
     assert out.numpy().view(np.int64).tolist() == [0, 0, 0, 0]
+
+
+# K7's table: one 16-byte entry per id
+
+BENCH = {
+    "50k": os.path.join(os.path.dirname(__file__), "..", ".cache", "bench_tokenizer_r4_50k.json"),
+    "100k": os.path.join(os.path.dirname(__file__), "..", ".cache", "bench_tokenizer_100k.json"),
+}
+
+
+def _tables(name: str) -> DecodeTables:
+    """The decode tables of a vocabulary: the benchmark tokenizers' (as
+    ``Tokenizer.decode_pipeline`` builds them), the long-token vocabulary,
+    or the empty one (V = 1, no bytes)."""
+    if name in BENCH:
+        tok = Tokenizer.from_file(BENCH[name])
+        arena, offsets = tok._decode_arena()
+        return DecodeTables(arena, offsets, special_mask(len(offsets) - 1, tok.special_tokens.values()))
+    if name == "long tokens":
+        return build_decode_tables(*long_token_vocab(seed=5))
+    return build_decode_tables({})
+
+
+@pytest.mark.parametrize("name", ["50k", "100k", "long tokens", "empty"])
+def test_decode_entries_hold_every_token(name):
+    """Each id's entry gives its length, its special flag and its bytes
+    (inline up to 12 bytes, else from the arena at the start it holds),
+    equal to ``arena[offsets[i]:offsets[i + 1]]``."""
+    t = _tables(name)
+    ent = decode_entries(t)
+    assert ent.dtype == np.int32 and ent.shape == (t.V, 4) and ent.flags.c_contiguous
+    raw = ent.view(np.uint8).reshape(t.V, 16)
+    word0 = ent[:, 0].view(np.uint32)
+    lens = np.diff(t.offsets)
+    np.testing.assert_array_equal(word0 & 0x7FFFFFFF, lens)
+    np.testing.assert_array_equal(word0 >> 31, t.special)
+    for i in range(t.V):
+        want = t.arena[t.offsets[i] : t.offsets[i + 1]].tobytes()
+        if lens[i] <= 12:
+            got = raw[i, 4 : 4 + lens[i]].tobytes()
+            assert not raw[i, 4 + lens[i] :].any()
+        else:
+            start = int(ent[i, 1:3].view(np.int64)[0])
+            got = t.arena[start : start + lens[i]].tobytes()
+            assert ent[i, 3] == 0
+        assert got == want, i
+    if name == "long tokens":
+        assert set(LONG_TOKEN_LENGTHS) <= set(lens.tolist()) and lens.max() > 16384
+        assert (lens == 0).sum() > LONG_TOKEN_LENGTHS.count(0) * t.V // 16  # missing ids too
+    if name == "empty":
+        assert t.V == 1 and not ent.any()
+
+
+def test_decode_entries_refuse_a_token_past_the_limit():
+    with pytest.raises(ValueError, match="token"):
+        decode_entries(build_decode_tables({0: "a" * (1 << 20)}))
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_k7_plain_equals_jax_decode_fn_on_long_tokens(skip):
+    """The plain K7 on the long-token vocabulary (tokens of 0 to 300 bytes,
+    one past the kernel's 16 KB staging window, ids missing from the
+    vocabulary) equals JAX's ``_decode_fn`` row by row."""
+    vocab_r, special_ids = long_token_vocab(V=200, seed=6, window_token=17_000)
+    jp = JaxDecodePipeline(vocab_r, set(special_ids))
+    rng = np.random.RandomState(7 + skip)
+    rows = [rng.randint(-2, 203, size=n).tolist() for n in (0, 1, 9, 40, 3)] + [[9, 9, 3, 21, 200]]
+    ids = _padded(rows)
+    packed, total = (np.asarray(a) for a in jp._decode_fn(ids, skip))
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum([len(r) for r in rows], out=offsets[1:])
+    flat = np.concatenate([np.asarray(r, np.int32) for r in rows])
+    got = _port_gather(build_decode_tables(vocab_r, special_ids), flat, offsets, skip)
+    assert got == [packed[i, : total[i]].tobytes() for i in range(len(rows))]
+    assert max(total) > 17_000
 
 
 # twins of tests/test_device_decode.py

@@ -15,9 +15,13 @@ import torch
 
 from complexity_tokenizer_tpu_torch.convert import tables_to_device
 from complexity_tokenizer_tpu_torch.ops.decode import (
+    DecodePipeline,
+    build_decode_tables,
     decode_gather,
     decode_gather_plain,
-    decode_gather_sized,
+    decode_launch_shape,
+    decode_state,
+    live_part,
 )
 from complexity_tokenizer_tpu_torch.ops.hashtable import build_chd_table
 from complexity_tokenizer_tpu_torch.ops.merge import (
@@ -47,6 +51,7 @@ from complexity_tokenizer_tpu_torch.utils.corpus import (
     MULTI_PIECES,
     RUN_BREAKS,
     edge_word_pack,
+    long_token_vocab,
     run_rows,
     zipf_corpus,
 )
@@ -798,9 +803,15 @@ def test_k6_refuses_bad_inputs(tok50k):
 # K7, the decode gather
 
 
-def _decode_tensors(tok, device="cuda"):
-    pipe = tok.decode_pipeline(device)
-    return pipe.arena, pipe.offsets, pipe.special
+def _decode_pipe(tok):
+    return tok.decode_pipeline("cuda")
+
+
+def _long_pipe(seed=0):
+    """The long-token vocabulary (tokens to 20,000 bytes, past K7's 16 KB
+    staging window) on the card, and its special ids."""
+    vocab_r, special = long_token_vocab(seed=seed)
+    return DecodePipeline(build_decode_tables(vocab_r, special), "cuda"), special
 
 
 def _ragged(rows):
@@ -825,43 +836,136 @@ def _decode_edge_rows(V, special, rng):
     return rows + [[], []]
 
 
+def _check_k7(pipe, rows, skip, cpu=True):
+    """K7 on ``rows`` bit for bit against its plain version on the card (and
+    on the CPU): one launch when there is an id, no byte written past the
+    live part of the buffer."""
+    ids, offs = _ragged(rows)
+    B = len(rows)
+    cap = ids.numel() * pipe.max_len
+    room = torch.full((8 * (B + 1) + cap + 64,), 0xAB, dtype=torch.uint8, device="cuda")
+    before = decode_gather.launches
+    got = decode_gather(ids, offs, pipe.entries, pipe.arena, skip, cap, out=room)
+    torch.cuda.synchronize()
+    assert decode_gather.launches == before + (1 if ids.numel() else 0)
+    exp = decode_gather_plain(ids, offs, pipe.entries, pipe.arena, skip)
+    assert torch.equal(live_part(got, B), exp)
+    assert bool((room[exp.numel():] == 0xAB).all())
+    if cpu:
+        host = decode_gather_plain(ids.cpu(), offs.cpu(), pipe.entries.cpu(), pipe.arena.cpu(), skip)
+        assert torch.equal(exp.cpu(), host)
+    return exp
+
+
 @pytest.mark.parametrize("skip", [False, True])
 @pytest.mark.parametrize("vocab", ["50k", "100k"])
 def test_k7_matches_plain_on_edge_rows(tok50k, tok100k, vocab, skip):
-    """K7 (two launches) bit for bit against its plain version on the card
+    """K7 (one launch) bit for bit against its plain version on the card
     and on the CPU."""
     _need_card()
     tok = tok50k if vocab == "50k" else tok100k
-    tabs = _decode_tensors(tok)
-    V = tabs[2].shape[0]
+    pipe = _decode_pipe(tok)
+    V = pipe.V
     rng = np.random.RandomState(V % 1000 + skip)
     special = sorted(tok.special_tokens.values())
     for rows in (_decode_edge_rows(V, special, rng), [[]] * 5, [[1, 2, 3]], [[]] * 3 + [[5]]):
-        ids, offs = _ragged(rows)
-        before = decode_gather.launches
-        got = decode_gather(ids, offs, *tabs, skip)
-        torch.cuda.synchronize()
-        assert decode_gather.launches == before + (2 if ids.numel() else 0)
-        assert torch.equal(got, decode_gather_plain(ids, offs, *tabs, skip))
-        cpu = decode_gather_plain(ids.cpu(), offs.cpu(), *(t.cpu() for t in tabs), skip)
-        assert torch.equal(got.cpu(), cpu)
+        _check_k7(pipe, rows, skip)
 
 
-def test_k7_sized_launches_equal_decode_gather(tok50k):
-    """decode_gather_sized, given the total that decode_gather found (as a
-    graph's capture is), gives decode_gather's buffer and launches twice."""
+@pytest.mark.parametrize("skip", [False, True])
+def test_k7_long_tokens_and_staging_windows(skip):
+    """Tokens past the 12 inline bytes (13 to 300 bytes), one longer than
+    the 16 KB staging window, ids missing from the vocabulary, negatives and
+    ids >= V: tiles of several windows, bit for bit."""
     _need_card()
-    tabs = _decode_tensors(tok50k)
-    rows = [tok50k.encode(t) for t in zipf_corpus(50, seed=8)]
+    pipe, special = _long_pipe()
+    V = pipe.V
+    rng = np.random.RandomState(3 + skip)
+    rows = [rng.randint(-3, V + 3, size=n).tolist() for n in (0, 1, 700, 3000, 0, 1025, 5)]
+    rows += [[9] * 3, [9, 3, 21, 9], _decode_edge_rows(V, special, rng)[12]]
+    exp = _check_k7(pipe, rows, skip)
+    assert exp.numel() - 8 * (len(rows) + 1) > 3 * 16384
+
+
+def test_k7_tiles_start_at_every_residue():
+    """Tile 1's bytes start at every residue mod 16 of the output address:
+    r one-byte ids, then the rest of tile 0 ids without bytes."""
+    _need_card()
+    pipe, _special = _long_pipe()
+    rng = np.random.RandomState(4)
+    one, none = 1, 15  # ids of 1 and 0 bytes in long_token_vocab
+    for r in range(16):
+        row = [one] * r + [none] * (1024 - r) + rng.randint(0, pipe.V, size=900).tolist()
+        _check_k7(pipe, [[], row[:1500], row[1500:], []], r % 2 == 0, cpu=False)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_k7_small_batches_and_tile_edges(tok50k, skip):
+    """Every id dropped (no byte out), a single id, and 1,024 k and 1,024 k
+    + 1 ids."""
+    _need_card()
+    pipe = _decode_pipe(tok50k)
+    V = pipe.V
+    rng = np.random.RandomState(5)
+    sp = sorted(tok50k.special_tokens.values())
+    exp = _check_k7(pipe, [[-1] * 3000, [V] * 5, [], sp * 7], skip)
+    assert (exp.numel() == 8 * 5) == skip
+    _check_k7(pipe, [[7]], skip)
+    for n in (1024, 2048, 2049, 4097):
+        _check_k7(pipe, [rng.randint(0, V, size=n).tolist()], skip, cpu=False)
+
+
+def test_k7_writes_nothing_past_its_capacity(tok50k):
+    """With a capacity below the byte total, K7 writes the bytes up to it
+    and none past it; the row offsets are whole."""
+    _need_card()
+    pipe = _decode_pipe(tok50k)
+    rows = [tok50k.encode(t) for t in zipf_corpus(40, seed=12)]
     ids, offs = _ragged(rows)
-    for skip in (False, True):
-        full = decode_gather(ids, offs, *tabs, skip)
-        total = full.numel() - 8 * len(rows) - 8
-        before = decode_gather.launches
-        sized = decode_gather_sized(ids, offs, *tabs, skip, total)
+    B = len(rows)
+    exp = decode_gather_plain(ids, offs, pipe.entries, pipe.arena, False)
+    for cap in (0, 1, 17, exp.numel() - 8 * (B + 1) - 5):
+        room = torch.full((8 * (B + 1) + cap + 64,), 0xAB, dtype=torch.uint8, device="cuda")
+        decode_gather(ids, offs, pipe.entries, pipe.arena, False, cap, out=room)
         torch.cuda.synchronize()
-        assert decode_gather.launches == before + 2
-        assert torch.equal(sized, full)
+        assert torch.equal(room[: 8 * (B + 1) + cap], exp[: 8 * (B + 1) + cap])
+        assert bool((room[8 * (B + 1) + cap :] == 0xAB).all())
+
+
+def test_k7_graph_replays_over_the_same_buffers(tok100k):
+    """One CUDA graph of K7, captured once, replayed over the same buffers
+    with other ids each time: every replay equals the plain version, so K7
+    returns its state to zero itself (no memset node in the graph)."""
+    _need_card()
+    pipe = _decode_pipe(tok100k)
+    rng = np.random.RandomState(6)
+    V = pipe.V
+    ids, offs = _ragged([rng.randint(0, V, size=3000).tolist(), [], [9, 9],
+                         rng.randint(-5, V + 5, size=2100).tolist()])
+    B = offs.numel() - 1
+    cap = ids.numel() * pipe.max_len
+    out = torch.empty(8 * (B + 1) + cap, dtype=torch.uint8, device="cuda")
+    state = decode_state(ids.numel(), "cuda")
+    decode_gather(ids, offs, pipe.entries, pipe.arena, True, cap, out=out, state=state)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        decode_gather(ids, offs, pipe.entries, pipe.arena, True, cap, out=out, state=state)
+    for seed in (7, 8, 9):
+        ids.copy_(torch.from_numpy(np.random.RandomState(seed).randint(-2, V, size=ids.numel())
+                                   .astype(np.int32)))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(live_part(out, B), decode_gather_plain(ids, offs, pipe.entries, pipe.arena, True))
+    assert not state.any()
+
+
+def test_k7_launch_shape():
+    """K7's block: 256 threads, at most 48 registers, 5 resident an SM."""
+    _need_card()
+    shape = decode_launch_shape()
+    assert shape["threads"] == 256 and shape["registers"] <= 48, shape
+    assert shape["blocks_per_sm"] == 5, shape
 
 
 def test_decode_pipeline_on_card_matches_host(tok50k, tok100k):
@@ -883,12 +987,28 @@ def test_decode_pipeline_on_card_matches_host(tok50k, tok100k):
 
 def test_k7_refuses_bad_inputs(tok50k):
     _need_card()
-    arena, offsets, special = _decode_tensors(tok50k)
+    pipe = _decode_pipe(tok50k)
+    entries, arena = pipe.entries, pipe.arena
     ids = torch.zeros(4, dtype=torch.int32, device="cuda")
     offs = torch.tensor([0, 4], dtype=torch.int64, device="cuda")
     with pytest.raises(ValueError):  # ids of the wrong dtype
-        decode_gather(ids.long(), offs, arena, offsets, special, False)
+        decode_gather(ids.long(), offs, entries, arena, False, 64)
     with pytest.raises(ValueError):  # offsets on the CPU
-        decode_gather(ids, offs.cpu(), arena, offsets, special, False)
-    with pytest.raises(ValueError):  # offsets not [V + 1]
-        decode_gather(ids, offs, arena, offsets[:-1], special, False)
+        decode_gather(ids, offs.cpu(), entries, arena, False, 64)
+    with pytest.raises(ValueError):  # entries not [V, 4]
+        decode_gather(ids, offs, entries[:, :3].contiguous(), arena, False, 64)
+    with pytest.raises(ValueError):  # entries of the wrong dtype
+        decode_gather(ids, offs, entries.view(torch.uint8), arena, False, 64)
+    with pytest.raises(ValueError):  # entries not contiguous
+        decode_gather(ids, offs, entries.t(), arena, False, 64)
+    with pytest.raises(ValueError):  # entries off a 16-byte boundary
+        decode_gather(ids, offs, entries.view(-1)[1:-3].view(-1, 4), arena, False, 64)
+    with pytest.raises(ValueError):  # the arena not padded to 16 bytes
+        decode_gather(ids, offs, entries, arena[:-1], False, 64)
+    with pytest.raises(ValueError):  # an output buffer too small
+        decode_gather(ids, offs, entries, arena, False, 64,
+                      out=torch.empty(64, dtype=torch.uint8, device="cuda"))
+    with pytest.raises(ValueError):  # a state too small
+        decode_gather(torch.zeros(5000, dtype=torch.int32, device="cuda"),
+                      torch.tensor([0, 5000], dtype=torch.int64, device="cuda"), entries, arena,
+                      False, 64, state=torch.zeros(3, dtype=torch.int64, device="cuda"))
