@@ -42,6 +42,23 @@ Phases (each prints its seconds):
    ``rstrip`` after a first ``backend="device"`` call, which rebuilds the
    tables and the word path; ``"device"``, ``"auto"`` and ``encode`` on
    texts that hold them, against the host oracle.
+   Then the transformers ``__call__`` at both vocabularies (``drive_call``):
+   ``<|bos|>`` and ``<|eos|>`` added and set as the Llama layout's static
+   frame through the public API; the columnar route with
+   ``return_tensors="pt"`` (padding True and ``"max_length"``, right and
+   left, stride 0 and 16, ``max_length=512``), every field an int32 tensor
+   on ``cuda`` and every row equal to the per-row Encoding of
+   ``_call_one`` on the host, and to the ``"np"`` and list results;
+   ``add_special_tokens=False`` with ``encode_backend`` ``"device"`` and
+   ``"auto"`` (fresh tokenizers), the host oracle's ids, launching K6 and K4
+   only; offsets of 512 texts against the Python pre-tokenizer's; the
+   framed ``input_ids`` through ``decode_pipeline("cuda")``, launching K7
+   only; the walls of ``"pt"``, ``"np"`` and lists.  And the warm-cache
+   file (``drive_warm_cache``): the tracked 50K file read and left byte for
+   byte (its sha1 before and after, and unchanged over the whole run); the
+   100K tokenizer in a temporary directory, ``from_file`` without the file
+   (which writes it) and with it, the corpus's ids against the oracle
+   after each.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -81,7 +98,8 @@ Phases (each prints its seconds):
    tokens past the 12 bytes an entry holds inline, one past the 16 KB
    staging window) with random ids, edge rows and tiles that start at every
    residue mod 16; K7's state is zero again after each call.
-5. report: one JSON line of per-kernel numbers, then as the last line
+5. report: one JSON line of the ``__call__`` walls, launches and the
+   warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits nonzero without the last line.
@@ -873,7 +891,7 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     batch_s = []
     for i in range(0, len(texts), step):
         t1 = time.perf_counter()
-        got += tok_a.encode_batch(texts[i : i + step])
+        got += tok_a.encode_batch(texts[i : i + step], backend="auto")
         batch_s.append(time.perf_counter() - t1)
     wp_a = tok_a._auto_word_path("cuda")
     t1 = time.perf_counter()
@@ -883,10 +901,10 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     out["backend=auto"] = read_counts()
     _compare(f"[{label}] backend=auto", texts, got, host)
     t1 = time.perf_counter()
-    again = tok_a.encode_batch(texts)
+    again = tok_a.encode_batch(texts, backend="auto")
     auto_warm_s = time.perf_counter() - t1
     _compare(f"[{label}] backend=auto, after the fill", texts, again, host)
-    flat, offs = tok_a.encode_batch_ragged(texts)
+    flat, offs = tok_a.encode_batch_ragged(texts, backend="auto")
     ragged = [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))]
     if ragged != again:
         raise AssertionError(f"[{label}] encode_batch_ragged differs from encode_batch")
@@ -1168,7 +1186,7 @@ def drive_added_tokens(path: str, texts: list[str], kernels_of: dict) -> dict:
         raise AssertionError("[50K] adding tokens did not rebuild the tables and the word path")
     tok_a = Tokenizer.from_file(path)
     add_tokens(tok_a)
-    got = tok_a.encode_batch(mixed)
+    got = tok_a.encode_batch(mixed, backend="auto")
     tok_a._auto_word_path("cuda").drain_async(timeout=600)
     _compare("[50K] added tokens, backend=auto", mixed, got, host)
     _compare("[50K] added tokens, backend=auto, after the fill", mixed, tok_a.encode_batch(mixed), host)
@@ -1183,6 +1201,283 @@ def drive_added_tokens(path: str, texts: list[str], kernels_of: dict) -> dict:
         raise AssertionError("[50K] no added token matched")
     _phase("50K: added tokens", t0)
     return dict(launches=launches, matched=matched)
+
+
+def _sha1(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha1(f.read()).hexdigest()
+
+
+def _call_rows(e, max_len: int, stride: int, pad_to: int, pad_id: int, pad_token: str,
+               pad_left: bool):
+    """The four batch fields of one per-row Encoding ``e`` (a copy) after
+    ``__call__``'s truncation and padding."""
+    from complexity_tokenizer_tpu_torch.core.encoding import Encoding
+
+    c = Encoding(ids=list(e.ids), type_ids=list(e.type_ids), tokens=list(e.tokens),
+                 attention_mask=list(e.attention_mask),
+                 special_tokens_mask=list(e.special_tokens_mask), sequence_ids=list(e.sequence_ids))
+    if len(c) > max_len:
+        if stride > 0:
+            c.truncate_with_stride(max_len, stride)
+        else:
+            c.truncate(max_len)
+    c.pad(pad_to, pad_id, pad_token, pad_left)
+    return c.ids, c.attention_mask, c.type_ids, c.special_tokens_mask
+
+
+def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
+               kernels_of: dict) -> dict:
+    """The transformers ``__call__`` at one vocabulary, on the whole corpus:
+
+    - the tokenizer takes ``<|bos|>`` and ``<|eos|>`` (``add_special_tokens_list``)
+      and the Llama layout's static frame (``set_post_processor`` of
+      ``PostProcessor.template("<|bos|> $A <|eos|>")``);
+    - the columnar route, ``tok(texts, padding=..., truncation=True,
+      max_length=512, stride=..., return_tensors="pt")`` for padding in
+      {True, "max_length"}, right and left, stride 0 and 16: every field an
+      int32 tensor on ``cuda``, every row equal to the per-row Encoding of
+      ``_call_one`` (on the host), ``return_tensors=None`` and ``"np"`` the
+      same rows, and the Encodings of some rows with their overflow windows;
+    - ``add_special_tokens=False`` with ``encode_backend`` ``"device"`` and
+      ``"auto"``, each from a fresh ``from_file``: the host oracle's ids,
+      launching K6 and K4 and nothing else;
+    - ``return_offsets_mapping=True`` on 512 texts: the offsets of the
+      native word boundaries equal those of the Python pre-tokenizer;
+    - ``decode_pipeline("cuda")`` over the framed ``input_ids`` without
+      their pads, ``skip_special`` both ways: the host decode's texts,
+      launching K7 and nothing else;
+    - the walls of ``__call__`` (fields read) for ``"pt"``, ``"np"`` and
+      lists, two runs each.
+
+    Returns the launch counts by route and the walls."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.batch_encoding import ColumnarBatchEncoding
+    from complexity_tokenizer_tpu_torch.components import PostProcessor
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+
+    def zero_counts():
+        for fn in kernels_of.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in kernels_of.items()}
+
+    def only(route, counts, names):
+        for name, n in counts.items():
+            if (n > 0) != (name in names):
+                raise AssertionError(f"kernel {name} was launched {n} times on the {label} {route}")
+
+    t0 = time.perf_counter()
+    out: dict = {"launches": {}, "walls": {}}
+    n_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    tok = Tokenizer.from_file(path)
+    tok.add_special_tokens_list(["<|bos|>", "<|eos|>"])
+    bos, eos = tok.special_tokens["<|bos|>"], tok.special_tokens["<|eos|>"]
+    tok.set_post_processor(PostProcessor.template(
+        "<|bos|> $A <|eos|>", None, [("<|bos|>", bos), ("<|eos|>", eos)]))
+    pad_id, pad_token = tok._pad_id_token()
+    t1 = time.perf_counter()
+    base = [tok._call_one(t, None, True) for t in texts]
+    per_row_s = time.perf_counter() - t1
+    fields = ("input_ids", "attention_mask", "token_type_ids", "special_tokens_mask")
+    mismatches = 0
+    configs = 0
+    framed = None
+    zero_counts()
+    for padding in (True, "max_length"):
+        for side in ("right", "left"):
+            tok.padding_side = side
+            for stride in (0, 16):
+                kw = dict(padding=padding, truncation=True, max_length=512, stride=stride,
+                          return_special_tokens_mask=True)
+                be = tok(texts, return_tensors="pt", **kw)
+                if not isinstance(be, ColumnarBatchEncoding):
+                    raise AssertionError(f"[{label}] __call__ did not take the columnar route")
+                mats = {}
+                for f in fields:
+                    v = be[f]
+                    if not (isinstance(v, torch.Tensor) and v.dtype == torch.int32
+                            and v.device.type == "cuda"):
+                        raise AssertionError(f"[{label}] {f} is not an int32 tensor on cuda")
+                    mats[f] = v.cpu().numpy()
+                pad_to = mats["input_ids"].shape[1]
+                want = [_call_rows(e, 512, stride, pad_to, pad_id, pad_token, side == "left")
+                        for e in base]
+                got = [m.tolist() for m in mats.values()]
+                mismatches += sum(
+                    any(got[k][i] != want[i][k] for k in range(4)) for i in range(len(texts)))
+                np_be = tok(texts, return_tensors="np", **kw)
+                list_be = tok(texts, **kw)
+                for f in fields:
+                    mismatches += int((np_be[f] != mats[f]).any(axis=1).sum())
+                    mismatches += sum(a != b for a, b in zip(list_be[f], got[fields.index(f)]))
+                for i in (0, 1, len(texts) - 6, len(texts) - 5):  # the long text, the long word
+                    ref = tok._call_one(texts[i], None, True)
+                    if len(ref) > 512:
+                        if stride:
+                            ref.truncate_with_stride(512, stride)
+                        else:
+                            ref.truncate(512)
+                    ref.pad(pad_to, pad_id, pad_token, side == "left")
+                    e = be[i]
+                    if (e.ids, e.special_tokens_mask, [o.ids for o in e.overflowing]) != (
+                            ref.ids, ref.special_tokens_mask, [o.ids for o in ref.overflowing]):
+                        mismatches += 1
+                if padding is True and side == "right" and stride == 0:
+                    keep = mats["attention_mask"].astype(bool)
+                    framed = [row[k].tolist() for row, k in zip(mats["input_ids"], keep)]
+                configs += 1
+    torch.cuda.synchronize()
+    out["launches"]["__call__ columnar"] = read_counts()
+    only("__call__ columnar", out["launches"]["__call__ columnar"], ())
+    framed_ok = all(r[0] == bos and r[-1] == eos for r in framed if len(r) < 512)
+    print(
+        f"[{label}] __call__ columnar: {configs} configurations (padding True / max_length, "
+        f"right / left, stride 0 / 16, max_length 512) over {len(texts)} texts; per-row Encodings "
+        f"on the host {per_row_s:.3f} s; every field int32 on cuda; {mismatches} mismatches against "
+        f"the per-row Encodings, np and lists; frame <|bos|>={bos} ... <|eos|>={eos} "
+        f"{'present' if framed_ok else 'MISSING'}; launches {out['launches']['__call__ columnar']}",
+        flush=True,
+    )
+    if mismatches or not framed_ok:
+        raise AssertionError(f"[{label}] __call__ columnar: {mismatches} mismatches")
+
+    # add_special_tokens=False: encode_batch on the card, from a fresh tokenizer each
+    for backend in ("device", "auto"):
+        t2 = Tokenizer.from_file(path)
+        t2.encode_backend = backend
+        t2._get_word_path("cuda")
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        be = t2(texts, add_special_tokens=False)
+        if backend == "auto":
+            t2._auto_word_path("cuda").drain_async(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        route = f"__call__ add_special_tokens=False, {backend}"
+        out["launches"][route] = counts = read_counts()
+        got = [e.ids for e in be.encodings()]
+        bad = sum(g != h for g, h in zip(got, host))
+        print(f"[{label}] {route}: {wall:.3f} s (the fill included); {bad} mismatches against the "
+              f"host oracle; launches {counts}", flush=True)
+        if bad:
+            raise AssertionError(f"[{label}] {route}: {bad} mismatches")
+        only(route, counts, ("word_merge", "fill_compact"))
+        if counts["word_merge"] != counts["fill_compact"]:
+            raise AssertionError(f"[{label}] {route}: K6 and K4 launched unequally")
+
+    # offsets: the native word boundaries against the Python pre-tokenizer
+    sample = texts[:512]
+    t1 = time.perf_counter()
+    be = tok(sample, return_offsets_mapping=True)
+    offs = be.offset_mapping
+    offsets_s = time.perf_counter() - t1
+    tok._pre_tokenize_fast = lambda s: None
+    try:
+        ref = [tok._call_one(t, None, True) for t in sample]
+    finally:
+        del tok._pre_tokenize_fast
+    bad = sum(o != r.offsets or e.word_ids != r.word_ids
+              for o, e, r in zip(offs, be.encodings(), ref))
+    print(f"[{label}] __call__ return_offsets_mapping: {len(sample)} texts, {offsets_s:.3f} s; "
+          f"{bad} mismatches against the Python pre-tokenizer's offsets", flush=True)
+    if bad:
+        raise AssertionError(f"[{label}] offsets: {bad} mismatches")
+
+    # the framed ids, pads cut off, through the device decode (K7)
+    pipe = tok.decode_pipeline("cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    bad = 0
+    for skip in (False, True):
+        got = pipe.decode_batch(framed, skip)
+        bad += sum(g != tok._decode_impl(r, skip, False) for g, r in zip(got, framed))
+    torch.cuda.synchronize()
+    out["launches"]["decode of the framed ids"] = counts = read_counts()
+    print(f"[{label}] decode_pipeline('cuda') of the framed input_ids, skip_special both ways: "
+          f"{bad} mismatches against the host decode; launches {counts}", flush=True)
+    if bad:
+        raise AssertionError(f"[{label}] decode of the framed ids: {bad} mismatches")
+    only("decode of the framed ids", counts, ("decode_gather",))
+
+    # walls: the fields read, "pt" ending in a synchronize
+    tok.padding_side = "right"
+    kw = dict(padding=True, truncation=True, max_length=512)
+    for kind in ("pt", "np", None):
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok(texts, return_tensors=kind, **kw).to_dict()
+            if kind == "pt":
+                torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t1)
+        out["walls"][str(kind)] = runs
+    print(f"[{label}] __call__ walls (padding=True, truncation, max_length 512, the fields read), "
+          f"{n_bytes} bytes: " + "; ".join(
+              f"{k}: {', '.join(f'{w:.4f} s ({n_bytes / w / 1e6:.2f} MB/s)' for w in v)}"
+              for k, v in out["walls"].items()), flush=True)
+    _phase(f"{label}: __call__", t0)
+    return out
+
+
+def drive_warm_cache(texts: list[str], host100: list[list[int]]) -> dict:
+    """The warm-cache file: the tracked 50K file is read and left byte for
+    byte; the 100K tokenizer, copied into a temporary directory, writes its
+    file at a first ``from_file`` and reads it at a second, with the
+    corpus's ids equal to the host oracle's after each."""
+    import shutil
+    import tempfile
+
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    blob50 = TOKENIZER_JSON.replace(".json", ".warmcache.npz")
+    before = _sha1(blob50)
+    t1 = time.perf_counter()
+    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    load50 = time.perf_counter() - t1
+    after = _sha1(blob50)
+    print(f"[50K] warm-cache file {os.path.relpath(blob50, REPO)}: sha1 {before} before, {after} "
+          f"after; from_file {load50:.3f} s, {tok._warm_start_words} words from the file "
+          f"({tok._warm_start_s:.3f} s)", flush=True)
+    if before != after or not tok._warm_start_from_blob:
+        raise AssertionError("[50K] the tracked warm-cache file was not read, or was written")
+    out = {"50K": dict(sha1_before=before, sha1_after=after, from_file_s=load50)}
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "tok100k.json")
+        shutil.copy(TOKENIZER_100K, src)
+        blob = os.path.join(d, "tok100k.warmcache.npz")
+        loads = []
+        for step in ("no file (writes it)", "with the file"):
+            existed = os.path.exists(blob)
+            t1 = time.perf_counter()
+            tok = Tokenizer.from_file(src)
+            s = time.perf_counter() - t1
+            ids = tok.encode_batch(texts, backend="native")
+            bad = sum(g != h for g, h in zip(ids, host100))
+            loads.append(s)
+            print(f"[100K] from_file, {step}: {s:.3f} s (warm start {tok._warm_start_s:.3f} s, "
+                  f"{tok._warm_start_words} words, from the file: {tok._warm_start_from_blob}); "
+                  f"{bad} mismatches against the host oracle", flush=True)
+            if bad or tok._warm_start_from_blob != existed or not os.path.exists(blob):
+                raise AssertionError(f"[100K] warm-cache file, {step}: {bad} mismatches")
+        out["100K"] = dict(from_file_s=loads)
+    _phase("warm-cache file", t0)
+    return out
+
+
+def _call_launches(name: str, *calls) -> dict:
+    """A kernel's launches on each route of ``drive_call``, by vocabulary."""
+    return {f"{label} {route}": counts[name]
+            for label, c in zip(("50K", "100K"), calls)
+            for route, counts in c["launches"].items()}
 
 
 def main(argv=None) -> int:
@@ -1282,6 +1577,8 @@ def main(argv=None) -> int:
 
     # 3. the paths at 50K (K2) and at 100K (K5) -----------------------------------
     texts = main_corpus(args.texts, args.seed)
+    blob50 = TOKENIZER_JSON.replace(".json", ".warmcache.npz")
+    blob50_sha1 = _sha1(blob50)
     kernels_of = {"seed_tokens": seed_tokens, "merge_fixpoint_qc": merge_words_qc,
                   "merge_fixpoint_chd": merge_words, "word_ids": word_ids,
                   "fill_compact": fill_compact, "word_merge": word_merge,
@@ -1291,6 +1588,9 @@ def main(argv=None) -> int:
     d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
     d100 = drive_decode("100K", r100["tok"], r100["host"], kernels_of)
     added = drive_added_tokens(TOKENIZER_JSON, texts, kernels_of)
+    call50 = drive_call("50K", TOKENIZER_JSON, texts, r50["host"], kernels_of)
+    call100 = drive_call("100K", TOKENIZER_100K, texts, r100["host"], kernels_of)
+    warm = drive_warm_cache(texts, r100["host"])
     # every kernel of a path was launched on it and no other: the text
     # pipeline runs K1 and the fixpoint of its table, the word paths one K6
     # (K3, K1 and the fixpoint folded into it) and one K4 a pack
@@ -1505,6 +1805,7 @@ def main(argv=None) -> int:
             "library_ms": main["library_ms"],
             "checks": res,
         })
+        kernels[-1]["launches_by_path"].update(_call_launches(name, call50, call100))
         if "ms_cold" in main:
             kernels[-1]["ms_cold"] = main["ms_cold"]
         if "launch" in main:
@@ -1527,9 +1828,10 @@ def main(argv=None) -> int:
         "launches_path": "50K device decode (decode_batch and decode_ragged, skip_special both ways)",
         "launches_per_call": d50["launches_per_call"],
         "launches_by_path": {
-            f"{label} {route}": counts["decode_gather"]
-            for label, d in (("50K", d50), ("100K", d100))
-            for route, counts in d["launches"].items()
+            **{f"{label} {route}": counts["decode_gather"]
+               for label, d in (("50K", d50), ("100K", d100))
+               for route, counts in d["launches"].items()},
+            **_call_launches("decode_gather", call50, call100),
         },
         "match": all(r["match"] for r in k7_res),
         "max_abs_err": max(r["max_abs_err"] for r in k7_res),
@@ -1543,6 +1845,12 @@ def main(argv=None) -> int:
         "launch": k7_shape,
         "checks": k7_res,
     })
+    if _sha1(blob50) != blob50_sha1:
+        raise AssertionError("the tracked 50K warm-cache file changed during the run")
+    print(json.dumps({"call": {
+        label: {"walls_s": c["walls"], "launches": c["launches"]}
+        for label, c in (("50K", call50), ("100K", call100))
+    }, "warm_cache": warm, "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -7,7 +7,10 @@ Observable semantics of the reference BPE:
   kept ranks are sparse);
 - encode seeds from per-char vocab lookups, silently dropping OOV chars;
 - the merge loop applies ONE merge per iteration: the leftmost occurrence
-  of the lowest-rank pair.
+  of the lowest-rank pair;
+- BPE dropout skips each candidate pair with the given probability, drawn
+  from the reference's xorshift64 generator seeded 12345, which advances
+  across calls.
 
 The device fixpoint (``ops/merge.py``) applies every non-overlapping
 occurrence of each word's best pair per step instead, which is equivalent
@@ -17,7 +20,24 @@ iff the table is well-formed (:func:`merges_well_formed`).  The loop in
 
 from __future__ import annotations
 
-__all__ = ["BpeTokenizer", "build_merge_tables", "merges_well_formed"]
+__all__ = ["Xorshift64", "BpeTokenizer", "build_merge_tables", "merges_well_formed"]
+
+
+class Xorshift64:
+    """The reference's dropout generator: xorshift64 (13, 7, 17)."""
+
+    MASK = (1 << 64) - 1
+
+    def __init__(self, seed: int = 12345):
+        self.state = seed & self.MASK
+
+    def next_f32(self) -> float:
+        s = self.state
+        s = (s ^ (s << 13)) & self.MASK
+        s = s ^ (s >> 7)
+        s = (s ^ (s << 17)) & self.MASK
+        self.state = s
+        return s / float(self.MASK)
 
 
 def build_merge_tables(vocab: dict[str, int], merges: list[tuple[str, str]]):
@@ -62,6 +82,12 @@ class BpeTokenizer:
         self.vocab = dict(vocab)
         self.merge_ranks, self.merge_ops = build_merge_tables(vocab, merges)
         self._char_ids = {k: v for k, v in self.vocab.items() if len(k) == 1}
+        self._rng = Xorshift64(12345)
+
+    @property
+    def merges(self):
+        """The kept merges in rank order, as ((id_a, id_b), new_id)."""
+        return [self.merge_ops[r] for r in sorted(self.merge_ops)]
 
     def packed_merge_arrays(self):
         """(pa, pb, pr, rank_new) int32 arrays for the native runtime: the
@@ -104,6 +130,32 @@ class BpeTokenizer:
             for i in range(len(tokens) - 1):
                 rank = ranks.get((tokens[i], tokens[i + 1]))
                 if rank is not None and (best_idx < 0 or rank < best_rank):
+                    best_idx = i
+                    best_rank = rank
+            if best_idx < 0:
+                break
+            tokens[best_idx] = ops[best_rank][1]
+            del tokens[best_idx + 1]
+        return tokens
+
+    def encode_with_dropout(self, text: str, dropout: float) -> list[int]:
+        """:meth:`encode` where each candidate pair of a step is skipped
+        with probability ``dropout`` (one draw per kept pair per step)."""
+        if dropout <= 0.0:
+            return self.encode(text)
+        char_ids = self._char_ids
+        tokens = [char_ids[c] for c in text if c in char_ids]
+        ranks = self.merge_ranks
+        ops = self.merge_ops
+        rng = self._rng
+        while True:
+            best_idx = -1
+            best_rank = -1
+            for i in range(len(tokens) - 1):
+                rank = ranks.get((tokens[i], tokens[i + 1]))
+                if rank is None or rng.next_f32() < dropout:
+                    continue
+                if best_idx < 0 or rank < best_rank:
                     best_idx = i
                     best_rank = rank
             if best_idx < 0:

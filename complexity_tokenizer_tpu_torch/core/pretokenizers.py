@@ -40,6 +40,7 @@ __all__ = [
     "Punctuation",
     "Digits",
     "Split",
+    "GPT2",
     "BertPreTokenizer",
     "CharDelimiterSplit",
     "UnicodeScripts",
@@ -312,6 +313,13 @@ class Split(PreTokenizer):
             if last_end < len(text):
                 result.append(text[last_end:])
         return [w for w in result if w]
+
+
+class GPT2(PreTokenizer):
+    """The GPT-2 split's matches as they are (no byte-level alphabet)."""
+
+    def pre_tokenize(self, text: str) -> list[str]:
+        return [text[a:b] for a, b in gpt2_split_spans(text)]
 
 
 class BertPreTokenizer(PreTokenizer):

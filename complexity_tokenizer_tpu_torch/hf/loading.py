@@ -1,13 +1,16 @@
 """tokenizer.json -> the parts of a BPE tokenizer this port runs.
 
 Reads a BPE model (vocab and merges), the normalizer, the pre-tokenizer,
-the decoder and the added tokens with their flags.  Defaults and
-fallbacks follow the reference: a missing normalizer means NFC, a missing
-pre-tokenizer ``ByteLevel`` without prefix space, a missing decoder
-``ByteLevel``; an unknown ``type`` string loads as None (no normalizer,
-no pre-tokenizer, or no decoder).  ``ByteLevel``'s ``use_regex`` is not
-read: the GPT-2 split always runs, as in the JAX package.  A model other
-than BPE raises ``NotImplementedError``; the post-processor is not read.
+the post-processor, the decoder and the added tokens with their flags,
+and infers the named special tokens (unk, bos, eos, pad, sep, cls, mask)
+from the special added tokens' contents.  Defaults and fallbacks follow
+the reference: a missing normalizer means NFC, a missing pre-tokenizer
+``ByteLevel`` without prefix space, a missing decoder ``ByteLevel``, a
+missing post-processor none; an unknown ``type`` string loads as None (no
+normalizer, no pre-tokenizer, no post-processor or no decoder).
+``ByteLevel``'s ``use_regex`` is not read: the GPT-2 split always runs,
+as in the JAX package.  A model other than BPE raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from dataclasses import dataclass, field
 
 from ..core import decoders as D
 from ..core import normalizers as N
+from ..core import postprocessors as P
 from ..core import pretokenizers as PT
+from ..core.vocab import SpecialTokens
 
 __all__ = [
     "AddedToken",
@@ -25,7 +30,9 @@ __all__ = [
     "parse_decoder",
     "parse_merges",
     "parse_normalizer",
+    "parse_post_processor",
     "parse_pre_tokenizer",
+    "infer_special_tokens",
 ]
 
 
@@ -48,6 +55,8 @@ class TokenizerSpec:
     pre_tokenizer: PT.PreTokenizer | None
     decoder: D.Decoder | None = None
     added_tokens: list[AddedToken] = field(default_factory=list)
+    post_processor: P.PostProcessor | None = None
+    named_specials: SpecialTokens = field(default_factory=SpecialTokens)
 
 
 def parse_merges(raw_merges) -> list[tuple[str, str]]:
@@ -189,6 +198,74 @@ def parse_decoder(value) -> D.Decoder | None:
     return None
 
 
+def _template_from_array(arr) -> str:
+    """A template in tokenizer.json's array form -> the template string."""
+    parts = []
+    for item in arr:
+        if isinstance(item, dict):
+            if "SpecialToken" in item:
+                tid = item["SpecialToken"].get("id")
+                if isinstance(tid, str):
+                    parts.append(tid)
+            elif "Sequence" in item:
+                sid = item["Sequence"].get("id")
+                if isinstance(sid, str):
+                    parts.append(f"${sid}")
+    return " ".join(parts)
+
+
+def parse_post_processor(value, special_tokens: dict[str, int]) -> P.PostProcessor | None:
+    """The post-processor; its special tokens resolve against the
+    tokenizer's special added tokens (``special_tokens``: content -> id),
+    not against the ids the tokenizer.json lists beside the template."""
+    if not isinstance(value, dict) or "type" not in value:
+        return None
+    t = value.get("type") or ""
+    if t == "TemplateProcessing":
+        single_arr = value.get("single")
+        single = _template_from_array(single_arr) if isinstance(single_arr, list) else "<s> $A </s>"
+        pair_arr = value.get("pair")
+        pair = _template_from_array(pair_arr) if isinstance(pair_arr, list) else None
+        return P.TemplateProcessing(single=single, pair=pair, special_tokens=list(special_tokens.items()))
+    if t == "RobertaProcessing":
+        return P.RobertaProcessing(
+            bos=("<s>", special_tokens.get("<s>", 0)),
+            eos=("</s>", special_tokens.get("</s>", 2)),
+            add_prefix_space=False,
+        )
+    if t == "BertProcessing":
+        return P.BertProcessing(
+            cls=("[CLS]", special_tokens.get("[CLS]", 101)),
+            sep=("[SEP]", special_tokens.get("[SEP]", 102)),
+        )
+    return None
+
+
+def infer_special_tokens(added: list[AddedToken]) -> SpecialTokens:
+    """The named special tokens, by substring of each special added
+    token's content, in the reference's order of tests."""
+    st = SpecialTokens()
+    for tok in added:
+        if not tok.special:
+            continue
+        low = tok.content.lower()
+        if "unk" in low:
+            st.unk_token = tok.content
+        elif low == "<s>" or "bos" in low:
+            st.bos_token = tok.content
+        elif low == "</s>" or "eos" in low:
+            st.eos_token = tok.content
+        elif "pad" in low:
+            st.pad_token = tok.content
+        elif "sep" in low:
+            st.sep_token = tok.content
+        elif "cls" in low:
+            st.cls_token = tok.content
+        elif "mask" in low:
+            st.mask_token = tok.content
+    return st
+
+
 def _added_tokens(items) -> list[AddedToken]:
     out = []
     for tok in items or []:
@@ -215,11 +292,15 @@ def load_spec(j: dict) -> TokenizerSpec:
     if mtype != "BPE":
         raise NotImplementedError(f"model.type={mtype!r}")
     vocab = {str(k): int(v) for k, v in (model.get("vocab") or {}).items()}
+    added = _added_tokens(j.get("added_tokens"))
+    specials = {t.content: t.id for t in added if t.special}
     return TokenizerSpec(
         vocab=vocab,
         merges=parse_merges(model.get("merges")),
         normalizer=parse_normalizer(j.get("normalizer")),
         pre_tokenizer=parse_pre_tokenizer(j.get("pre_tokenizer")),
         decoder=parse_decoder(j.get("decoder")),
-        added_tokens=_added_tokens(j.get("added_tokens")),
+        added_tokens=added,
+        post_processor=parse_post_processor(j.get("post_processor"), specials),
+        named_specials=infer_special_tokens(added),
     )

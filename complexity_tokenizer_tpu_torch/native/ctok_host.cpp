@@ -2436,6 +2436,50 @@ static inline PyObject* cached_long(int32_t v) {
     return o;
 }
 
+// Bulk row fill from an int32 id span: ensures every id's interned
+// PyLong exists once (slow path), then runs a tight load/INCREF/store
+// loop against the hoisted cache base — the per-element work drops to
+// two memory ops + a refcount bump.  Returns false on alloc failure
+// (caller owns row cleanup).
+static inline bool store_cached_longs(PyObject** dst, const int32_t* src,
+                                      int64_t n) {
+    // pass 1 (cheap in the common warm case): materialize missing entries
+    int64_t max_v = -1;
+    for (int64_t k = 0; k < n; ++k)
+        if (src[k] > max_v) max_v = src[k];
+    if (max_v >= 0 && max_v < (1 << 21) &&
+        (size_t)max_v >= g_long_cache.size())
+        g_long_cache.resize((size_t)max_v + 1024, nullptr);
+    PyObject** base = g_long_cache.data();
+    size_t cache_n = g_long_cache.size();
+    for (int64_t k = 0; k < n; ++k) {
+        int32_t v = src[k];
+        PyObject* o;
+        if ((uint32_t)v < cache_n && (o = base[(size_t)v]) != nullptr) {
+            Py_INCREF(o);
+        } else {
+            o = cached_long(v);
+            if (!o) return false;
+            base = g_long_cache.data();  // cached_long may resize
+            cache_n = g_long_cache.size();
+        }
+        dst[k] = o;
+    }
+    return true;
+}
+
+// Fill n list slots with the SAME object: pointer stores + one refcount
+// adjustment instead of n INCREFs.  Immortal objects (3.12 small ints)
+// keep their saturated refcount untouched.
+static inline void fill_same(PyObject** dst, PyObject* o, Py_ssize_t n) {
+    for (Py_ssize_t i = 0; i < n; ++i) dst[i] = o;
+#if PY_VERSION_HEX >= 0x030C0000
+    if (!_Py_IsImmortal(o)) Py_SET_REFCNT(o, Py_REFCNT(o) + n);
+#else
+    Py_SET_REFCNT(o, Py_REFCNT(o) + n);
+#endif
+}
+
 // Same fused pipeline as encode_ragged but materializes list[list[int]]
 // directly in C (one pass of PyLong construction instead of 10K numpy
 // .tolist() round-trips).  Flagged rows come back as None for the caller
@@ -2663,7 +2707,392 @@ static PyObject* ctok_py_decode_ragged(PyObject*, PyObject* args) {
     return Py_BuildValue("(NN)", lst, flagged);
 }
 
+// Build the final framed/truncated/padded id lists for the transformers
+// __call__ fast path in one pass: row = prefix + base + suffix, cut to
+// trunc_len (-1 = no truncation), padded to pad_to (-1 = none; rows
+// already longer stay as-is, matching Encoding.pad's early return).
+// Per-row frame lengths shared by frame_rows / frame_matrix (and mirrored
+// by ColumnarBatchEncoding.__init__): nb ids framed by p prefix + s suffix
+// tokens, right-truncated to trunc_len, padded up to pad_to.
+static inline void frame_lens(int64_t nb, int64_t p, int64_t s,
+                              int64_t trunc_len, int64_t pad_to, int64_t* t,
+                              int64_t* final_len) {
+    int64_t m = p + nb + s;
+    *t = (trunc_len >= 0 && m > trunc_len) ? trunc_len : m;
+    *final_len = (pad_to >= 0 && pad_to > *t) ? pad_to : *t;
+}
+
+// Row offsets must be non-negative, monotonic, and within flat —
+// checked per row so a bad interior offset can never index out of bounds.
+static inline bool frame_row_ok(const int64_t* offs, int64_t i,
+                                int64_t flat_len) {
+    return offs[i] >= 0 && offs[i + 1] >= offs[i] && offs[i + 1] <= flat_len;
+}
+
+static PyObject* ctok_py_frame_rows(PyObject*, PyObject* args) {
+    PyObject *flat_obj, *offs_obj, *prefix_obj, *suffix_obj;
+    long long trunc_len, pad_to;
+    int pad_id, pad_left;
+    if (!PyArg_ParseTuple(args, "OOOOLLii", &flat_obj, &offs_obj,
+                          &prefix_obj, &suffix_obj, &trunc_len, &pad_to,
+                          &pad_id, &pad_left))
+        return nullptr;
+    Py_buffer flat_buf, offs_buf;
+    if (PyObject_GetBuffer(flat_obj, &flat_buf, PyBUF_C_CONTIGUOUS) < 0)
+        return nullptr;
+    if (PyObject_GetBuffer(offs_obj, &offs_buf, PyBUF_C_CONTIGUOUS) < 0) {
+        PyBuffer_Release(&flat_buf);
+        return nullptr;
+    }
+    const int32_t* flat = (const int32_t*)flat_buf.buf;
+    const int64_t* offs = (const int64_t*)offs_buf.buf;
+    int64_t n = (int64_t)(offs_buf.len / (Py_ssize_t)sizeof(int64_t)) - 1;
+    std::vector<int32_t> prefix, suffix;
+    bool ok = n >= 0 &&
+              (n == 0 || (offs[n] >= 0 &&
+                          offs[n] <= (int64_t)(flat_buf.len /
+                                               (Py_ssize_t)sizeof(int32_t))));
+    for (PyObject* seq_obj : {prefix_obj, suffix_obj}) {
+        if (!ok) break;
+        PyObject* seq = PySequence_Fast(seq_obj, "prefix/suffix");
+        if (!seq) { ok = false; break; }
+        std::vector<int32_t>& dst = seq_obj == prefix_obj ? prefix : suffix;
+        for (Py_ssize_t i = 0; i < PySequence_Fast_GET_SIZE(seq); ++i) {
+            long v = PyLong_AsLong(PySequence_Fast_GET_ITEM(seq, i));
+            if (v == -1 && PyErr_Occurred()) { ok = false; break; }
+            dst.push_back((int32_t)v);
+        }
+        Py_DECREF(seq);
+    }
+    if (!ok) {
+        PyBuffer_Release(&flat_buf);
+        PyBuffer_Release(&offs_buf);
+        if (!PyErr_Occurred())
+            PyErr_SetString(PyExc_ValueError, "inconsistent frame_rows input");
+        return nullptr;
+    }
+    int64_t p = (int64_t)prefix.size(), s = (int64_t)suffix.size();
+    PyObject* rows = PyList_New((Py_ssize_t)n);
+    if (!rows) {
+        PyBuffer_Release(&flat_buf);
+        PyBuffer_Release(&offs_buf);
+        return nullptr;
+    }
+    int64_t flat_len = (int64_t)(flat_buf.len / (Py_ssize_t)sizeof(int32_t));
+    for (int64_t i = 0; i < n; ++i) {
+        if (!frame_row_ok(offs, i, flat_len)) {
+            Py_DECREF(rows);
+            PyBuffer_Release(&flat_buf);
+            PyBuffer_Release(&offs_buf);
+            PyErr_SetString(PyExc_ValueError, "inconsistent frame_rows input");
+            return nullptr;
+        }
+        int64_t nb = offs[i + 1] - offs[i];
+        int64_t t, final_len;
+        frame_lens(nb, p, s, trunc_len, pad_to, &t, &final_len);
+        PyObject* row = PyList_New((Py_ssize_t)final_len);
+        if (!row) {
+            Py_DECREF(rows);
+            PyBuffer_Release(&flat_buf);
+            PyBuffer_Release(&offs_buf);
+            return nullptr;
+        }
+        int64_t w = pad_left ? final_len - t : 0;
+        bool fail = false;
+        // three straight segments (prefix | ids | suffix), each a tight
+        // interned-store loop — no per-element segment branch
+        PyObject** item = ((PyListObject*)row)->ob_item + w;
+        int64_t np_ = t < p ? t : p;
+        int64_t nid = t - p < nb ? (t - p > 0 ? t - p : 0) : nb;
+        int64_t ns = t - p - nb > 0 ? t - p - nb : 0;
+        if (!store_cached_longs(item, prefix.data(), np_) ||
+            !store_cached_longs(item + np_, flat + offs[i], nid) ||
+            !store_cached_longs(item + np_ + nid, suffix.data(), ns))
+            fail = true;
+        (void)w;
+        int64_t pad_at = pad_left ? 0 : t;
+        if (final_len > t && !fail) {
+            PyObject* o = cached_long(pad_id);
+            if (!o) {
+                fail = true;
+            } else {
+                // fill_same adds final_len-t refs; then drop ours (AFTER
+                // the fill — a fresh non-interned PyLong arrives at
+                // refcount 1 and an early DECREF would free it)
+                fill_same(((PyListObject*)row)->ob_item + pad_at, o,
+                          (Py_ssize_t)(final_len - t));
+                Py_DECREF(o);
+            }
+        }
+        if (fail) {
+            Py_DECREF(row);
+            Py_DECREF(rows);
+            PyBuffer_Release(&flat_buf);
+            PyBuffer_Release(&offs_buf);
+            return nullptr;
+        }
+        PyList_SET_ITEM(rows, (Py_ssize_t)i, row);
+    }
+    PyBuffer_Release(&flat_buf);
+    PyBuffer_Release(&offs_buf);
+    return rows;
+}
+
+// frame_matrix(flat, offs, prefix, suffix, trunc_len, pad_to, pad_id,
+//              pad_left, out[B, L] int32 writable) -> None
+//
+// The dense-matrix twin of frame_rows: identical per-row semantics
+// (frame = prefix + ids + suffix, right-truncated to trunc_len, padded to
+// max(t, pad_to) on pad_left's side), but writes int32 directly into a
+// caller-allocated [B, L] buffer instead of materializing PyLong rows —
+// this is the return_tensors="np"/"jax" production path.  Positions past
+// a row's final length are filled with pad_id so ragged finals stay valid.
+static PyObject* ctok_py_frame_matrix(PyObject*, PyObject* args) {
+    PyObject *flat_obj, *offs_obj, *prefix_obj, *suffix_obj, *out_obj;
+    long long trunc_len, pad_to;
+    int pad_id, pad_left;
+    if (!PyArg_ParseTuple(args, "OOOOLLiiO", &flat_obj, &offs_obj,
+                          &prefix_obj, &suffix_obj, &trunc_len, &pad_to,
+                          &pad_id, &pad_left, &out_obj))
+        return nullptr;
+    Py_buffer flat_buf, offs_buf, out_buf;
+    if (PyObject_GetBuffer(flat_obj, &flat_buf, PyBUF_C_CONTIGUOUS) < 0)
+        return nullptr;
+    if (PyObject_GetBuffer(offs_obj, &offs_buf, PyBUF_C_CONTIGUOUS) < 0) {
+        PyBuffer_Release(&flat_buf);
+        return nullptr;
+    }
+    if (PyObject_GetBuffer(out_obj, &out_buf,
+                           PyBUF_C_CONTIGUOUS | PyBUF_WRITABLE) < 0) {
+        PyBuffer_Release(&flat_buf);
+        PyBuffer_Release(&offs_buf);
+        return nullptr;
+    }
+    const int32_t* flat = (const int32_t*)flat_buf.buf;
+    const int64_t* offs = (const int64_t*)offs_buf.buf;
+    int32_t* out = (int32_t*)out_buf.buf;
+    int64_t n = (int64_t)(offs_buf.len / (Py_ssize_t)sizeof(int64_t)) - 1;
+    int64_t out_elems = (int64_t)(out_buf.len / (Py_ssize_t)sizeof(int32_t));
+    int64_t L = n > 0 ? out_elems / n : 0;
+    std::vector<int32_t> prefix, suffix;
+    bool ok = n >= 0 && (n == 0 || out_elems == n * L) &&
+              (n == 0 || (offs[n] >= 0 &&
+                          offs[n] <= (int64_t)(flat_buf.len /
+                                               (Py_ssize_t)sizeof(int32_t))));
+    for (PyObject* seq_obj : {prefix_obj, suffix_obj}) {
+        if (!ok) break;
+        PyObject* seq = PySequence_Fast(seq_obj, "prefix/suffix");
+        if (!seq) { ok = false; break; }
+        std::vector<int32_t>& dst = seq_obj == prefix_obj ? prefix : suffix;
+        for (Py_ssize_t i = 0; i < PySequence_Fast_GET_SIZE(seq); ++i) {
+            long v = PyLong_AsLong(PySequence_Fast_GET_ITEM(seq, i));
+            if (v == -1 && PyErr_Occurred()) { ok = false; break; }
+            dst.push_back((int32_t)v);
+        }
+        Py_DECREF(seq);
+    }
+    int64_t p = (int64_t)prefix.size(), s = (int64_t)suffix.size();
+    if (ok) {
+        int64_t flat_len =
+            (int64_t)(flat_buf.len / (Py_ssize_t)sizeof(int32_t));
+        for (int64_t i = 0; i < n && ok; ++i) {
+            if (!frame_row_ok(offs, i, flat_len)) { ok = false; break; }
+            int64_t nb = offs[i + 1] - offs[i];
+            int64_t t, final_len;
+            frame_lens(nb, p, s, trunc_len, pad_to, &t, &final_len);
+            if (final_len > L) { ok = false; break; }
+            int32_t* row = out + i * L;
+            std::fill(row, row + L, (int32_t)pad_id);
+            int64_t w = pad_left ? final_len - t : 0;
+            int64_t k = 0;
+            for (; k < t && k < p; ++k) row[w++] = prefix[(size_t)k];
+            int64_t nid = std::min(t - k, nb);
+            if (nid > 0) {
+                std::memcpy(row + w, flat + offs[i] + (k - p),
+                            (size_t)nid * sizeof(int32_t));
+                w += nid;
+                k += nid;
+            }
+            for (; k < t; ++k) row[w++] = suffix[(size_t)(k - p - nb)];
+        }
+    }
+    PyBuffer_Release(&flat_buf);
+    PyBuffer_Release(&offs_buf);
+    PyBuffer_Release(&out_buf);
+    if (!ok) {
+        if (!PyErr_Occurred())
+            PyErr_SetString(PyExc_ValueError, "inconsistent frame_matrix input");
+        return nullptr;
+    }
+    Py_RETURN_NONE;
+}
+
+// split_words(ctx, text, add_prefix_space) -> bytes of int64 boundaries
+// over the (virtually prefixed) UTF-8 text: n+1 offsets, offsets[0] == 0.
+// The same GPT-2 simplified scan as the encode path, boundaries only.
+static PyObject* ctok_py_split_words(PyObject*, PyObject* args) {
+    unsigned long long addr;
+    PyObject* text_obj;
+    int aps;
+    if (!PyArg_ParseTuple(args, "KUi", &addr, &text_obj, &aps))
+        return nullptr;
+    Ctx* c = (Ctx*)(uintptr_t)addr;
+    Py_ssize_t sz;
+    const char* u = PyUnicode_AsUTF8AndSize(text_obj, &sz);
+    if (!u) return nullptr;
+    const uint8_t* data = (const uint8_t*)u;
+    int64_t n = (int64_t)sz;
+    uint8_t stack_buf[1024];
+    std::unique_ptr<uint8_t[]> heap_buf;
+    if (aps && n > 0 && data[0] != ' ') {
+        uint8_t* b;
+        if (n + 1 <= (int64_t)sizeof(stack_buf)) {
+            b = stack_buf;
+        } else {
+            heap_buf.reset(new uint8_t[(size_t)n + 1]);
+            b = heap_buf.get();
+        }
+        b[0] = ' ';
+        std::memcpy(b + 1, data, (size_t)n);
+        data = b;
+        ++n;
+    }
+    std::vector<int64_t> bounds;
+    bounds.reserve((size_t)(n / 4 + 2));
+    bounds.push_back(0);
+    int64_t i = 0;
+    while (i < n) {
+        int64_t end = word_end_at(c, data, n, i);
+        bounds.push_back(end);
+        i = end;
+    }
+    return PyBytes_FromStringAndSize(
+        (const char*)bounds.data(),
+        (Py_ssize_t)(bounds.size() * sizeof(int64_t)));
+}
+
+// mask_rows(t int64[n], final int64[n], pad_left) -> list[list[int]]:
+// attention-mask rows ([1]*t padded with 0 to final, on pad_left's side)
+// built from interned 0/1 ints in one pass — the list-mode twin of the
+// tensor-mode arange comparison.
+static PyObject* ctok_py_mask_rows(PyObject*, PyObject* args) {
+    PyObject *t_obj, *f_obj;
+    int pad_left;
+    if (!PyArg_ParseTuple(args, "OOi", &t_obj, &f_obj, &pad_left))
+        return nullptr;
+    Py_buffer t_buf, f_buf;
+    if (PyObject_GetBuffer(t_obj, &t_buf, PyBUF_C_CONTIGUOUS) < 0)
+        return nullptr;
+    if (PyObject_GetBuffer(f_obj, &f_buf, PyBUF_C_CONTIGUOUS) < 0) {
+        PyBuffer_Release(&t_buf);
+        return nullptr;
+    }
+    const int64_t* ts = (const int64_t*)t_buf.buf;
+    const int64_t* fs = (const int64_t*)f_buf.buf;
+    Py_ssize_t n = t_buf.len / (Py_ssize_t)sizeof(int64_t);
+    PyObject* rows = nullptr;
+    bool ok = f_buf.len == t_buf.len;
+    if (ok) rows = PyList_New(n);
+    PyObject* one = cached_long(1);
+    PyObject* zero = cached_long(0);
+    if (rows && one && zero) {
+        for (Py_ssize_t i = 0; i < n && ok; ++i) {
+            int64_t t = ts[i], f = fs[i];
+            if (t < 0 || f < t) { ok = false; break; }
+            PyObject* row = PyList_New((Py_ssize_t)f);
+            if (!row) { ok = false; break; }
+            int64_t ones_at = pad_left ? f - t : 0;
+            PyObject** item = ((PyListObject*)row)->ob_item;
+            if (ones_at > 0) fill_same(item, zero, (Py_ssize_t)ones_at);
+            fill_same(item + ones_at, one, (Py_ssize_t)t);
+            if (ones_at + t < f)
+                fill_same(item + ones_at + t, zero,
+                          (Py_ssize_t)(f - ones_at - t));
+            PyList_SET_ITEM(rows, i, row);
+        }
+    } else {
+        ok = false;
+    }
+    Py_XDECREF(one);
+    Py_XDECREF(zero);
+    PyBuffer_Release(&t_buf);
+    PyBuffer_Release(&f_buf);
+    if (!ok) {
+        Py_XDECREF(rows);
+        if (!PyErr_Occurred())
+            PyErr_SetString(PyExc_ValueError, "inconsistent mask_rows input");
+        return nullptr;
+    }
+    return rows;
+}
+
+// mask_matrix(t int64[n], final int64[n], pad_left, L, out int32[n, L])
+// -> None: attention-mask rows written as int32 runs straight into the
+// caller's matrix (the tensor-mode twin of mask_rows — no bool
+// intermediate, no per-element Python work).  Positions past a row's
+// final length stay 0.  L is the caller-stated row stride, validated
+// against the buffer (inferring it from out_elems/n would silently
+// accept a wrong-shaped buffer whose element count happens to divide).
+static PyObject* ctok_py_mask_matrix(PyObject*, PyObject* args) {
+    PyObject *t_obj, *f_obj, *out_obj;
+    int pad_left;
+    long long L_arg;
+    if (!PyArg_ParseTuple(args, "OOiLO", &t_obj, &f_obj, &pad_left, &L_arg,
+                          &out_obj))
+        return nullptr;
+    Py_buffer t_buf, f_buf, out_buf;
+    if (PyObject_GetBuffer(t_obj, &t_buf, PyBUF_C_CONTIGUOUS) < 0)
+        return nullptr;
+    if (PyObject_GetBuffer(f_obj, &f_buf, PyBUF_C_CONTIGUOUS) < 0) {
+        PyBuffer_Release(&t_buf);
+        return nullptr;
+    }
+    if (PyObject_GetBuffer(out_obj, &out_buf,
+                           PyBUF_C_CONTIGUOUS | PyBUF_WRITABLE) < 0) {
+        PyBuffer_Release(&t_buf);
+        PyBuffer_Release(&f_buf);
+        return nullptr;
+    }
+    const int64_t* ts = (const int64_t*)t_buf.buf;
+    const int64_t* fs = (const int64_t*)f_buf.buf;
+    int32_t* out = (int32_t*)out_buf.buf;
+    Py_ssize_t n = t_buf.len / (Py_ssize_t)sizeof(int64_t);
+    int64_t out_elems = (int64_t)(out_buf.len / (Py_ssize_t)sizeof(int32_t));
+    int64_t L = (int64_t)L_arg;
+    bool ok = f_buf.len == t_buf.len && L >= 0 && out_elems == (int64_t)n * L;
+    for (Py_ssize_t i = 0; i < n && ok; ++i) {
+        int64_t t = ts[i], f = fs[i];
+        if (t < 0 || f < t || f > L) { ok = false; break; }
+        int32_t* row = out + (int64_t)i * L;
+        std::fill(row, row + L, 0);
+        int64_t at = pad_left ? f - t : 0;
+        std::fill(row + at, row + at + t, 1);
+    }
+    PyBuffer_Release(&t_buf);
+    PyBuffer_Release(&f_buf);
+    PyBuffer_Release(&out_buf);
+    if (!ok) {
+        PyErr_SetString(PyExc_ValueError, "inconsistent mask_matrix input");
+        return nullptr;
+    }
+    Py_RETURN_NONE;
+}
+
 static PyMethodDef CtokExtMethods[] = {
+    {"mask_matrix", ctok_py_mask_matrix, METH_VARARGS,
+     "mask_matrix(t int64[n], final int64[n], pad_left, L, out int32[n, L])"
+     " -> None (fills the matrix in place)"},
+    {"frame_matrix", ctok_py_frame_matrix, METH_VARARGS,
+     "frame_matrix(flat, offs, prefix, suffix, trunc_len, pad_to, pad_id, "
+     "pad_left, out) -> None (fills the [B, L] int32 buffer in place)"},
+    {"split_words", ctok_py_split_words, METH_VARARGS,
+     "split_words(ctx, text, add_prefix_space) -> int64 boundary bytes "
+     "over the prefixed UTF-8 text"},
+    {"mask_rows", ctok_py_mask_rows, METH_VARARGS,
+     "mask_rows(t int64[n], final int64[n], pad_left) -> list[list[int]]"},
+    {"frame_rows", ctok_py_frame_rows, METH_VARARGS,
+     "frame_rows(flat, offs, prefix, suffix, trunc_len, pad_to, pad_id, "
+     "pad_left) -> list[list[int]]"},
     {"decode_ragged", ctok_py_decode_ragged, METH_VARARGS,
      "decode_ragged(dec_ctx, ids_flat, row_offsets, skip_special, cleanup)"
      " -> (list[str|None], flagged indices or None)"},

@@ -302,7 +302,7 @@ def test_100k_end_to_end_matches_jax_device_and_oracle(bench100k, route):
         wp = pt._auto_word_path("cpu")
         wp.drain_async(timeout=300)
         assert wp.words_filled > 0
-        assert pt.encode_batch(texts, device="cpu") == host
+        assert pt.encode_batch(texts, backend="auto", device="cpu") == host
     if route == "device":
         assert pt._get_word_path("cpu").words_filled > 0
     flat, offs = pt.encode_batch_ragged(texts, backend=route, device=dev)

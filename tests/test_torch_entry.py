@@ -102,9 +102,9 @@ def test_host_layouts_build_nothing_for_the_device(layout):
     path or native context is built."""
     pt = Tokenizer.from_str(_json(**LAYOUTS[layout][0]))
     host = pt.encode_batch(TEXTS, backend="host")
-    assert pt.encode_batch(TEXTS, device="cpu") == host
+    assert pt.encode_batch(TEXTS, backend="auto", device="cpu") == host
     assert pt.encode_batch(TEXTS, backend="native") == host
-    assert pt.encode_batch_ragged(TEXTS, device="cpu")[0].tolist() == [i for r in host for i in r]
+    assert pt.encode_batch_ragged(TEXTS, backend="auto", device="cpu")[0].tolist() == [i for r in host for i in r]
     assert pt._tables is None and pt._pipelines == {} and pt._word_paths == {}
     assert pt._native is None and pt._get_native_encoder() is None
     with pytest.raises(NotImplementedError, match="ByteLevel"):
@@ -145,7 +145,7 @@ def test_added_token_flags_equal_jax_inside_words():
     pt, jt = _flagged_pair({"type": "CharDelimiterSplit", "delimiter": "|"})
     got = [pt._encode_host(t) for t in FLAG_TEXTS]
     assert got == [jt._encode_host(t) for t in FLAG_TEXTS]
-    assert pt.encode_batch(FLAG_TEXTS, device="cpu") == got
+    assert pt.encode_batch(FLAG_TEXTS, backend="auto", device="cpu") == got
     assert [pt.encode(t) for t in FLAG_TEXTS] == [jt.encode(t) for t in FLAG_TEXTS]
     assert 900 in pt.encode("a foo b") and 901 in pt.encode("a bar b") and 902 in pt.encode("a cafe b")
 

@@ -420,9 +420,9 @@ def test_100k_paths_on_card_match_host(tok100k):
     assert tok.encode_batch(texts, backend="device") == host
     assert word_merge.launches > before
     auto = Tokenizer.from_file(BENCH_100K)
-    assert auto.encode_batch(texts) == host
+    assert auto.encode_batch(texts, backend="auto") == host
     auto._auto_word_path().drain_async(timeout=300)
-    assert auto.encode_batch(texts) == host
+    assert auto.encode_batch(texts, backend="auto") == host
     data = tok._prepare_bytes([tok._normalize(t) for t in texts[:500]])
     before = merge_words.launches
     assert tok.pipeline().encode_bytes(data) == host[:500]
@@ -574,12 +574,12 @@ def test_auto_on_card_matches_host(tok50k):
     tok = Tokenizer.from_file(BENCH_50K)
     texts = zipf_corpus(800, seed=12) + list(MULTI_PIECES) + ["x </s> y"]
     host = tok.encode_batch(texts, backend="host")
-    assert tok.encode_batch(texts) == host
+    assert tok.encode_batch(texts, backend="auto") == host
     wp = tok._auto_word_path()
     wp.drain_async(timeout=300)
     assert wp.words_filled > 0
-    assert tok.encode_batch(texts) == host
-    flat, offs = tok.encode_batch_ragged(texts)
+    assert tok.encode_batch(texts, backend="auto") == host
+    flat, offs = tok.encode_batch_ragged(texts, backend="auto")
     assert [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))] == host
 
 
@@ -1012,3 +1012,30 @@ def test_k7_refuses_bad_inputs(tok50k):
         decode_gather(torch.zeros(5000, dtype=torch.int32, device="cuda"),
                       torch.tensor([0, 5000], dtype=torch.int64, device="cuda"), entries, arena,
                       False, 64, state=torch.zeros(3, dtype=torch.int64, device="cuda"))
+
+
+@pytest.mark.parametrize("padding", [True, "max_length"])
+def test_call_pt_tensors_on_card_equal_cpu(tok50k, padding):
+    """``__call__(..., return_tensors="pt")`` on the card: every field an
+    int32 tensor on ``cuda``, equal to the ``device="cpu"`` result; the
+    ``add_special_tokens=False`` route on the card launches K6 and K4 and
+    gives the host oracle's ids."""
+    _need_card()
+    texts = zipf_corpus(300, seed=9) + ["", "a" * 700, "x </s> y"]
+    kw = dict(padding=padding, truncation=True, max_length=128, return_special_tokens_mask=True,
+              return_tensors="pt")
+    for side in ("right", "left"):
+        tok50k.padding_side = side
+        card, cpu = tok50k(texts, **kw), tok50k(texts, device="cpu", **kw)
+        for k in ("input_ids", "attention_mask", "token_type_ids", "special_tokens_mask"):
+            a, b = card[k], cpu[k]
+            assert a.device.type == "cuda" and a.dtype == b.dtype == torch.int32, k
+            assert torch.equal(a.cpu(), b), k
+    tok50k.padding_side = "right"
+    fresh = Tokenizer.from_file(BENCH_50K)
+    fresh.encode_backend = "device"
+    word_merge.launches = fill_compact.launches = 0
+    got = fresh(texts, add_special_tokens=False)
+    torch.cuda.synchronize()
+    assert [e.ids for e in got.encodings()] == fresh.encode_batch(texts, backend="host")
+    assert word_merge.launches > 0 and word_merge.launches == fill_compact.launches

@@ -3,7 +3,8 @@
 (g) It imports neither JAX nor the JAX package, at run time (a fresh
 subprocess) and in its source (an AST scan, ``chip_smoke.py`` included).
 (h) Its entry points, called with no ``device``, raise when there is no
-card.  Also: the loader refuses a model the port does not run, and the
+card (``encode_batch``, the pipelines, and ``__call__`` with
+``return_tensors="pt"`` or ``add_special_tokens=False``).  Also: the loader refuses a model the port does not run, and the
 kernel build raises without ``nvcc``.
 """
 
@@ -99,13 +100,29 @@ def no_card(monkeypatch):
 def test_encode_batch_without_device_raises_without_card(no_card):
     tok = Tokenizer.from_str(TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tok.encode_batch(["ab ab"])
+        tok.encode_batch(["ab ab"], backend="auto")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tok.encode_batch(["ab ab"], backend="device", device="cuda")
     # the CPU is used when asked for, and only then
-    assert tok.encode_batch(["ab ab"], device="cpu") == tok.encode_batch(
+    assert tok.encode_batch(["ab ab"], backend="auto", device="cpu") == tok.encode_batch(
         ["ab ab"], backend="host"
     )
+
+
+def test_call_without_device_raises_without_card(no_card):
+    """``__call__`` puts ``"pt"`` tensors on the card and runs
+    ``add_special_tokens=False`` through ``encode_batch``: with no
+    ``device`` both raise where there is no card; on ``device="cpu"`` they
+    run, and the host-only routes need no device."""
+    tok = Tokenizer.from_str(TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tok(["ab ab", "ab"], padding="longest", return_tensors="pt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tok(["ab ab", "ab"], add_special_tokens=False)
+    got = tok(["ab ab", "ab"], padding="longest", return_tensors="pt", device="cpu")
+    assert got.input_ids.device.type == "cpu" and got.input_ids.dtype == torch.int32
+    assert tok(["ab ab"], add_special_tokens=False, device="cpu").input_ids == [[2, 2]]
+    assert tok(["ab ab"]).input_ids == tok(["ab ab"], return_tensors="np").input_ids.tolist()
 
 
 def test_pipeline_without_device_raises_without_card(no_card):

@@ -151,7 +151,7 @@ def test_loaded_variants_match_jax_oracle(patch):
     js = json.dumps(j)
     pt, jt = Tokenizer.from_str(js), JaxTokenizer.from_str(js)
     texts = conformance_corpus()[:12] + ["ﬁ café ①②", "café x", "Hello", ""]
-    got = pt.encode_batch(texts, device="cpu")
+    got = pt.encode_batch(texts, backend="auto", device="cpu")
     assert got == [jt._encode_host(t) for t in texts]
 
 

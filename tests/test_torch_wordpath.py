@@ -155,23 +155,23 @@ def test_async_auto_fill_exact(jt):
     pt = _fresh()
     texts = conformance_corpus()
     host = [jt._encode_host(t) for t in texts]
-    assert pt.encode_batch(texts, device="cpu") == host  # a fill may be in flight
+    assert pt.encode_batch(texts, backend="auto", device="cpu") == host  # a fill may be in flight
     wp = pt._auto_word_path("cpu")
     assert wp is pt._get_word_path("cpu")  # one encoder for both backends
     wp.drain_async(timeout=120)
     assert wp.words_filled > 0
-    assert pt.encode_batch(texts, device="cpu") == host
-    flat, offs = pt.encode_batch_ragged(texts, device="cpu")
+    assert pt.encode_batch(texts, backend="auto", device="cpu") == host
+    flat, offs = pt.encode_batch_ragged(texts, backend="auto", device="cpu")
     assert [flat[offs[i] : offs[i + 1]].tolist() for i in range(len(texts))] == host
     data = pt._prepare_bytes([pt._normalize(t) for t in texts])
     _, lens = wp.native.collect_miss_words(data, 128)
     assert len(lens) == 0
     for _ in range(3):
-        pt.encode_batch(texts, device="cpu")
+        pt.encode_batch(texts, backend="auto", device="cpu")
         wp.drain_async(timeout=120)
     assert wp._steady
     novel = ["qqqzz wwxx yyvv 998877"]
-    assert pt.encode_batch(novel, device="cpu") == [jt._encode_host(t) for t in novel]
+    assert pt.encode_batch(novel, backend="auto", device="cpu") == [jt._encode_host(t) for t in novel]
 
 
 def test_async_fill_error_is_raised_in_the_serving_thread(monkeypatch):
@@ -185,13 +185,13 @@ def test_async_fill_error_is_raised_in_the_serving_thread(monkeypatch):
 
     monkeypatch.setattr(wp, "_encode_words_packed", broken)
     texts = conformance_corpus()
-    pt.encode_batch(texts, device="cpu")  # starts the fill
+    pt.encode_batch(texts, backend="auto", device="cpu")  # starts the fill
     with pytest.raises(RuntimeError, match="background device word fill failed"):
         wp.drain_async(timeout=120)
-    pt.encode_batch(texts, device="cpu")  # starts another
+    pt.encode_batch(texts, backend="auto", device="cpu")  # starts another
     wp._pending.done.wait(120)
     with pytest.raises(RuntimeError, match="background device word fill failed"):
-        pt.encode_batch(texts, device="cpu")  # harvested here
+        pt.encode_batch(texts, backend="auto", device="cpu")  # harvested here
 
 
 def test_word_path_refuses_tables_the_device_does_not_run(jt):
@@ -243,7 +243,7 @@ def test_concurrent_auto_batches_stay_exact(jt):
         try:
             for r in range(4):
                 chunk = chunks[(k + r) % 3]
-                assert pt.encode_batch(chunk, device="cpu") == [host[texts.index(t)] for t in chunk]
+                assert pt.encode_batch(chunk, backend="auto", device="cpu") == [host[texts.index(t)] for t in chunk]
         except Exception as e:  # pragma: no cover
             errors.append(e)
 
@@ -262,7 +262,7 @@ def test_concurrent_auto_batches_stay_exact(jt):
     wp = pt._auto_word_path("cpu")
     wp.drain_async(timeout=120)
     assert wp.words_filled > 0
-    assert pt.encode_batch(texts, device="cpu") == host
+    assert pt.encode_batch(texts, backend="auto", device="cpu") == host
 
 
 def test_fill_thread_ending_at_exit_does_not_abort(tmp_path):
@@ -287,9 +287,9 @@ def test_fill_thread_ending_at_exit_does_not_abort(tmp_path):
         "texts = zipf_corpus(240, seed=3)\n"
         "def serve():\n"
         f"    tok = Tokenizer.from_file({str(path)!r})\n"
-        "    tok.encode_batch(texts, device='cpu')\n"
+        "    tok.encode_batch(texts, backend='auto', device='cpu')\n"
         "    tok._auto_word_path('cpu').drain_async(120)\n"
-        "    tok.encode_batch(texts, device='cpu')  # starts one more scan\n"
+        "    tok.encode_batch(texts, backend='auto', device='cpu')  # starts one more scan\n"
         "serve()\n"
     )
     for _ in range(3):
