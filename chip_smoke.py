@@ -59,6 +59,20 @@ Phases (each prints its seconds):
    100K tokenizer in a temporary directory, ``from_file`` without the file
    (which writes it) and with it, the corpus's ids against the oracle
    after each.
+   Then the text pipeline from text at 50K (``drive_norm``):
+   ``EncodePipeline.encode_batch`` with the tokenizer's NFC normalizer,
+   K8 proving rows stable before the host rewrites the others, against
+   the oracle, launching K8, K1 and K2 only; K8 against its plain version
+   on each of that run's batches under the NFC and ``BertNormalizer()``
+   bitmaps, timed warm, cold and plain.  And the word-level models at full
+   width (``drive_models``), each through ``encode_batch`` on the corpus
+   launching its tier's kernel once and nothing else: ByteLevel BPE on the
+   50K and 100K tables (K9), CharBPE on its test table (K9), WordPiece at
+   30,522 entries (K10), WordLevel at 40,001 (K11); every text and every
+   distinct word against the host ``encode``; the words the host took
+   (poisoned, over 128 lanes) printed; each kernel against its plain
+   version on the path's input (K9 also on ``run_rows``), timed warm,
+   cold and plain beside its bound.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -102,6 +116,7 @@ Phases (each prints its seconds):
    warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
+The kernels' line lists K1-K11 (``launches_by_path``: every path above).
 Any failure raises and the script exits nonzero without the last line.
 Needs the repository beside it and imports nothing of JAX.
 """
@@ -688,6 +703,17 @@ def with_chd_table(tok):
     )
 
 
+def _zero_launches(kernels_of: dict) -> None:
+    """Sets every kernel's launch count to 0, just before a path is driven."""
+    for k in kernels_of.values():
+        k.launches = 0
+
+
+def _read_launches(kernels_of: dict) -> dict:
+    """Every kernel's launch count, read just after a path was driven."""
+    return {name: k.launches for name, k in kernels_of.items()}
+
+
 def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, native) -> dict:
     """The port's paths on one configuration, each against the host oracle
     on every text, each with the launch counts set to 0 just before and
@@ -713,13 +739,6 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
     from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
     from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
-
-    def zero_counts():
-        for fn in kernels_of.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in kernels_of.items()}
 
     out: dict = {}
     # load cost: the tokenizer, its tables (the CHD build) and the tables on the card
@@ -763,7 +782,7 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
         return encode_rows(arr, lens)
 
     pipe.encode_rows = keep_batch
-    zero_counts()
+    _zero_launches(kernels_of)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     try:
@@ -772,7 +791,7 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     finally:
         del pipe.encode_rows
     wall = time.perf_counter() - t1
-    out["text pipeline"] = read_counts()
+    out["text pipeline"] = _read_launches(kernels_of)
     t1 = time.perf_counter()
     again = text_pipeline_encode(tok, pipe, texts)
     torch.cuda.synchronize()
@@ -810,11 +829,11 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     wp = DeviceWordEncoder(pipe, fresh_native())
     keep_packs(wp)
     words, lens = wp.native.collect_miss_words(data, 128)
-    zero_counts()
+    _zero_launches(kernels_of)
     t1 = time.perf_counter()
     ids, counts = wp._encode_words_packed(words, lens)
     fill_s = time.perf_counter() - t1
-    out["every distinct word"] = read_counts()
+    out["every distinct word"] = _read_launches(kernels_of)
     exp_ids, exp_counts = fresh_native().warm_start(words, lens)
     uncovered = int((counts < 0).sum())
     bounds = np.zeros(len(counts) + 1, np.int64)
@@ -851,13 +870,13 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     keep_packs(wp_d)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t1
-    zero_counts()
+    _zero_launches(kernels_of)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     got = tok_d.encode_batch(texts, backend="device")
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
-    out["backend=device"] = read_counts()
+    out["backend=device"] = _read_launches(kernels_of)
     fill_first = dict(wp_d.last_fill)
     t1 = time.perf_counter()
     again = tok_d.encode_batch(texts, backend="device")
@@ -885,7 +904,7 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     tok_a = Tokenizer.from_file(path)
     keep_packs(tok_a._get_word_path("cuda"))  # tables on the card before the batches
     torch.cuda.synchronize()
-    zero_counts()
+    _zero_launches(kernels_of)
     step = -(-len(texts) // 5)
     got = []
     batch_s = []
@@ -898,7 +917,7 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     drained = wp_a.drain_async(timeout=600)
     drain_s = time.perf_counter() - t1
     torch.cuda.synchronize()
-    out["backend=auto"] = read_counts()
+    out["backend=auto"] = _read_launches(kernels_of)
     _compare(f"[{label}] backend=auto", texts, got, host)
     t1 = time.perf_counter()
     again = tok_a.encode_batch(texts, backend="auto")
@@ -1065,13 +1084,6 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
     import numpy as np
     import torch
 
-    def zero_counts():
-        for fn in kernels_of.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in kernels_of.items()}
-
     t0 = time.perf_counter()
     rows = _with_specials(tok, host)
     offs = np.zeros(len(rows) + 1, np.int64)
@@ -1088,7 +1100,7 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
         raise AssertionError(f"[{label}] the native decoder is not eligible")
     mismatches = 0
     device_calls = 0
-    zero_counts()
+    _zero_launches(kernels_of)
     for skip in (False, True):
         t1 = time.perf_counter()
         host_txt = [tok._decode_impl(r, skip, False) for r in rows]
@@ -1108,14 +1120,14 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
         if native_txt != host_txt:
             raise AssertionError(f"[{label}] the native decoder differs from the host decode")
     torch.cuda.synchronize()
-    out["device decode"] = read_counts()
+    out["device decode"] = _read_launches(kernels_of)
     k7 = out["device decode"]["decode_gather"]
     if k7 % device_calls:
         raise AssertionError(
             f"[{label}] K7 launched {k7} times in {device_calls} device decode calls")
     per_call = k7 // device_calls
     # the public entry points: the native route
-    zero_counts()
+    _zero_launches(kernels_of)
     for skip in (False, True):
         for cleanup in (False, True):
             host_txt = [tok._decode_impl(r, skip, cleanup) for r in rows]
@@ -1127,7 +1139,7 @@ def drive_decode(label: str, tok, host: list[list[int]], kernels_of: dict) -> di
             mismatches += sum(g != h for g, h in zip(ragged, host_txt))
             mismatches += sum(tok.batch_decode(rows[:200], skip, cleanup)[i] != host_txt[i] for i in range(200))
     mismatches += sum(tok.decode(r) != tok._decode_impl(r, False, True) for r in rows[:500])
-    out["native decode"] = read_counts()
+    out["native decode"] = _read_launches(kernels_of)
     print(
         f"[{label}] decode: {len(rows)} rows, {len(flat)} ids; walls "
         f"{({k: round(v, 4) for k, v in walls.items()})}; launches {out}, {per_call} a device decode call; "
@@ -1175,11 +1187,10 @@ def drive_added_tokens(path: str, texts: list[str], kernels_of: dict) -> dict:
     mixed = [forms[i % len(forms)].format(t) if i % 3 == 0 else t for i, t in enumerate(base)]
     host = [tok._encode_host(t) for t in mixed]
     matched = sum(1 for h in host if any(i >= V for i in h))
-    for fn in kernels_of.values():
-        fn.launches = 0
+    _zero_launches(kernels_of)
     got = tok.encode_batch(mixed, backend="device")
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels_of.items()}
+    launches = _read_launches(kernels_of)
     _compare("[50K] added tokens, backend=device", mixed, got, host)
     wp1 = tok._get_word_path("cuda")
     if wp1 is wp0 or tok._tables is tables0 or launches["word_merge"] == 0:
@@ -1260,13 +1271,6 @@ def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
     from complexity_tokenizer_tpu_torch.components import PostProcessor
     from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
 
-    def zero_counts():
-        for fn in kernels_of.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in kernels_of.items()}
-
     def only(route, counts, names):
         for name, n in counts.items():
             if (n > 0) != (name in names):
@@ -1288,7 +1292,7 @@ def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
     mismatches = 0
     configs = 0
     framed = None
-    zero_counts()
+    _zero_launches(kernels_of)
     for padding in (True, "max_length"):
         for side in ("right", "left"):
             tok.padding_side = side
@@ -1333,7 +1337,7 @@ def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
                     framed = [row[k].tolist() for row, k in zip(mats["input_ids"], keep)]
                 configs += 1
     torch.cuda.synchronize()
-    out["launches"]["__call__ columnar"] = read_counts()
+    out["launches"]["__call__ columnar"] = _read_launches(kernels_of)
     only("__call__ columnar", out["launches"]["__call__ columnar"], ())
     framed_ok = all(r[0] == bos and r[-1] == eos for r in framed if len(r) < 512)
     print(
@@ -1353,7 +1357,7 @@ def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
         t2.encode_backend = backend
         t2._get_word_path("cuda")
         torch.cuda.synchronize()
-        zero_counts()
+        _zero_launches(kernels_of)
         t1 = time.perf_counter()
         be = t2(texts, add_special_tokens=False)
         if backend == "auto":
@@ -1361,7 +1365,7 @@ def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         route = f"__call__ add_special_tokens=False, {backend}"
-        out["launches"][route] = counts = read_counts()
+        out["launches"][route] = counts = _read_launches(kernels_of)
         got = [e.ids for e in be.encodings()]
         bad = sum(g != h for g, h in zip(got, host))
         print(f"[{label}] {route}: {wall:.3f} s (the fill included); {bad} mismatches against the "
@@ -1393,13 +1397,13 @@ def drive_call(label: str, path: str, texts: list[str], host: list[list[int]],
     # the framed ids, pads cut off, through the device decode (K7)
     pipe = tok.decode_pipeline("cuda")
     torch.cuda.synchronize()
-    zero_counts()
+    _zero_launches(kernels_of)
     bad = 0
     for skip in (False, True):
         got = pipe.decode_batch(framed, skip)
         bad += sum(g != tok._decode_impl(r, skip, False) for g, r in zip(got, framed))
     torch.cuda.synchronize()
-    out["launches"]["decode of the framed ids"] = counts = read_counts()
+    out["launches"]["decode of the framed ids"] = counts = _read_launches(kernels_of)
     print(f"[{label}] decode_pipeline('cuda') of the framed input_ids, skip_special both ways: "
           f"{bad} mismatches against the host decode; launches {counts}", flush=True)
     if bad:
@@ -1473,6 +1477,337 @@ def drive_warm_cache(texts: list[str], host100: list[list[int]]) -> dict:
     return out
 
 
+def _drive_launches(kernels_of: dict, fn):
+    """Runs ``fn()`` with every launch count set to 0 just before and read
+    just after; returns (its result, the counts, the wall ending in a
+    synchronise)."""
+    import torch
+
+    _zero_launches(kernels_of)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    return res, _read_launches(kernels_of), wall
+
+
+def _need_only(label: str, counts: dict, need: dict) -> None:
+    """Each kernel in ``need`` launched that many times (None: at least
+    once) on the path, and no other kernel."""
+    for name, n in counts.items():
+        want = need.get(name, 0)
+        if (want is None and n == 0) or (want is not None and n != want):
+            raise AssertionError(f"kernel {name} was launched {n} times on {label}")
+
+
+def _timings(kernel, plain, cold_fn, cold_inputs: tuple, out_bytes: int, plain_reps: int = 2):
+    """Warm and cold kernel ms (CUDA graph replay), and the plain version's
+    ms (CUDA events around ``plain_reps`` calls)."""
+    ms = _time_ms(kernel, 20)
+    sets = _cold_sets(cold_inputs, out_bytes)
+    ms_cold = _time_cold_ms(cold_fn, sets, 20)
+    del sets
+    plain_ms = _time_ms(plain, plain_reps, graph=False)
+    return ms, ms_cold, plain_ms
+
+
+def check_norm(label: str, arr, lens, bitmap, sectors: int) -> dict:
+    """K8 against its plain version on one batch of the main path, timed
+    warm, cold and plain; the bound counts the rows' live bytes (the
+    function reads no byte at or past ``lens[r]``: the rows are whole UTF-8
+    texts, so no lead byte's tail lies past it), the lengths and flags and
+    ``sectors`` 32-byte sectors of the bitmap (those the rows' codepoints
+    land in), each once."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        norm_stable_rows,
+        norm_stable_rows_plain,
+    )
+
+    B, L = arr.shape
+    got = norm_stable_rows(arr, lens, bitmap)
+    torch.cuda.synchronize()
+    exp = norm_stable_rows_plain(arr, lens, bitmap)
+    match = bool(torch.equal(got, exp))
+    err = _max_abs_err(got.int(), exp.int())
+    ms, ms_cold, plain_ms = _timings(
+        lambda: norm_stable_rows(arr, lens, bitmap), lambda: norm_stable_rows_plain(arr, lens, bitmap),
+        lambda a, n: norm_stable_rows(a, n, bitmap), (arr, lens), B)
+    live = int(lens.clamp(0, L).sum())
+    bound_ms, bound_by = _bound(live + 5 * B + 32 * sectors, live * 4)
+    print(f"[norm_check] {label} [{B},{L}] match={match} max_abs_err={err} kernel={ms:.4f} ms "
+          f"cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; "
+          f"{live} live bytes, {sectors} bitmap sectors); stable rows {int(exp.sum())}/{B}",
+          flush=True)
+    if not match:
+        raise AssertionError(f"K8 differs from its plain version: {label} [{B},{L}]")
+    return dict(inputs=label, shape=[B, L], match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                stable=int(exp.sum()))
+
+
+def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict) -> dict:
+    """The text pipeline with its normalization check, at 50K (NFC):
+    ``EncodePipeline.encode_batch(texts)`` from a fresh tokenizer, whose rows
+    K8 proves stable skip the host rewrite, against the host oracle, with
+    the launch counts set to 0 just before and read just after (K8, K1 and
+    K2, no other); then K8 against its plain version on every batch of that
+    run (the same length buckets, at most 8,192 rows), under the NFC plan
+    and under ``BertNormalizer()``'s."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.core.normalizers import BertNormalizer
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import plan_for_normalizer
+    from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS, pack_texts
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    tok = Tokenizer.from_file(TOKENIZER_JSON)
+    pipe = tok.pipeline("cuda")
+    t1 = time.perf_counter()
+    checker = pipe._norm_checker  # the NFC bitmap: built and on the card
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t1
+    got, counts, wall = _drive_launches(kernels_of, lambda: pipe.encode_batch(texts))
+    _need_only("the 50K text pipeline with K8", counts,
+               {"norm_stable_rows": None, "seed_tokens": None, "merge_fixpoint_qc": None})
+    # the texts that may hold an added token go to the oracle on the
+    # Tokenizer's own routes; EncodePipeline.encode_batch has no scan
+    flags = tok._added_route_flags(tok._prepare_bytes([tok._normalize(t) for t in texts]))
+    keep = [i for i in range(len(texts)) if flags is None or not flags[i]]
+    _compare("[50K] EncodePipeline.encode_batch (K8, NFC)", [texts[i] for i in keep],
+             [got[i] for i in keep], [host[i] for i in keep])
+    raw = [t.encode("utf-8") for t in texts]
+    clean = checker.check_bytes(raw, _LENGTH_BUCKETS, pack_texts)
+    groups: dict[int, list[int]] = {}
+    for i, d in enumerate(raw):
+        L = next((b for b in _LENGTH_BUCKETS if max(len(d), 1) <= b), None)
+        if L is not None:
+            groups.setdefault(L, []).append(i)
+    print(f"[50K] EncodePipeline.encode_batch (K8, NFC): {len(texts)} texts, {len(keep)} against the "
+          f"oracle (the others may hold an added token), 0 mismatches; NFC bitmap built and to the "
+          f"card {setup_s:.3f} s; wall {wall:.3f} s; rows proven stable {int(clean.sum())}, "
+          f"normalized on the host {int((~clean).sum())} ({len(texts) - sum(map(len, groups.values()))} "
+          f"over the widest bucket); batches {sorted((L, len(v)) for L, v in groups.items())}; "
+          f"launches {counts}", flush=True)
+    results = []
+    bert = torch.from_numpy(plan_for_normalizer(BertNormalizer()).bitmap).cuda()
+    for L, idxs in sorted(groups.items()):
+        chunk = idxs[:8192]
+        arr, lens = pack_texts([raw[i] for i in chunk], L, len(chunk))
+        sectors = len({ord(c) >> 5 for i in chunk for c in texts[i]})
+        arr, lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+        results.append(check_norm("corpus batch, NFC", arr, lens, checker.bitmap, sectors))
+        results.append(check_norm("corpus batch, BertNormalizer", arr, lens, bert, sectors))
+    _phase("50K: text pipeline with K8", t0)
+    return dict(launches={"50K EncodePipeline.encode_batch (NFC)": counts}, checks=results)
+
+
+def _symbol_probe_work(tokens, count, disp, rows) -> tuple:
+    """As _probe_work, with one word a row: every initial adjacent pair of
+    a row probed once and two probes a merge.  (probes, merges, table
+    bytes, operations)."""
+    alive = (tokens >= 0).sum(dim=1)
+    pairs = int((alive - 1).clamp(min=0).sum())
+    merges = int(alive.sum()) - int(count.sum())
+    probes = pairs + 2 * merges
+    return (probes, merges, min(probes * 20, 4 * (disp.numel() + rows.numel())),
+            probes * OPS_PER_PROBE_CHD)
+
+
+def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=None) -> dict:
+    """The kernel of a model's tier (K9, K10 or K11) against its plain
+    version on the main path's input (the batch's distinct words, packed by
+    the tier), timed warm, cold and plain, with its bound.  The bound
+    counts the live input only (each row's symbols or characters, and a
+    length a row; a WordPiece word over its limit needs its length alone),
+    the dense outputs, and the table bytes the probes touch, each once."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows, merge_word_rows_plain
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+        wordlevel_lookup,
+        wordlevel_lookup_plain,
+        wordpiece_match,
+        wordpiece_match_plain,
+    )
+
+    table_bytes_all = 4 * (tier.disp.numel() + tier.rows.numel())
+    if name == "merge_word_rows":
+        tokens = torch.from_numpy(tier.pack(sym_rows)[0]).cuda()
+        args = (tier.disp, tier.rows, tier.chd.size, tier.chd.n_buckets)
+        kernel = lambda: merge_word_rows(tokens, *args)  # noqa: E731
+        plain = lambda: merge_word_rows_plain(tokens, *args)  # noqa: E731
+        cold_fn, inputs = (lambda t: merge_word_rows(t, *args)), (tokens,)
+        B, W = tokens.shape
+        out_bytes = 4 * B * W + 4 * B
+    else:
+        chars, lens, _ = tier.pack(words)
+        chars, lens = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
+        B, W = chars.shape
+        if name == "wordpiece_match":
+            extra = (tier.t.max_input_chars,)
+            kfn, pfn = wordpiece_match, wordpiece_match_plain
+            out_bytes = 4 * B * W + 5 * B
+        else:
+            extra = ()
+            kfn, pfn = wordlevel_lookup, wordlevel_lookup_plain
+            out_bytes = 4 * B
+        kernel = lambda: kfn(chars, lens, *tier.args(), *extra)  # noqa: E731
+        plain = lambda: pfn(chars, lens, *tier.args(), *extra)  # noqa: E731
+        cold_fn, inputs = (lambda c, n: kfn(c, n, *tier.args(), *extra)), (chars, lens)
+    got = kernel()
+    torch.cuda.synchronize()
+    exp = plain()
+    got_t = got if isinstance(got, tuple) else (got,)
+    exp_t = exp if isinstance(exp, tuple) else (exp,)
+    match = all(torch.equal(a, b) for a, b in zip(got_t, exp_t))
+    err = max(_max_abs_err(a.long(), b.long()) for a, b in zip(got_t, exp_t))
+    ms, ms_cold, plain_ms = _timings(kernel, plain, cold_fn, inputs, out_bytes)
+    if name == "merge_word_rows":
+        live = int((tokens >= 0).sum())
+        probes, merges, tbytes, ops = _symbol_probe_work(tokens, exp_t[1], tier.disp, tier.rows)
+        work = f"{live} symbols, {probes} probes, {merges} merges"
+    elif name == "wordpiece_match":
+        live = int(lens[lens <= tier.t.max_input_chars].sum())
+        emits = int(exp_t[1].sum())  # at least one probe (a hit) and its check an id
+        probes, tbytes = emits, min(emits * 20, table_bytes_all)
+        ops = emits * OPS_PER_PROBE_CHD
+        work = f"{live} characters, {emits} ids, {int(exp_t[2].sum())} poisoned"
+    else:
+        live = int(lens.sum())
+        probes = int((lens > 0).sum())
+        tbytes, ops = min(probes * 20, table_bytes_all), probes * OPS_PER_PROBE_CHD
+        work = f"{live} characters, {probes} probes, {int((exp_t[0] == tier.t.unk_id).sum())} UNK"
+    bound_ms, bound_by = _bound(4 * (live + B) + out_bytes + tbytes, ops)
+    print(f"[{name}] {label} [{B},{W}] match={match} max_abs_err={err} kernel={ms:.4f} ms "
+          f"cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; "
+          f"{work})", flush=True)
+    if not match:
+        raise AssertionError(f"{name} differs from its plain version: {label}")
+    return dict(inputs=label, shape=[B, W], match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                probes=probes)
+
+
+def _bytelevel_model(path: str):
+    from complexity_tokenizer_tpu_torch.models import ByteLevelBpeModel
+
+    with open(path, encoding="utf-8") as fh:
+        m = json.load(fh)["model"]
+    merges = [tuple(x.split(" ")) if isinstance(x, str) else tuple(x) for x in m["merges"]]
+    return ByteLevelBpeModel(m["vocab"], merges)
+
+
+def _charbpe_model():
+    """The CharBPE table of the JAX package's tests (``</w>`` fused to the
+    last character), with runs of ``l``."""
+    from complexity_tokenizer_tpu_torch.models import CharBpeModel
+
+    merges = [("l", "o"), ("lo", "w</w>"), ("e", "r</w>"), ("w", "e"), ("lo", "w"), ("n", "e"),
+              ("ne", "w</w>"), ("we", "er</w>"), ("l", "l"), ("ll", "ll")]
+    vocab = {"<unk>": 0}
+    for sym in "lowernstuv":
+        vocab.setdefault(sym, len(vocab))
+        vocab.setdefault(sym + "</w>", len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    return CharBpeModel(vocab, merges)
+
+
+MODEL_CONFIGS = (
+    # label, the model, the kernel of its tier
+    ("ByteLevel BPE 50K", lambda: _bytelevel_model(TOKENIZER_JSON), "merge_word_rows"),
+    ("ByteLevel BPE 100K", lambda: _bytelevel_model(TOKENIZER_100K), "merge_word_rows"),
+    ("CharBPE (test table)", _charbpe_model, "merge_word_rows"),
+    ("WordPiece 30,522", None, "wordpiece_match"),
+    ("WordLevel 40,001", None, "wordlevel_lookup"),
+)
+
+
+def drive_models(texts: list[str], kernels_of: dict) -> dict:
+    """The word-level models at full width, each through ``encode_batch``
+    (the entry point a user calls) on the corpus, with the launch counts
+    set to 0 just before and read just after (its tier's kernel once, no
+    other): ByteLevel BPE on the tracked 50K and 100K tables (K9), CharBPE
+    on its test table (K9), WordPiece at bert-base-uncased's size (K10) and
+    WordLevel at 40,001 entries (K11).  Every text against the host
+    ``encode`` (assembled from each distinct word's host ids), every
+    distinct word through ``encode_batch`` alone against the host; the
+    words the host took (poisoned, over 128 lanes, an ineligible table)
+    are counted.  Then each kernel against its plain version on the main
+    path's input."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.models import WordLevelModel, WordPieceModel
+    from complexity_tokenizer_tpu_torch.utils.corpus import (
+        RUN_BREAKS,
+        bert_scale_wordpiece_vocab,
+        run_rows,
+        wordlevel_vocab,
+    )
+
+    makers = {"WordPiece 30,522": lambda: WordPieceModel(bert_scale_wordpiece_vocab()),
+              "WordLevel 40,001": lambda: WordLevelModel(wordlevel_vocab())}
+    out: dict = {"launches": {}, "checks": {}, "walls": {}, "stats": {}}
+    for label, make, kname in MODEL_CONFIGS:
+        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        model = (make or makers[label])()
+        tier = model._tiers.get("cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t1
+        if tier is None:
+            raise AssertionError(f"[{label}] the tables are not eligible for the device tier")
+        got, counts, wall = _drive_launches(kernels_of, lambda: model.encode_batch(texts))
+        stats = dict(model.last_stats)
+        if model.last_route != "device":
+            raise AssertionError(f"[{label}] encode_batch took the {model.last_route} route")
+        _need_only(f"[{label}] encode_batch", counts, {kname: 1})
+        split = model._split_words if hasattr(model, "_split_words") else str.split
+        rows = [split(t) for t in texts]
+        uniq = sorted({w for r in rows for w in r})
+        t1 = time.perf_counter()
+        host = {w: model.encode(w) for w in uniq}
+        host_s = time.perf_counter() - t1
+        bad_texts = sum(g != [i for w in r for i in host[w]] for g, r in zip(got, rows))
+        per_word = model.encode_batch(uniq)
+        bad_words = sum(g != host[w] for g, w in zip(per_word, uniq))
+        print(f"[{label}] encode_batch: {len(texts)} texts, {len(uniq)} distinct words; tables "
+              f"built and to the card {setup_s:.3f} s; wall {wall:.3f} s; host encode of the "
+              f"distinct words {host_s:.3f} s; {bad_texts} texts and {bad_words} words differ from "
+              f"the host; words the host took {stats['host']} (poisoned {stats['poisoned']}, over "
+              f"128 lanes {stats['over_width']}); launches {counts}", flush=True)
+        if bad_texts or bad_words:
+            raise AssertionError(f"[{label}] {bad_texts} texts, {bad_words} words differ from the host")
+        sym_rows = None
+        if kname == "merge_word_rows":
+            sym_rows = ([list(model._text_to_byte_tokens(w)) for w in uniq]
+                        if hasattr(model, "_text_to_byte_tokens")
+                        else [list(w)[:-1] + [w[-1] + model.end_of_word_suffix] for w in uniq])
+        out["checks"].setdefault(kname, []).append(
+            check_model_kernel(label, kname, tier, uniq, sym_rows))
+        if label == "ByteLevel BPE 50K":
+            # the rows that separate the greedy apply from the JAX rule, as
+            # words of 128 byte-level symbols; with breaks, the run breakers
+            # are symbols no merge names (ids past the table's universe)
+            corpus_bytes = " ".join(texts).encode("utf-8")
+            enc = model._byte_encoder
+            for breaks in (False, True):
+                runs = [[enc[b] + ("\0" if b in RUN_BREAKS else "") for b in r]
+                        for r in run_rows(corpus_bytes, 64, 128, breaks)]
+                out["checks"][kname].append(check_model_kernel(
+                    "run rows, unknown-symbol breaks" if breaks else "run rows", kname, tier, [],
+                    runs))
+        out["launches"][label] = counts
+        out["walls"][label] = wall
+        out["stats"][label] = stats
+        _phase(f"model {label}", t0)
+    return out
+
+
 def _call_launches(name: str, *calls) -> dict:
     """A kernel's launches on each route of ``drive_call``, by vocabulary."""
     return {f"{label} {route}": counts[name]
@@ -1504,7 +1839,12 @@ def main(argv=None) -> int:
             decode_gather,
             decode_launch_shape,
         )
-        from complexity_tokenizer_tpu_torch.ops.merge import merge_words, merge_words_qc
+        from complexity_tokenizer_tpu_torch.ops.merge import (
+            merge_word_rows,
+            merge_words,
+            merge_words_qc,
+        )
+        from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_stable_rows
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
         from complexity_tokenizer_tpu_torch.ops.wordfill import (
@@ -1512,6 +1852,10 @@ def main(argv=None) -> int:
             word_ids,
             word_ids_plain,
             word_merge,
+        )
+        from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+            wordlevel_lookup,
+            wordpiece_match,
         )
         from complexity_tokenizer_tpu_torch.utils.corpus import (
             RUN_BREAKS,
@@ -1582,7 +1926,9 @@ def main(argv=None) -> int:
     kernels_of = {"seed_tokens": seed_tokens, "merge_fixpoint_qc": merge_words_qc,
                   "merge_fixpoint_chd": merge_words, "word_ids": word_ids,
                   "fill_compact": fill_compact, "word_merge": word_merge,
-                  "decode_gather": decode_gather}
+                  "decode_gather": decode_gather, "norm_stable_rows": norm_stable_rows,
+                  "merge_word_rows": merge_word_rows, "wordpiece_match": wordpiece_match,
+                  "wordlevel_lookup": wordlevel_lookup}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
     d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
@@ -1591,6 +1937,10 @@ def main(argv=None) -> int:
     call50 = drive_call("50K", TOKENIZER_JSON, texts, r50["host"], kernels_of)
     call100 = drive_call("100K", TOKENIZER_100K, texts, r100["host"], kernels_of)
     warm = drive_warm_cache(texts, r100["host"])
+    norm = drive_norm(texts, r50["host"], kernels_of)
+    mdl = drive_models(texts, kernels_of)
+    # the paths of this slice, by name, for every kernel's launches_by_path
+    new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()}}
     # every kernel of a path was launched on it and no other: the text
     # pipeline runs K1 and the fixpoint of its table, the word paths one K6
     # (K3, K1 and the fixpoint folded into it) and one K4 a pack
@@ -1806,6 +2156,7 @@ def main(argv=None) -> int:
             "checks": res,
         })
         kernels[-1]["launches_by_path"].update(_call_launches(name, call50, call100))
+        kernels[-1]["launches_by_path"].update({p: c[name] for p, c in new_paths.items()})
         if "ms_cold" in main:
             kernels[-1]["ms_cold"] = main["ms_cold"]
         if "launch" in main:
@@ -1832,6 +2183,7 @@ def main(argv=None) -> int:
                for label, d in (("50K", d50), ("100K", d100))
                for route, counts in d["launches"].items()},
             **_call_launches("decode_gather", call50, call100),
+            **{p: c["decode_gather"] for p, c in new_paths.items()},
         },
         "match": all(r["match"] for r in k7_res),
         "max_abs_err": max(r["max_abs_err"] for r in k7_res),
@@ -1845,12 +2197,56 @@ def main(argv=None) -> int:
         "launch": k7_shape,
         "checks": k7_res,
     })
+    # K8-K11: the paths of this slice
+    norm_main = max((r for r in norm["checks"] if r["inputs"] == "corpus batch, NFC"),
+                    key=lambda r: r["shape"][0])
+    for name, res, src, wrapper, replaces, path_name, main in (
+        ("norm_stable_rows", norm["checks"], "normcheck.cu", "ops/normalize_device.py",
+         "complexity_tokenizer_tpu/ops/normalize_device.py:226",
+         "50K EncodePipeline.encode_batch (NFC)", norm_main),
+        ("merge_word_rows", mdl["checks"]["merge_word_rows"], "kernels.cu", "ops/merge.py",
+         "complexity_tokenizer_tpu/ops/merge.py:157", "model ByteLevel BPE 50K", None),
+        ("wordpiece_match", mdl["checks"]["wordpiece_match"], "wordpiece.cu",
+         "ops/wordpiece_device.py", "complexity_tokenizer_tpu/ops/wordpiece_device.py:185",
+         "model WordPiece 30,522", None),
+        ("wordlevel_lookup", mdl["checks"]["wordlevel_lookup"], "wordpiece.cu",
+         "ops/wordpiece_device.py", "complexity_tokenizer_tpu/ops/wordpiece_device.py:384",
+         "model WordLevel 40,001", None),
+    ):
+        main = main or res[0]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
+            "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
+            "replaces": replaces,
+            "launches": new_paths[path_name][name],
+            "launches_path": path_name,
+            "launches_by_path": {
+                **{f"{label} {p}": counts[name]
+                   for label, r in (("50K", r50), ("100K", r100))
+                   for p, counts in r["launches"].items()},
+                **_call_launches(name, call50, call100),
+                **{p: c[name] for p, c in new_paths.items()},
+            },
+            "match": all(r["match"] for r in res),
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "shape": main["shape"],
+            "ms": main["ms"],
+            "ms_cold": main["ms_cold"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "checks": res,
+        })
     if _sha1(blob50) != blob50_sha1:
         raise AssertionError("the tracked 50K warm-cache file changed during the run")
     print(json.dumps({"call": {
         label: {"walls_s": c["walls"], "launches": c["launches"]}
         for label, c in (("50K", call50), ("100K", call100))
-    }, "warm_cache": warm, "card": smi_line}))
+    }, "warm_cache": warm, "models": {"walls_s": mdl["walls"], "host_words": mdl["stats"]},
+        "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -7,6 +7,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "chd_hash.cuh"
+
 namespace {
 
 constexpr uint32_t kMiss = 0xFFFFFFFFu;  // empty cuckoo slot / no pair
@@ -274,21 +276,6 @@ constexpr int kChdFirst = 2;           // positions a thread probes per round
 constexpr int kChdQueue = 4;           // a thread word's re-probes per round
 constexpr int kChdReach = 8;  // the first round looks this far for a pair
 static_assert(kChdWarpWordBytes <= 32, "one warp scans the length buckets");
-
-__device__ __forceinline__ uint32_t mix_hash(uint32_t a, uint32_t b) {
-  uint32_t h = (a * 0x85EBCA6Bu) ^ (b * 0xC2B2AE35u);
-  h ^= h >> 15;
-  h *= 0x27D4EB2Fu;
-  h ^= h >> 13;
-  return h;
-}
-
-__device__ __forceinline__ uint32_t mix_hash2(uint32_t a, uint32_t b) {
-  uint32_t g = (a * 0x9E3779B1u) ^ (b * 0x7FEB352Du);
-  g ^= g >> 16;
-  g *= 0x45D9F3Bu;
-  return g;
-}
 
 // A probe policy: the cached Entry, its miss value, the probe, the 32-bit
 // key whose minimum picks a word's best pair, and the minted id.
@@ -831,14 +818,48 @@ __device__ __forceinline__ void chd_first_round(const int32_t* t, uint64_t* rm,
 // K2 and K5: the kernel's own arguments tokens_in, wid
 struct TokenRows {
   static constexpr bool kFill = false;
+  static constexpr bool kWordRow = false;
 };
 
 struct FillRows {
   static constexpr bool kFill = true;
+  static constexpr bool kWordRow = false;
   const uint8_t* __restrict__ bytes;       // [B, L]
   const uint8_t* __restrict__ start_bits;  // [B, L / 8], little endian
   const int32_t* __restrict__ row_len;     // [B]
   const int32_t* __restrict__ byte_table;  // [256], -1 = OOV
+};
+
+// ---------------------------------------------------------------------------
+// K9: the merge fixpoint with one word a row.
+//
+// Replaces _word_rows_fixpoint / merge_word_rows (complexity_tokenizer_tpu/
+// ops/merge.py), which CharBPE and the ByteLevel BPE model run over the
+// dense symbol ids of their string merge tables (ops/stringbpe_device.py):
+// tokens [B, W] int32 (-1 pads and tombstones), the row is the word ->
+// merged tokens [B, W] and live counts [B], bit for bit its plain twin
+// merge_word_rows_plain (ops/merge.py).  It is K5's kernel with a third row
+// policy, WordRows: the prologue reads the tokens alone (no word-id tensor)
+// and marks one word start, at position 0, so the walk is K5's (the first
+// round, then a warp over the row's alive entries) and its greedy apply is
+// that of the JAX step with one word a row: every best pair, the leading
+// one winning in a run of equal symbols, on a well-formed table (the
+// build refuses the others, C6).  Symbol ids run past the table's
+// universe (characters no merge names, numbered after it per batch): the
+// CHD probe compares both keys of a row and assumes no bound on the ids,
+// so such an id never hits.
+//
+// Bound: latency, as K5's: each step of a word waits on its probes in L2.
+// One block of 64 threads a row of 128 lanes (K5's launch for rows up to
+// 256), so a batch of n words is n blocks, at least 16 resident an SM;
+// the word is walked by one warp and the other waits.  On an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py): 0.227-0.228 ms for the 44,974
+// distinct words of the benchmark corpus at 50K (0.241-0.243 at 100K);
+// its share of the bound (the live symbols in, the dense rows out, the
+// probes' table entries) is in PERF.md, section 6.
+struct WordRows {
+  static constexpr bool kFill = false;
+  static constexpr bool kWordRow = true;
 };
 
 // K6's prologue: puts row `row`'s tokens in t and its start / gap flags in
@@ -893,7 +914,7 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   constexpr int kWarps = kThreads / 32;
   constexpr int kEw = kEntryWords<P>;
   // the word starts and gaps as flags in aux (K5, K6), or word ids in rm
-  constexpr bool kFlags = P::kBatched || R::kFill;
+  constexpr bool kFlags = P::kBatched || R::kFill || R::kWordRow;
   extern __shared__ __align__(16) int32_t smem[];
   // [L] tokens and [L] probes; the 8-byte probes of K5 go first, aligned
   int32_t* t = kEw == 1 ? smem : smem + kEw * L;
@@ -909,6 +930,12 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   const int64_t base = (int64_t)blockIdx.x * L;
   if constexpr (R::kFill) {
     fill_load<kThreads>(io, t, aux, blockIdx.x, L, tid);
+  } else if constexpr (R::kWordRow) {
+    // one word, from position 0; its tombstones are skipped by the walk
+    for (int i = tid; i < L; i += kThreads) {
+      t[i] = tokens_in[base + i];
+      aux[i] = i == 0 ? kStartBit : 0;
+    }
   } else if constexpr (P::kBatched) {
     // the word starts and gaps as flags in aux, from each lane's word id
     // and its left neighbour's
@@ -1269,6 +1296,19 @@ int ctok_word_merge_chd(const void* bytes, const void* start_bits, const void* r
                     (uint32_t)bucket_mask};
   return (int)dispatch_word_merge(bytes, start_bits, row_len, byte_table, tb, tokens_out,
                                   count, B, L, stream);
+}
+
+// K9, the merge fixpoint with one word a row, on the CHD table: tokens_in
+// [B, L] int32 -> tokens_out [B, L] int32, count [B] int32; rows 16-byte
+// aligned, as for ctok_merge_fixpoint_chd
+int ctok_merge_word_rows(const void* tokens_in, const void* disp, const void* rows,
+                         unsigned size_mask, unsigned bucket_mask, void* tokens_out,
+                         void* count, int B, int L, void* stream) {
+  const ChdProbe tb{static_cast<const int32_t*>(disp),
+                    static_cast<const int4*>(rows), (uint32_t)size_mask,
+                    (uint32_t)bucket_mask};
+  return (int)dispatch_merge(tokens_in, nullptr, tb, tokens_out, count, B, L, stream,
+                             nullptr, WordRows{});
 }
 
 // The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L, or with

@@ -12,10 +12,16 @@ Two table forms are built on the host with numpy:
   ``ops/tables.py``) when the cuckoo table is not eligible (vocabularies
   past u16); the device fixpoint then runs on it.
 
+The CHD table also keys strings: ``ops/wordpiece_device.py`` inserts a
+token under the pair of its two 32-bit polynomial hashes (int32 bit
+patterns, any sign) with the token's slot in the rank column and no minted
+id.
+
 The torch probes (:func:`mix_hash`, :func:`mix_hash2`, :func:`qc_lookup`,
-:func:`chd_lookup_rows`) are bit-identical to the numpy hashes and to the
-CUDA probes in ``csrc/kernels.cu``.  torch has no ``>>`` on ``uint32`` on the CPU, so they
-compute in ``int64`` and keep the low 32 bits with ``& 0xFFFFFFFF``.
+:func:`chd_lookup`, :func:`chd_lookup_rows`) are bit-identical to the numpy
+hashes and to the CUDA probes (``csrc/chd_hash.cuh``).  torch has no ``>>``
+on ``uint32`` on the CPU, so they compute in ``int64`` and keep the low 32
+bits with ``& 0xFFFFFFFF``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ __all__ = [
     "mix_hash",
     "mix_hash2",
     "qc_lookup",
+    "chd_lookup",
     "chd_lookup_rows",
 ]
 
@@ -314,3 +321,12 @@ def chd_lookup_rows(disp, rows, size: int, n_buckets: int, a, b, valid):
     hit = (row[..., 0] == a) & (row[..., 1] == b) & valid
     rank = torch.where(hit, row[..., 2], INF_RANK).to(torch.int32)
     return rank, row[..., 3].to(torch.int32)
+
+
+def chd_lookup(disp, rows, size: int, n_buckets: int, a, b, valid):
+    """Rank (int32) for each key ``(a, b)`` via the CHD table, ``INF_RANK``
+    on a miss or where ``~valid``: the JAX package's ``chd_lookup_jnp``.
+    Keys are int32 bit patterns of u32 values (hash pairs may be
+    negative)."""
+    rank, _minted = chd_lookup_rows(disp, rows, size, n_buckets, a, b, valid)
+    return rank

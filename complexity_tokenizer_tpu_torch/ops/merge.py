@@ -1,4 +1,8 @@
-"""Segmented BPE merge fixpoint: kernels K2 and K5 and their plain versions.
+"""Segmented BPE merge fixpoint: kernels K2, K5 and K9 and their plain versions.
+
+K9 (:func:`merge_word_rows`) is the same fixpoint with one word a row, on
+the CHD table: the device tier of CharBPE and the ByteLevel BPE model
+(``ops/stringbpe_device.py``).
 
 K2 (:func:`merge_words_qc`) probes the u16 two-choice cuckoo table, K5
 (:func:`merge_words`) the CHD table of the vocabularies past u16; both run
@@ -35,6 +39,8 @@ __all__ = [
     "merge_fixpoint_qc_plain",
     "merge_words",
     "merge_fixpoint_chd_plain",
+    "merge_word_rows",
+    "merge_word_rows_plain",
     "launch_shape",
 ]
 
@@ -149,6 +155,37 @@ def merge_fixpoint_chd_plain(tokens, wid, disp, rows, size: int, n_buckets: int)
     )
 
 
+def merge_word_rows_plain(tokens, disp, rows, size: int, n_buckets: int):
+    """Plain PyTorch version of K9, on any device: the JAX
+    ``_word_rows_fixpoint`` under ``merge_word_rows``, step for step.
+
+    Args:
+      tokens: [B, W] int32, one word a row, -1 = tombstone/pad.
+      disp, rows, size, n_buckets: the CHD table, as for
+        :func:`merge_fixpoint_chd_plain`.
+    Returns:
+      (tokens, count) as :func:`merge_fixpoint_chd_plain`.
+    """
+    t = tokens
+    while True:
+        alive = t >= 0
+        t_next = _shift_left(_carry_first(t, alive), -1)
+        pair_valid = alive & (t_next >= 0)
+        r, minted = chd_lookup_rows(disp, rows, size, n_buckets, t, t_next, pair_valid)
+        rowmin = r.min(dim=1, keepdim=True).values
+        is_best = (r == rowmin) & (rowmin < INF_RANK) & pair_valid
+        # equal-pair runs: the leading occurrence wins
+        prev_best = _shift_right(_carry_last(is_best, alive), False)
+        selected = is_best & ~prev_best
+        t_new = torch.where(selected, minted, t)
+        killed = alive & _shift_right(_carry_last(selected, alive), False)
+        t = torch.where(killed, -1, t_new)
+        if not bool(selected.any()):
+            break
+    count = (t >= 0).sum(dim=1, dtype=torch.int32)
+    return t, count
+
+
 def _check_rows(fn: str, tokens, wid, tables, max_L: int) -> None:
     """The argument checks K2 and K5 share: int32, contiguous, on the
     tokens' device, of the given shapes; rows that fit shared memory."""
@@ -240,6 +277,43 @@ def merge_words(tokens, wid, disp, rows, size: int, n_buckets: int):
 
 
 merge_words.launches = 0  # launches of K5 (not of the plain version)
+
+
+def merge_word_rows(tokens, disp, rows, size: int, n_buckets: int):
+    """K9 on CUDA tensors, the plain version on CPU tensors.
+
+    Same arguments and result as :func:`merge_word_rows_plain` when the
+    table is well-formed, which ``ops/stringbpe_device.py`` requires.
+    """
+    if tokens.device.type == "cpu":
+        return merge_word_rows_plain(tokens, disp, rows, size, n_buckets)
+    if tokens.device.type != "cuda":
+        raise ValueError(f"merge_word_rows: unsupported device {tokens.device}")
+    for name, n in (("table size", size), ("bucket count", n_buckets)):
+        if n <= 0 or n & (n - 1):
+            raise ValueError(f"merge_word_rows: {name} {n} is not a power of two")
+    _check_rows("merge_word_rows", tokens, tokens,
+                (("disp", disp, (n_buckets,)), ("rows", rows, (size, 4))), 12288)
+    if rows.data_ptr() % 16:
+        raise ValueError("merge_word_rows: rows must be 16-byte aligned (one int4 load a probe)")
+    B, L = tokens.shape
+    out = torch.empty_like(tokens)
+    count = torch.empty(B, dtype=torch.int32, device=tokens.device)
+    if out.numel() == 0:
+        return out, count.zero_()
+    stream = torch.cuda.current_stream(tokens.device).cuda_stream
+    check(
+        kernel_library().lib.ctok_merge_word_rows(
+            tokens.data_ptr(), disp.data_ptr(), rows.data_ptr(), size - 1, n_buckets - 1,
+            out.data_ptr(), count.data_ptr(), B, L, stream,
+        ),
+        "merge_word_rows",
+    )
+    merge_word_rows.launches += 1
+    return out, count
+
+
+merge_word_rows.launches = 0  # launches of K9 (not of the plain version)
 
 
 _SHAPE_KEYS = ("threads", "registers", "static_smem", "dynamic_smem", "local_bytes",

@@ -1,7 +1,10 @@
 """End-to-end device encode pipeline.
 
-Batch encode = UTF-8 bytes (normalized and prefixed by the Tokenizer)
-packed into ``[B, L]`` uint8 tensors at bucketed widths -> on the device:
+Batch encode = normalize and prefix (``encode_batch``: the rows that
+kernel K8 proves to be fixed points of the normalizer skip the host
+rewrite, ``ops/normalize_device.py``; ``encode_bytes`` takes the bytes
+normalized and prefixed by the Tokenizer) -> UTF-8 bytes packed into
+``[B, L]`` uint8 tensors at bucketed widths -> on the device:
 pre-split (torch ops), byte -> token seed (kernel K1), segmented merge
 fixpoint (``TorchTables.merge_fixpoint``: kernel K2 on the u16 cuckoo
 table when it is eligible, kernel K5 on the CHD table otherwise)
@@ -17,6 +20,8 @@ by the Tokenizer.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,6 +30,7 @@ from ..core.pretokenizers import ByteLevel, gpt2_split_spans
 from ..utils.bytelevel import encode_bytes
 from ..utils.device import resolve_device
 from ..utils.unicode_tables import gpt2_class_table
+from .normalize_device import DeviceNormChecker, plan_for_normalizer
 from .presplit import presplit
 from .seed import seed_tokens
 
@@ -60,13 +66,15 @@ def pack_texts(data: list[bytes], L: int, B: int):
 class EncodePipeline:
     """Holds the tables on one device and runs the encode pass there."""
 
-    def __init__(self, tables, host_bpe, device):
+    def __init__(self, tables, host_bpe, device, normalizer=None, add_prefix_space=False):
         if tables.qc is None and tables.chd is None:
             raise NotImplementedError(
                 "the merge table fits neither the u16 cuckoo table nor a CHD table"
             )
         self.device = torch.device(device)
         self._host_bpe = host_bpe
+        self.normalizer = normalizer
+        self.add_prefix_space = add_prefix_space
         self.max_id = tables.max_id
         qc, chd = tables.qc, tables.chd
         self.tables = tables_to_device(
@@ -105,6 +113,38 @@ class EncodePipeline:
                     rt = tokens[row]
                     results[i] = rt[rt >= 0].tolist()
         return results
+
+    @functools.cached_property
+    def _norm_checker(self) -> DeviceNormChecker | None:
+        """K8's stability check for the normalizer on this pipeline's device;
+        None when the normalizer has no plan (``Prepend``, an empty
+        ``Replace``: every row is normalized on the host).  A failed build
+        raises."""
+        plan = plan_for_normalizer(self.normalizer)
+        return None if plan is None else DeviceNormChecker(plan, self.device)
+
+    def _prepare(self, texts: list[str], already_normalized: bool = False) -> list[bytes]:
+        """Normalize and prefix: the UTF-8 bytes the pre-tokenizer splits.
+        Rows that K8 proves stable skip ``normalize()``; the others are
+        rewritten on the host, so the result equals host normalization."""
+        norm = None if already_normalized else self.normalizer
+        raw = [t.encode("utf-8") for t in texts]
+        if norm is not None:
+            checker = self._norm_checker
+            if checker is None:
+                raw = [norm.normalize(t).encode("utf-8") for t in texts]
+            else:
+                clean = checker.check_bytes(raw, _LENGTH_BUCKETS, pack_texts)
+                raw = [d if c else norm.normalize(t).encode("utf-8")
+                       for t, d, c in zip(texts, raw, clean)]
+        if self.add_prefix_space:
+            raw = [b" " + d if d and not d.startswith(b" ") else d for d in raw]
+        return raw
+
+    def encode_batch(self, texts: list[str], already_normalized: bool = False) -> list[list[int]]:
+        """Ids of each text: normalized (unless ``already_normalized``) with
+        K8's check, prefixed, then encoded as :meth:`encode_bytes`."""
+        return self.encode_bytes(self._prepare(texts, already_normalized))
 
     def encode_bytes(self, data: list[bytes]) -> list[list[int]]:
         """Ids of each text, given as the UTF-8 bytes the pre-tokenizer
@@ -174,4 +214,7 @@ def build_encode_pipeline(tokenizer, device=None) -> EncodePipeline:
             "the merge table is not well-formed: the device fixpoint would "
             "differ from the one-merge-per-step oracle"
         )
-    return EncodePipeline(tables, host_bpe=tokenizer.bpe, device=dev)
+    return EncodePipeline(
+        tables, host_bpe=tokenizer.bpe, device=dev, normalizer=tokenizer.normalizer,
+        add_prefix_space=tokenizer.pre_tokenizer.add_prefix_space,
+    )

@@ -3,7 +3,8 @@
 The same texts as the repository's ``bench.py`` makes (``_zipf_lexicon``,
 ``_zipf_corpus``, ``_MULTI_PIECES``), kept here so that the port and
 ``chip_smoke.py`` need nothing of the JAX package.  Deterministic for a
-seed.  Also the rows of long runs that separate the merge kernel's apply
+seed.  Also the vocabularies of the word-level models at their published
+sizes (:func:`bert_scale_wordpiece_vocab`, :func:`wordlevel_vocab`).  Also the rows of long runs that separate the merge kernel's apply
 rule from the JAX one (:func:`run_rows`), and word packs that reach the
 word path's fill at its edges (:func:`edge_word_pack`), and a decode
 vocabulary of long tokens (:func:`long_token_vocab`).
@@ -11,13 +12,23 @@ vocabulary of long tokens (:func:`long_token_vocab`).
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 
-from .bytelevel import bytes_to_unicode
+from .bytelevel import bytes_to_unicode, unicode_to_bytes
+
+# the tracked 50K byte-level BPE tokenizer (bench.py's)
+BENCH_50K = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".cache", "bench_tokenizer_r4_50k.json",
+)
 
 __all__ = [
-    "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "edge_word_pack", "long_token_vocab",
-    "run_rows", "zipf_lexicon", "zipf_corpus",
+    "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
+    "edge_word_pack", "long_token_vocab", "run_rows", "wordlevel_vocab", "zipf_lexicon",
+    "zipf_corpus",
 ]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
@@ -240,3 +251,61 @@ def long_token_vocab(V: int = 600, seed: int = 0, window_token: int = 20_000):
         vocab_r[i] = "".join(enc[b] for b in rng.randint(0, 256, size=n).tolist())
     vocab_r[V - 1] = enc[ord("z")]  # V - 1 is in the vocabulary
     return vocab_r, [3, 21]
+
+
+BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+BERT_VOCAB_SIZE = 30_522  # bert-base-uncased's published vocabulary size
+WORDLEVEL_WORDS = 40_000
+
+
+def bert_scale_wordpiece_vocab() -> dict:
+    """A WordPiece vocabulary of bert-base-uncased's size (30,522 entries;
+    with ``##``, ``[UNK]`` and ``max_input_chars_per_word=100`` the
+    published settings), derived from the tracked 50K byte-level tokenizer
+    (:data:`BENCH_50K`):
+
+    - ``[PAD] [UNK] [CLS] [SEP] [MASK]`` first;
+    - then every non-whitespace character of the benchmark corpus
+      (``zipf_corpus(10_000, seed=17)`` and :data:`MULTI_PIECES`), sorted,
+      each in its plain and its ``##`` form;
+    - then the tokens of the 50K tokenizer in id order, decoded from the
+      byte-level alphabet, kept when valid UTF-8 with no whitespace after a
+      leading space: a token with a leading space gives the word-initial piece,
+      any other ``##`` + piece; until :data:`BERT_VOCAB_SIZE` entries.
+
+    Characters outside the corpus (and pieces of no token) take UNK."""
+    texts = zipf_corpus(10_000, seed=17) + list(MULTI_PIECES)
+    vocab: dict[str, int] = {}
+    for tok in BERT_SPECIALS:
+        vocab.setdefault(tok, len(vocab))
+    for ch in sorted({c for t in texts for c in t if not c.isspace()}):
+        vocab.setdefault(ch, len(vocab))
+        vocab.setdefault("##" + ch, len(vocab))
+    with open(BENCH_50K, encoding="utf-8") as fh:
+        model_vocab = json.load(fh)["model"]["vocab"]
+    dec = unicode_to_bytes()
+    for tok, _id in sorted(model_vocab.items(), key=lambda kv: kv[1]):
+        if len(vocab) >= BERT_VOCAB_SIZE:
+            break
+        if any(c not in dec for c in tok):
+            continue
+        try:
+            piece = bytes(dec[c] for c in tok).decode("utf-8")
+        except UnicodeDecodeError:
+            continue
+        body = piece[1:] if piece.startswith(" ") else piece
+        if not body or any(c.isspace() for c in body):
+            continue
+        vocab.setdefault(body if piece.startswith(" ") else "##" + body, len(vocab))
+    return vocab
+
+
+def wordlevel_vocab() -> dict:
+    """A WordLevel vocabulary: ``<unk>`` (id 0), then the
+    :data:`WORDLEVEL_WORDS` first ranks of ``zipf_lexicon(50_000)``.  The
+    corpus's tail words, its capitalised and punctuated words and its
+    multilingual pieces take UNK."""
+    vocab = {"<unk>": 0}
+    for w in zipf_lexicon(50_000)[:WORDLEVEL_WORDS]:
+        vocab.setdefault(w, len(vocab))
+    return vocab

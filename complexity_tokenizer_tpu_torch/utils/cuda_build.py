@@ -45,6 +45,17 @@ _SIGNATURES = {
     "ctok_merge_fixpoint_qc": (_P, _P, _P, _P, _U, _P, _P, _I, _I, _P),
     # tokens_in, wid, disp, rows, size_mask, bucket_mask, tokens_out, count, B, L, stream
     "ctok_merge_fixpoint_chd": (_P, _P, _P, _P, _U, _U, _P, _P, _I, _I, _P),
+    # tokens_in, disp, rows, size_mask, bucket_mask, tokens_out, count, B, L, stream
+    "ctok_merge_word_rows": (_P, _P, _P, _U, _U, _P, _P, _I, _I, _P),
+    # bytes, lens, bitmap, stable, B, L, stream
+    "ctok_norm_check": (_P, _P, _P, _P, _I, _I, _P),
+    # chars, lens, disp, rows, size_mask, bucket_mask, token_chars, token_lens, emit_ids,
+    # Lt, unk, max_input, out, count, poison, B, W, stream
+    "ctok_wordpiece_match": (_P, _P, _P, _P, _U, _U, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
+                             _P),
+    # chars, lens, disp, rows, size_mask, bucket_mask, token_chars, token_lens, emit_ids,
+    # Lt, unk, out, B, W, stream
+    "ctok_wordlevel_lookup": (_P, _P, _P, _P, _U, _U, _P, _P, _P, _I, _I, _P, _I, _I, _P),
     # chd, fill, L, info[6]
     "ctok_merge_fixpoint_info": (_I, _I, _I, _P),
     # bytes, start_bits, row_len, byte_table, t1, t2, mask, tokens_out, count, B, L, stream

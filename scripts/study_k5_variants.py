@@ -83,7 +83,9 @@ def build_variants(names: list[str], parent: str | None, out_dir: str) -> dict:
         with open(src, "w") as fh:
             fh.write(text)
         procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", os.path.join(d, "lib.so"), src],
+            # the package's headers (chd_hash.cuh) beside the copied source
+            [_nvcc(), *NVCC_FLAGS, "-I", os.path.dirname(SRC), "-shared", "-o",
+             os.path.join(d, "lib.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
     out = {}

@@ -1039,3 +1039,256 @@ def test_call_pt_tensors_on_card_equal_cpu(tok50k, padding):
     torch.cuda.synchronize()
     assert [e.ids for e in got.encodings()] == fresh.encode_batch(texts, backend="host")
     assert word_merge.launches > 0 and word_merge.launches == fill_compact.launches
+
+
+# ---------------------------------------------------------------------------
+# K8: the normalization check; K9-K11: the word-level models' tiers
+
+
+def _norm_bitmaps():
+    from complexity_tokenizer_tpu_torch.core import normalizers as N
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import plan_for_normalizer
+
+    return {name: torch.from_numpy(plan_for_normalizer(n).bitmap).cuda()
+            for name, n in (("nfc", N.NFC()), ("bert", N.BertNormalizer()),
+                            ("lowercase", N.Lowercase()))}
+
+
+def _norm_rows(B, L, seed):
+    """[B, L] rows: corpus text with multilingual pieces, random bytes
+    (past each row's length too) and all-continuation bytes; lengths from
+    -1 to past L."""
+    rng = np.random.RandomState(seed)
+    texts = zipf_corpus(B, seed=seed, lo=1, hi=L) + list(MULTI_PIECES)
+    rows = [" ".join(texts[i: i + 3]).encode()[:L] for i in range(B)]
+    arr, lens = pack_texts(rows, L, B)
+    arr[B // 4: B // 2] = rng.randint(0, 256, size=(B // 2 - B // 4, L))
+    arr[B // 2: B // 2 + 4] = 0x80
+    lens[B // 4: B // 2] = rng.randint(-1, L + 3, size=B // 2 - B // 4)
+    lens[B // 2: B // 2 + 4] = L
+    return torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+
+
+@pytest.mark.parametrize("B,L", [(1, 128), (64, 48), (513, 128), (2048, 512), (16, 4096),
+                                 (9, 7)])
+def test_k8_matches_plain(B, L):
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        norm_stable_rows,
+        norm_stable_rows_plain,
+    )
+
+    _need_card()
+    arr, lens = _norm_rows(B, L, seed=B + L)
+    for name, bm in _norm_bitmaps().items():
+        got = norm_stable_rows(arr, lens, bm)
+        torch.cuda.synchronize()
+        exp = norm_stable_rows_plain(arr, lens, bm)
+        assert got.dtype == torch.bool and torch.equal(got, exp), name
+    # an unaligned view of the rows takes the byte loads
+    wide = torch.zeros((B, L + 1), dtype=torch.uint8, device="cuda")
+    wide[:, 1:] = arr
+    view = wide[:, 1:].contiguous()
+    assert torch.equal(norm_stable_rows(view, lens, bm), norm_stable_rows_plain(view, lens, bm))
+
+
+def test_k8_in_the_pipeline_matches_cpu(tok50k):
+    """``EncodePipeline.encode_batch`` on the card launches K8 and equals
+    the CPU pipeline and the host oracle."""
+    from complexity_tokenizer_tpu_torch.core import normalizers as N
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_stable_rows
+
+    _need_card()
+    tok = Tokenizer.from_file(BENCH_50K)
+    tok.set_normalizer(N.NFC())
+    texts = zipf_corpus(300, seed=4) + list(MULTI_PIECES) + ["café " * 900, ""]
+    norm_stable_rows.launches = 0
+    got = tok.pipeline("cuda").encode_batch(texts)
+    torch.cuda.synchronize()
+    assert norm_stable_rows.launches > 0
+    assert got == tok.pipeline("cpu").encode_batch(texts) == tok.encode_batch(texts, backend="host")
+
+
+def _string_tier(path):
+    import json
+
+    from complexity_tokenizer_tpu_torch.models import ByteLevelBpeModel
+
+    with open(path, encoding="utf-8") as fh:
+        m = json.load(fh)["model"]
+    merges = [tuple(x.split(" ")) if isinstance(x, str) else tuple(x) for x in m["merges"]]
+    return ByteLevelBpeModel(m["vocab"], merges)
+
+
+@pytest.mark.parametrize("path", [BENCH_50K, BENCH_100K])
+def test_k9_matches_plain(path):
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows, merge_word_rows_plain
+
+    _need_card()
+    model = _string_tier(path)
+    dev = model._tiers.get("cuda")
+    words = sorted({w for t in zipf_corpus(400, seed=3) for w in model._split_words(t)})
+    words += [" " + "a" * 127, "=" * 128, " " + "ab" * 63, "é" * 60, " x中y"]
+    enc = model._byte_encoder
+    base = len(dev.symbols)
+    tokens = np.full((len(words), 128), -1, np.int32)
+    for r, w in enumerate(words):
+        syms = [dev.sym_id.get(enc[b], base) for b in w.encode()][:128]
+        tokens[r, : len(syms)] = syms
+    tokens[5, 3] = -1  # a tombstone inside a word
+    # the rows that separate the greedy apply from the JAX rule
+    text = " ".join(zipf_corpus(50, seed=2)).encode()
+    for breaks in (False, True):
+        # the breakers as symbols no merge names (ids past the universe)
+        runs = [[enc[b] + ("\0" if b in RUN_BREAKS else "") for b in r]
+                for r in run_rows(text, 16, 128, breaks)]
+        tokens = np.concatenate([tokens, dev.pack(runs)[0]])
+    t = torch.from_numpy(tokens).cuda()
+    args = (dev.disp, dev.rows, dev.chd.size, dev.chd.n_buckets)
+    got_t, got_c = merge_word_rows(t, *args)
+    torch.cuda.synchronize()
+    exp_t, exp_c = merge_word_rows_plain(t, *args)
+    assert torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c)
+    for width in (40, 7):  # narrower rows: another launch width, thread-walked words
+        tw = t[:, :width].contiguous()
+        got_t, got_c = merge_word_rows(tw, *args)
+        exp_t, exp_c = merge_word_rows_plain(tw, *args)
+        assert torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c)
+    empty = merge_word_rows(t[:0], *args)
+    assert empty[0].shape == (0, 128) and empty[1].shape == (0,)
+
+
+def _wp_models():
+    from complexity_tokenizer_tpu_torch.models import WordPieceModel
+    from complexity_tokenizer_tpu_torch.utils.corpus import bert_scale_wordpiece_vocab
+
+    bert = bert_scale_wordpiece_vocab()
+    return {
+        "bert": WordPieceModel(bert),
+        "bert_short_limit": WordPieceModel(bert, max_input_chars_per_word=6),
+        "no_unk": WordPieceModel({"ab": 0, "##c": 1, "a": 2, "##b": 3}),
+        "literal": WordPieceModel({"[UNK]": 0, "#": 1, "##abc": 2, "a": 3, "b": 4, "c": 5,
+                                   "##b": 6, "##c": 7, "##": 11}),
+    }
+
+
+@pytest.mark.parametrize("name", ["bert", "bert_short_limit", "no_unk", "literal", "poisoned"])
+def test_k10_matches_plain(name):
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+        build_wordpiece_tables,
+        wordpiece_match,
+        wordpiece_match_plain,
+        WordPieceDevice,
+    )
+
+    _need_card()
+    model = _wp_models()["bert" if name == "poisoned" else name]
+    tables = build_wordpiece_tables(model)
+    if name == "poisoned":
+        tc = tables.token_chars.copy()
+        tc[::7, 0] += 1  # every seventh slot's spelling: its hits fail the check
+        tables.token_chars = tc
+    dev = WordPieceDevice(tables, "cuda")
+    words = sorted({w for t in zipf_corpus(300, seed=8) + list(MULTI_PIECES) for w in t.split()})
+    words += ["", "##abc", "a##1", "#", "##", "x" * 128, "ab" * 50, "é" * 101, "<s>"]
+    chars = np.full((len(words), 128), -1, np.int32)
+    lens = np.zeros(len(words), np.int32)
+    for i, w in enumerate(words):
+        cps = [ord(c) for c in w][:128]
+        chars[i, : len(cps)] = cps
+        lens[i] = len(cps)
+    c, n = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
+    got = wordpiece_match(c, n, *dev.args(), tables.max_input_chars)
+    torch.cuda.synchronize()
+    exp = wordpiece_match_plain(c, n, *dev.args(), tables.max_input_chars)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert (name == "poisoned") == bool(got[2].any())
+    # 40 lanes, lengths past them (the plain version clips as JAX does)
+    c40 = c[:, :40].contiguous()
+    got = wordpiece_match(c40, n, *dev.args(), tables.max_input_chars)
+    exp = wordpiece_match_plain(c40, n, *dev.args(), tables.max_input_chars)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+
+
+def test_k11_matches_plain():
+    from complexity_tokenizer_tpu_torch.models import WordLevelModel
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+        wordlevel_lookup,
+        wordlevel_lookup_plain,
+    )
+    from complexity_tokenizer_tpu_torch.utils.corpus import wordlevel_vocab
+
+    _need_card()
+    dev = WordLevelModel(wordlevel_vocab())._tiers.get("cuda")
+    words = sorted({w for t in zipf_corpus(300, seed=12) + list(MULTI_PIECES) for w in t.split()})
+    words += ["", "<unk>", "x" * 128]
+    chars = np.full((len(words), 128), -1, np.int32)
+    lens = np.zeros(len(words), np.int32)
+    for i, w in enumerate(words):
+        chars[i, : len(w)] = [ord(ch) for ch in w]
+        lens[i] = len(w)
+    chars[0, 1] = -1
+    lens[1] += 1
+    c, n = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
+    got = wordlevel_lookup(c, n, *dev.args())
+    torch.cuda.synchronize()
+    assert torch.equal(got, wordlevel_lookup_plain(c, n, *dev.args()))
+    c40 = c[:, :40].contiguous()  # lengths past the lanes
+    assert torch.equal(wordlevel_lookup(c40, n, *dev.args()),
+                       wordlevel_lookup_plain(c40, n, *dev.args()))
+
+
+def test_models_on_card_match_host():
+    """Each model's ``encode_batch`` on the card launches its kernel and
+    equals the host ``encode``."""
+    from complexity_tokenizer_tpu_torch.models import CharBpeModel, WordLevelModel
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+        wordlevel_lookup,
+        wordpiece_match,
+    )
+    from complexity_tokenizer_tpu_torch.utils.corpus import wordlevel_vocab
+
+    _need_card()
+    merges = [("l", "o"), ("lo", "w</w>"), ("e", "r</w>"), ("w", "e"), ("l", "l"),
+              ("ll", "ll")]
+    vocab = {"<unk>": 0}
+    for s in "lowernst":
+        vocab.setdefault(s, len(vocab))
+        vocab.setdefault(s + "</w>", len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    texts = zipf_corpus(200, seed=21) + list(MULTI_PIECES) + ["low lower llllll " + "l" * 140]
+    for model, fn in ((_string_tier(BENCH_50K), merge_word_rows),
+                      (CharBpeModel(vocab, merges), merge_word_rows),
+                      (_wp_models()["bert"], wordpiece_match),
+                      (WordLevelModel(wordlevel_vocab()), wordlevel_lookup)):
+        fn.launches = 0
+        got = model.encode_batch(texts)
+        torch.cuda.synchronize()
+        assert fn.launches == 1 and model.last_route == "device"
+        assert got == [model.encode(t) for t in texts]
+
+
+def test_new_wrappers_refuse_bad_inputs():
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_stable_rows
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import wordlevel_lookup
+
+    _need_card()
+    arr = torch.zeros((4, 128), dtype=torch.uint8, device="cuda")
+    lens = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bitmap"):
+        norm_stable_rows(arr, lens, torch.zeros(100, dtype=torch.uint8, device="cuda"))
+    with pytest.raises(ValueError, match="lengths"):
+        norm_stable_rows(arr, lens.long(), torch.zeros(0x110000, dtype=torch.uint8, device="cuda"))
+    disp = torch.zeros(4, dtype=torch.int32, device="cuda")
+    rows = torch.full((16, 4), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="power of two"):
+        merge_word_rows(arr.int(), disp, rows, 15, 4)
+    with pytest.raises(ValueError, match="lanes"):
+        chars = torch.zeros((4, 256), dtype=torch.int32, device="cuda")
+        tc = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+        one = torch.zeros(1, dtype=torch.int32, device="cuda")
+        wordlevel_lookup(chars, lens, disp, rows, 16, 4, tc, one, one, 0)

@@ -3,7 +3,8 @@
 (g) It imports neither JAX nor the JAX package, at run time (a fresh
 subprocess) and in its source (an AST scan, ``chip_smoke.py`` included).
 (h) Its entry points, called with no ``device``, raise when there is no
-card (``encode_batch``, the pipelines, and ``__call__`` with
+card (``encode_batch``, the pipelines and ``EncodePipeline.encode_batch``,
+the word-level models' ``encode_batch``, and ``__call__`` with
 ``return_tensors="pt"`` or ``add_special_tokens=False``).  Also: the loader refuses a model the port does not run, and the
 kernel build raises without ``nvcc``.
 """
@@ -131,6 +132,53 @@ def test_pipeline_without_device_raises_without_card(no_card):
         build_encode_pipeline(tok)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tok.pipeline()
+
+
+def _models():
+    from complexity_tokenizer_tpu_torch import (
+        ByteLevelBpeModel,
+        CharBpeModel,
+        WordLevelModel,
+        WordPieceModel,
+    )
+
+    return [
+        ByteLevelBpeModel({"a": 0, "b": 1, "ab": 2}, [("a", "b")]),
+        CharBpeModel({"a": 0, "b</w>": 1, "ab</w>": 2}, [("a", "b</w>")]),
+        WordPieceModel({"[UNK]": 0, "ab": 1, "##b": 2}),
+        WordLevelModel({"<unk>": 0, "ab": 1}),
+        # an ineligible table: the host route, but the device is resolved all the same
+        CharBpeModel({"a": 0}, []),
+    ]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_models_without_device_raise_without_card(no_card, i):
+    """The models' ``encode_batch`` with no ``device`` runs on ``cuda`` and
+    raises where there is no card; ``device="cpu"`` runs the plain
+    versions, equal to the host ``encode``."""
+    model = _models()[i]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.encode_batch(["ab ab", "b"])
+    assert model.encode_batch(["ab ab", "b"], device="cpu") == [
+        model.encode("ab ab"), model.encode("b")]
+
+
+def test_norm_checker_and_pipeline_encode_batch_without_device_raise(no_card):
+    from complexity_tokenizer_tpu_torch.core.normalizers import NFC
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        DeviceNormChecker,
+        plan_for_normalizer,
+    )
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceNormChecker(plan_for_normalizer(NFC()))
+    tok = Tokenizer.from_str(TINY)
+    tok.set_normalizer(NFC())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tok.pipeline().encode_batch(["ab"])
+    texts = ["ab", "a\u0301b", "ab\u00e9"]
+    assert tok.pipeline("cpu").encode_batch(texts) == tok.encode_batch(texts, backend="host")
 
 
 def test_device_path_refuses_ineligible_tables():
