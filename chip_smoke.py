@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 17] [--texts 10000]
+    python3 chip_smoke.py [--seed 17] [--texts 10000] [--parent DIR]
 
 Phases (each prints its seconds):
 
@@ -71,8 +71,16 @@ Phases (each prints its seconds):
    30,522 entries (K10), WordLevel at 40,001 (K11); every text and every
    distinct word against the host ``encode``; the words the host took
    (poisoned, over 128 lanes) printed; each kernel against its plain
-   version on the path's input (K9 also on ``run_rows``), timed warm,
-   cold and plain beside its bound.
+   version on the path's input (K9 and K10 on the ragged words as their
+   tiers pack them; K9 also on ``run_rows``), timed warm, cold and plain
+   beside its bound and, for K9 and K10, the bound of the dense [B, 128]
+   output the earlier tiers wrote; K9 also at every tile size of
+   ``TILE_SWEEP``, each checked; K10's words counted by lane group.  With
+   ``--parent DIR`` (a checkout of the commit before the ragged K9 and
+   K10): that commit's one-word-a-row K9 and K10, built by
+   ``scripts/parent_word_kernels.py`` beside the package's kernels, on the
+   same words laid out as its tiers laid them out, checked against these
+   and timed in turns (parent, kernel, kernel, parent), and cold.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -1605,59 +1613,101 @@ def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict) -> dic
     return dict(launches={"50K EncodePipeline.encode_batch (NFC)": counts}, checks=results)
 
 
-def _symbol_probe_work(tokens, count, disp, rows) -> tuple:
-    """As _probe_work, with one word a row: every initial adjacent pair of
-    a row probed once and two probes a merge.  (probes, merges, table
-    bytes, operations)."""
-    alive = (tokens >= 0).sum(dim=1)
-    pairs = int((alive - 1).clamp(min=0).sum())
-    merges = int(alive.sum()) - int(count.sum())
+def _symbol_probe_work(syms, offs, count, disp, rows) -> tuple:
+    """As _probe_work, over ragged words: every initial adjacent pair of a
+    word probed once and two probes a merge.  (probes, merges, table bytes,
+    operations)."""
+    import torch.nn.functional as F
+
+    csum = F.pad((syms >= 0).int().cumsum(0), (1, 0))
+    live = csum[offs[1:].long()] - csum[offs[:-1].long()]
+    pairs = int((live - 1).clamp(min=0).sum())
+    merges = int(live.sum()) - int(count.sum())
     probes = pairs + 2 * merges
     return (probes, merges, min(probes * 20, 4 * (disp.numel() + rows.numel())),
             probes * OPS_PER_PROBE_CHD)
 
 
-def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=None) -> dict:
+# K9's tile sizes (symbols a tile) timed beside the package's TILE_SYMBOLS
+TILE_SWEEP = (256, 384, 640, 896, 1408, 1920)
+
+
+def _in_turns(kernel, parent, reps: int = 20) -> tuple[list, list]:
+    """Warm ms of ``parent`` and ``kernel`` in turns: parent, kernel,
+    kernel, parent."""
+    p0, k0, k1, p1 = (_time_ms(f, reps) for f in (parent, kernel, kernel, parent))
+    return [k0, k1], [p0, p1]
+
+
+def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=None,
+                       parent=None) -> dict:
     """The kernel of a model's tier (K9, K10 or K11) against its plain
     version on the main path's input (the batch's distinct words, packed by
-    the tier), timed warm, cold and plain, with its bound.  The bound
-    counts the live input only (each row's symbols or characters, and a
-    length a row; a WordPiece word over its limit needs its length alone),
-    the dense outputs, and the table bytes the probes touch, each once."""
+    the tier: ragged for K9 and K10, dense rows for K11), timed warm, cold
+    and plain, with its bound.  The bound counts the live input only (each
+    word's symbols or characters, and its offset and length; a WordPiece
+    word over its limit needs its length alone), the outputs (K9 and K10:
+    an id a live position, a count a word, K10's poison flags) and the
+    table bytes the probes touch, each once; ``dense_bound_ms`` the same
+    with the [B, 128] output the dense tiers wrote.  K9 is also timed at
+    every tile size of ``TILE_SWEEP`` (each checked), K10's words counted
+    by lane group.  With ``parent`` (``scripts/parent_word_kernels.py``)
+    the earlier one-word-a-row K9 or K10 runs on the same words as its tier
+    laid them out, is checked against this kernel's result, and the two are
+    timed in turns, warm, and the parent cold."""
+    import numpy as np
     import torch
 
-    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows, merge_word_rows_plain
+    from complexity_tokenizer_tpu_torch.ops.merge import (
+        TILE_SYMBOLS,
+        WORD_LANES,
+        launch_shape,
+        merge_word_rows,
+        merge_word_rows_ragged_plain,
+        word_tiles,
+    )
     from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
         wordlevel_lookup,
         wordlevel_lookup_plain,
+        wordpiece_launch_shape,
         wordpiece_match,
-        wordpiece_match_plain,
+        wordpiece_match_ragged_plain,
     )
 
     table_bytes_all = 4 * (tier.disp.numel() + tier.rows.numel())
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    extra_out: dict = {}
     if name == "merge_word_rows":
-        tokens = torch.from_numpy(tier.pack(sym_rows)[0]).cuda()
+        syms_np, offs_np = tier.pack(sym_rows)[:2]
+        syms, offs = on(syms_np), on(offs_np)
         args = (tier.disp, tier.rows, tier.chd.size, tier.chd.n_buckets)
-        kernel = lambda: merge_word_rows(tokens, *args)  # noqa: E731
-        plain = lambda: merge_word_rows_plain(tokens, *args)  # noqa: E731
-        cold_fn, inputs = (lambda t: merge_word_rows(t, *args)), (tokens,)
-        B, W = tokens.shape
-        out_bytes = 4 * B * W + 4 * B
+        tiles = on(word_tiles(offs_np, TILE_SYMBOLS))
+        kernel = lambda: merge_word_rows(syms, offs, tiles, *args)  # noqa: E731
+        plain = lambda: merge_word_rows_ragged_plain(syms, offs, *args)  # noqa: E731
+        cold_fn, inputs = (lambda s, o, t: merge_word_rows(s, o, t, *args)), (syms, offs, tiles)
+        B, N = offs.numel() - 1, syms.numel()
+        out_bytes = 4 * N + 4 * B
+        shape = [N, B]
+    elif name == "wordpiece_match":
+        chars_np, offs_np, lens_np, order, groups, _host = tier.pack(words)
+        chars, offs, lens = on(chars_np), on(offs_np), on(lens_np)
+        mi = tier.t.max_input_chars
+        kernel = lambda: wordpiece_match(chars, offs, lens, groups, *tier.args(), mi)  # noqa: E731
+        plain = lambda: wordpiece_match_ragged_plain(chars, offs, lens, *tier.args(), mi)  # noqa: E731
+        cold_fn = lambda c, o, n: wordpiece_match(c, o, n, groups, *tier.args(), mi)  # noqa: E731
+        inputs = (chars, offs, lens)
+        B, N = lens.numel(), chars.numel()
+        out_bytes = 4 * N + 5 * B
+        shape = [N, B]
     else:
         chars, lens, _ = tier.pack(words)
-        chars, lens = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
+        chars, lens = on(chars), on(lens)
         B, W = chars.shape
-        if name == "wordpiece_match":
-            extra = (tier.t.max_input_chars,)
-            kfn, pfn = wordpiece_match, wordpiece_match_plain
-            out_bytes = 4 * B * W + 5 * B
-        else:
-            extra = ()
-            kfn, pfn = wordlevel_lookup, wordlevel_lookup_plain
-            out_bytes = 4 * B
-        kernel = lambda: kfn(chars, lens, *tier.args(), *extra)  # noqa: E731
-        plain = lambda: pfn(chars, lens, *tier.args(), *extra)  # noqa: E731
-        cold_fn, inputs = (lambda c, n: kfn(c, n, *tier.args(), *extra)), (chars, lens)
+        kernel = lambda: wordlevel_lookup(chars, lens, *tier.args())  # noqa: E731
+        plain = lambda: wordlevel_lookup_plain(chars, lens, *tier.args())  # noqa: E731
+        cold_fn, inputs = (lambda c, n: wordlevel_lookup(c, n, *tier.args())), (chars, lens)
+        out_bytes = 4 * B
+        shape = [B, W]
     got = kernel()
     torch.cuda.synchronize()
     exp = plain()
@@ -1665,31 +1715,122 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
     exp_t = exp if isinstance(exp, tuple) else (exp,)
     match = all(torch.equal(a, b) for a, b in zip(got_t, exp_t))
     err = max(_max_abs_err(a.long(), b.long()) for a, b in zip(got_t, exp_t))
+    if not match:
+        raise AssertionError(f"{name} differs from its plain version: {label}")
     ms, ms_cold, plain_ms = _timings(kernel, plain, cold_fn, inputs, out_bytes)
     if name == "merge_word_rows":
-        live = int((tokens >= 0).sum())
-        probes, merges, tbytes, ops = _symbol_probe_work(tokens, exp_t[1], tier.disp, tier.rows)
-        work = f"{live} symbols, {probes} probes, {merges} merges"
+        live = int((syms >= 0).sum())
+        probes, merges, tbytes, ops = _symbol_probe_work(syms, offs, exp_t[1], tier.disp,
+                                                         tier.rows)
+        T = tiles.numel() - 1
+        sweep = {}
+        for S in TILE_SWEEP:  # every tile size bit for bit, then timed
+            t_S = on(word_tiles(offs_np, S))
+            r = merge_word_rows(syms, offs, t_S, *args, tile=S)
+            if not (torch.equal(r[0], exp_t[0]) and torch.equal(r[1], exp_t[1])):
+                raise AssertionError(f"K9 at tiles of {S} symbols differs: {label}")
+            sweep[S] = {"tiles": t_S.numel() - 1,
+                        "ms": _time_ms(lambda: merge_word_rows(syms, offs, t_S, *args, tile=S), 20),
+                        "launch": launch_shape(S + WORD_LANES - 1, ragged=True)}
+        extra_out.update(tile=TILE_SYMBOLS, tiles=T, sweep=sweep,
+                         launch=launch_shape(TILE_SYMBOLS + WORD_LANES - 1, ragged=True))
+        work = (f"{live} symbols, {B} words, {probes} probes, {merges} merges; S={TILE_SYMBOLS}, "
+                f"{T} tiles; sweep (S: tiles, ms) "
+                + ", ".join(f"{S}: {v['tiles']}, {v['ms']:.4f}" for S, v in sweep.items()))
+        in_bytes = 4 * live + 4 * (B + 1)
     elif name == "wordpiece_match":
-        live = int(lens[lens <= tier.t.max_input_chars].sum())
+        within = lens <= tier.t.max_input_chars
+        live = int(lens[within].sum())
         emits = int(exp_t[1].sum())  # at least one probe (a hit) and its check an id
         probes, tbytes = emits, min(emits * 20, table_bytes_all)
         ops = emits * OPS_PER_PROBE_CHD
-        work = f"{live} characters, {emits} ids, {int(exp_t[2].sum())} poisoned"
+        hist = {"8 lanes": groups[0], "16 lanes": groups[1] - groups[0], "warp": B - groups[1]}
+        warps = -(-groups[0] // 4) + -(-(groups[1] - groups[0]) // 2) + (B - groups[1])
+        extra_out.update(groups=hist, warps=warps, launch=wordpiece_launch_shape())
+        work = (f"{live} characters, {B} words, {emits} ids, {int(exp_t[2].sum())} poisoned; "
+                f"words by lane group {hist}, {warps} warps")
+        in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     else:
         live = int(lens.sum())
         probes = int((lens > 0).sum())
         tbytes, ops = min(probes * 20, table_bytes_all), probes * OPS_PER_PROBE_CHD
         work = f"{live} characters, {probes} probes, {int((exp_t[0] == tier.t.unk_id).sum())} UNK"
-    bound_ms, bound_by = _bound(4 * (live + B) + out_bytes + tbytes, ops)
-    print(f"[{name}] {label} [{B},{W}] match={match} max_abs_err={err} kernel={ms:.4f} ms "
+        in_bytes = 4 * (live + B)
+    bound_ms, bound_by = _bound(in_bytes + out_bytes + tbytes, ops)
+    if name != "wordlevel_lookup":
+        # the yardstick of the dense tiers: [B, 128] ids out, counts (and
+        # K10's poison flags)
+        dense_out = 4 * B * WORD_LANES + (5 if name == "wordpiece_match" else 4) * B
+        extra_out["dense_bound_ms"] = _bound(in_bytes + dense_out + tbytes, ops)[0]
+    print(f"[{name}] {label} {shape} match={match} max_abs_err={err} kernel={ms:.4f} ms "
           f"cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; "
-          f"{work})", flush=True)
-    if not match:
-        raise AssertionError(f"{name} differs from its plain version: {label}")
-    return dict(inputs=label, shape=[B, W], match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
+          f"{work})" + (f" dense-output bound={extra_out['dense_bound_ms']:.4f} ms"
+                        if "dense_bound_ms" in extra_out else "")
+          + (f" launch={extra_out['launch']}" if "launch" in extra_out else ""), flush=True)
+    if parent is not None and name == "merge_word_rows":
+        extra_out.update(_parent_check(label, name, tier, parent, kernel, exp_t, offs_np,
+                                       syms_np=syms_np, args=args))
+    elif parent is not None and name == "wordpiece_match":
+        extra_out.update(_parent_check(label, name, tier, parent, kernel, exp_t, offs_np,
+                                       words=words, order=order))
+    return dict(inputs=label, shape=shape, match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                probes=probes)
+                probes=probes, **extra_out)
+
+
+def _parent_check(label: str, name: str, tier, parent, kernel, exp_t, offs_np, syms_np=None,
+                  args=None, words=None, order=None) -> dict:
+    """The earlier one-word-a-row kernel on the same words as its tier laid
+    them out ([B, 128] rows in the words' order; K9: ``syms_np`` and the
+    table ``args``, K10: the ``words`` and this tier's packing ``order``),
+    its result against this kernel's ``exp_t`` at ``offs_np``, and the two
+    timed in turns; the parent also cold."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.merge import WORD_LANES
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from parent_word_kernels import dense_wordpiece_rows
+
+    lens_np = np.diff(offs_np)
+    word = np.repeat(np.arange(len(lens_np)), lens_np)
+    col = np.arange(int(offs_np[-1])) - offs_np[:-1][word]
+    if name == "merge_word_rows":
+        tokens = np.full((len(lens_np), WORD_LANES), -1, np.int32)
+        tokens[word, col] = syms_np
+        tokens = torch.from_numpy(tokens).cuda()
+        pfn = lambda: parent.merge_word_rows(tokens, *args)  # noqa: E731
+        cold_fn, inputs = (lambda t: parent.merge_word_rows(t, *args)), (tokens,)
+        got = pfn()
+        dense = torch.full_like(tokens, -1)
+        dense[torch.from_numpy(word).cuda(), torch.from_numpy(col).cuda()] = exp_t[0]
+        same = torch.equal(got[0], dense) and torch.equal(got[1], exp_t[1])
+        out_bytes = tokens.numel() * 4 + 4 * tokens.shape[0]
+    else:
+        mi = tier.t.max_input_chars
+        chars, lens = (torch.from_numpy(x).cuda() for x in dense_wordpiece_rows(words, mi))
+        targs = tier.args()
+        pfn = lambda: parent.wordpiece_match(chars, lens, *targs, mi)  # noqa: E731
+        cold_fn, inputs = (lambda c, n: parent.wordpiece_match(c, n, *targs, mi)), (chars, lens)
+        got = pfn()
+        dense = torch.full_like(chars, -1)
+        dense[torch.from_numpy(order[word]).cuda(), torch.from_numpy(col).cuda()] = exp_t[0]
+        o = torch.from_numpy(order).cuda()
+        same = (torch.equal(got[0], dense) and torch.equal(got[1][o], exp_t[1])
+                and torch.equal(got[2][o], exp_t[2]))
+        out_bytes = chars.numel() * 4 + 5 * chars.shape[0]
+    torch.cuda.synchronize()
+    if not same:
+        raise AssertionError(f"the parent's {name} differs from this one's: {label}")
+    turns_ms, parent_ms = _in_turns(kernel, pfn)
+    sets = _cold_sets(inputs, out_bytes)
+    parent_cold = _time_cold_ms(cold_fn, sets, 20)
+    del sets
+    print(f"[{name}] {label} parent (one word a row) match=True: in turns parent "
+          f"{parent_ms[0]:.4f} ms, kernel {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, parent "
+          f"{parent_ms[1]:.4f}; parent cold {parent_cold:.4f} ms", flush=True)
+    return dict(parent_ms=parent_ms, parent_ms_cold=parent_cold, ms_in_turns=turns_ms)
 
 
 def _bytelevel_model(path: str):
@@ -1727,7 +1868,7 @@ MODEL_CONFIGS = (
 )
 
 
-def drive_models(texts: list[str], kernels_of: dict) -> dict:
+def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
     """The word-level models at full width, each through ``encode_batch``
     (the entry point a user calls) on the corpus, with the launch counts
     set to 0 just before and read just after (its tier's kernel once, no
@@ -1738,7 +1879,7 @@ def drive_models(texts: list[str], kernels_of: dict) -> dict:
     distinct word through ``encode_batch`` alone against the host; the
     words the host took (poisoned, over 128 lanes, an ineligible table)
     are counted.  Then each kernel against its plain version on the main
-    path's input."""
+    path's input (K9 and K10 also against ``parent``'s, when given)."""
     import torch
 
     from complexity_tokenizer_tpu_torch.models import WordLevelModel, WordPieceModel
@@ -1788,7 +1929,7 @@ def drive_models(texts: list[str], kernels_of: dict) -> dict:
                         if hasattr(model, "_text_to_byte_tokens")
                         else [list(w)[:-1] + [w[-1] + model.end_of_word_suffix] for w in uniq])
         out["checks"].setdefault(kname, []).append(
-            check_model_kernel(label, kname, tier, uniq, sym_rows))
+            check_model_kernel(label, kname, tier, uniq, sym_rows, parent))
         if label == "ByteLevel BPE 50K":
             # the rows that separate the greedy apply from the JAX rule, as
             # words of 128 byte-level symbols; with breaks, the run breakers
@@ -1819,6 +1960,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17, help="corpus and input seed")
     ap.add_argument("--texts", type=int, default=10_000, help="Zipf texts")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the commit before the ragged K9 and K10, whose kernels "
+                         "are built and timed beside these (scripts/parent_word_kernels.py)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1898,12 +2042,38 @@ def main(argv=None) -> int:
             native_build["error"] = e
         native_build["seconds"] = time.perf_counter() - t1
 
+    parent_build: dict = {}
+
+    def build_parent():
+        try:
+            sys.path.insert(0, os.path.join(REPO, "scripts"))
+            from parent_word_kernels import ParentKernels
+
+            parent_build["kernels"] = ParentKernels(args.parent)
+        except BaseException as e:  # raised below, in this thread
+            parent_build["error"] = e
+
     builder = threading.Thread(target=build_native)
     builder.start()
+    parent_thread = threading.Thread(target=build_parent)
+    if args.parent:
+        parent_thread.start()
     lib = kernel_library()
     builder.join()
     if "error" in native_build:
         raise native_build["error"]
+    if args.parent:
+        parent_thread.join()
+        if "error" in parent_build:
+            raise parent_build["error"]
+        pk = parent_build["kernels"]
+        print(f"parent's K9 and K10 ({args.parent}): {pk.build_seconds:.3f} s nvcc")
+        fn = ""
+        for line in pk.ptxas_log.splitlines():  # the dense K9's and K10's entries only
+            if "Compiling entry function" in line:
+                fn = line
+            elif "registers" in line and ("WordRows" in fn or "wordpiece_kernel" in fn):
+                print("  parent " + fn.split("'")[1] + ": " + line.split(":", 1)[-1].strip())
     built = f"{lib.build_seconds:.3f} s nvcc" if lib.build_seconds else "reused an earlier build"
     print(f"build: {built} -> {os.path.relpath(lib.path, REPO)}")
     for line in lib.ptxas_log.splitlines():
@@ -1938,7 +2108,7 @@ def main(argv=None) -> int:
     call100 = drive_call("100K", TOKENIZER_100K, texts, r100["host"], kernels_of)
     warm = drive_warm_cache(texts, r100["host"])
     norm = drive_norm(texts, r50["host"], kernels_of)
-    mdl = drive_models(texts, kernels_of)
+    mdl = drive_models(texts, kernels_of, parent_build.get("kernels"))
     # the paths of this slice, by name, for every kernel's launches_by_path
     new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()}}
     # every kernel of a path was launched on it and no other: the text
@@ -2240,6 +2410,10 @@ def main(argv=None) -> int:
             "library_ms": None,
             "checks": res,
         })
+        for key in ("dense_bound_ms", "tile", "tiles", "sweep", "groups", "warps", "launch",
+                    "parent_ms", "parent_ms_cold", "ms_in_turns"):
+            if key in main:
+                kernels[-1][key] = main[key]
     if _sha1(blob50) != blob50_sha1:
         raise AssertionError("the tracked 50K warm-cache file changed during the run")
     print(json.dumps({"call": {

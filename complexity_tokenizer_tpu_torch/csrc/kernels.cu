@@ -818,12 +818,12 @@ __device__ __forceinline__ void chd_first_round(const int32_t* t, uint64_t* rm,
 // K2 and K5: the kernel's own arguments tokens_in, wid
 struct TokenRows {
   static constexpr bool kFill = false;
-  static constexpr bool kWordRow = false;
+  static constexpr bool kRagged = false;
 };
 
 struct FillRows {
   static constexpr bool kFill = true;
-  static constexpr bool kWordRow = false;
+  static constexpr bool kRagged = false;
   const uint8_t* __restrict__ bytes;       // [B, L]
   const uint8_t* __restrict__ start_bits;  // [B, L / 8], little endian
   const int32_t* __restrict__ row_len;     // [B]
@@ -831,36 +831,62 @@ struct FillRows {
 };
 
 // ---------------------------------------------------------------------------
-// K9: the merge fixpoint with one word a row.
+// K9: the merge fixpoint over ragged words, many words a block.
 //
 // Replaces _word_rows_fixpoint / merge_word_rows (complexity_tokenizer_tpu/
 // ops/merge.py), which CharBPE and the ByteLevel BPE model run over the
-// dense symbol ids of their string merge tables (ops/stringbpe_device.py):
-// tokens [B, W] int32 (-1 pads and tombstones), the row is the word ->
-// merged tokens [B, W] and live counts [B], bit for bit its plain twin
-// merge_word_rows_plain (ops/merge.py).  It is K5's kernel with a third row
-// policy, WordRows: the prologue reads the tokens alone (no word-id tensor)
-// and marks one word start, at position 0, so the walk is K5's (the first
-// round, then a warp over the row's alive entries) and its greedy apply is
-// that of the JAX step with one word a row: every best pair, the leading
-// one winning in a run of equal symbols, on a well-formed table (the
-// build refuses the others, C6).  Symbol ids run past the table's
-// universe (characters no merge names, numbered after it per batch): the
-// CHD probe compares both keys of a row and assumes no bound on the ids,
-// so such an id never hits.
+// symbol ids of their string merge tables (ops/stringbpe_device.py), one
+// word a [B, 128] row.  Here the words come ragged: syms [N] int32, the
+// live symbols of all words end to end, and offs [B + 1] int32 -> the
+// merged ids at the same flat offsets (-1 tombstones) and a live count a
+// word, bit for bit merge_word_rows_plain (ops/merge.py) on the words
+// scattered into rows.  It is K5's kernel with a fourth row policy,
+// RaggedRows: tile k (a block) takes the words whose start offset lies in
+// [k S, (k + 1) S) (tiles [T + 1], the first word of each, from
+// ops/merge.py:word_tiles), so its symbols span at most S + 127 lanes and
+// no word straddles two tiles.  The prologue loads the tile's symbols and
+// sets the start flag at each word's offset (and the gap flag past the
+// last word); from there on everything is K5's: the first round, the
+// counting sort, a warp a word over 32 symbols, a lane a shorter one.  The
+// epilogue writes the tile's symbols back in place and counts each word's
+// live ids (a thread a word).  On a well-formed table (the build refuses
+// the others, C6) K5's greedy apply reaches the JAX step's fixpoint, word
+// by word.  Symbol ids run past the table's universe (characters no merge
+// names, numbered after it per batch): the CHD probe compares both keys of
+// a row and assumes no bound on the ids, so such an id never hits.
 //
 // Bound: latency, as K5's: each step of a word waits on its probes in L2.
-// One block of 64 threads a row of 128 lanes (K5's launch for rows up to
-// 256), so a batch of n words is n blocks, at least 16 resident an SM;
-// the word is walked by one warp and the other waits.  On an NVIDIA H100
-// 80GB HBM3 at 700 W (chip_smoke.py): 0.227-0.228 ms for the 44,974
-// distinct words of the benchmark corpus at 50K (0.241-0.243 at 100K);
-// its share of the bound (the live symbols in, the dense rows out, the
-// probes' table entries) is in PERF.md, section 6.
-struct WordRows {
+// Where one word a block of 64 threads left 63 lanes waiting and at most
+// 32 blocks an SM (about 4,200 words in flight on 132 SMs), a tile of
+// S = 896 symbols holds about 100 words of the corpus, so the whole batch
+// is in flight in one wave; and the ragged layout moves the live symbols
+// only, where the dense rows moved 128 lanes a word each way.  Times and
+// the bound are in PERF.md, section 6.
+struct RaggedRows {
   static constexpr bool kFill = false;
-  static constexpr bool kWordRow = true;
+  static constexpr bool kRagged = true;
+  const int32_t* __restrict__ syms;   // [N]
+  const int32_t* __restrict__ offs;   // [B + 1]
+  const int32_t* __restrict__ tiles;  // [T + 1], the first word of each tile, then B
 };
+
+// RaggedRows' prologue: the tile's symbols [lo, lo + n) in t (-1 past n),
+// and in aux a start flag at position 0, at each word's offset and at n,
+// and the gap flag from n on.  An empty word shares its start with the
+// next word, which changes nothing; two threads may set the same flag.
+template <int kThreads>
+__device__ __forceinline__ void ragged_load(const RaggedRows& io, int32_t* t, uint16_t* aux,
+                                            int w0, int w1, int lo, int n, int L, int tid) {
+  for (int i = tid; i < L; i += kThreads) {
+    t[i] = i < n ? __ldg(io.syms + lo + i) : -1;
+    aux[i] = (uint16_t)((i == 0 || i == n ? kStartBit : 0) | (i >= n ? kGapBit : 0));
+  }
+  __syncthreads();
+  for (int w = w0 + 1 + tid; w < w1; w += kThreads) {
+    const int s = __ldg(io.offs + w) - lo;
+    if (s < n) aux[s] |= kStartBit;
+  }
+}
 
 // K6's prologue: puts row `row`'s tokens in t and its start / gap flags in
 // aux.  The bytes, start bits and length of the row are loaded together,
@@ -898,8 +924,10 @@ __device__ __forceinline__ void fill_load(const FillRows& io, int32_t* t, uint16
 
 // kMinBlocks: the launch bound, resident blocks per SM (K2: 2048 threads,
 // so 32 registers; K5: min_blocks_chd).  R: TokenRows (K2, K5: the rows
-// are tokens_in / wid) or FillRows (K6: the rows are io's, and tokens_in
-// and wid are null).  Both write tokens_out / count.
+// are tokens_in / wid), FillRows (K6: the rows are io's, and tokens_in
+// and wid are null) or RaggedRows (K9: the block is tile blockIdx.x of
+// io's words; tokens_out is [N] and count [B]).  All write tokens_out /
+// count.
 template <class P, int kThreads, int kMinBlocks, class R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
@@ -914,7 +942,7 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   constexpr int kWarps = kThreads / 32;
   constexpr int kEw = kEntryWords<P>;
   // the word starts and gaps as flags in aux (K5, K6), or word ids in rm
-  constexpr bool kFlags = P::kBatched || R::kFill || R::kWordRow;
+  constexpr bool kFlags = P::kBatched || R::kFill || R::kRagged;
   extern __shared__ __align__(16) int32_t smem[];
   // [L] tokens and [L] probes; the 8-byte probes of K5 go first, aligned
   int32_t* t = kEw == 1 ? smem : smem + kEw * L;
@@ -928,14 +956,26 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   __shared__ int next_chunk, next_word, n_short, block_count;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t base = (int64_t)blockIdx.x * L;
+  // RaggedRows: the tile's words [w0, w1) and their symbols [lo, lo + n),
+  // kept in shared memory over the walks (in registers they spill)
+  __shared__ int tile_at[4];
   if constexpr (R::kFill) {
     fill_load<kThreads>(io, t, aux, blockIdx.x, L, tid);
-  } else if constexpr (R::kWordRow) {
-    // one word, from position 0; its tombstones are skipped by the walk
-    for (int i = tid; i < L; i += kThreads) {
-      t[i] = tokens_in[base + i];
-      aux[i] = i == 0 ? kStartBit : 0;
+  } else if constexpr (R::kRagged) {
+    const int tw0 = __ldg(io.tiles + blockIdx.x), tw1 = __ldg(io.tiles + blockIdx.x + 1);
+    const int tlo = __ldg(io.offs + tw0), n_sym = __ldg(io.offs + tw1) - tlo;
+    if (tid == 0) {
+      tile_at[0] = tw0;
+      tile_at[1] = tw1;
+      tile_at[2] = tlo;
+      tile_at[3] = n_sym;
     }
+    if (n_sym > L) {  // tiles not made for these lanes: every count -1
+      for (int w = tw0 + tid; w < tw1; w += kThreads) count[w] = -1;
+      for (int i = tid; i < n_sym; i += kThreads) tokens_out[tlo + i] = -1;
+      return;
+    }
+    ragged_load<kThreads>(io, t, aux, tw0, tw1, tlo, n_sym, L, tid);
   } else if constexpr (P::kBatched) {
     // the word starts and gaps as flags in aux, from each lane's word id
     // and its left neighbour's
@@ -1115,6 +1155,17 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   }
   __syncthreads();
 
+  if constexpr (R::kRagged) {
+    const int tw0 = tile_at[0], tw1 = tile_at[1], tlo = tile_at[2], n_sym = tile_at[3];
+    for (int i = tid; i < n_sym; i += kThreads) tokens_out[tlo + i] = t[i];
+    for (int w = tw0 + tid; w < tw1; w += kThreads) {
+      const int e = __ldg(io.offs + w + 1) - tlo;
+      int live = 0;
+      for (int q = __ldg(io.offs + w) - tlo; q < e; ++q) live += t[q] >= 0;
+      count[w] = live;
+    }
+    return;
+  }
   int n = 0;
   for (int i = tid; i < L; i += kThreads) {
     const int32_t v = t[i];
@@ -1136,7 +1187,10 @@ template <class P, int kThreads, class R>
 cudaError_t launch_merge(const int32_t* tokens_in, const int32_t* wid, P tb,
                          int32_t* tokens_out, int32_t* count, int B, int L,
                          cudaStream_t stream, int* info, R io) {
-  constexpr int kMinBlocks = P::kBatched ? min_blocks_chd(kThreads) : 2048 / kThreads;
+  // K9's tiles need few resident blocks (a batch is about 3 an SM at S =
+  // 896), and at 40 registers its walk spills: 1,024 threads an SM
+  constexpr int kMinBlocks = R::kRagged ? kChdSmallSmThreads / kThreads
+                             : P::kBatched ? min_blocks_chd(kThreads) : 2048 / kThreads;
   const auto kernel = merge_fixpoint_kernel<P, kThreads, kMinBlocks, R>;
   // tokens 4 B and probes 4 or 8 B a position, alive lists, boundaries
   // (L + 1) and the sorted short words 2 B each
@@ -1298,25 +1352,33 @@ int ctok_word_merge_chd(const void* bytes, const void* start_bits, const void* r
                                   count, B, L, stream);
 }
 
-// K9, the merge fixpoint with one word a row, on the CHD table: tokens_in
-// [B, L] int32 -> tokens_out [B, L] int32, count [B] int32; rows 16-byte
-// aligned, as for ctok_merge_fixpoint_chd
-int ctok_merge_word_rows(const void* tokens_in, const void* disp, const void* rows,
-                         unsigned size_mask, unsigned bucket_mask, void* tokens_out,
-                         void* count, int B, int L, void* stream) {
+// K9, the merge fixpoint over ragged words on the CHD table: syms [N]
+// int32, offs [B + 1] int32, tiles [n_tiles + 1] int32 (the first word of
+// each tile, then B; a tile's symbols span at most `lanes`) -> out [N]
+// int32, count [B] int32; rows 16-byte aligned, as for
+// ctok_merge_fixpoint_chd
+int ctok_merge_word_rows(const void* syms, const void* offs, const void* tiles, int n_tiles,
+                         int lanes, const void* disp, const void* rows, unsigned size_mask,
+                         unsigned bucket_mask, void* out, void* count, void* stream) {
   const ChdProbe tb{static_cast<const int32_t*>(disp),
                     static_cast<const int4*>(rows), (uint32_t)size_mask,
                     (uint32_t)bucket_mask};
-  return (int)dispatch_merge(tokens_in, nullptr, tb, tokens_out, count, B, L, stream,
-                             nullptr, WordRows{});
+  const RaggedRows io{static_cast<const int32_t*>(syms), static_cast<const int32_t*>(offs),
+                      static_cast<const int32_t*>(tiles)};
+  return (int)dispatch_merge(nullptr, nullptr, tb, out, count, n_tiles, lanes, stream, nullptr,
+                             io);
 }
 
-// The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L, or with
-// fill = 1 that of K6 on the same table: info gets threads a block,
-// registers a thread, static and dynamic shared bytes a block, local
-// (spill) bytes a thread and resident blocks per SM.
-int ctok_merge_fixpoint_info(int chd, int fill, int L, int* info) {
-  if (fill) {
+// The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L, with
+// policy 1 that of K6 on the same table, with policy 2 that of K9 (CHD
+// only) for tiles of L lanes: info gets threads a block, registers a
+// thread, static and dynamic shared bytes a block, local (spill) bytes a
+// thread and resident blocks per SM.
+int ctok_merge_fixpoint_info(int chd, int policy, int L, int* info) {
+  if (policy == 2)
+    return (int)dispatch_merge(nullptr, nullptr, ChdProbe{}, nullptr, nullptr, 1, L, nullptr,
+                               info, RaggedRows{});
+  if (policy == 1) {
     if (chd)
       return (int)dispatch_word_merge(nullptr, nullptr, nullptr, nullptr, ChdProbe{}, nullptr,
                                       nullptr, 1, L, nullptr, info);

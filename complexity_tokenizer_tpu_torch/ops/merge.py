@@ -1,8 +1,10 @@
 """Segmented BPE merge fixpoint: kernels K2, K5 and K9 and their plain versions.
 
-K9 (:func:`merge_word_rows`) is the same fixpoint with one word a row, on
-the CHD table: the device tier of CharBPE and the ByteLevel BPE model
-(``ops/stringbpe_device.py``).
+K9 (:func:`merge_word_rows`) is the same fixpoint over ragged words (the
+symbols of all words end to end, and their offsets), on the CHD table: the
+device tier of CharBPE and the ByteLevel BPE model
+(``ops/stringbpe_device.py``).  A block takes a tile of whole words
+(:func:`word_tiles`).
 
 K2 (:func:`merge_words_qc`) probes the u16 two-choice cuckoo table, K5
 (:func:`merge_words`) the CHD table of the vocabularies past u16; both run
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..utils.cuda_build import check, kernel_library
@@ -41,8 +44,17 @@ __all__ = [
     "merge_fixpoint_chd_plain",
     "merge_word_rows",
     "merge_word_rows_plain",
+    "merge_word_rows_ragged_plain",
+    "word_tiles",
+    "TILE_SYMBOLS",
+    "WORD_LANES",
     "launch_shape",
 ]
+
+# K9: the symbols a word may hold, and the symbols a tile's words start in
+# (S; chosen by the sweep of chip_smoke.py, PERF.md section 6)
+WORD_LANES = 128
+TILE_SYMBOLS = 896
 
 
 def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
@@ -186,6 +198,53 @@ def merge_word_rows_plain(tokens, disp, rows, size: int, n_buckets: int):
     return t, count
 
 
+def _ragged_index(offs: torch.Tensor):
+    """(word, column) of each flat position of the ragged words ``offs``."""
+    lens = (offs[1:] - offs[:-1]).long()
+    word = torch.repeat_interleave(torch.arange(lens.numel(), device=offs.device), lens)
+    return word, torch.arange(word.numel(), device=offs.device) - offs.long()[word]
+
+
+def merge_word_rows_ragged_plain(syms, offs, disp, rows, size: int, n_buckets: int):
+    """Plain PyTorch version of K9, on any device: the words scattered into
+    rows, :func:`merge_word_rows_plain`, and gathered back.
+
+    Args:
+      syms: [N] int32, the symbols of all words end to end (-1 = tombstone).
+      offs: [B + 1] int32, word i is ``syms[offs[i]:offs[i + 1]]``.
+      disp, rows, size, n_buckets: the CHD table, as for
+        :func:`merge_fixpoint_chd_plain`.
+    Returns:
+      (out [N] int32: the merged ids at their words' first symbol, -1
+      elsewhere; count [B] int32: live ids a word).
+    """
+    B = offs.numel() - 1
+    word, col = _ragged_index(offs)
+    W = max(1, int(col.max()) + 1) if col.numel() else 1
+    dense = torch.full((B, W), -1, dtype=torch.int32, device=syms.device)
+    dense[word, col] = syms
+    t, count = merge_word_rows_plain(dense, disp, rows, size, n_buckets)
+    return t[word, col], count
+
+
+def word_tiles(offs, tile: int = TILE_SYMBOLS) -> np.ndarray:
+    """K9's tiles of whole words: tile k takes the words whose first symbol
+    lies in ``[k * tile, (k + 1) * tile)``, the last tile also the empty
+    words at the end.  Returns the first word of each tile, then B: [T + 1]
+    int32, with T = ceil(N / tile) (at least 1 when there are words).  A
+    tile's symbols then span at most ``tile + WORD_LANES - 1`` lanes;
+    raises if a word holds more than ``WORD_LANES`` symbols."""
+    offs = np.asarray(offs, dtype=np.int64)
+    B = len(offs) - 1
+    if B <= 0:
+        return np.zeros(1, np.int32)
+    if int((offs[1:] - offs[:-1]).max()) > WORD_LANES:
+        raise ValueError(f"word_tiles: a word holds more than {WORD_LANES} symbols")
+    T = max(1, -(-int(offs[-1]) // tile))
+    first = np.searchsorted(offs[:B], np.arange(T, dtype=np.int64) * tile, side="left")
+    return np.append(first, B).astype(np.int32)
+
+
 def _check_rows(fn: str, tokens, wid, tables, max_L: int) -> None:
     """The argument checks K2 and K5 share: int32, contiguous, on the
     tokens' device, of the given shapes; rows that fit shared memory."""
@@ -279,33 +338,49 @@ def merge_words(tokens, wid, disp, rows, size: int, n_buckets: int):
 merge_words.launches = 0  # launches of K5 (not of the plain version)
 
 
-def merge_word_rows(tokens, disp, rows, size: int, n_buckets: int):
+def merge_word_rows(syms, offs, tiles, disp, rows, size: int, n_buckets: int,
+                    tile: int = TILE_SYMBOLS):
     """K9 on CUDA tensors, the plain version on CPU tensors.
 
-    Same arguments and result as :func:`merge_word_rows_plain` when the
-    table is well-formed, which ``ops/stringbpe_device.py`` requires.
+    Same arguments and result as :func:`merge_word_rows_ragged_plain` when
+    the table is well-formed, which ``ops/stringbpe_device.py`` requires;
+    ``tiles`` [T + 1] int32 are ``word_tiles(offs, tile)`` (the plain
+    version does not read them).
     """
-    if tokens.device.type == "cpu":
-        return merge_word_rows_plain(tokens, disp, rows, size, n_buckets)
-    if tokens.device.type != "cuda":
-        raise ValueError(f"merge_word_rows: unsupported device {tokens.device}")
+    if syms.device.type == "cpu":
+        return merge_word_rows_ragged_plain(syms, offs, disp, rows, size, n_buckets)
+    if syms.device.type != "cuda":
+        raise ValueError(f"merge_word_rows: unsupported device {syms.device}")
     for name, n in (("table size", size), ("bucket count", n_buckets)):
         if n <= 0 or n & (n - 1):
             raise ValueError(f"merge_word_rows: {name} {n} is not a power of two")
-    _check_rows("merge_word_rows", tokens, tokens,
-                (("disp", disp, (n_buckets,)), ("rows", rows, (size, 4))), 12288)
+    N, B, T = syms.numel(), offs.numel() - 1, tiles.numel() - 1
+    for name, t, shape in (("syms", syms, (N,)), ("offs", offs, (B + 1,)),
+                           ("tiles", tiles, (T + 1,)), ("disp", disp, (n_buckets,)),
+                           ("rows", rows, (size, 4))):
+        if t.device != syms.device or t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"merge_word_rows: {name} must be int32 {shape} on {syms.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"merge_word_rows: {name} must be contiguous")
+    lanes = tile + WORD_LANES - 1
+    if tile <= 0 or lanes > 12288:  # 18 B of shared memory a lane
+        raise ValueError(f"merge_word_rows: tiles of {tile} symbols exceed the shared memory")
     if rows.data_ptr() % 16:
         raise ValueError("merge_word_rows: rows must be 16-byte aligned (one int4 load a probe)")
-    B, L = tokens.shape
-    out = torch.empty_like(tokens)
-    count = torch.empty(B, dtype=torch.int32, device=tokens.device)
-    if out.numel() == 0:
-        return out, count.zero_()
-    stream = torch.cuda.current_stream(tokens.device).cuda_stream
+    out = torch.empty_like(syms)
+    count = torch.empty(max(B, 0), dtype=torch.int32, device=syms.device)
+    if B <= 0:
+        return out, count
+    if T <= 0:
+        raise ValueError("merge_word_rows: no tiles for the words (word_tiles)")
+    stream = torch.cuda.current_stream(syms.device).cuda_stream
     check(
         kernel_library().lib.ctok_merge_word_rows(
-            tokens.data_ptr(), disp.data_ptr(), rows.data_ptr(), size - 1, n_buckets - 1,
-            out.data_ptr(), count.data_ptr(), B, L, stream,
+            syms.data_ptr(), offs.data_ptr(), tiles.data_ptr(), T, lanes, disp.data_ptr(),
+            rows.data_ptr(), size - 1, n_buckets - 1, out.data_ptr(), count.data_ptr(), stream,
         ),
         "merge_word_rows",
     )
@@ -320,13 +395,15 @@ _SHAPE_KEYS = ("threads", "registers", "static_smem", "dynamic_smem", "local_byt
                "blocks_per_sm")
 
 
-def launch_shape(L: int, chd: bool = True, fill: bool = False) -> dict:
+def launch_shape(L: int, chd: bool = True, fill: bool = False, ragged: bool = False) -> dict:
     """How the card launches K5 (``chd``) or K2 on rows of ``L`` or, with
     ``fill``, K6 (the word path's merge from the packed bytes,
-    ``ops/wordfill.py``) on the same table: threads a block, registers a
-    thread, static and dynamic shared bytes a block, local (spill) bytes a
-    thread, and resident blocks per SM.  Needs a card; launches nothing."""
+    ``ops/wordfill.py``) on the same table, or with ``ragged`` K9 on tiles
+    of ``L`` lanes (CHD only): threads a block, registers a thread, static
+    and dynamic shared bytes a block, local (spill) bytes a thread, and
+    resident blocks per SM.  Needs a card; launches nothing."""
     info = (ctypes.c_int * len(_SHAPE_KEYS))()
+    policy = 2 if ragged else int(fill)
     check(kernel_library().lib.ctok_merge_fixpoint_info(
-        int(chd), int(fill), L, ctypes.addressof(info)), "launch_shape")
+        int(chd or ragged), policy, L, ctypes.addressof(info)), "launch_shape")
     return dict(zip(_SHAPE_KEYS, info))

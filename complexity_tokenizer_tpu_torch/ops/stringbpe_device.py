@@ -10,8 +10,9 @@ device mapping, as in the JAX package (``ops/stringbpe_device.py``):
   symbol id; a batch's characters outside that universe get ids past its
   end, which never match a pair, so they pass through the fixpoint as
   they pass through the host loop;
-- the merge table becomes a CHD pair table, and the fixpoint runs one word
-  a row (K9 on the card, its plain version on the CPU);
+- the merge table becomes a CHD pair table, and the fixpoint runs over the
+  words' symbols end to end with their offsets, a tile of whole words a
+  block (K9 on the card, its plain version on the CPU);
 - applying every best pair at once equals the host's one merge per step
   only for well-formed tables (``core/bpe.py:merges_well_formed``): the
   build returns None otherwise, and the model stays on the host;
@@ -26,11 +27,9 @@ import torch
 from ..core.bpe import merges_well_formed
 from ..utils.device import resolve_device
 from .hashtable import build_chd_table
-from .merge import merge_word_rows
+from .merge import TILE_SYMBOLS, WORD_LANES, merge_word_rows, word_tiles
 
 __all__ = ["StringBpeDevice", "build_string_bpe_device"]
-
-_W = 128  # symbol lanes a word row
 
 
 def build_string_bpe_device(
@@ -80,15 +79,17 @@ class StringBpeDevice:
         self.rows = torch.from_numpy(chd.rows).to(self.device)
 
     def pack(self, rows_syms: list[list[str]]):
-        """The fixpoint's input for a batch of symbol rows: (tokens [n, 128]
-        int32 symbol ids, -1 padded; the rows over the lanes, left empty;
-        every symbol by id, the batch's own after the table's)."""
+        """The fixpoint's input for a batch of symbol rows: (syms [N] int32,
+        the symbol ids of all rows end to end; offs [B + 1] int32; the rows
+        over ``WORD_LANES`` symbols, which hold none; every symbol by id,
+        the batch's own after the table's)."""
         base = len(self.symbols)
+        sym_id = self.sym_id
         extra: dict[str, int] = {}
         extra_syms: list[str] = []
 
         def to_id(s: str) -> int:
-            i = self.sym_id.get(s)
+            i = sym_id.get(s)
             if i is not None:
                 return i
             i = extra.get(s)
@@ -98,28 +99,38 @@ class StringBpeDevice:
                 extra_syms.append(s)
             return i
 
-        tokens = np.full((len(rows_syms), _W), -1, np.int32)
+        flat: list[int] = []
+        offs = np.zeros(len(rows_syms) + 1, np.int32)
         skipped = set()
         for r, syms in enumerate(rows_syms):
-            if len(syms) > _W:
+            if len(syms) > WORD_LANES:
                 skipped.add(r)
-                continue
-            tokens[r, : len(syms)] = [to_id(s) for s in syms]
-        return tokens, skipped, self.symbols + extra_syms
+            else:
+                flat.extend(map(to_id, syms))
+            offs[r + 1] = len(flat)
+        return np.asarray(flat, np.int32), offs, skipped, self.symbols + extra_syms
 
     def merge_symbol_rows(self, rows_syms: list[list[str]]) -> list[list[str] | None]:
-        """The merge loop for a batch of symbol rows, one launch at the exact
-        batch size; a row over the lane width gives None (the caller merges
-        it on the host)."""
+        """The merge loop for a batch of symbol rows, one launch over the
+        ragged words; a row over ``WORD_LANES`` symbols gives None (the
+        caller merges it on the host)."""
         if not rows_syms:
             return []
-        tokens, skipped, all_syms = self.pack(rows_syms)
+        syms, offs, skipped, all_syms = self.pack(rows_syms)
+        tiles = word_tiles(offs, TILE_SYMBOLS)
+        # one copy to the device: the symbols, the offsets and the tiles
+        N, B = len(syms), len(offs) - 1
+        buf = torch.from_numpy(np.concatenate([syms, offs, tiles])).to(self.device)
         out, _count = merge_word_rows(
-            torch.from_numpy(tokens).to(self.device), self.disp, self.rows,
-            self.chd.size, self.chd.n_buckets,
+            buf[:N], buf[N:N + B + 1], buf[N + B + 1:], self.disp, self.rows,
+            self.chd.size, self.chd.n_buckets, TILE_SYMBOLS,
         )
         out = out.cpu().numpy()
+        live = out >= 0
+        # each row's live ids, by the offsets of the live ones
+        bounds = np.concatenate([[0], np.cumsum(live)])[offs]
+        names = np.asarray(all_syms, dtype=object)[out[live]]
         return [
-            None if r in skipped else [all_syms[i] for i in out[r][out[r] >= 0].tolist()]
-            for r in range(len(rows_syms))
+            None if r in skipped else names[bounds[r]:bounds[r + 1]].tolist()
+            for r in range(B)
         ]

@@ -4,9 +4,12 @@
 The reference's WordPiece is a per-word loop: at each position take the
 longest substring in the vocabulary, else emit UNK and advance one
 character.  The device form, as in the JAX package
-(``ops/wordpiece_device.py``):
+(``ops/wordpiece_device.py``), except that K10 takes its words ragged (the
+codepoints of all words end to end, their offsets and lengths, ordered by
+length so that a group of lanes sized to the word takes it):
 
-- words are codepoint rows ``[B, W]`` (W = 128 lanes), -1 padded;
+- words are codepoint rows ``[B, W]`` (W = 128 lanes), -1 padded, in the
+  plain version (:func:`wordpiece_match_plain`);
 - substring hashes come from prefix polynomial hashes,
   ``h(s, e) = P[e] - P[s] * pow[e - s]`` in uint32, two independent
   bases; the ``##`` continuation form adds ``seed * pow[len]``;
@@ -31,6 +34,7 @@ import torch
 from ..utils.cuda_build import check, kernel_library
 from ..utils.device import resolve_device
 from .hashtable import INF_RANK, _mul32, build_chd_table, chd_lookup
+from .merge import _ragged_index
 
 __all__ = [
     "WordPieceDeviceTables",
@@ -39,8 +43,11 @@ __all__ = [
     "WordLevelDevice",
     "build_wordlevel_tables",
     "rolling_prefix_hashes",
+    "hash_powers",
     "wordpiece_match",
     "wordpiece_match_plain",
+    "wordpiece_match_ragged_plain",
+    "wordpiece_launch_shape",
     "wordlevel_lookup",
     "wordlevel_lookup_plain",
 ]
@@ -86,6 +93,24 @@ def _powers(base: int, n: int, device) -> torch.Tensor:
         out.append(p)
         p = (p * base) & _M32
     return torch.tensor(out, dtype=torch.int64, device=device)
+
+
+_POWERS: dict = {}
+
+
+def hash_powers(device) -> torch.Tensor:
+    """K10's powers on ``device``, built once per device: [4, 129] int32
+    (uint32 bit patterns), rows ``base1**l``, ``base2**l``, ``seed1 *
+    base1**l`` and ``seed2 * base2**l`` mod 2**32 for l = 0..128."""
+    dev = torch.device(device)
+    t = _POWERS.get(dev)
+    if t is None:
+        p1 = _powers(_B1, _W, "cpu")
+        p2 = _powers(_B2, _W, "cpu")
+        rows = torch.stack([p1, p2, _mul32(p1, _SEED_CONT1), _mul32(p2, _SEED_CONT2)])
+        t = _to_i32(rows).contiguous().to(dev)
+        _POWERS[dev] = t
+    return t
 
 
 def rolling_prefix_hashes(chars: torch.Tensor):
@@ -215,7 +240,13 @@ class _DeviceTables:
         self.device = resolve_device(device)
         on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
         self.disp = on(tables.chd.disp)
-        self.rows = on(tables.chd.rows)
+        # each row's fourth word (-1 in the JAX tables, read by no lookup)
+        # holds its slot's emit id, so K10's row read brings the id
+        rows = tables.chd.rows.copy()
+        slot = rows[:, 2]
+        used = (slot >= 0) & (slot < len(tables.emit_ids))
+        rows[used, 3] = tables.emit_ids[slot[used]]
+        self.rows = on(rows)
         self.token_chars = on(tables.token_chars)
         self.token_lens = on(tables.token_lens)
         self.emit_ids = on(tables.emit_ids)
@@ -332,31 +363,85 @@ def _check_tables(fn: str, chars, lens, disp, rows, size, n_buckets, token_chars
         raise ValueError(f"{fn}: rows must be 16-byte aligned (one int4 load a probe)")
 
 
-def wordpiece_match(chars, lens, disp, rows, size, n_buckets, token_chars, token_lens, emit_ids,
-                    unk: int, max_input: int):
+def wordpiece_match_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets, token_chars,
+                                 token_lens, emit_ids, unk: int, max_input: int):
+    """Plain PyTorch version of K10, on any device: the words scattered into
+    128-lane rows, :func:`wordpiece_match_plain`, and gathered back.
+
+    Args:
+      chars: [N] int32, the codepoints of all words end to end.
+      offs: [B + 1] int32, word i is ``chars[offs[i]:offs[i + 1]]`` (at most
+        128 slots).
+      lens: [B] int32, each word's length: at most its slots, or over
+        ``max_input`` (then one slot, whose character is not read, takes
+        its UNK).
+      The tables, ``unk`` and ``max_input`` as for :func:`wordpiece_match_plain`.
+    Returns:
+      (out [N] int32: each match's id at its start character, -1 elsewhere;
+      count [B] int32; poison [B] bool).
+    """
+    B = lens.numel()
+    slots = offs[1:] - offs[:-1]
+    if B and int(slots.max()) > _W:
+        raise ValueError(f"wordpiece_match: a word holds more than {_W} slots")
+    if bool(((lens <= max_input) & (lens > slots)).any()):
+        raise ValueError("wordpiece_match: a word within the limit is longer than its slots")
+    word, col = _ragged_index(offs)
+    dense = torch.full((B, _W), -1, dtype=torch.int32, device=chars.device)
+    dense[word, col] = chars
+    out, count, poison = wordpiece_match_plain(dense, lens, disp, rows, size, n_buckets,
+                                               token_chars, token_lens, emit_ids, unk, max_input)
+    return out[word, col], count, poison
+
+
+def wordpiece_match(chars, offs, lens, groups, disp, rows, size, n_buckets, token_chars,
+                    token_lens, emit_ids, unk: int, max_input: int):
     """K10 on CUDA tensors, the plain version on CPU tensors; same
-    arguments and result as :func:`wordpiece_match_plain` (rows of at most
-    128 lanes)."""
+    arguments and result as :func:`wordpiece_match_ragged_plain`, with
+    ``groups`` = (n8, n16): the words [0, n8) are matched by groups of 8
+    lanes, [n8, n16) by groups of 16, the rest by a warp each (right for
+    any order, fastest when each word fits its group, as
+    :meth:`WordPieceDevice.pack` orders them; the plain version does not
+    read them).  On the card, ``rows`` holds each slot's emit id in its
+    fourth word (``_DeviceTables``)."""
     if chars.device.type == "cpu":
-        return wordpiece_match_plain(chars, lens, disp, rows, size, n_buckets, token_chars,
-                                     token_lens, emit_ids, unk, max_input)
+        return wordpiece_match_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets,
+                                            token_chars, token_lens, emit_ids, unk, max_input)
     if chars.device.type != "cuda":
         raise ValueError(f"wordpiece_match: unsupported device {chars.device}")
-    _check_tables("wordpiece_match", chars, lens, disp, rows, size, n_buckets, token_chars,
-                  token_lens, emit_ids)
-    B, W = chars.shape
+    N, B = chars.numel(), lens.numel()
+    S, Lt = token_chars.shape
+    n8, n16 = (int(g) for g in groups)
+    if not 0 <= n8 <= n16 <= B:
+        raise ValueError(f"wordpiece_match: groups {groups} outside 0 <= n8 <= n16 <= {B}")
+    if Lt > _W:
+        raise ValueError(f"wordpiece_match: tokens of {Lt} characters exceed the kernel's {_W}")
+    for name, n in (("table size", size), ("bucket count", n_buckets)):
+        if n <= 0 or n & (n - 1):
+            raise ValueError(f"wordpiece_match: {name} {n} is not a power of two")
+    i32 = torch.int32
+    _check_args("wordpiece_match", (
+        ("chars", chars, i32, (N,)), ("offs", offs, i32, (B + 1,)), ("lens", lens, i32, (B,)),
+        ("disp", disp, i32, (n_buckets,)), ("rows", rows, i32, (size, 4)),
+        ("token_chars", token_chars, i32, (S, Lt)), ("token_lens", token_lens, i32, (S,)),
+        ("emit_ids", emit_ids, i32, (S,)),
+    ))
+    if rows.data_ptr() % 16:
+        raise ValueError("wordpiece_match: rows must be 16-byte aligned (one int4 load a probe)")
     out = torch.empty_like(chars)
     count = torch.empty(B, dtype=torch.int32, device=chars.device)
     poison = torch.empty(B, dtype=torch.bool, device=chars.device)
-    if B == 0 or W == 0:
-        return out, count.zero_(), poison.zero_()
+    if B == 0:
+        return out, count, poison
+    pows = hash_powers(chars.device)
     stream = torch.cuda.current_stream(chars.device).cuda_stream
     check(
         kernel_library().lib.ctok_wordpiece_match(
-            chars.data_ptr(), lens.data_ptr(), disp.data_ptr(), rows.data_ptr(), size - 1,
-            n_buckets - 1, token_chars.data_ptr(), token_lens.data_ptr(), emit_ids.data_ptr(),
-            token_chars.shape[1], int(unk), int(min(max_input, 2**31 - 1)), out.data_ptr(),
-            count.data_ptr(), poison.data_ptr(), B, W, stream,
+            chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), n8, n16, B, disp.data_ptr(),
+            rows.data_ptr(), size - 1, n_buckets - 1, token_chars.data_ptr(),
+            token_lens.data_ptr(), emit_ids.data_ptr(), Lt, int(unk),
+            int(min(max_input, 2**31 - 1)), pows.data_ptr(), out.data_ptr(), count.data_ptr(),
+            poison.data_ptr(), stream,
         ),
         "wordpiece_match",
     )
@@ -366,48 +451,81 @@ def wordpiece_match(chars, lens, disp, rows, size, n_buckets, token_chars, token
 
 wordpiece_match.launches = 0  # launches of K10 (not of the plain version)
 
+_WP_SHAPE_KEYS = ("threads", "registers", "static_smem", "local_bytes", "blocks_per_sm")
+
+
+def wordpiece_launch_shape() -> dict:
+    """How the card launches K10: threads a block, registers a thread,
+    static shared bytes a block, local (spill) bytes a thread, resident
+    blocks per SM.  Needs a card; launches nothing."""
+    import ctypes
+
+    info = (ctypes.c_int * len(_WP_SHAPE_KEYS))()
+    check(kernel_library().lib.ctok_wordpiece_info(ctypes.addressof(info)),
+          "wordpiece_launch_shape")
+    return dict(zip(_WP_SHAPE_KEYS, info))
+
 
 class WordPieceDevice(_DeviceTables):
-    """The greedy longest match over word rows on one device."""
+    """The greedy longest match over ragged words on one device."""
 
     last_poisoned: list[int] = []
     last_over_width = 0
 
     def pack(self, words: list[str]):
-        """K10's input for a batch of words: (chars [n, 128] int32, lens [n]
-        int32, the words left to the host: wider than the lanes and not
-        decided by the limit in them; over the limit a word is one UNK, or
-        nothing without UNK)."""
+        """K10's input for a batch of words, ordered by their slots (stable):
+        (chars [N] int32, offs [B + 1] int32, lens [B] int32, order [B]
+        (packed word j is ``words[order[j]]``), groups (n8, n16), the words
+        left to the host).  A word wider than the lanes and not decided by
+        the limit in them goes to the host and holds no slot; a word over
+        the limit holds one slot (character -1, not read) for its UNK and
+        its length cut to the lanes; any other word its characters."""
         max_input = self.t.max_input_chars
-        chars = np.full((len(words), _W), -1, np.int32)
-        lens = np.zeros(len(words), np.int32)
-        skipped: list[int] = []
-        for i, w in enumerate(words):
-            if len(w) > _W and (len(w) <= max_input or max_input >= _W):
-                skipped.append(i)
-                continue
-            cps = [ord(c) for c in w[:_W]]
-            chars[i, : len(cps)] = cps
-            lens[i] = len(cps)
-        return chars, lens, skipped
+        n = len(words)
+        wl = np.fromiter(map(len, words), np.int64, n)
+        host = (wl > _W) & ((wl <= max_input) | (max_input >= _W))
+        over = ~host & (wl > max_input)
+        slots = np.where(host, 0, np.where(over, 1, wl))
+        order = np.argsort(slots, kind="stable")
+        offs = np.zeros(n + 1, np.int32)
+        np.cumsum(slots[order], out=offs[1:])
+        lens = np.where(host, 0, np.minimum(wl, _W))[order].astype(np.int32)
+        # every word's characters in one UTF-32 string; a word over the
+        # limit is one placeholder there, set to -1
+        text = "".join(words[i] if slots[i] == wl[i] else "\0" * int(slots[i])
+                       for i in order.tolist())
+        chars = np.frombuffer(text.encode("utf-32-le", "surrogatepass"), np.uint32).astype(np.int32)
+        chars[offs[:-1][over[order]]] = -1
+        sorted_slots = slots[order]
+        groups = (int(np.searchsorted(sorted_slots, 8, "right")),
+                  int(np.searchsorted(sorted_slots, 16, "right")))
+        return chars, offs, lens, order, groups, np.flatnonzero(host).tolist()
 
     def tokenize_words(self, words: list[str]) -> list[list[int]]:
-        """Greedy longest match of each word, one launch at the exact batch
-        size.  ``last_poisoned`` then lists the words the caller must
+        """Greedy longest match of each word, one launch over the ragged
+        words.  ``last_poisoned`` then lists the words the caller must
         re-tokenize on the host: a failed exact check, or a word left to
         the host by :meth:`pack` (``last_over_width`` of them)."""
         n = len(words)
         if n == 0:
             self.last_poisoned, self.last_over_width = [], 0
             return []
-        chars, lens, skipped = self.pack(words)
-        on = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        out, _count, poison = wordpiece_match(on(chars), on(lens), *self.args(),
-                                              self.t.max_input_chars)
+        chars, offs, lens, order, groups, skipped = self.pack(words)
+        # one copy to the device: the characters, the offsets and the lengths
+        N = len(chars)
+        buf = torch.from_numpy(np.concatenate([chars, offs, lens])).to(self.device)
+        out, _count, poison = wordpiece_match(buf[:N], buf[N:N + n + 1], buf[N + n + 1:], groups,
+                                              *self.args(), self.t.max_input_chars)
         out, poison = out.cpu().numpy(), poison.cpu().numpy()
-        self.last_poisoned = np.flatnonzero(poison).tolist() + skipped
+        live = out >= 0
+        bounds = np.concatenate([[0], np.cumsum(live)])[offs].tolist()
+        ids = out[live].tolist()
+        rows: list[list[int]] = [[]] * n
+        for j, i in enumerate(order.tolist()):
+            rows[i] = ids[bounds[j]:bounds[j + 1]]
+        self.last_poisoned = sorted(order[poison].tolist()) + skipped
         self.last_over_width = len(skipped)
-        return [out[i][out[i] >= 0].tolist() for i in range(n)]
+        return rows
 
 
 # ---------------------------------------------------------------------------

@@ -1119,9 +1119,36 @@ def _string_tier(path):
     return ByteLevelBpeModel(m["vocab"], merges)
 
 
+def _ragged_words(rows):
+    """Lists of ids as ragged words: (flat [N] int32, offs [B + 1] int32)."""
+    offs = np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
+    return np.asarray([x for r in rows for x in r], np.int32), offs
+
+
+def _check_k9(dev, rows, tiles_of=(1, 16, 384, 896, 1920)):
+    """K9 on the ragged words ``rows`` (lists of symbol ids) at every tile
+    size, bit for bit its plain version on the card."""
+    from complexity_tokenizer_tpu_torch.ops.merge import (
+        merge_word_rows,
+        merge_word_rows_ragged_plain,
+        word_tiles,
+    )
+
+    syms, offs = _ragged_words(rows)
+    s, o = torch.from_numpy(syms).cuda(), torch.from_numpy(offs).cuda()
+    args = (dev.disp, dev.rows, dev.chd.size, dev.chd.n_buckets)
+    exp_t, exp_c = merge_word_rows_ragged_plain(s, o, *args)
+    for tile in tiles_of:
+        tiles = torch.from_numpy(word_tiles(offs, tile)).cuda()
+        got_t, got_c = merge_word_rows(s, o, tiles, *args, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c), tile
+    return exp_t, exp_c
+
+
 @pytest.mark.parametrize("path", [BENCH_50K, BENCH_100K])
 def test_k9_matches_plain(path):
-    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows, merge_word_rows_plain
+    from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows, word_tiles
 
     _need_card()
     model = _string_tier(path)
@@ -1130,31 +1157,33 @@ def test_k9_matches_plain(path):
     words += [" " + "a" * 127, "=" * 128, " " + "ab" * 63, "é" * 60, " x中y"]
     enc = model._byte_encoder
     base = len(dev.symbols)
-    tokens = np.full((len(words), 128), -1, np.int32)
-    for r, w in enumerate(words):
-        syms = [dev.sym_id.get(enc[b], base) for b in w.encode()][:128]
-        tokens[r, : len(syms)] = syms
-    tokens[5, 3] = -1  # a tombstone inside a word
+    rows = [[dev.sym_id.get(enc[b], base) for b in w.encode()][:128] for w in words]
+    rows[5][3:4] = [-1]  # a tombstone inside a word
     # the rows that separate the greedy apply from the JAX rule
     text = " ".join(zipf_corpus(50, seed=2)).encode()
     for breaks in (False, True):
         # the breakers as symbols no merge names (ids past the universe)
         runs = [[enc[b] + ("\0" if b in RUN_BREAKS else "") for b in r]
                 for r in run_rows(text, 16, 128, breaks)]
-        tokens = np.concatenate([tokens, dev.pack(runs)[0]])
-    t = torch.from_numpy(tokens).cuda()
+        syms, offs = dev.pack(runs)[:2]
+        rows += [syms[offs[i]:offs[i + 1]].tolist() for i in range(len(runs))]
+    rng = np.random.RandomState(len(rows))
+    singles = [i for sym, i in dev.sym_id.items() if len(sym) == 1]
+    edge = [[singles[rng.randint(len(singles))]] for _ in range(50)] + [[], []]  # one symbol
+    edge += [[singles[k]] * 128 for k in range(3)]  # 128 symbols, runs of one
+    edge += [rng.choice(singles, n).tolist() for n in (15, 3, 12, 1, 16, 40, 128, 5)]  # S = 16
+    _, count = _check_k9(dev, rows + edge)
+    assert (count.cpu().numpy() < np.diff(_ragged_words(rows + edge)[1])).any()  # merges happened
+    # tiles whose words are all walked by a warp (over 32 symbols)
+    _check_k9(dev, [rng.choice(singles, rng.randint(33, 129)).tolist() for _ in range(60)],
+              (384, 896))
+    # no words; empty words only
     args = (dev.disp, dev.rows, dev.chd.size, dev.chd.n_buckets)
-    got_t, got_c = merge_word_rows(t, *args)
-    torch.cuda.synchronize()
-    exp_t, exp_c = merge_word_rows_plain(t, *args)
-    assert torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c)
-    for width in (40, 7):  # narrower rows: another launch width, thread-walked words
-        tw = t[:, :width].contiguous()
-        got_t, got_c = merge_word_rows(tw, *args)
-        exp_t, exp_c = merge_word_rows_plain(tw, *args)
-        assert torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c)
-    empty = merge_word_rows(t[:0], *args)
-    assert empty[0].shape == (0, 128) and empty[1].shape == (0,)
+    none = torch.zeros(0, dtype=torch.int32, device="cuda")
+    got = merge_word_rows(none, torch.zeros(1, dtype=torch.int32, device="cuda"),
+                          torch.from_numpy(word_tiles(np.zeros(1, np.int32))).cuda(), *args)
+    assert got[0].shape == (0,) and got[1].shape == (0,)
+    _check_k9(dev, [[], [], []])
 
 
 def _wp_models():
@@ -1171,12 +1200,21 @@ def _wp_models():
     }
 
 
+def _unsorted(chars, offs, lens, order):
+    """K10's packed words back in their own order."""
+    inv = np.argsort(order, kind="stable")
+    rows = [chars[offs[j]:offs[j + 1]] for j in inv]
+    new_offs = np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int32)
+    flat = np.concatenate(rows).astype(np.int32) if rows else np.zeros(0, np.int32)
+    return flat, new_offs, lens[inv]
+
+
 @pytest.mark.parametrize("name", ["bert", "bert_short_limit", "no_unk", "literal", "poisoned"])
 def test_k10_matches_plain(name):
     from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
         build_wordpiece_tables,
         wordpiece_match,
-        wordpiece_match_plain,
+        wordpiece_match_ragged_plain,
         WordPieceDevice,
     )
 
@@ -1188,27 +1226,35 @@ def test_k10_matches_plain(name):
         tc[::7, 0] += 1  # every seventh slot's spelling: its hits fail the check
         tables.token_chars = tc
     dev = WordPieceDevice(tables, "cuda")
+    rng = np.random.RandomState(len(name))
     words = sorted({w for t in zipf_corpus(300, seed=8) + list(MULTI_PIECES) for w in t.split()})
     words += ["", "##abc", "a##1", "#", "##", "x" * 128, "ab" * 50, "é" * 101, "<s>"]
-    chars = np.full((len(words), 128), -1, np.int32)
-    lens = np.zeros(len(words), np.int32)
-    for i, w in enumerate(words):
-        cps = [ord(c) for c in w][:128]
-        chars[i, : len(cps)] = cps
-        lens[i] = len(cps)
-    c, n = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
-    got = wordpiece_match(c, n, *dev.args(), tables.max_input_chars)
-    torch.cuda.synchronize()
-    exp = wordpiece_match_plain(c, n, *dev.args(), tables.max_input_chars)
-    for a, b in zip(got, exp):
-        assert torch.equal(a, b)
+    words += ["".join(rng.choice(list("abcdeflnorst"), n)) for n in (8, 9, 16, 17, 32, 33) * 5]
+    mi = tables.max_input_chars
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+
+    def check(chars, offs, lens, groups):
+        c, o, n = on(chars), on(offs), on(lens)
+        got = wordpiece_match(c, o, n, groups, *dev.args(), mi)
+        torch.cuda.synchronize()
+        exp = wordpiece_match_ragged_plain(c, o, n, *dev.args(), mi)
+        for a, b in zip(got, exp):
+            assert torch.equal(a, b), groups
+        return got
+
+    chars, offs, lens, order, groups, host = dev.pack(words)
+    got = check(chars, offs, lens, groups)
     assert (name == "poisoned") == bool(got[2].any())
-    # 40 lanes, lengths past them (the plain version clips as JAX does)
-    c40 = c[:, :40].contiguous()
-    got = wordpiece_match(c40, n, *dev.args(), tables.max_input_chars)
-    exp = wordpiece_match_plain(c40, n, *dev.args(), tables.max_input_chars)
-    for a, b in zip(got, exp):
-        assert torch.equal(a, b)
+    B = len(lens)
+    # word counts that are no multiple of the lane groups: the first m words
+    for m in (1, 3, 5, 7, groups[0] + 1, groups[1] + 3):
+        m = min(m, B)
+        check(chars[:offs[m]], offs[:m + 1], lens[:m], (min(groups[0], m), min(groups[1], m)))
+    # in their own order, and with every word in groups of 8 or 16, or a
+    # warp each: longer words than the group take more chunks
+    flat, uoffs, ulens = _unsorted(chars, offs, lens, order)
+    for g in ((B, B), (0, B), (0, 0), (B // 3, 2 * B // 3)):
+        check(flat, uoffs, ulens, g)
 
 
 def test_k11_matches_plain():
@@ -1286,9 +1332,21 @@ def test_new_wrappers_refuse_bad_inputs():
     disp = torch.zeros(4, dtype=torch.int32, device="cuda")
     rows = torch.full((16, 4), -1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="power of two"):
-        merge_word_rows(arr.int(), disp, rows, 15, 4)
+        merge_word_rows(arr.int().view(-1), lens[:2], lens[:2], disp, rows, 15, 4)
     with pytest.raises(ValueError, match="lanes"):
         chars = torch.zeros((4, 256), dtype=torch.int32, device="cuda")
         tc = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
         one = torch.zeros(1, dtype=torch.int32, device="cuda")
         wordlevel_lookup(chars, lens, disp, rows, 16, 4, tc, one, one, 0)
+
+
+def test_k9_k10_launch_shapes():
+    """K9's tiles and K10's warps launch without spilling registers."""
+    from complexity_tokenizer_tpu_torch.ops.merge import TILE_SYMBOLS, WORD_LANES
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import wordpiece_launch_shape
+
+    _need_card()
+    k9 = launch_shape(TILE_SYMBOLS + WORD_LANES - 1, ragged=True)
+    k10 = wordpiece_launch_shape()
+    for shape in (k9, k10):
+        assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape

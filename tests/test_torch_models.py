@@ -22,7 +22,11 @@ from complexity_tokenizer_tpu.ops.merge import merge_word_rows as jax_merge_word
 from complexity_tokenizer_tpu_torch import models as M  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops import stringbpe_device as S  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops import wordpiece_device as W  # noqa: E402
-from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows, merge_word_rows_plain  # noqa: E402
+from complexity_tokenizer_tpu_torch.ops.merge import (  # noqa: E402
+    merge_word_rows,
+    merge_word_rows_plain,
+    word_tiles,
+)
 from complexity_tokenizer_tpu_torch.utils.bytelevel import bytes_to_unicode  # noqa: E402
 from complexity_tokenizer_tpu_torch.utils.corpus import (  # noqa: E402
     RUN_BREAKS,
@@ -222,6 +226,25 @@ def test_string_tables_equal_jax(name):
     assert (ours.chd.size, ours.chd.n_buckets) == (theirs.chd.size, theirs.chd.n_buckets)
 
 
+def dense_rows(flat: np.ndarray, offs: np.ndarray, width: int = 128) -> np.ndarray:
+    """Ragged words (``flat``, ``offs``) as -1 padded rows [B, width]."""
+    lens = np.diff(offs)
+    out = np.full((len(lens), width), -1, flat.dtype)
+    word = np.repeat(np.arange(len(lens)), lens)
+    out[word, np.arange(len(flat)) - offs[:-1][word]] = flat
+    return out
+
+
+def ragged_rows(tokens: np.ndarray):
+    """Rows [B, W] as ragged words, each row up to its last entry >= 0:
+    (flat [N] int32, offs [B + 1] int32)."""
+    live = tokens >= 0
+    lens = np.where(live.any(1), tokens.shape[1] - np.argmax(live[:, ::-1], 1), 0)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    flat = tokens[np.arange(tokens.shape[1])[None, :] < lens[:, None]]
+    return flat.astype(np.int32), offs
+
+
 def _symbol_rows(dev, rng, n: int) -> np.ndarray:
     """[n, 128] symbol ids: random words over the table's single-character
     symbols, ids past the universe, runs of one symbol, tombstones inside
@@ -258,7 +281,7 @@ def test_merge_word_rows_plain_equals_jax(name):
         # the breakers as symbols no merge names (ids past the universe)
         runs = [[enc[b] + ("\0" if b in RUN_BREAKS else "") for b in r]
                 for r in run_rows(text, 8, 128, breaks)]
-        tokens = np.concatenate([tokens, dev.pack(runs)[0]])
+        tokens = np.concatenate([tokens, dense_rows(*dev.pack(runs)[:2])])
     exp_t, exp_c = jax_merge_word_rows(tokens, dev.chd.disp, dev.chd.rows, dev.chd.size,
                                        dev.chd.n_buckets)
     args = (torch.from_numpy(dev.chd.disp), torch.from_numpy(dev.chd.rows), dev.chd.size,
@@ -267,8 +290,12 @@ def test_merge_word_rows_plain_equals_jax(name):
     assert np.array_equal(got_t.numpy(), np.asarray(exp_t))
     assert np.array_equal(got_c.numpy(), np.asarray(exp_c))
     assert (got_c.numpy() < (tokens >= 0).sum(1)).any()  # merges happened
-    w_t, w_c = merge_word_rows(torch.from_numpy(tokens), *args)  # the wrapper on the CPU
-    assert torch.equal(w_t, got_t) and torch.equal(w_c, got_c)
+    # the wrapper on the CPU, on the same rows as ragged words
+    flat, offs = ragged_rows(tokens)
+    w_t, w_c = merge_word_rows(torch.from_numpy(flat), torch.from_numpy(offs),
+                               torch.from_numpy(word_tiles(offs)), *args)
+    assert np.array_equal(dense_rows(w_t.numpy(), offs), got_t.numpy())
+    assert torch.equal(w_c, got_c)
 
 
 # ---------------------------------------------------------------------------
