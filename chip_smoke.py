@@ -61,26 +61,33 @@ Phases (each prints its seconds):
    after each.
    Then the text pipeline from text at 50K (``drive_norm``):
    ``EncodePipeline.encode_batch`` with the tokenizer's NFC normalizer,
-   K8 proving rows stable before the host rewrites the others, against
-   the oracle, launching K8, K1 and K2 only; K8 against its plain version
-   on each of that run's batches under the NFC and ``BertNormalizer()``
-   bitmaps, timed warm, cold and plain.  And the word-level models at full
+   K8 proving rows stable (every row in one launch) before the host
+   rewrites the others, against the oracle, launching K8 once, K1 and K2
+   only; K8 against its plain version on that run's rows under the NFC and
+   ``BertNormalizer()`` bitmaps, timed warm, cold and plain with its launch
+   shape, and on the edge rows of ``utils/corpus.py:norm_edge_rows``
+   (truncated leads before continuation-looking bytes, rows of exactly
+   128, 512 and 4,096 bytes, rows across a block's edge, runs of empty
+   rows, one-byte rows) under those and the trap bitmap.  And the word-level models at full
    width (``drive_models``), each through ``encode_batch`` on the corpus
    launching its tier's kernel once and nothing else: ByteLevel BPE on the
    50K and 100K tables (K9), CharBPE on its test table (K9), WordPiece at
    30,522 entries (K10), WordLevel at 40,001 (K11); every text and every
    distinct word against the host ``encode``; the words the host took
    (poisoned, over 128 lanes) printed; each kernel against its plain
-   version on the path's input (K9 and K10 on the ragged words as their
-   tiers pack them; K9 also on ``run_rows``), timed warm, cold and plain
-   beside its bound and, for K9 and K10, the bound of the dense [B, 128]
-   output the earlier tiers wrote; K9 also at every tile size of
-   ``TILE_SWEEP``, each checked; K10's words counted by lane group.  With
-   ``--parent DIR`` (a checkout of the commit before the ragged K9 and
-   K10): that commit's one-word-a-row K9 and K10, built by
-   ``scripts/parent_word_kernels.py`` beside the package's kernels, on the
-   same words laid out as its tiers laid them out, checked against these
-   and timed in turns (parent, kernel, kernel, parent), and cold.
+   version on the path's input (K9, K10 and K11 on the ragged words as
+   their tiers pack them; K9 also on ``run_rows``), timed warm, cold and
+   plain beside its bound and the bound of the dense [B, 128] rows the
+   earlier tiers wrote (K9, K10) or read (K11); K9 also at every tile size
+   of ``TILE_SWEEP``, each checked; K10's and K11's words counted by lane
+   group, K11 also with every word in groups of 8 and every word a warp.
+   With ``--parent DIR`` (a checkout of a commit with the dense K8 and
+   K11, 86e566f to ef545a1): that commit's one-row-a-warp K8 and K11,
+   built by ``scripts/parent_word_kernels.py`` beside the package's
+   kernels, on the same rows and words laid out as that commit laid them
+   out (K8: a zero-padded batch and a launch a length bucket), checked
+   against these and timed in turns (parent, kernel, kernel, parent), and
+   cold.
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -1520,56 +1527,119 @@ def _timings(kernel, plain, cold_fn, cold_inputs: tuple, out_bytes: int, plain_r
     return ms, ms_cold, plain_ms
 
 
-def check_norm(label: str, arr, lens, bitmap, sectors: int) -> dict:
-    """K8 against its plain version on one batch of the main path, timed
-    warm, cold and plain; the bound counts the rows' live bytes (the
-    function reads no byte at or past ``lens[r]``: the rows are whole UTF-8
-    texts, so no lead byte's tail lies past it), the lengths and flags and
-    ``sectors`` 32-byte sectors of the bitmap (those the rows' codepoints
-    land in), each once."""
+def check_norm(label: str, rows: list[bytes], bitmap, sectors: int, timed: bool = True,
+               parent=None) -> dict:
+    """K8 against its plain version on byte rows, all in one launch, as
+    ``DeviceNormChecker.check_bytes`` packs them (``pack_norm_rows``); with
+    ``timed``, timed warm, cold and plain.  The bound counts the rows' bytes,
+    their offsets, the block index and one flag a row, and ``sectors``
+    32-byte sectors of the bitmap (those the rows' codepoints land in), each
+    once.  With ``parent`` (``scripts/parent_word_kernels.py``) the earlier
+    one-warp-a-row K8 runs on the same rows as that commit laid them out
+    (one zero-padded batch a length bucket, a launch each), is checked
+    against this one and the two are timed in turns, warm, and the parent
+    cold."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        norm_launch_shape,
         norm_stable_rows,
-        norm_stable_rows_plain,
+        norm_stable_rows_ragged_plain,
+        pack_norm_rows,
     )
 
-    B, L = arr.shape
-    got = norm_stable_rows(arr, lens, bitmap)
+    data, offs, blocks, stable = pack_norm_rows(rows, "cuda")
+    B, T = offs.numel() - 1, blocks.numel() - 1
+    N = sum(map(len, rows))
+    got = norm_stable_rows(data, offs, blocks, bitmap, stable)
     torch.cuda.synchronize()
-    exp = norm_stable_rows_plain(arr, lens, bitmap)
+    exp = norm_stable_rows_ragged_plain(data, offs, bitmap)
     match = bool(torch.equal(got, exp))
     err = _max_abs_err(got.int(), exp.int())
-    ms, ms_cold, plain_ms = _timings(
-        lambda: norm_stable_rows(arr, lens, bitmap), lambda: norm_stable_rows_plain(arr, lens, bitmap),
-        lambda a, n: norm_stable_rows(a, n, bitmap), (arr, lens), B)
-    live = int(lens.clamp(0, L).sum())
-    bound_ms, bound_by = _bound(live + 5 * B + 32 * sectors, live * 4)
-    print(f"[norm_check] {label} [{B},{L}] match={match} max_abs_err={err} kernel={ms:.4f} ms "
-          f"cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; "
-          f"{live} live bytes, {sectors} bitmap sectors); stable rows {int(exp.sum())}/{B}",
-          flush=True)
     if not match:
-        raise AssertionError(f"K8 differs from its plain version: {label} [{B},{L}]")
-    return dict(inputs=label, shape=[B, L], match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                stable=int(exp.sum()))
+        raise AssertionError(f"K8 differs from its plain version: {label} ({B} rows)")
+    res = dict(inputs=label, shape=[N, B], match=match, max_abs_err=err, stable=int(exp.sum()))
+    if not timed:
+        print(f"[norm_check] {label}: {B} rows, {N} bytes, {T} blocks, match={match}; stable "
+              f"rows {res['stable']}/{B}", flush=True)
+        return res
+    ms, ms_cold, plain_ms = _timings(
+        lambda: norm_stable_rows(data, offs, blocks, bitmap, stable),
+        lambda: norm_stable_rows_ragged_plain(data, offs, bitmap),
+        lambda d, o, b, f: norm_stable_rows(d, o, b, bitmap, f), (data, offs, blocks, stable), 0)
+    bound_ms, bound_by = _bound(N + 4 * (B + 1) + 4 * (T + 1) + B + 32 * sectors, N * 4)
+    launch = norm_launch_shape()
+    print(f"[norm_check] {label} [{N} bytes, {B} rows, {T} blocks] match={match} max_abs_err={err} "
+          f"kernel={ms:.4f} ms cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} "
+          f"ms ({bound_by}; {sectors} bitmap sectors); stable rows {res['stable']}/{B} "
+          f"launch={launch}", flush=True)
+    res.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, blocks=T, launch=launch)
+    if parent is not None:
+        res.update(_parent_norm(label, rows, bitmap, parent, exp,
+                                lambda: norm_stable_rows(data, offs, blocks, bitmap, stable)))
+    return res
 
 
-def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict) -> dict:
+def _parent_norm(label: str, rows: list[bytes], bitmap, parent, exp, kernel) -> dict:
+    """The earlier K8 on ``rows`` in its batches (``bucket_rows``: a launch
+    a length bucket), its flags against this kernel's ``exp``, the two timed
+    in turns; the parent also cold."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    from parent_word_kernels import bucket_rows
+
+    batches = [(idxs, torch.from_numpy(a).cuda(), torch.from_numpy(n).cuda())
+               for idxs, a, n in bucket_rows(rows, _LENGTH_BUCKETS)]
+
+    def pfn(*tensors):
+        return [parent.norm_check(a, n, bitmap) for a, n in zip(tensors[::2], tensors[1::2])]
+
+    tensors = tuple(t for _, a, n in batches for t in (a, n))
+    got = pfn(*tensors)
+    torch.cuda.synchronize()
+    flags = torch.empty_like(exp)
+    for (idxs, _, _), g in zip(batches, got):
+        flags[torch.tensor(idxs, device="cuda")] = g
+    if sum(len(b[0]) for b in batches) != exp.numel() or not torch.equal(flags, exp):
+        raise AssertionError(f"the parent's K8 differs from this one's: {label}")
+    turns_ms, parent_ms = _in_turns(kernel, lambda: pfn(*tensors))
+    sets = _cold_sets(tensors, exp.numel())
+    parent_cold = _time_cold_ms(pfn, sets, 20)
+    del sets
+    shapes = [list(a.shape) for _, a, _ in batches]
+    print(f"[norm_check] {label} parent (a warp a row, a launch a bucket: {shapes}) match=True: in "
+          f"turns parent {parent_ms[0]:.4f} ms, kernel {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, "
+          f"parent {parent_ms[1]:.4f}; parent cold {parent_cold:.4f} ms", flush=True)
+    return dict(parent_ms=parent_ms, parent_ms_cold=parent_cold, ms_in_turns=turns_ms,
+                parent_shapes=shapes)
+
+
+def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict, parent=None) -> dict:
     """The text pipeline with its normalization check, at 50K (NFC):
     ``EncodePipeline.encode_batch(texts)`` from a fresh tokenizer, whose rows
     K8 proves stable skip the host rewrite, against the host oracle, with
-    the launch counts set to 0 just before and read just after (K8, K1 and
-    K2, no other); then K8 against its plain version on every batch of that
-    run (the same length buckets, at most 8,192 rows), under the NFC plan
-    and under ``BertNormalizer()``'s."""
+    the launch counts set to 0 just before and read just after (K8 once, K1
+    and K2, no other); then K8 against its plain version on that run's rows
+    (every row up to the widest length bucket, one launch), under the NFC
+    plan and under ``BertNormalizer()``'s, timed (and beside ``parent``'s
+    K8, when given); and, untimed, on ``norm_edge_rows`` under both and
+    the trap bitmap."""
     import torch
 
     from complexity_tokenizer_tpu_torch.core.normalizers import BertNormalizer
-    from complexity_tokenizer_tpu_torch.ops.normalize_device import plan_for_normalizer
-    from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS, pack_texts
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        NORM_SPAN,
+        norm_stable_rows,
+        pack_norm_rows,
+        plan_for_normalizer,
+    )
+    from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS
     from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
+    from complexity_tokenizer_tpu_torch.utils.corpus import norm_edge_rows, norm_trap_bitmap
 
     t0 = time.perf_counter()
     tok = Tokenizer.from_file(TOKENIZER_JSON)
@@ -1580,7 +1650,7 @@ def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict) -> dic
     setup_s = time.perf_counter() - t1
     got, counts, wall = _drive_launches(kernels_of, lambda: pipe.encode_batch(texts))
     _need_only("the 50K text pipeline with K8", counts,
-               {"norm_stable_rows": None, "seed_tokens": None, "merge_fixpoint_qc": None})
+               {"norm_stable_rows": 1, "seed_tokens": None, "merge_fixpoint_qc": None})
     # the texts that may hold an added token go to the oracle on the
     # Tokenizer's own routes; EncodePipeline.encode_batch has no scan
     flags = tok._added_route_flags(tok._prepare_bytes([tok._normalize(t) for t in texts]))
@@ -1588,27 +1658,31 @@ def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict) -> dic
     _compare("[50K] EncodePipeline.encode_batch (K8, NFC)", [texts[i] for i in keep],
              [got[i] for i in keep], [host[i] for i in keep])
     raw = [t.encode("utf-8") for t in texts]
-    clean = checker.check_bytes(raw, _LENGTH_BUCKETS, pack_texts)
-    groups: dict[int, list[int]] = {}
-    for i, d in enumerate(raw):
-        L = next((b for b in _LENGTH_BUCKETS if max(len(d), 1) <= b), None)
-        if L is not None:
-            groups.setdefault(L, []).append(i)
+    clean = checker.check_bytes(raw, _LENGTH_BUCKETS)
+    max_L = _LENGTH_BUCKETS[-1]
+    sent = [i for i, d in enumerate(raw) if 0 < len(d) <= max_L]
+    rows = [raw[i] for i in sent]
     print(f"[50K] EncodePipeline.encode_batch (K8, NFC): {len(texts)} texts, {len(keep)} against the "
           f"oracle (the others may hold an added token), 0 mismatches; NFC bitmap built and to the "
           f"card {setup_s:.3f} s; wall {wall:.3f} s; rows proven stable {int(clean.sum())}, "
-          f"normalized on the host {int((~clean).sum())} ({len(texts) - sum(map(len, groups.values()))} "
-          f"over the widest bucket); batches {sorted((L, len(v)) for L, v in groups.items())}; "
-          f"launches {counts}", flush=True)
-    results = []
+          f"normalized on the host {int((~clean).sum())} ({sum(len(d) > max_L for d in raw)} over "
+          f"the widest bucket); rows checked in one launch {len(rows)} ({sum(map(len, rows))} "
+          f"bytes); launches {counts}", flush=True)
     bert = torch.from_numpy(plan_for_normalizer(BertNormalizer()).bitmap).cuda()
-    for L, idxs in sorted(groups.items()):
-        chunk = idxs[:8192]
-        arr, lens = pack_texts([raw[i] for i in chunk], L, len(chunk))
-        sectors = len({ord(c) >> 5 for i in chunk for c in texts[i]})
-        arr, lens = torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
-        results.append(check_norm("corpus batch, NFC", arr, lens, checker.bitmap, sectors))
-        results.append(check_norm("corpus batch, BertNormalizer", arr, lens, bert, sectors))
+    trap = torch.from_numpy(norm_trap_bitmap()).cuda()
+    sectors = len({ord(c) >> 5 for i in sent for c in texts[i]})
+    results = [check_norm("corpus rows, NFC", rows, checker.bitmap, sectors, parent=parent),
+               check_norm("corpus rows, BertNormalizer", rows, bert, sectors, parent=parent)]
+    text = " ".join(texts[:200]).encode()
+    for label, edge in norm_edge_rows(text, NORM_SPAN):
+        for name, bm in (("NFC", checker.bitmap), ("BertNormalizer", bert), ("trap", trap)):
+            r = check_norm(f"edge, {label}, {name}", edge, bm, 0, timed=False)
+            results.append(r)
+            if label == "truncated leads" and name == "trap":
+                # the cut-off leads decode with zeros past their rows' ends
+                stable = norm_stable_rows(*pack_norm_rows(edge, "cuda")[:3], trap).cpu().numpy()
+                if not (stable[0::4].all() and not stable[3::4].any()):
+                    raise AssertionError("K8 read a truncated lead's tail from the next row")
     _phase("50K: text pipeline with K8", t0)
     return dict(launches={"50K EncodePipeline.encode_batch (NFC)": counts}, checks=results)
 
@@ -1643,18 +1717,21 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
                        parent=None) -> dict:
     """The kernel of a model's tier (K9, K10 or K11) against its plain
     version on the main path's input (the batch's distinct words, packed by
-    the tier: ragged for K9 and K10, dense rows for K11), timed warm, cold
-    and plain, with its bound.  The bound counts the live input only (each
-    word's symbols or characters, and its offset and length; a WordPiece
-    word over its limit needs its length alone), the outputs (K9 and K10:
-    an id a live position, a count a word, K10's poison flags) and the
-    table bytes the probes touch, each once; ``dense_bound_ms`` the same
-    with the [B, 128] output the dense tiers wrote.  K9 is also timed at
-    every tile size of ``TILE_SWEEP`` (each checked), K10's words counted
-    by lane group.  With ``parent`` (``scripts/parent_word_kernels.py``)
-    the earlier one-word-a-row K9 or K10 runs on the same words as its tier
-    laid them out, is checked against this kernel's result, and the two are
-    timed in turns, warm, and the parent cold."""
+    the tier: ragged), timed warm, cold and plain, with its bound.  The
+    bound counts the live input only (each word's symbols or characters,
+    and its offset and length; a WordPiece word over its limit needs its
+    length alone), the outputs (K9 and K10: an id a live position, a count
+    a word, K10's poison flags; K11: an id a word) and the table bytes the
+    probes touch (K11: also the lengths and characters its exact checks
+    read), each once; ``dense_bound_ms`` the same with the [B, 128] output
+    the dense K9 and K10 wrote, or the [B, 128] input the dense K11 read.
+    K9 is also timed at every tile size of ``TILE_SWEEP`` (each checked),
+    K10's and K11's words counted by lane group, K11 also checked with
+    every word in groups of 8 and every word a warp.  With ``parent``
+    (``scripts/parent_word_kernels.py``) the earlier one-word-a-row K11
+    runs on the same words as its tier laid them out, is checked against
+    this kernel's result, and the two are timed in turns, warm, and the
+    parent cold."""
     import numpy as np
     import torch
 
@@ -1667,8 +1744,9 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         word_tiles,
     )
     from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+        wordlevel_launch_shape,
         wordlevel_lookup,
-        wordlevel_lookup_plain,
+        wordlevel_lookup_ragged_plain,
         wordpiece_launch_shape,
         wordpiece_match,
         wordpiece_match_ragged_plain,
@@ -1700,14 +1778,15 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         out_bytes = 4 * N + 5 * B
         shape = [N, B]
     else:
-        chars, lens, _ = tier.pack(words)
-        chars, lens = on(chars), on(lens)
-        B, W = chars.shape
-        kernel = lambda: wordlevel_lookup(chars, lens, *tier.args())  # noqa: E731
-        plain = lambda: wordlevel_lookup_plain(chars, lens, *tier.args())  # noqa: E731
-        cold_fn, inputs = (lambda c, n: wordlevel_lookup(c, n, *tier.args())), (chars, lens)
+        chars_np, offs_np, lens_np, order, groups, _host = tier.pack(words)
+        chars, offs, lens = on(chars_np), on(offs_np), on(lens_np)
+        kernel = lambda: wordlevel_lookup(chars, offs, lens, groups, *tier.args())  # noqa: E731
+        plain = lambda: wordlevel_lookup_ragged_plain(chars, offs, lens, *tier.args())  # noqa: E731
+        cold_fn = lambda c, o, n: wordlevel_lookup(c, o, n, groups, *tier.args())  # noqa: E731
+        inputs = (chars, offs, lens)
+        B, N = lens.numel(), chars.numel()
         out_bytes = 4 * B
-        shape = [B, W]
+        shape = [N, B]
     got = kernel()
     torch.cuda.synchronize()
     exp = plain()
@@ -1751,84 +1830,69 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
                 f"words by lane group {hist}, {warps} warps")
         in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     else:
-        live = int(lens.sum())
+        # every word in groups of 8 lanes and every word a warp (the longer
+        # words overflow their group), bit for bit
+        for g in ((B, B), (0, 0)):
+            if not torch.equal(wordlevel_lookup(chars, offs, lens, g, *tier.args()), exp_t[0]):
+                raise AssertionError(f"K11 in groups {g} differs from its plain version: {label}")
+        live = N
         probes = int((lens > 0).sum())
-        tbytes, ops = min(probes * 20, table_bytes_all), probes * OPS_PER_PROBE_CHD
-        work = f"{live} characters, {probes} probes, {int((exp_t[0] == tier.t.unk_id).sum())} UNK"
-        in_bytes = 4 * (live + B)
+        hit = (exp_t[0] >= 0) & (exp_t[0] != tier.t.unk_id)
+        checked = int(lens[hit].sum())  # the characters the hits' exact checks read
+        all_tables = table_bytes_all + 4 * (tier.token_chars.numel() + tier.token_lens.numel())
+        tbytes = min(probes * 24 + 4 * checked, all_tables)
+        ops = probes * OPS_PER_PROBE_CHD + 4 * live  # the probes, two hash steps a character
+        hist = {"8 lanes": groups[0], "16 lanes": groups[1] - groups[0], "warp": B - groups[1]}
+        warps = -(-groups[0] // 4) + -(-(groups[1] - groups[0]) // 2) + (B - groups[1])
+        extra_out.update(groups=hist, warps=warps, launch=wordlevel_launch_shape())
+        work = (f"{live} characters, {B} words, {probes} probes, {int(hit.sum())} hits, "
+                f"{int((exp_t[0] == tier.t.unk_id).sum())} UNK; words by lane group {hist}, "
+                f"{warps} warps")
+        in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     bound_ms, bound_by = _bound(in_bytes + out_bytes + tbytes, ops)
     if name != "wordlevel_lookup":
         # the yardstick of the dense tiers: [B, 128] ids out, counts (and
         # K10's poison flags)
         dense_out = 4 * B * WORD_LANES + (5 if name == "wordpiece_match" else 4) * B
         extra_out["dense_bound_ms"] = _bound(in_bytes + dense_out + tbytes, ops)[0]
+    else:
+        # the dense tier's input: [B, 128] rows of characters and lengths
+        extra_out["dense_bound_ms"] = _bound(4 * B * WORD_LANES + 4 * B + out_bytes + tbytes,
+                                             ops)[0]
     print(f"[{name}] {label} {shape} match={match} max_abs_err={err} kernel={ms:.4f} ms "
           f"cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; "
-          f"{work})" + (f" dense-output bound={extra_out['dense_bound_ms']:.4f} ms"
-                        if "dense_bound_ms" in extra_out else "")
+          f"{work}) dense bound={extra_out['dense_bound_ms']:.4f} ms"
           + (f" launch={extra_out['launch']}" if "launch" in extra_out else ""), flush=True)
-    if parent is not None and name == "merge_word_rows":
-        extra_out.update(_parent_check(label, name, tier, parent, kernel, exp_t, offs_np,
-                                       syms_np=syms_np, args=args))
-    elif parent is not None and name == "wordpiece_match":
-        extra_out.update(_parent_check(label, name, tier, parent, kernel, exp_t, offs_np,
-                                       words=words, order=order))
+    if parent is not None and name == "wordlevel_lookup":
+        extra_out.update(_parent_wordlevel(label, tier, parent, kernel, exp_t[0], words, order))
     return dict(inputs=label, shape=shape, match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 probes=probes, **extra_out)
 
 
-def _parent_check(label: str, name: str, tier, parent, kernel, exp_t, offs_np, syms_np=None,
-                  args=None, words=None, order=None) -> dict:
-    """The earlier one-word-a-row kernel on the same words as its tier laid
-    them out ([B, 128] rows in the words' order; K9: ``syms_np`` and the
-    table ``args``, K10: the ``words`` and this tier's packing ``order``),
-    its result against this kernel's ``exp_t`` at ``offs_np``, and the two
-    timed in turns; the parent also cold."""
-    import numpy as np
+def _parent_wordlevel(label: str, tier, parent, kernel, exp, words: list[str], order) -> dict:
+    """The earlier one-word-a-warp K11 on the same words as its tier laid
+    them out ([B, 128] rows in the words' order, ``dense_word_rows``), its
+    ids against this kernel's ``exp`` (in the packing ``order``), and the
+    two timed in turns; the parent also cold."""
     import torch
 
-    from complexity_tokenizer_tpu_torch.ops.merge import WORD_LANES
-
     sys.path.insert(0, os.path.join(REPO, "scripts"))
-    from parent_word_kernels import dense_wordpiece_rows
+    from parent_word_kernels import dense_word_rows
 
-    lens_np = np.diff(offs_np)
-    word = np.repeat(np.arange(len(lens_np)), lens_np)
-    col = np.arange(int(offs_np[-1])) - offs_np[:-1][word]
-    if name == "merge_word_rows":
-        tokens = np.full((len(lens_np), WORD_LANES), -1, np.int32)
-        tokens[word, col] = syms_np
-        tokens = torch.from_numpy(tokens).cuda()
-        pfn = lambda: parent.merge_word_rows(tokens, *args)  # noqa: E731
-        cold_fn, inputs = (lambda t: parent.merge_word_rows(t, *args)), (tokens,)
-        got = pfn()
-        dense = torch.full_like(tokens, -1)
-        dense[torch.from_numpy(word).cuda(), torch.from_numpy(col).cuda()] = exp_t[0]
-        same = torch.equal(got[0], dense) and torch.equal(got[1], exp_t[1])
-        out_bytes = tokens.numel() * 4 + 4 * tokens.shape[0]
-    else:
-        mi = tier.t.max_input_chars
-        chars, lens = (torch.from_numpy(x).cuda() for x in dense_wordpiece_rows(words, mi))
-        targs = tier.args()
-        pfn = lambda: parent.wordpiece_match(chars, lens, *targs, mi)  # noqa: E731
-        cold_fn, inputs = (lambda c, n: parent.wordpiece_match(c, n, *targs, mi)), (chars, lens)
-        got = pfn()
-        dense = torch.full_like(chars, -1)
-        dense[torch.from_numpy(order[word]).cuda(), torch.from_numpy(col).cuda()] = exp_t[0]
-        o = torch.from_numpy(order).cuda()
-        same = (torch.equal(got[0], dense) and torch.equal(got[1][o], exp_t[1])
-                and torch.equal(got[2][o], exp_t[2]))
-        out_bytes = chars.numel() * 4 + 5 * chars.shape[0]
+    chars, lens = (torch.from_numpy(x).cuda() for x in dense_word_rows(words))
+    targs = tier.args()
+    pfn = lambda: parent.wordlevel_lookup(chars, lens, *targs)  # noqa: E731
+    got = pfn()
     torch.cuda.synchronize()
-    if not same:
-        raise AssertionError(f"the parent's {name} differs from this one's: {label}")
+    if not torch.equal(got[torch.from_numpy(order).cuda()], exp):
+        raise AssertionError(f"the parent's K11 differs from this one's: {label}")
     turns_ms, parent_ms = _in_turns(kernel, pfn)
-    sets = _cold_sets(inputs, out_bytes)
-    parent_cold = _time_cold_ms(cold_fn, sets, 20)
+    sets = _cold_sets((chars, lens), 4 * lens.numel())
+    parent_cold = _time_cold_ms(lambda c, n: parent.wordlevel_lookup(c, n, *targs), sets, 20)
     del sets
-    print(f"[{name}] {label} parent (one word a row) match=True: in turns parent "
-          f"{parent_ms[0]:.4f} ms, kernel {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, parent "
+    print(f"[wordlevel_lookup] {label} parent (a warp a [B, 128] row) match=True: in turns "
+          f"parent {parent_ms[0]:.4f} ms, kernel {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, parent "
           f"{parent_ms[1]:.4f}; parent cold {parent_cold:.4f} ms", flush=True)
     return dict(parent_ms=parent_ms, parent_ms_cold=parent_cold, ms_in_turns=turns_ms)
 
@@ -1879,7 +1943,7 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
     distinct word through ``encode_batch`` alone against the host; the
     words the host took (poisoned, over 128 lanes, an ineligible table)
     are counted.  Then each kernel against its plain version on the main
-    path's input (K9 and K10 also against ``parent``'s, when given)."""
+    path's input (K11 also against ``parent``'s, when given)."""
     import torch
 
     from complexity_tokenizer_tpu_torch.models import WordLevelModel, WordPieceModel
@@ -1961,8 +2025,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=17, help="corpus and input seed")
     ap.add_argument("--texts", type=int, default=10_000, help="Zipf texts")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the commit before the ragged K9 and K10, whose kernels "
-                         "are built and timed beside these (scripts/parent_word_kernels.py)")
+                    help="a checkout of a commit with the dense K8 and K11, whose kernels are "
+                         "built and timed beside these (scripts/parent_word_kernels.py)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2067,12 +2131,12 @@ def main(argv=None) -> int:
         if "error" in parent_build:
             raise parent_build["error"]
         pk = parent_build["kernels"]
-        print(f"parent's K9 and K10 ({args.parent}): {pk.build_seconds:.3f} s nvcc")
+        print(f"parent's K8 and K11 ({args.parent}): {pk.build_seconds:.3f} s nvcc")
         fn = ""
-        for line in pk.ptxas_log.splitlines():  # the dense K9's and K10's entries only
+        for line in pk.ptxas_log.splitlines():  # the dense K8's and K11's entries only
             if "Compiling entry function" in line:
                 fn = line
-            elif "registers" in line and ("WordRows" in fn or "wordpiece_kernel" in fn):
+            elif "registers" in line and ("norm_check_kernel" in fn or "wordlevel_kernel" in fn):
                 print("  parent " + fn.split("'")[1] + ": " + line.split(":", 1)[-1].strip())
     built = f"{lib.build_seconds:.3f} s nvcc" if lib.build_seconds else "reused an earlier build"
     print(f"build: {built} -> {os.path.relpath(lib.path, REPO)}")
@@ -2107,7 +2171,7 @@ def main(argv=None) -> int:
     call50 = drive_call("50K", TOKENIZER_JSON, texts, r50["host"], kernels_of)
     call100 = drive_call("100K", TOKENIZER_100K, texts, r100["host"], kernels_of)
     warm = drive_warm_cache(texts, r100["host"])
-    norm = drive_norm(texts, r50["host"], kernels_of)
+    norm = drive_norm(texts, r50["host"], kernels_of, parent_build.get("kernels"))
     mdl = drive_models(texts, kernels_of, parent_build.get("kernels"))
     # the paths of this slice, by name, for every kernel's launches_by_path
     new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()}}
@@ -2368,8 +2432,7 @@ def main(argv=None) -> int:
         "checks": k7_res,
     })
     # K8-K11: the paths of this slice
-    norm_main = max((r for r in norm["checks"] if r["inputs"] == "corpus batch, NFC"),
-                    key=lambda r: r["shape"][0])
+    norm_main = next(r for r in norm["checks"] if r["inputs"] == "corpus rows, NFC")
     for name, res, src, wrapper, replaces, path_name, main in (
         ("norm_stable_rows", norm["checks"], "normcheck.cu", "ops/normalize_device.py",
          "complexity_tokenizer_tpu/ops/normalize_device.py:226",
@@ -2410,8 +2473,8 @@ def main(argv=None) -> int:
             "library_ms": None,
             "checks": res,
         })
-        for key in ("dense_bound_ms", "tile", "tiles", "sweep", "groups", "warps", "launch",
-                    "parent_ms", "parent_ms_cold", "ms_in_turns"):
+        for key in ("dense_bound_ms", "tile", "tiles", "sweep", "groups", "warps", "blocks",
+                    "launch", "parent_ms", "parent_ms_cold", "ms_in_turns", "parent_shapes"):
             if key in main:
                 kernels[-1][key] = main[key]
     if _sha1(blob50) != blob50_sha1:

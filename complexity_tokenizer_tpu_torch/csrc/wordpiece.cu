@@ -44,18 +44,28 @@
 //   max_input is one UNK in its one slot, or nothing without UNK.
 //
 // K11 replaces WordLevelDevice._fn (the same file) and gives bit for bit
-// wordlevel_lookup_plain on dense rows: chars [B, W] int32 (-1 pads, W <=
-// 128) with lens [B] -> out [B] int32 (the word's id, UNK on a miss, -1
-// for an empty word).  One warp a word: the whole-row hash (a -1 entry is
-// skipped) by the same scan, one probe, the exact check by a warp vote.
+// wordlevel_lookup_ragged_plain on the same ragged words as K10's: chars
+// [N] int32, offs [B + 1] int32 and lens [B] int32 -> out [B] int32 (the
+// word's id, UNK on a miss or a failed check, -1 for a word of length <= 0),
+// in the words' order.
+// - K10's lane groups: the words [0, n8) 4 a warp by groups of 8 lanes,
+//   [n8, n16) 2 a warp by groups of 16, the rest a warp each.
+// - The whole-word hashes by one affine scan a base over the word's live
+//   characters only (a -1 character is the identity step), in chunks of
+//   the group's width where the word is longer than its group.
+// - One displacement read and one row read; the row brings the slot and
+//   the emit id (its fourth word), so no emit_ids read follows.
+// - The exact check: token_lens[slot] and token_chars[slot, 0:len] one lane
+//   a character (-1 past the word's slots), ended by a vote of the group.
 //
 // Bound: latency.  The bytes are each word's live characters in (4 B
 // each), the offsets and lengths (4 B a word each), the ids out (K10: 4 B
 // a character, with count and poison; K11: 4 B a word) and the table
-// entries the probes touch (4 B of displacement, 16 B of row), all in L2
-// after the first touch.  A K10 step waits on two dependent reads
-// (displacement, row); a K11 word on those and the check.  Times, the
-// bound and the launch shape are in PERF.md, section 6.
+// entries the probes touch (4 B of displacement, 16 B of row; K11 also 4 B
+// of length and 4 B a character checked), all in L2 after the first touch.
+// A K10 step waits on two dependent reads (displacement, row); a K11 word
+// on the characters, those two and the check.  Times, the bound and the
+// launch shape are in PERF.md, section 6.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,8 +78,7 @@ constexpr uint32_t kB1 = 0x01000193u;
 constexpr uint32_t kB2 = 0x0BADC0DFu;
 constexpr int32_t kInfRank = 0x3FFFFFFF;
 constexpr uint32_t kFull = 0xFFFFFFFFu;
-constexpr int kMaxW = 128;         // characters a word (K10), lanes a row (K11)
-constexpr int kChunks = kMaxW / 32;
+constexpr int kMaxW = 128;         // characters a word (K10)
 constexpr int kWpWarps = 4;        // warps a block
 constexpr int kPowLen = kMaxW + 1;  // a row of the powers table
 // K10's launch bound, resident blocks an SM (64 registers a thread; at 12,
@@ -90,12 +99,6 @@ struct Tables {
 
 __device__ __forceinline__ int32_t disp_of(const Tables& t, uint32_t a, uint32_t b) {
   return __ldg(t.disp + (mix_hash(a, b) & t.bucket_mask));
-}
-
-// The slot of the key (a, b) given its displacement d, or kInfRank.
-__device__ __forceinline__ int32_t slot_of(const Tables& t, uint32_t a, uint32_t b, int32_t d) {
-  const int4 r = __ldg(t.rows + ((mix_hash2(a, b) + (uint32_t)d) & t.size_mask));
-  return r.x == (int32_t)a && r.y == (int32_t)b ? r.z : kInfRank;
 }
 
 // Inclusive scan of the affine maps x -> x * m + v in each segment of G
@@ -314,46 +317,84 @@ wordpiece_kernel(const int32_t* __restrict__ chars, const int32_t* __restrict__ 
 // ---------------------------------------------------------------------------
 // K11
 
-__global__ void __launch_bounds__(kWpWarps * 32)
-wordlevel_kernel(const int32_t* __restrict__ chars, const int32_t* __restrict__ lens,
-                 Tables tb, int32_t* __restrict__ out, int B, int W) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWpWarps + warp;
-  if (row >= B) return;
-  const int32_t* rc = chars + row * W;
-  const int len = __ldg(lens + row);
-  // the whole row's hashes: a -1 entry is skipped (the identity step)
+constexpr int kWlWarps = 8;  // K11's warps a block
+
+// The words [word, word + 32 / G) of `end` (a group of G lanes each), with
+// every lane of the warp.
+template <int G>
+__device__ __forceinline__ void lookup_words(const int32_t* __restrict__ chars,
+                                             const int32_t* __restrict__ offs,
+                                             const int32_t* __restrict__ lens, const Tables& tb,
+                                             int word, int end, int32_t* __restrict__ out,
+                                             int lane) {
+  const int g = lane / G, gl = lane % G;
+  const uint32_t low = (uint32_t)((1ull << G) - 1ull);
+  word += g;
+  const bool valid = word < end;
+  int off = 0, slots = 0, len = 0;
+  if (valid) {
+    off = __ldg(offs + word);
+    slots = __ldg(offs + word + 1) - off;
+    len = __ldg(lens + word);
+  }
+  // the whole word's hashes, a chunk of G characters at a time; the first
+  // chunk's character stays in a register for the check
+  const int nmax = __reduce_max_sync(kFull, max(slots, 0));
   uint32_t h1 = 0, h2 = 0;
-  int32_t c[kChunks];
-#pragma unroll
-  for (int k = 0; k < kChunks; ++k) {
-    const int i = 32 * k + lane;
-    c[k] = i < W ? __ldg(rc + i) : -1;
-    const bool on = c[k] >= 0;
-    uint32_t m1 = on ? kB1 : 1u, v1 = on ? (uint32_t)c[k] + 1u : 0u;
+  int32_t first = -1;
+#pragma unroll 1  // unrolled, it kept the trip count's parity in local memory
+  for (int i0 = 0; i0 < nmax; i0 += G) {
+    const int i = i0 + gl;
+    const int32_t c = i < slots ? __ldg(chars + off + i) : -1;
+    if (i0 == 0) first = c;
+    const bool on = c >= 0;
+    uint32_t m1 = on ? kB1 : 1u, v1 = on ? (uint32_t)c + 1u : 0u;
     uint32_t m2 = on ? kB2 : 1u, v2 = v1;
-    affine_scan<32>(m1, v1, lane);
-    affine_scan<32>(m2, v2, lane);
-    h1 = h1 * __shfl_sync(kFull, m1, 31) + __shfl_sync(kFull, v1, 31);
-    h2 = h2 * __shfl_sync(kFull, m2, 31) + __shfl_sync(kFull, v2, 31);
+    affine_scan<G>(m1, v1, gl);
+    affine_scan<G>(m2, v2, gl);
+    h1 = h1 * __shfl_sync(kFull, m1, G - 1, G) + __shfl_sync(kFull, v1, G - 1, G);
+    h2 = h2 * __shfl_sync(kFull, m2, G - 1, G) + __shfl_sync(kFull, v2, G - 1, G);
   }
-  if (len <= 0) {
-    if (lane == 0) out[row] = -1;
-    return;
+  // one probe: the row brings the slot and the emit id
+  const bool live = valid && len > 0;
+  bool ok = false;
+  int32_t slot = 0, emit = 0;
+  if (live) {
+    const int4 r = __ldg(tb.rows + ((mix_hash2(h1, h2) + (uint32_t)disp_of(tb, h1, h2)) &
+                                    tb.size_mask));
+    slot = r.z;
+    emit = r.w;
+    ok = r.x == (int32_t)h1 && r.y == (int32_t)h2 && slot != kInfRank && len <= tb.Lt;
   }
-  const int32_t slot = slot_of(tb, h1, h2, disp_of(tb, h1, h2));
-  bool ok = slot != kInfRank && len <= tb.Lt;
+  // the exact check, one lane a character; -1 past the word's slots
   if (ok) {
     ok = __ldg(tb.token_lens + slot) == len;
     const int32_t* tc = tb.token_chars + (int64_t)slot * tb.Lt;
-#pragma unroll
-    for (int k = 0; k < kChunks; ++k) {
-      const int j = 32 * k + lane;
-      if (j < len) ok &= __ldg(tc + j) == c[k];
+    for (int j = gl; j < len; j += G) {
+      const int32_t wc = j == gl ? first : (j < slots ? __ldg(chars + off + j) : -1);
+      ok &= __ldg(tc + j) == wc;
     }
   }
-  ok = __all_sync(kFull, ok);
-  if (lane == 0) out[row] = ok ? __ldg(tb.emit_ids + slot) : tb.unk;
+  const bool fail = (__ballot_sync(kFull, live && !ok) >> (g * G)) & low;
+  if (valid && gl == 0) out[word] = live ? (fail ? tb.unk : emit) : -1;
+}
+
+// A warp's words: 4 of the words [0, n8), 2 of [n8, n16) or one of
+// [n16, B), by the warp's index.
+__global__ void __launch_bounds__(kWlWarps * 32)
+wordlevel_kernel(const int32_t* __restrict__ chars, const int32_t* __restrict__ offs,
+                 const int32_t* __restrict__ lens, Tables tb, int n8, int n16, int B,
+                 int32_t* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kWlWarps + warp;
+  const int w8 = (n8 + 3) / 4, w16 = (n16 - n8 + 1) / 2;
+  if (gw < w8) {
+    lookup_words<8>(chars, offs, lens, tb, 4 * gw, n8, out, lane);
+  } else if (gw < w8 + w16) {
+    lookup_words<16>(chars, offs, lens, tb, n8 + 2 * (gw - w8), n16, out, lane);
+  } else if (n16 + gw - w8 - w16 < B) {
+    lookup_words<32>(chars, offs, lens, tb, n16 + gw - w8 - w16, B, out, lane);
+  }
 }
 
 Tables make_tables(const void* disp, const void* rows, unsigned size_mask, unsigned bucket_mask,
@@ -408,22 +449,38 @@ int ctok_wordpiece_info(int* info) {
   return (int)cudaSuccess;
 }
 
-// K11: chars [B, W] int32 (W <= 128), lens [B] int32, the tables -> out [B]
-// int32
-int ctok_wordlevel_lookup(const void* chars, const void* lens, const void* disp,
-                          const void* rows, unsigned size_mask, unsigned bucket_mask,
-                          const void* token_chars, const void* token_lens,
-                          const void* emit_ids, int Lt, int unk, void* out, int B, int W,
-                          void* stream) {
+// K11: chars [N] int32, offs [B + 1] int32, lens [B] int32, the word
+// groups (0 <= n8 <= n16 <= B), the CHD table (rows 16-byte aligned, the
+// emit id in each row's fourth word) and the slot tables -> out [B] int32
+int ctok_wordlevel_lookup(const void* chars, const void* offs, const void* lens, int n8, int n16,
+                          int B, const void* disp, const void* rows, unsigned size_mask,
+                          unsigned bucket_mask, const void* token_chars, const void* token_lens,
+                          int Lt, int unk, void* out, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (W > kMaxW || W < 0 || Lt <= 0) return (int)cudaErrorInvalidValue;
+  if (n8 < 0 || n8 > n16 || n16 > B || Lt <= 0) return (int)cudaErrorInvalidValue;
   const Tables tb = make_tables(disp, rows, size_mask, bucket_mask, token_chars, token_lens,
-                                emit_ids, Lt, unk);
-  const int blocks = (B + kWpWarps - 1) / kWpWarps;
-  wordlevel_kernel<<<blocks, kWpWarps * 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(chars), static_cast<const int32_t*>(lens), tb,
-      static_cast<int32_t*>(out), B, W);
+                                nullptr, Lt, unk);
+  const int warps = (n8 + 3) / 4 + (n16 - n8 + 1) / 2 + (B - n16);
+  const int blocks = (warps + kWlWarps - 1) / kWlWarps;
+  wordlevel_kernel<<<blocks, kWlWarps * 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const int32_t*>(chars), static_cast<const int32_t*>(offs),
+      static_cast<const int32_t*>(lens), tb, n8, n16, B, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
+}
+
+// K11's launch shape, as ctok_wordpiece_info's
+int ctok_wordlevel_info(int* info) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, wordlevel_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wordlevel_kernel, kWlWarps * 32,
+                                                      0);
+  if (err != cudaSuccess) return (int)err;
+  const int shape[] = {kWlWarps * 32, fa.numRegs, (int)fa.sharedSizeBytes,
+                       (int)fa.localSizeBytes, blocks};
+  for (int i = 0; i < 5; ++i) info[i] = shape[i];
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

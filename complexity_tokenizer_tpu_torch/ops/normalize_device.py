@@ -8,8 +8,10 @@ codepoint.  So the work is split:
 - every supported normalizer gets a **stability bitmap** over codepoints:
   a row holding no flagged codepoint is a fixed point of the normalizer,
   and its host rewrite is skipped;
-- on the device, K8 decodes the UTF-8 lead bytes of each packed row,
-  reads the bitmap and reduces per row (:func:`norm_stable_rows`);
+- on the device, K8 decodes the UTF-8 lead bytes of every row in one
+  launch over the rows end to end (:func:`pack_norm_rows`), reads the
+  bitmap and clears the flag of each row that holds a flagged codepoint
+  (:func:`norm_stable_rows`);
 - flagged rows are rewritten on the host with the exact reference
   semantics, so the result equals host normalization by construction.
 
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from ..core import normalizers as N
-from ..utils.cuda_build import check, kernel_library
+from ..utils.cuda_build import check, kernel_library, launch_info
 from ..utils.device import resolve_device
 from ..utils.unicode_tables import (
     is_cjk_bert,
@@ -50,19 +52,26 @@ from ..utils.unicode_tables import (
     is_control_char,
     whitespace_set,
 )
+from .merge import _ragged_index
 
 __all__ = [
     "NormPlan",
     "plan_for_normalizer",
     "DeviceNormChecker",
     "stability_bitmap",
+    "norm_block_rows",
+    "norm_launch_shape",
     "norm_stable_rows",
     "norm_stable_rows_plain",
+    "norm_stable_rows_ragged_plain",
+    "pack_norm_rows",
 ]
 
 _MAX_CP = 0x110000
-# rows per launch of the check (the pipeline's largest batch bucket)
-_MAX_ROWS = 8192
+# bytes a block of K8 takes (csrc/normcheck.cu: 256 threads of 16 bytes)
+NORM_SPAN = 4096
+# bytes a launch of the check (int32 offsets; every row is at most 4,096)
+_MAX_BYTES = 1 << 30
 
 
 class NormPlan:
@@ -216,7 +225,8 @@ def plan_for_normalizer(norm) -> NormPlan | None:
 
 def _shift_left(x: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.zeros_like(x)
-    out[:, : x.shape[1] - k] = x[:, k:]
+    if k < x.shape[1]:  # rows narrower than k shift to all zeros
+        out[:, : x.shape[1] - k] = x[:, k:]
     return out
 
 
@@ -247,42 +257,124 @@ def norm_stable_rows_plain(byte_arr, lengths, bitmap) -> torch.Tensor:
     return ~unstable.any(dim=1)
 
 
-def norm_stable_rows(byte_arr, lengths, bitmap) -> torch.Tensor:
-    """K8 on CUDA tensors, the plain version on CPU tensors; same
-    arguments and result as :func:`norm_stable_rows_plain`."""
-    if byte_arr.device.type == "cpu":
-        return norm_stable_rows_plain(byte_arr, lengths, bitmap)
-    if byte_arr.device.type != "cuda":
-        raise ValueError(f"norm_stable_rows: unsupported device {byte_arr.device}")
-    B, L = byte_arr.shape
+def norm_stable_rows_ragged_plain(data, offs, bitmap) -> torch.Tensor:
+    """Plain PyTorch version of K8, on any device: the rows scattered into
+    zeroed ``[B, max length]`` rows and :func:`norm_stable_rows_plain`.
+
+    Args:
+      data: [n] uint8, the rows' UTF-8 bytes end to end (n >= offs[B]).
+      offs: [B + 1] int32, row r is ``data[offs[r]:offs[r + 1]]``.
+      bitmap: [0x110000] uint8 stability bitmap.
+    Returns:
+      [B] bool: True where no lead byte of the row decodes to a flagged
+      codepoint; a byte past the row's end reads as 0.
+    """
+    B = offs.numel() - 1
+    lens = (offs[1:] - offs[:-1]).to(torch.int32)
+    row, col = _ragged_index(offs)
+    L = max(1, int(lens.max())) if B else 1
+    dense = torch.zeros((B, L), dtype=torch.uint8, device=data.device)
+    dense[row, col] = data[: row.numel()]
+    return norm_stable_rows_plain(dense, lens, bitmap)
+
+
+def norm_block_rows(offs, span: int = NORM_SPAN) -> np.ndarray:
+    """K8's per-block row index: block k takes the bytes ``[k * span, (k + 1)
+    * span)`` of the rows ``offs`` end to end; entry k is the row that holds
+    the block's first byte, the last entry the row that holds the last
+    byte.  Returns [T + 1] int32 with T = ceil(offs[B] / span) (``[0]`` when
+    there are no bytes)."""
+    offs = np.asarray(offs, dtype=np.int64)
+    B = len(offs) - 1
+    N = int(offs[-1]) if B > 0 else 0
+    if N == 0:
+        return np.zeros(1, np.int32)
+    at = np.minimum(np.arange(-(-N // span) + 1, dtype=np.int64) * span, N - 1)
+    return (np.searchsorted(offs[:B], at, side="right") - 1).astype(np.int32)
+
+
+def pack_norm_rows(rows: list[bytes], device="cpu"):
+    """K8's input for byte strings, built in one host buffer and copied to
+    ``device`` in one piece: (data [n] uint8, the rows end to end, zero
+    padded to a multiple of 16 bytes; offs [B + 1] int32; block_rows [T + 1]
+    int32, :func:`norm_block_rows`; stable [B] bool, all True), views of one
+    tensor."""
+    B = len(rows)
+    offs = np.zeros(B + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, rows), np.int64, B), out=offs[1:])
+    N = int(offs[-1])
+    if N >= 2**31:
+        raise ValueError(f"pack_norm_rows: {N} bytes exceed int32 offsets")
+    blocks = norm_block_rows(offs)
+    n = -(-N // 16) * 16
+    i_offs = n + -(-B // 4) * 4  # 4-byte aligned
+    i_blocks = i_offs + 4 * (B + 1)
+    buf = np.zeros(i_blocks + 4 * len(blocks), np.uint8)
+    buf[:N] = np.frombuffer(b"".join(rows), np.uint8)
+    buf[n:n + B] = 1
+    buf[i_offs:i_blocks].view(np.int32)[:] = offs
+    buf[i_blocks:].view(np.int32)[:] = blocks
+    t = torch.from_numpy(buf).to(device)
+    return (t[:n], t[i_offs:i_blocks].view(torch.int32), t[i_blocks:].view(torch.int32),
+            t[n:n + B].view(torch.bool))
+
+
+def norm_stable_rows(data, offs, block_rows, bitmap, stable=None) -> torch.Tensor:
+    """K8 on CUDA tensors, the plain version on CPU tensors: ``stable``
+    (True on entry; None: a new one) cleared where
+    :func:`norm_stable_rows_ragged_plain` finds a flagged codepoint, and
+    returned.  ``data`` is padded to a multiple of 16 bytes and 16-byte
+    aligned, ``block_rows`` is :func:`norm_block_rows` of ``offs`` (the
+    plain version reads neither the padding nor the block index), as
+    :func:`pack_norm_rows` builds them."""
+    B = offs.numel() - 1
+    if data.device.type == "cpu":
+        flags = norm_stable_rows_ragged_plain(data, offs, bitmap)
+        return flags if stable is None else stable.logical_and_(flags)
+    if data.device.type != "cuda":
+        raise ValueError(f"norm_stable_rows: unsupported device {data.device}")
+    if stable is None:
+        stable = torch.ones(B, dtype=torch.bool, device=data.device)
+    T = block_rows.numel() - 1
     for name, t, dtype, shape in (
-        ("byte_arr", byte_arr, torch.uint8, (B, L)),
-        ("lengths", lengths, torch.int32, (B,)),
+        ("data", data, torch.uint8, (data.numel(),)),
+        ("offs", offs, torch.int32, (B + 1,)),
+        ("block_rows", block_rows, torch.int32, (T + 1,)),
         ("bitmap", bitmap, torch.uint8, (_MAX_CP,)),
+        ("stable", stable, torch.bool, (B,)),
     ):
-        if t.device != byte_arr.device or t.dtype != dtype or tuple(t.shape) != shape:
+        if t.device != data.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
-                f"norm_stable_rows: {name} must be {dtype} {shape} on {byte_arr.device}, "
+                f"norm_stable_rows: {name} must be {dtype} {shape} on {data.device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
         if not t.is_contiguous():
             raise ValueError(f"norm_stable_rows: {name} must be contiguous")
-    out = torch.empty(B, dtype=torch.bool, device=byte_arr.device)
-    if B == 0:
-        return out
-    stream = torch.cuda.current_stream(byte_arr.device).cuda_stream
+    if data.numel() % 16 or data.data_ptr() % 16:
+        raise ValueError("norm_stable_rows: data must be 16-byte aligned and a multiple of 16 "
+                         "bytes (one 16-byte load a thread)")
+    if B == 0 or T == 0:
+        return stable
+    stream = torch.cuda.current_stream(data.device).cuda_stream
     check(
         kernel_library().lib.ctok_norm_check(
-            byte_arr.data_ptr(), lengths.data_ptr(), bitmap.data_ptr(), out.data_ptr(),
-            B, L, stream,
+            data.data_ptr(), data.numel(), offs.data_ptr(), block_rows.data_ptr(), T,
+            bitmap.data_ptr(), stable.data_ptr(), B, NORM_SPAN, stream,
         ),
         "norm_stable_rows",
     )
     norm_stable_rows.launches += 1
-    return out
+    return stable
 
 
 norm_stable_rows.launches = 0  # launches of K8 (not of the plain version)
+
+
+def norm_launch_shape() -> dict:
+    """How the card launches K8: threads a block, registers a thread, static
+    shared bytes a block, local (spill) bytes a thread, resident blocks per
+    SM.  Needs a card; launches nothing."""
+    return launch_info("ctok_norm_check_info", "norm_launch_shape")
 
 
 class DeviceNormChecker:
@@ -294,28 +386,26 @@ class DeviceNormChecker:
         self.device = resolve_device(device)
         self.bitmap = torch.from_numpy(np.ascontiguousarray(plan.bitmap)).to(self.device)
 
-    def check_bytes(self, raw: list[bytes], length_buckets, pack) -> np.ndarray:
-        """Per-row stability flags (numpy bool).  Rows are grouped by length
-        bucket and checked at the exact batch size (at most 8,192 rows a
-        launch); rows wider than the largest bucket are reported unstable
-        (the host normalizes them, exact either way)."""
-        clean = np.zeros(len(raw), dtype=bool)
-        groups: dict[int, list[int]] = {}
-        for i, d in enumerate(raw):
-            n = max(len(d), 1)
-            L = next((b for b in length_buckets if n <= b), None)
-            if L is not None:
-                groups.setdefault(L, []).append(i)
-        for L, idxs in groups.items():
-            for c0 in range(0, len(idxs), _MAX_ROWS):
-                chunk = idxs[c0 : c0 + _MAX_ROWS]
-                arr, lens = pack([raw[i] for i in chunk], L, len(chunk))
-                flags = norm_stable_rows(
-                    torch.from_numpy(arr).to(self.device),
-                    torch.from_numpy(lens).to(self.device),
-                    self.bitmap,
-                )
-                clean[chunk] = flags.cpu().numpy()
+    def check_bytes(self, raw: list[bytes], length_buckets) -> np.ndarray:
+        """Per-row stability flags (numpy bool), as JAX's ``check_bytes``
+        with the same ``length_buckets``: every row up to the largest bucket
+        in one launch (one copy each way; a launch at most 1 GiB of
+        bytes), rows wider than it reported unstable (the host normalizes
+        them, exact either way), empty rows stable without a launch."""
+        lens = np.fromiter(map(len, raw), np.int64, len(raw))
+        clean = lens == 0
+        idx = np.flatnonzero((lens > 0) & (lens <= max(length_buckets)))
+        ends = np.cumsum(lens[idx])
+        start = 0
+        while start < len(idx):
+            base = int(ends[start - 1]) if start else 0
+            stop = int(np.searchsorted(ends, base + _MAX_BYTES, side="right"))
+            chunk = idx[start:stop]
+            data, offs, blocks, stable = pack_norm_rows([raw[i] for i in chunk.tolist()],
+                                                        self.device)
+            clean[chunk] = norm_stable_rows(data, offs, blocks, self.bitmap,
+                                            stable).cpu().numpy()
+            start = stop
         if self.plan.host_pred is not None:
             for i, d in enumerate(raw):
                 if clean[i] and self.plan.host_pred(d.decode("utf-8")):

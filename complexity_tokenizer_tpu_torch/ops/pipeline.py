@@ -134,7 +134,7 @@ class EncodePipeline:
             if checker is None:
                 raw = [norm.normalize(t).encode("utf-8") for t in texts]
             else:
-                clean = checker.check_bytes(raw, _LENGTH_BUCKETS, pack_texts)
+                clean = checker.check_bytes(raw, _LENGTH_BUCKETS)
                 raw = [d if c else norm.normalize(t).encode("utf-8")
                        for t, d, c in zip(texts, raw, clean)]
         if self.add_prefix_space:

@@ -21,7 +21,8 @@ length so that a group of lanes sized to the word takes it):
   check poisons the word and the caller re-tokenizes it on the host.
 
 WordLevel is one whole-word hash, one probe and the exact check per word;
-a miss gives UNK.
+a miss gives UNK.  K11 takes the same ragged words as K10, in the same
+lane groups.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.cuda_build import check, kernel_library
+from ..utils.cuda_build import check, kernel_library, launch_info
 from ..utils.device import resolve_device
 from .hashtable import INF_RANK, _mul32, build_chd_table, chd_lookup
 from .merge import _ragged_index
@@ -48,8 +49,10 @@ __all__ = [
     "wordpiece_match_plain",
     "wordpiece_match_ragged_plain",
     "wordpiece_launch_shape",
+    "wordlevel_launch_shape",
     "wordlevel_lookup",
     "wordlevel_lookup_plain",
+    "wordlevel_lookup_ragged_plain",
 ]
 
 _W = 128  # codepoint lanes a word row
@@ -343,24 +346,42 @@ def _check_args(fn: str, tensors) -> None:
             raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _check_tables(fn: str, chars, lens, disp, rows, size, n_buckets, token_chars, token_lens,
-                  emit_ids) -> None:
-    B, W = chars.shape
+def _check_ragged(fn: str, chars, offs, lens, groups, disp, rows, size, n_buckets,
+                  token_chars, token_lens, emit_ids) -> tuple[int, int]:
+    """The argument checks K10 and K11 share (ragged words, the lane groups,
+    the tables); returns the groups (n8, n16)."""
+    N, B = chars.numel(), lens.numel()
     S, Lt = token_chars.shape
-    if W > _W:
-        raise ValueError(f"{fn}: rows of {W} lanes exceed the kernel's {_W}")
+    n8, n16 = (int(g) for g in groups)
+    if not 0 <= n8 <= n16 <= B:
+        raise ValueError(f"{fn}: groups {groups} outside 0 <= n8 <= n16 <= {B}")
+    if Lt > _W:
+        raise ValueError(f"{fn}: tokens of {Lt} characters exceed the kernel's {_W}")
     for name, n in (("table size", size), ("bucket count", n_buckets)):
         if n <= 0 or n & (n - 1):
             raise ValueError(f"{fn}: {name} {n} is not a power of two")
     i32 = torch.int32
     _check_args(fn, (
-        ("chars", chars, i32, (B, W)), ("lens", lens, i32, (B,)),
+        ("chars", chars, i32, (N,)), ("offs", offs, i32, (B + 1,)), ("lens", lens, i32, (B,)),
         ("disp", disp, i32, (n_buckets,)), ("rows", rows, i32, (size, 4)),
         ("token_chars", token_chars, i32, (S, Lt)), ("token_lens", token_lens, i32, (S,)),
         ("emit_ids", emit_ids, i32, (S,)),
     ))
     if rows.data_ptr() % 16:
         raise ValueError(f"{fn}: rows must be 16-byte aligned (one int4 load a probe)")
+    return n8, n16
+
+
+def _dense_words(chars, offs, fn: str):
+    """Ragged words scattered into -1-padded 128-lane rows: (rows [B, 128]
+    int32, word, column), raising if a word holds more than 128 slots."""
+    B = offs.numel() - 1
+    if B and int((offs[1:] - offs[:-1]).max()) > _W:
+        raise ValueError(f"{fn}: a word holds more than {_W} slots")
+    word, col = _ragged_index(offs)
+    dense = torch.full((B, _W), -1, dtype=torch.int32, device=chars.device)
+    dense[word, col] = chars
+    return dense, word, col
 
 
 def wordpiece_match_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets, token_chars,
@@ -380,15 +401,10 @@ def wordpiece_match_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets,
       (out [N] int32: each match's id at its start character, -1 elsewhere;
       count [B] int32; poison [B] bool).
     """
-    B = lens.numel()
     slots = offs[1:] - offs[:-1]
-    if B and int(slots.max()) > _W:
-        raise ValueError(f"wordpiece_match: a word holds more than {_W} slots")
     if bool(((lens <= max_input) & (lens > slots)).any()):
         raise ValueError("wordpiece_match: a word within the limit is longer than its slots")
-    word, col = _ragged_index(offs)
-    dense = torch.full((B, _W), -1, dtype=torch.int32, device=chars.device)
-    dense[word, col] = chars
+    dense, word, col = _dense_words(chars, offs, "wordpiece_match")
     out, count, poison = wordpiece_match_plain(dense, lens, disp, rows, size, n_buckets,
                                                token_chars, token_lens, emit_ids, unk, max_input)
     return out[word, col], count, poison
@@ -409,25 +425,9 @@ def wordpiece_match(chars, offs, lens, groups, disp, rows, size, n_buckets, toke
                                             token_chars, token_lens, emit_ids, unk, max_input)
     if chars.device.type != "cuda":
         raise ValueError(f"wordpiece_match: unsupported device {chars.device}")
-    N, B = chars.numel(), lens.numel()
-    S, Lt = token_chars.shape
-    n8, n16 = (int(g) for g in groups)
-    if not 0 <= n8 <= n16 <= B:
-        raise ValueError(f"wordpiece_match: groups {groups} outside 0 <= n8 <= n16 <= {B}")
-    if Lt > _W:
-        raise ValueError(f"wordpiece_match: tokens of {Lt} characters exceed the kernel's {_W}")
-    for name, n in (("table size", size), ("bucket count", n_buckets)):
-        if n <= 0 or n & (n - 1):
-            raise ValueError(f"wordpiece_match: {name} {n} is not a power of two")
-    i32 = torch.int32
-    _check_args("wordpiece_match", (
-        ("chars", chars, i32, (N,)), ("offs", offs, i32, (B + 1,)), ("lens", lens, i32, (B,)),
-        ("disp", disp, i32, (n_buckets,)), ("rows", rows, i32, (size, 4)),
-        ("token_chars", token_chars, i32, (S, Lt)), ("token_lens", token_lens, i32, (S,)),
-        ("emit_ids", emit_ids, i32, (S,)),
-    ))
-    if rows.data_ptr() % 16:
-        raise ValueError("wordpiece_match: rows must be 16-byte aligned (one int4 load a probe)")
+    n8, n16 = _check_ragged("wordpiece_match", chars, offs, lens, groups, disp, rows, size,
+                            n_buckets, token_chars, token_lens, emit_ids)
+    B, Lt = lens.numel(), token_chars.shape[1]
     out = torch.empty_like(chars)
     count = torch.empty(B, dtype=torch.int32, device=chars.device)
     poison = torch.empty(B, dtype=torch.bool, device=chars.device)
@@ -451,19 +451,29 @@ def wordpiece_match(chars, offs, lens, groups, disp, rows, size, n_buckets, toke
 
 wordpiece_match.launches = 0  # launches of K10 (not of the plain version)
 
-_WP_SHAPE_KEYS = ("threads", "registers", "static_smem", "local_bytes", "blocks_per_sm")
-
-
 def wordpiece_launch_shape() -> dict:
     """How the card launches K10: threads a block, registers a thread,
     static shared bytes a block, local (spill) bytes a thread, resident
     blocks per SM.  Needs a card; launches nothing."""
-    import ctypes
+    return launch_info("ctok_wordpiece_info", "wordpiece_launch_shape")
 
-    info = (ctypes.c_int * len(_WP_SHAPE_KEYS))()
-    check(kernel_library().lib.ctok_wordpiece_info(ctypes.addressof(info)),
-          "wordpiece_launch_shape")
-    return dict(zip(_WP_SHAPE_KEYS, info))
+
+def _pack_words(words: list[str], wl: np.ndarray, slots: np.ndarray):
+    """Words ordered by their ``slots`` (stable) for K10 and K11: (chars [N]
+    int32, offs [B + 1] int32, order [B] (packed word j is
+    ``words[order[j]]``), groups (n8, n16): the words of at most 8 and 16
+    slots).  Every word's characters in one UTF-32 string; a word whose
+    slots differ from its length ``wl`` holds that many placeholders (0)."""
+    order = np.argsort(slots, kind="stable")
+    sorted_slots = slots[order]
+    offs = np.zeros(len(words) + 1, np.int32)
+    np.cumsum(sorted_slots, out=offs[1:])
+    text = "".join(words[i] if slots[i] == wl[i] else "\0" * int(slots[i])
+                   for i in order.tolist())
+    chars = np.frombuffer(text.encode("utf-32-le", "surrogatepass"), np.uint32).astype(np.int32)
+    groups = (int(np.searchsorted(sorted_slots, 8, "right")),
+              int(np.searchsorted(sorted_slots, 16, "right")))
+    return chars, offs, order, groups
 
 
 class WordPieceDevice(_DeviceTables):
@@ -481,24 +491,13 @@ class WordPieceDevice(_DeviceTables):
         the limit holds one slot (character -1, not read) for its UNK and
         its length cut to the lanes; any other word its characters."""
         max_input = self.t.max_input_chars
-        n = len(words)
-        wl = np.fromiter(map(len, words), np.int64, n)
+        wl = np.fromiter(map(len, words), np.int64, len(words))
         host = (wl > _W) & ((wl <= max_input) | (max_input >= _W))
         over = ~host & (wl > max_input)
         slots = np.where(host, 0, np.where(over, 1, wl))
-        order = np.argsort(slots, kind="stable")
-        offs = np.zeros(n + 1, np.int32)
-        np.cumsum(slots[order], out=offs[1:])
+        chars, offs, order, groups = _pack_words(words, wl, slots)
         lens = np.where(host, 0, np.minimum(wl, _W))[order].astype(np.int32)
-        # every word's characters in one UTF-32 string; a word over the
-        # limit is one placeholder there, set to -1
-        text = "".join(words[i] if slots[i] == wl[i] else "\0" * int(slots[i])
-                       for i in order.tolist())
-        chars = np.frombuffer(text.encode("utf-32-le", "surrogatepass"), np.uint32).astype(np.int32)
-        chars[offs[:-1][over[order]]] = -1
-        sorted_slots = slots[order]
-        groups = (int(np.searchsorted(sorted_slots, 8, "right")),
-                  int(np.searchsorted(sorted_slots, 16, "right")))
+        chars[offs[:-1][over[order]]] = -1  # a word over the limit: one slot, -1
         return chars, offs, lens, order, groups, np.flatnonzero(host).tolist()
 
     def tokenize_words(self, words: list[str]) -> list[list[int]]:
@@ -564,28 +563,50 @@ def wordlevel_lookup_plain(chars, lens, disp, rows, size, n_buckets, token_chars
     return torch.where(valid, out, -1).to(torch.int32)
 
 
-def wordlevel_lookup(chars, lens, disp, rows, size, n_buckets, token_chars, token_lens, emit_ids,
-                     unk: int):
+def wordlevel_lookup_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets, token_chars,
+                                  token_lens, emit_ids, unk: int):
+    """Plain PyTorch version of K11, on any device: the words scattered into
+    -1-padded 128-lane rows and :func:`wordlevel_lookup_plain`.
+
+    Args:
+      chars: [N] int32, the codepoints of all words end to end.
+      offs: [B + 1] int32, word i is ``chars[offs[i]:offs[i + 1]]`` (at most
+        128 slots).
+      lens: [B] int32, each word's length as the dense rows' ``lens``.
+      The tables and ``unk`` as for :func:`wordlevel_lookup_plain`.
+    Returns:
+      [B] int32: the word's id, UNK on a miss, -1 for a length <= 0.
+    """
+    dense, _word, _col = _dense_words(chars, offs, "wordlevel_lookup")
+    return wordlevel_lookup_plain(dense, lens, disp, rows, size, n_buckets, token_chars,
+                                  token_lens, emit_ids, unk)
+
+
+def wordlevel_lookup(chars, offs, lens, groups, disp, rows, size, n_buckets, token_chars,
+                     token_lens, emit_ids, unk: int):
     """K11 on CUDA tensors, the plain version on CPU tensors; same
-    arguments and result as :func:`wordlevel_lookup_plain` (rows of at most
-    128 lanes)."""
+    arguments and result as :func:`wordlevel_lookup_ragged_plain`, with
+    ``groups`` = (n8, n16) as for :func:`wordpiece_match` (the plain
+    version does not read them).  On the card, ``rows`` holds each slot's
+    emit id in its fourth word (``_DeviceTables``), which K11 reads in
+    place of ``emit_ids``."""
     if chars.device.type == "cpu":
-        return wordlevel_lookup_plain(chars, lens, disp, rows, size, n_buckets, token_chars,
-                                      token_lens, emit_ids, unk)
+        return wordlevel_lookup_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets,
+                                             token_chars, token_lens, emit_ids, unk)
     if chars.device.type != "cuda":
         raise ValueError(f"wordlevel_lookup: unsupported device {chars.device}")
-    _check_tables("wordlevel_lookup", chars, lens, disp, rows, size, n_buckets, token_chars,
-                  token_lens, emit_ids)
-    B, W = chars.shape
+    n8, n16 = _check_ragged("wordlevel_lookup", chars, offs, lens, groups, disp, rows, size,
+                            n_buckets, token_chars, token_lens, emit_ids)
+    B = lens.numel()
     out = torch.empty(B, dtype=torch.int32, device=chars.device)
     if B == 0:
         return out
     stream = torch.cuda.current_stream(chars.device).cuda_stream
     check(
         kernel_library().lib.ctok_wordlevel_lookup(
-            chars.data_ptr(), lens.data_ptr(), disp.data_ptr(), rows.data_ptr(), size - 1,
-            n_buckets - 1, token_chars.data_ptr(), token_lens.data_ptr(), emit_ids.data_ptr(),
-            token_chars.shape[1], int(unk), out.data_ptr(), B, W, stream,
+            chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), n8, n16, B, disp.data_ptr(),
+            rows.data_ptr(), size - 1, n_buckets - 1, token_chars.data_ptr(),
+            token_lens.data_ptr(), token_chars.shape[1], int(unk), out.data_ptr(), stream,
         ),
         "wordlevel_lookup",
     )
@@ -596,36 +617,44 @@ def wordlevel_lookup(chars, lens, disp, rows, size, n_buckets, token_chars, toke
 wordlevel_lookup.launches = 0  # launches of K11 (not of the plain version)
 
 
+def wordlevel_launch_shape() -> dict:
+    """How the card launches K11, as :func:`wordpiece_launch_shape`."""
+    return launch_info("ctok_wordlevel_info", "wordlevel_launch_shape")
+
+
 class WordLevelDevice(_DeviceTables):
     """One whole-word probe and the exact check per word, on one device."""
 
     last_over_width = 0
 
     def pack(self, words: list[str]):
-        """K11's input for a batch of words: (chars [n, 128] int32, lens [n]
-        int32, the words wider than the lanes, left empty)."""
-        chars = np.full((len(words), _W), -1, np.int32)
-        lens = np.zeros(len(words), np.int32)
-        long_idx = []
-        for i, w in enumerate(words):
-            if len(w) > _W:
-                long_idx.append(i)
-                continue
-            chars[i, : len(w)] = [ord(c) for c in w]
-            lens[i] = len(w)
-        return chars, lens, long_idx
+        """K11's input for a batch of words, ordered by length (stable), as
+        :meth:`WordPieceDevice.pack`: (chars [N] int32, offs [B + 1] int32,
+        lens [B] int32, order [B] (packed word j is ``words[order[j]]``),
+        groups (n8, n16), the words wider than the lanes, which hold no
+        slot and length 0)."""
+        wl = np.fromiter(map(len, words), np.int64, len(words))
+        slots = np.where(wl > _W, 0, wl)
+        chars, offs, order, groups = _pack_words(words, wl, slots)
+        return chars, offs, slots[order].astype(np.int32), order, groups, np.flatnonzero(
+            wl > _W).tolist()
 
     def lookup_words(self, words: list[str]) -> list[int]:
-        """The id of each word (UNK on a miss), one launch at the exact batch
-        size; a word wider than the lanes is set to UNK on the host (no
-        entry is that wide), ``last_over_width`` of them."""
-        if not words:
+        """The id of each word (UNK on a miss), one launch over the ragged
+        words, one copy to the device and one back; a word wider than the
+        lanes is set to UNK on the host (no entry is that wide),
+        ``last_over_width`` of them."""
+        n = len(words)
+        if n == 0:
             self.last_over_width = 0
             return []
-        chars, lens, long_idx = self.pack(words)
-        on = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
-        out = wordlevel_lookup(on(chars), on(lens), *self.args()).cpu().tolist()
-        for i in long_idx:
-            out[i] = self.t.unk_id
+        chars, offs, lens, order, groups, long_idx = self.pack(words)
+        N = len(chars)
+        buf = torch.from_numpy(np.concatenate([chars, offs, lens])).to(self.device)
+        out = wordlevel_lookup(buf[:N], buf[N:N + n + 1], buf[N + n + 1:], groups,
+                               *self.args()).cpu().numpy()
+        ids = np.empty(n, np.int32)
+        ids[order] = out  # back to the words' order
+        ids[long_idx] = self.t.unk_id
         self.last_over_width = len(long_idx)
-        return out
+        return ids.tolist()

@@ -6,8 +6,10 @@ The same texts as the repository's ``bench.py`` makes (``_zipf_lexicon``,
 seed.  Also the vocabularies of the word-level models at their published
 sizes (:func:`bert_scale_wordpiece_vocab`, :func:`wordlevel_vocab`).  Also the rows of long runs that separate the merge kernel's apply
 rule from the JAX one (:func:`run_rows`), and word packs that reach the
-word path's fill at its edges (:func:`edge_word_pack`), and a decode
-vocabulary of long tokens (:func:`long_token_vocab`).
+word path's fill at its edges (:func:`edge_word_pack`), a decode
+vocabulary of long tokens (:func:`long_token_vocab`), and byte rows that
+reach the normalization check at a row's and a block's edge
+(:func:`norm_edge_rows`).
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ BENCH_50K = os.path.join(
 
 __all__ = [
     "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
-    "edge_word_pack", "long_token_vocab", "run_rows", "wordlevel_vocab", "zipf_lexicon",
-    "zipf_corpus",
+    "edge_word_pack", "long_token_vocab", "norm_edge_rows", "norm_trap_bitmap", "run_rows",
+    "wordlevel_vocab", "zipf_lexicon", "zipf_corpus",
 ]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
@@ -156,6 +158,59 @@ def run_rows(text: bytes, B: int, L: int, breaks: bool = False) -> list[bytes]:
 # (control bytes, digits, ``!``, ``#``, ``%``, ``&``): tombstones inside
 # their words from the seed on, alone and in runs
 OOV_WORDS = (b"ab\x01cd", b"x0y1z", b"\x07", b"the!re", b"!!!!!!!!", b"a#b%c&d")
+
+
+def norm_trap_bitmap() -> np.ndarray:
+    """A stability bitmap [0x110000] uint8 that flags every codepoint past
+    ASCII whose last six bits are not all 0.  A lead byte cut off at its
+    row's end decodes (with zeros past the end) to none of them; with the
+    next row's bytes 0xA9 or 0xBF after it, as :func:`norm_edge_rows` puts
+    them, it would decode to one."""
+    cp = np.arange(0x110000)
+    return ((cp >= 0x80) & (cp & 0x3F != 0)).astype(np.uint8)
+
+
+def norm_edge_rows(text: bytes, span: int = 4096, seed: int = 0) -> list[tuple[str, list]]:
+    """Groups of byte rows, each checked in one launch, that reach the
+    ragged normalization check (K8, blocks of ``span`` bytes) at its edges:
+    (label, rows).
+
+    - rows that end in the first 1..n-1 bytes of an n-byte form (n = 2, 3,
+      4), each followed by a row that starts with continuation-looking
+      bytes; every fourth row from the first is such a truncated row, every
+      fourth from the fourth holds the whole form after the same lead;
+    - rows of exactly 128, 512 and 4,096 bytes (``text`` repeated, a
+      2-byte form at the end), with empty rows between;
+    - a row across each block's edge, the edge at each of the 4 bytes of a
+      4-byte form;
+    - runs of empty rows (more rows in a block than it stages), rows of one
+      byte, and rows of at most 2 bytes;
+    - no rows, and empty rows only.
+    """
+    rng = np.random.RandomState(seed)
+    cont = bytes([0xA9, 0xBF, 0x80])
+    truncated = []
+    for form in ("é", "中", "\U0001f601"):
+        b = form.encode()
+        for k in range(1, len(b)):
+            for lead in (b"", b"ab", b"x" * 15, b"y" * 126):
+                truncated += [lead + b[:k], cont[: 4 - k] + b"tail", b, lead + b]
+    sized = [(text * (L // len(text) + 1))[:L - 2] + "é".encode() for L in (128, 512, 4096)]
+    groups = [("truncated leads", truncated), ("rows of 128, 512, 4,096 bytes",
+                                               sized + [b"", b""] + sized)]
+    for shift in range(4):
+        groups.append((f"across a block edge (shift {shift})",
+                       [b"a" * (span - 1 - shift), "\U0001f601中é".encode() * 3 + text[:9000],
+                        "é".encode() * 3000]))
+    groups += [
+        ("runs of empty rows",
+         [b""] * 3000 + ["é".encode()] + [b""] * 2000 + [text[:5000]] + [b""] * 1500),
+        ("one-byte rows", [bytes([c]) for c in rng.randint(0, 256, size=9000).tolist()]),
+        ("short rows", [[b"", b"a", "é".encode(), b"\xc3"][c] for c in rng.randint(0, 4, 9000)]),
+        ("no rows", []),
+        ("empty rows", [b""] * 5),
+    ]
+    return groups
 
 
 def edge_word_pack(words: list[bytes], B: int, W: int = 128, seed: int = 0):

@@ -23,7 +23,7 @@ import threading
 import time
 from dataclasses import dataclass
 
-__all__ = ["KernelLibrary", "kernel_library", "check"]
+__all__ = ["KernelLibrary", "kernel_library", "check", "launch_info"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -48,17 +48,21 @@ _SIGNATURES = {
     # syms, offs, tiles, n_tiles, lanes, disp, rows, size_mask, bucket_mask, out, count,
     # stream
     "ctok_merge_word_rows": (_P, _P, _P, _I, _I, _P, _P, _U, _U, _P, _P, _P),
-    # bytes, lens, bitmap, stable, B, L, stream
-    "ctok_norm_check": (_P, _P, _P, _P, _I, _I, _P),
+    # data, n_bytes, offs, block_rows, n_blocks, bitmap, stable, B, span, stream
+    "ctok_norm_check": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P),
+    # info[5]
+    "ctok_norm_check_info": (_P,),
     # chars, offs, lens, n8, n16, B, disp, rows, size_mask, bucket_mask, token_chars,
     # token_lens, emit_ids, Lt, unk, max_input, pows, out, count, poison, stream
     "ctok_wordpiece_match": (_P, _P, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P, _P, _I, _I, _I, _P,
                              _P, _P, _P, _P),
     # info[5]
     "ctok_wordpiece_info": (_P,),
-    # chars, lens, disp, rows, size_mask, bucket_mask, token_chars, token_lens, emit_ids,
-    # Lt, unk, out, B, W, stream
-    "ctok_wordlevel_lookup": (_P, _P, _P, _P, _U, _U, _P, _P, _P, _I, _I, _P, _I, _I, _P),
+    # chars, offs, lens, n8, n16, B, disp, rows, size_mask, bucket_mask, token_chars,
+    # token_lens, Lt, unk, out, stream
+    "ctok_wordlevel_lookup": (_P, _P, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P, _I, _I, _P, _P),
+    # info[5]
+    "ctok_wordlevel_info": (_P,),
     # chd, policy (0 rows, 1 fill, 2 ragged), L, info[6]
     "ctok_merge_fixpoint_info": (_I, _I, _I, _P),
     # bytes, start_bits, row_len, byte_table, t1, t2, mask, tokens_out, count, B, L, stream
@@ -171,3 +175,14 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = kernel_library().lib.ctok_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch_info(entry: str, what: str) -> dict:
+    """A kernel's launch shape from its ``ctok_*_info(int* info)`` entry:
+    threads a block, registers a thread, static shared bytes a block, local
+    (spill) bytes a thread, resident blocks per SM.  Needs a card; launches
+    nothing."""
+    keys = ("threads", "registers", "static_smem", "local_bytes", "blocks_per_sm")
+    info = (ctypes.c_int * len(keys))()
+    check(getattr(kernel_library().lib, entry)(ctypes.addressof(info)), what)
+    return dict(zip(keys, info))

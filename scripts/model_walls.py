@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Walls of the word-level models' ``encode_batch`` on one NVIDIA card.
 
-    python3 scripts/model_walls.py [--root DIR] [--runs 3] [--seed 17] [--texts 10000]
+    python3 scripts/model_walls.py [--root DIR] [--runs 3] [--seed 17] [--texts 10000] [--only LABEL]
 
 Imports ``complexity_tokenizer_tpu_torch`` from ``--root`` (default: this
 repository), so that one script times two checkouts of the package (unpack
 the other with ``git archive <commit> | tar -x -C DIR``) in turns, one
 process each.  The models are ``chip_smoke.py``'s, at full width:
 ByteLevel BPE on the 50K and 100K tables, CharBPE on its test table,
-WordPiece at 30,522 entries and WordLevel at 40,001; the texts its corpus
-(``chip_smoke.main_corpus``).  Each model's first ``encode_batch`` builds
-its tier and is left out; then ``--runs`` calls, each ending in
-``torch.cuda.synchronize()``.  Prints the card's ``nvidia-smi`` name and
+WordPiece at 30,522 entries and WordLevel at 40,001, and the text pipeline
+``EncodePipeline.encode_batch`` at 50K with its NFC normalizer (K8, then
+K1 and K2); the texts its corpus (``chip_smoke.main_corpus``).  Each
+one's first ``encode_batch`` builds its tier (or tables and bitmap) and is
+left out; then ``--runs`` calls, each ending in
+``torch.cuda.synchronize()``.  ``--only LABEL`` (repeatable) times those
+labels alone.  Prints the card's ``nvidia-smi`` name and
 power limit and one JSON line ``{"root": ..., "walls_s": {label: [s,
 ...]}}``.  Needs a card.
 """
@@ -35,6 +38,7 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--texts", type=int, default=10_000)
+    ap.add_argument("--only", action="append", default=None, help="a label to time (repeatable)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -46,6 +50,7 @@ def main(argv=None) -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from complexity_tokenizer_tpu_torch.models import WordLevelModel, WordPieceModel
+    from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer
     from complexity_tokenizer_tpu_torch.utils.corpus import (
         bert_scale_wordpiece_vocab,
         wordlevel_vocab,
@@ -59,13 +64,17 @@ def main(argv=None) -> int:
               "ByteLevel BPE 100K": lambda: smoke._bytelevel_model(smoke.TOKENIZER_100K),
               "CharBPE (test table)": smoke._charbpe_model,
               "WordPiece 30,522": lambda: WordPieceModel(bert_scale_wordpiece_vocab()),
-              "WordLevel 40,001": lambda: WordLevelModel(wordlevel_vocab())}
+              "WordLevel 40,001": lambda: WordLevelModel(wordlevel_vocab()),
+              "EncodePipeline.encode_batch (NFC, 50K)":
+                  lambda: Tokenizer.from_file(smoke.TOKENIZER_JSON).pipeline("cuda")}
     walls: dict = {}
     for label, make in makers.items():
+        if args.only and label not in args.only:
+            continue
         model = make()
         first = model.encode_batch(texts)
         torch.cuda.synchronize()
-        if model.last_route != "device":
+        if getattr(model, "last_route", "device") != "device":
             raise AssertionError(f"[{label}] encode_batch took the {model.last_route} route")
         walls[label] = []
         for _ in range(args.runs):

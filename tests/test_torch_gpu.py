@@ -52,6 +52,8 @@ from complexity_tokenizer_tpu_torch.utils.corpus import (
     RUN_BREAKS,
     edge_word_pack,
     long_token_vocab,
+    norm_edge_rows,
+    norm_trap_bitmap,
     run_rows,
     zipf_corpus,
 )
@@ -1046,54 +1048,80 @@ def test_call_pt_tensors_on_card_equal_cpu(tok50k, padding):
 
 
 def _norm_bitmaps():
+    """The bitmaps of NFC, ``BertNormalizer()`` and ``Lowercase()``, and
+    ``utils/corpus.py:norm_trap_bitmap``."""
     from complexity_tokenizer_tpu_torch.core import normalizers as N
     from complexity_tokenizer_tpu_torch.ops.normalize_device import plan_for_normalizer
 
-    return {name: torch.from_numpy(plan_for_normalizer(n).bitmap).cuda()
-            for name, n in (("nfc", N.NFC()), ("bert", N.BertNormalizer()),
-                            ("lowercase", N.Lowercase()))}
+    out = {name: torch.from_numpy(plan_for_normalizer(n).bitmap).cuda()
+           for name, n in (("nfc", N.NFC()), ("bert", N.BertNormalizer()),
+                           ("lowercase", N.Lowercase()))}
+    out["trap"] = torch.from_numpy(norm_trap_bitmap()).cuda()
+    return out
 
 
 def _norm_rows(B, L, seed):
-    """[B, L] rows: corpus text with multilingual pieces, random bytes
-    (past each row's length too) and all-continuation bytes; lengths from
-    -1 to past L."""
+    """B rows of up to L bytes: corpus text with multilingual pieces cut
+    anywhere (inside a character too), random bytes, all-continuation
+    bytes, empty rows."""
     rng = np.random.RandomState(seed)
     texts = zipf_corpus(B, seed=seed, lo=1, hi=L) + list(MULTI_PIECES)
-    rows = [" ".join(texts[i: i + 3]).encode()[:L] for i in range(B)]
-    arr, lens = pack_texts(rows, L, B)
-    arr[B // 4: B // 2] = rng.randint(0, 256, size=(B // 2 - B // 4, L))
-    arr[B // 2: B // 2 + 4] = 0x80
-    lens[B // 4: B // 2] = rng.randint(-1, L + 3, size=B // 2 - B // 4)
-    lens[B // 2: B // 2 + 4] = L
-    return torch.from_numpy(arr).cuda(), torch.from_numpy(lens).cuda()
+    rows = [" ".join(texts[i: i + 3]).encode()[:rng.randint(0, L + 1)] for i in range(B)]
+    for i in range(B // 4, B // 2):
+        rows[i] = rng.randint(0, 256, size=rng.randint(0, L + 1)).astype(np.uint8).tobytes()
+    for i in range(B // 2, min(B, B // 2 + 4)):
+        rows[i] = b"\x80" * L
+    return rows
+
+
+def _check_k8(rows):
+    """K8 on ``rows`` (byte strings) under every bitmap, bit for bit its
+    plain version on the card; the stable flags."""
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        norm_stable_rows,
+        norm_stable_rows_ragged_plain,
+        pack_norm_rows,
+    )
+
+    flags = {}
+    for name, bm in _norm_bitmaps().items():
+        data, offs, blocks, stable = pack_norm_rows(rows, "cuda")
+        got = norm_stable_rows(data, offs, blocks, bm, stable)
+        torch.cuda.synchronize()
+        exp = norm_stable_rows_ragged_plain(data, offs, bm)
+        assert got.dtype == torch.bool and torch.equal(got, exp), name
+        flags[name] = exp.cpu().numpy()
+    return flags
 
 
 @pytest.mark.parametrize("B,L", [(1, 128), (64, 48), (513, 128), (2048, 512), (16, 4096),
                                  (9, 7)])
 def test_k8_matches_plain(B, L):
-    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
-        norm_stable_rows,
-        norm_stable_rows_plain,
-    )
+    _need_card()
+    _check_k8(_norm_rows(B, L, seed=B + L))
+
+
+def test_k8_edge_rows():
+    """K8 at a row's and a block's edge (``utils/corpus.py:norm_edge_rows``):
+    truncated leads before rows of continuation-looking bytes (the trap
+    bitmap flags what they would decode to with the next row's bytes),
+    rows of exactly 128, 512 and 4,096 bytes, rows across a block's span,
+    runs of empty rows past the staged offsets, one-byte rows."""
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import NORM_SPAN
 
     _need_card()
-    arr, lens = _norm_rows(B, L, seed=B + L)
-    for name, bm in _norm_bitmaps().items():
-        got = norm_stable_rows(arr, lens, bm)
-        torch.cuda.synchronize()
-        exp = norm_stable_rows_plain(arr, lens, bm)
-        assert got.dtype == torch.bool and torch.equal(got, exp), name
-    # an unaligned view of the rows takes the byte loads
-    wide = torch.zeros((B, L + 1), dtype=torch.uint8, device="cuda")
-    wide[:, 1:] = arr
-    view = wide[:, 1:].contiguous()
-    assert torch.equal(norm_stable_rows(view, lens, bm), norm_stable_rows_plain(view, lens, bm))
+    text = " ".join(zipf_corpus(60, seed=5) + list(MULTI_PIECES)).encode()
+    for label, rows in norm_edge_rows(text, NORM_SPAN):
+        flags = _check_k8(rows)
+        if label == "truncated leads":
+            assert flags["trap"][0::4].all() and not flags["trap"][3::4].any()
+        if label == "empty rows":
+            assert flags["nfc"].all()
 
 
 def test_k8_in_the_pipeline_matches_cpu(tok50k):
-    """``EncodePipeline.encode_batch`` on the card launches K8 and equals
-    the CPU pipeline and the host oracle."""
+    """``EncodePipeline.encode_batch`` on the card launches K8 once and
+    equals the CPU pipeline and the host oracle."""
     from complexity_tokenizer_tpu_torch.core import normalizers as N
     from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_stable_rows
 
@@ -1104,7 +1132,7 @@ def test_k8_in_the_pipeline_matches_cpu(tok50k):
     norm_stable_rows.launches = 0
     got = tok.pipeline("cuda").encode_batch(texts)
     torch.cuda.synchronize()
-    assert norm_stable_rows.launches > 0
+    assert norm_stable_rows.launches == 1  # every row of both length buckets
     assert got == tok.pipeline("cpu").encode_batch(texts) == tok.encode_batch(texts, backend="host")
 
 
@@ -1261,28 +1289,53 @@ def test_k11_matches_plain():
     from complexity_tokenizer_tpu_torch.models import WordLevelModel
     from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
         wordlevel_lookup,
-        wordlevel_lookup_plain,
+        wordlevel_lookup_ragged_plain,
     )
     from complexity_tokenizer_tpu_torch.utils.corpus import wordlevel_vocab
 
     _need_card()
-    dev = WordLevelModel(wordlevel_vocab())._tiers.get("cuda")
+    vocab = wordlevel_vocab()
+    dev = WordLevelModel(vocab)._tiers.get("cuda")
+    rng = np.random.RandomState(11)
     words = sorted({w for t in zipf_corpus(300, seed=12) + list(MULTI_PIECES) for w in t.split()})
-    words += ["", "<unk>", "x" * 128]
-    chars = np.full((len(words), 128), -1, np.int32)
-    lens = np.zeros(len(words), np.int32)
-    for i, w in enumerate(words):
-        chars[i, : len(w)] = [ord(ch) for ch in w]
-        lens[i] = len(w)
-    chars[0, 1] = -1
-    lens[1] += 1
-    c, n = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
-    got = wordlevel_lookup(c, n, *dev.args())
-    torch.cuda.synchronize()
-    assert torch.equal(got, wordlevel_lookup_plain(c, n, *dev.args()))
-    c40 = c[:, :40].contiguous()  # lengths past the lanes
-    assert torch.equal(wordlevel_lookup(c40, n, *dev.args()),
-                       wordlevel_lookup_plain(c40, n, *dev.args()))
+    words += ["", "<unk>", "x" * 128, "x" * 129, "日本語", "\U0001f601"]
+    long = [w for w in vocab if len(w) > 8][:40]
+    words += long + [w + "s" for w in long] + [w[:-1] for w in long]
+    words += ["".join(rng.choice(list("abcdeflnorst"), n)) for n in (8, 9, 16, 17, 32, 33) * 5]
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+
+    def check(chars, offs, lens, groups):
+        c, o, n = on(chars), on(offs), on(lens)
+        got = wordlevel_lookup(c, o, n, groups, *dev.args())
+        torch.cuda.synchronize()
+        exp = wordlevel_lookup_ragged_plain(c, o, n, *dev.args())
+        assert torch.equal(got, exp), groups
+        return got
+
+    chars, offs, lens, order, groups, host = dev.pack(words)
+    got = check(chars, offs, lens, groups)
+    assert (got.cpu().numpy() > 0).sum() > len(long) and host == [words.index("x" * 129)]
+    B = len(lens)
+    # word counts that are no multiple of the lane groups: the first m words
+    for m in (1, 3, 5, 7, groups[0] + 1, groups[1] + 3):
+        m = min(m, B)
+        check(chars[:offs[m]], offs[:m + 1], lens[:m], (min(groups[0], m), min(groups[1], m)))
+    # in their own order, and with every word in groups of 8 or 16, or a
+    # warp each: longer words than the group take more chunks
+    flat, uoffs, ulens = _unsorted(chars, offs, lens, order)
+    for g in ((B, B), (0, B), (0, 0), (B // 3, 2 * B // 3)):
+        check(flat, uoffs, ulens, g)
+    # lengths that disagree with the slots, and -1 characters inside words
+    # (skipped by the hash, compared by the check)
+    odd = ulens.copy()
+    odd[::5] += 1
+    odd[1::7] = 0
+    odd[2::11] = -1
+    flat2 = flat.copy()
+    flat2[uoffs[3:-1:13]] = -1
+    for g in ((B, B), (0, 0), (B // 3, 2 * B // 3)):
+        check(flat, uoffs, odd, g)
+        check(flat2, uoffs, ulens, g)
 
 
 def test_models_on_card_match_host():
@@ -1319,25 +1372,35 @@ def test_models_on_card_match_host():
 
 def test_new_wrappers_refuse_bad_inputs():
     from complexity_tokenizer_tpu_torch.ops.merge import merge_word_rows
-    from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_stable_rows
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import (
+        norm_stable_rows,
+        pack_norm_rows,
+    )
     from complexity_tokenizer_tpu_torch.ops.wordpiece_device import wordlevel_lookup
 
     _need_card()
+    data, offs, blocks, stable = pack_norm_rows([b"ab", b"c" * 40], "cuda")
+    bm = torch.zeros(0x110000, dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="bitmap"):
+        norm_stable_rows(data, offs, blocks, bm[:100], stable)
+    with pytest.raises(ValueError, match="offs"):
+        norm_stable_rows(data, offs.long(), blocks, bm, stable)
+    with pytest.raises(ValueError, match="16-byte"):
+        norm_stable_rows(data[1:33].clone()[:-1], offs, blocks, bm, stable)
     arr = torch.zeros((4, 128), dtype=torch.uint8, device="cuda")
     lens = torch.zeros(4, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="bitmap"):
-        norm_stable_rows(arr, lens, torch.zeros(100, dtype=torch.uint8, device="cuda"))
-    with pytest.raises(ValueError, match="lengths"):
-        norm_stable_rows(arr, lens.long(), torch.zeros(0x110000, dtype=torch.uint8, device="cuda"))
     disp = torch.zeros(4, dtype=torch.int32, device="cuda")
     rows = torch.full((16, 4), -1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="power of two"):
         merge_word_rows(arr.int().view(-1), lens[:2], lens[:2], disp, rows, 15, 4)
-    with pytest.raises(ValueError, match="lanes"):
-        chars = torch.zeros((4, 256), dtype=torch.int32, device="cuda")
-        tc = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
-        one = torch.zeros(1, dtype=torch.int32, device="cuda")
-        wordlevel_lookup(chars, lens, disp, rows, 16, 4, tc, one, one, 0)
+    chars = torch.zeros(8, dtype=torch.int32, device="cuda")
+    woffs = torch.tensor([0, 2, 4, 6, 8], dtype=torch.int32, device="cuda")
+    tc = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="groups"):
+        wordlevel_lookup(chars, woffs, lens, (3, 2), disp, rows, 16, 4, tc, one, one, 0)
+    with pytest.raises(ValueError, match="offs"):
+        wordlevel_lookup(chars, woffs[:4], lens, (0, 0), disp, rows, 16, 4, tc, one, one, 0)
 
 
 def test_k9_k10_launch_shapes():
@@ -1349,4 +1412,14 @@ def test_k9_k10_launch_shapes():
     k9 = launch_shape(TILE_SYMBOLS + WORD_LANES - 1, ragged=True)
     k10 = wordpiece_launch_shape()
     for shape in (k9, k10):
+        assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape
+
+
+def test_k8_k11_launch_shapes():
+    """K8's blocks and K11's warps launch without spilling registers."""
+    from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_launch_shape
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import wordlevel_launch_shape
+
+    _need_card()
+    for shape in (norm_launch_shape(), wordlevel_launch_shape()):
         assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape

@@ -390,7 +390,11 @@ def test_wordlevel_lookup_plain_equals_jax(lanes):
     args = _tiers_args(ours_t)
     got = W.wordlevel_lookup_plain(torch.from_numpy(chars), torch.from_numpy(lens), *args)
     assert np.array_equal(got.numpy(), np.asarray(exp))
-    same = W.wordlevel_lookup(torch.from_numpy(chars), torch.from_numpy(lens), *args)
+    # the wrapper takes ragged words: each row's lanes as one word's slots
+    B = len(words)
+    offs = np.arange(0, B * lanes + 1, lanes, dtype=np.int32)
+    same = W.wordlevel_lookup(torch.from_numpy(chars.ravel()), torch.from_numpy(offs),
+                              torch.from_numpy(lens), (0, 0), *args)
     assert torch.equal(same, got)
     assert (got.numpy() == 0).sum() >= 4 and (got.numpy() == -1).sum() == 2
     if lanes < 128:

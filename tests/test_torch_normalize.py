@@ -16,7 +16,7 @@ from complexity_tokenizer_tpu.ops.pipeline import pack_texts as jax_pack  # noqa
 from complexity_tokenizer_tpu.tokenizer import Tokenizer as JaxTokenizer  # noqa: E402
 from complexity_tokenizer_tpu_torch.core import normalizers as N  # noqa: E402
 from complexity_tokenizer_tpu_torch.ops import normalize_device as ND  # noqa: E402
-from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS, pack_texts  # noqa: E402
+from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS  # noqa: E402
 from complexity_tokenizer_tpu_torch.tokenizer import Tokenizer  # noqa: E402
 from complexity_tokenizer_tpu_torch.utils.corpus import MULTI_PIECES, zipf_corpus  # noqa: E402
 
@@ -103,11 +103,11 @@ def _multilingual_rows(n: int, seed: int) -> list[str]:
 @pytest.mark.parametrize("i", [1, 3, 5, 6, 9, 12])
 def test_check_bytes_equals_jax(i):
     """``DeviceNormChecker.check_bytes`` flags equal JAX's on seeded rows
-    (the port launches at the exact batch, JAX pads to its buckets)."""
+    (the port checks every row in one launch over the rows end to end, JAX
+    pads each length bucket to its batch buckets)."""
     ours, theirs = _pairs()[i]
     raw = [t.encode("utf-8") for t in _multilingual_rows(150, seed=i)]
-    got = ND.DeviceNormChecker(ND.plan_for_normalizer(ours), "cpu").check_bytes(
-        raw, (128, 512), pack_texts)
+    got = ND.DeviceNormChecker(ND.plan_for_normalizer(ours), "cpu").check_bytes(raw, (128, 512))
     exp = JND.DeviceNormChecker(JND.plan_for_normalizer(theirs)).check_bytes(
         raw, (128, 512), jax_pack)
     assert got.dtype == bool
@@ -135,10 +135,15 @@ def test_plain_flags_equal_jax_fn_on_random_bytes():
     assert got.dtype == torch.bool
     assert got.numpy().tolist() == exp.tolist()
     assert 0 < exp.sum() < 64
-    # the wrapper takes the plain version for CPU tensors
-    same = ND.norm_stable_rows(torch.from_numpy(arr), torch.from_numpy(lens),
-                               torch.from_numpy(bitmap))
-    assert torch.equal(same, got)
+    # the wrapper takes ragged rows and the plain version for CPU tensors:
+    # each row's 48 bytes, against the JAX _fn with every length 48
+    full = np.full(64, 48, np.int32)
+    exp_full = np.asarray(JND.DeviceNormChecker(plan)._fn(arr, full))
+    data, offs, blocks, stable = ND.pack_norm_rows([r.tobytes() for r in arr])
+    same = ND.norm_stable_rows(data, offs, blocks, torch.from_numpy(bitmap), stable)
+    assert same.dtype == torch.bool
+    assert same.numpy().tolist() == exp_full.tolist()
+    assert 0 < exp_full.sum() < 64
 
 
 @pytest.fixture(scope="module")
