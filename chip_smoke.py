@@ -68,17 +68,22 @@ Phases (each prints its seconds):
    shape, and on the edge rows of ``utils/corpus.py:norm_edge_rows``
    (truncated leads before continuation-looking bytes, rows of exactly
    128, 512 and 4,096 bytes, rows across a block's edge, runs of empty
-   rows, one-byte rows) under those and the trap bitmap.  And the word-level models at full
-   width (``drive_models``), each through ``encode_batch`` on the corpus
-   launching its tier's kernel once and nothing else: ByteLevel BPE on the
-   50K and 100K tables (K9), CharBPE on its test table (K9), WordPiece at
-   30,522 entries (K10), WordLevel at 40,001 (K11); every text and every
-   distinct word against the host ``encode``; the words the host took
-   (poisoned, over 128 lanes) printed; each kernel against its plain
-   version on the path's input (K9, K10 and K11 on the ragged words as
-   their tiers pack them; K9 also on ``run_rows``), timed warm, cold and
-   plain beside its bound and the bound of the dense [B, 128] rows the
-   earlier tiers wrote (K9, K10) or read (K11); K9 also at every tile size
+   rows, one-byte rows) under those and the trap bitmap.  And the models at
+   full width (``drive_models``), each through ``encode_batch`` on the
+   corpus launching its tier's kernel once and nothing else: ByteLevel BPE
+   on the 50K and 100K tables (K9), CharBPE on its test table (K9),
+   WordPiece at 30,522 entries (K10), WordLevel at 40,001 (K11), and
+   Unigram at t5-base's 32,000 pieces (K12, the Viterbi) on the corpus's
+   ``▁word`` pieces (the input a T5 pipeline's ``Metaspace`` gives the
+   model, one call); every text (Unigram: every piece) and every distinct
+   word against the host ``encode``; the words the host took (poisoned,
+   over 128 lanes) printed; each kernel against its plain version on the
+   path's input (K9, K10, K11 and K12 on the ragged words or pieces as
+   their tiers pack them; K9 also on ``run_rows``; K12 also on
+   ``utils/corpus.py:unigram_edge_texts`` and with ``maxcand`` 3 under the
+   fallback marker -2), timed warm, cold and plain beside its bound and
+   the bound of the dense [B, 128] rows the earlier tiers wrote (K9, K10)
+   or read (K11); K9 also at every tile size
    of ``TILE_SWEEP``, each checked; K10's and K11's words counted by lane
    group, K11 also with every word in groups of 8 and every word a warp.
    With ``--parent DIR`` (a checkout of a commit with the dense K8 and
@@ -131,7 +136,7 @@ Phases (each prints its seconds):
    warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-The kernels' line lists K1-K11 (``launches_by_path``: every path above).
+The kernels' line lists K1-K12 (``launches_by_path``: every path above).
 Any failure raises and the script exits nonzero without the last line.
 Needs the repository beside it and imports nothing of JAX.
 """
@@ -1714,16 +1719,19 @@ def _in_turns(kernel, parent, reps: int = 20) -> tuple[list, list]:
 
 
 def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=None,
-                       parent=None) -> dict:
-    """The kernel of a model's tier (K9, K10 or K11) against its plain
-    version on the main path's input (the batch's distinct words, packed by
-    the tier: ragged), timed warm, cold and plain, with its bound.  The
-    bound counts the live input only (each word's symbols or characters,
-    and its offset and length; a WordPiece word over its limit needs its
-    length alone), the outputs (K9 and K10: an id a live position, a count
-    a word, K10's poison flags; K11: an id a word) and the table bytes the
-    probes touch (K11: also the lengths and characters its exact checks
-    read), each once; ``dense_bound_ms`` the same with the [B, 128] output
+                       parent=None, edge=None) -> dict:
+    """The kernel of a model's tier (K9, K10, K11 or K12) against its plain
+    version on the main path's input (the batch's distinct words, or
+    Unigram's distinct pieces, packed by the tier: ragged), timed warm, cold
+    and plain, with its bound.  The bound counts the live input only (each
+    word's symbols or characters, and its offset and length; a WordPiece
+    word over its limit needs its length alone), the outputs (K9 and K10: an
+    id a live position, a count a word, K10's poison flags; K11: an id a
+    word; K12: an id a character, a count and a flag a piece) and the table
+    bytes the probes touch (K11: also the lengths and characters its exact
+    checks read; K12: the CHD entries its probes touch, and the lengths,
+    scores and characters of the pieces on the chosen paths, which every
+    check reads), each once; ``dense_bound_ms`` the same with the [B, 128] output
     the dense K9 and K10 wrote, or the [B, 128] input the dense K11 read.
     K9 is also timed at every tile size of ``TILE_SWEEP`` (each checked),
     K10's and K11's words counted by lane group, K11 also checked with
@@ -1731,7 +1739,9 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
     (``scripts/parent_word_kernels.py``) the earlier one-word-a-row K11
     runs on the same words as its tier laid them out, is checked against
     this kernel's result, and the two are timed in turns, warm, and the
-    parent cold."""
+    parent cold.  K12 is also checked on ``edge`` ((case, texts) pairs) and,
+    on the main input and the edges, with ``maxcand`` 3 (under the longest
+    piece) and the fallback marker -2."""
     import numpy as np
     import torch
 
@@ -1750,6 +1760,13 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         wordpiece_launch_shape,
         wordpiece_match,
         wordpiece_match_ragged_plain,
+    )
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import (
+        FALLBACK_ID,
+        split_viterbi,
+        viterbi,
+        viterbi_launch_shape,
+        viterbi_ragged_plain,
     )
 
     table_bytes_all = 4 * (tier.disp.numel() + tier.rows.numel())
@@ -1776,6 +1793,16 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         inputs = (chars, offs, lens)
         B, N = lens.numel(), chars.numel()
         out_bytes = 4 * N + 5 * B
+        shape = [N, B]
+    elif name == "viterbi":
+        chars_np, offs_np, lens_np, order, _host = tier.pack(words)
+        chars, offs, lens = on(chars_np), on(offs_np), on(lens_np)
+        kernel = lambda: viterbi(chars, offs, lens, *tier.args())  # noqa: E731
+        plain = lambda: viterbi_ragged_plain(chars, offs, lens, *tier.args())  # noqa: E731
+        cold_fn = lambda c, o, n: viterbi(c, o, n, *tier.args())  # noqa: E731
+        inputs = (chars, offs, lens)
+        B, N = lens.numel(), chars.numel()
+        out_bytes = 4 * N + 8 * B
         shape = [N, B]
     else:
         chars_np, offs_np, lens_np, order, groups, _host = tier.pack(words)
@@ -1829,6 +1856,45 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         work = (f"{live} characters, {B} words, {emits} ids, {int(exp_t[2].sum())} poisoned; "
                 f"words by lane group {hist}, {warps} warps")
         in_bytes = 4 * live + 4 * (B + 1) + 4 * B
+    elif name == "viterbi":
+        # the main input and the edge texts, at the longest piece and at
+        # maxcand 3, under the fallback marker -2, bit for bit
+        edge_poisoned = {}
+        for case, texts_c in [("main input", None)] + list(edge or []):
+            if texts_c is None:
+                c, o, n = chars, offs, lens
+            else:
+                c, o, n = (on(x) for x in tier.pack(texts_c)[:3])
+            for maxcand in (tier.Lt, 3):
+                got_c = viterbi(c, o, n, *tier.args(maxcand), fallback_id=FALLBACK_ID)
+                torch.cuda.synchronize()
+                exp_c = viterbi_ragged_plain(c, o, n, *tier.args(maxcand),
+                                             fallback_id=FALLBACK_ID)
+                if not torch.equal(got_c, exp_c):
+                    raise AssertionError(f"K12 on {case} (maxcand {maxcand}) differs from its "
+                                         f"plain version: {label}")
+                if texts_c is not None and maxcand == tier.Lt:
+                    edge_poisoned[case] = int(split_viterbi(exp_c, n.numel())[2].sum())
+        live = int(lens.sum())
+        Lc = min(tier.Lt, 128)
+        ln = lens_np.astype(np.int64)
+        # candidates (end, length <= min(end, Lc)) of every piece: one probe each
+        probes = int(np.where(ln <= Lc, ln * (ln + 1) // 2,
+                              Lc * (Lc + 1) // 2 + (ln - Lc) * Lc).sum())
+        out_t, count_t, poison_t = split_viterbi(exp_t[0], B)
+        path_ids = out_t[out_t >= 0].long()
+        path_chars = int(tier.piece_lens[path_ids].sum())
+        V = tier.piece_lens.numel()
+        tbytes = (min(probes * 20, table_bytes_all) + min(8 * path_ids.numel(), 8 * V)
+                  + min(4 * path_chars, 4 * tier.piece_chars.numel()))
+        ops = probes * OPS_PER_PROBE_CHD + 4 * live
+        extra_out.update(launch=viterbi_launch_shape(), edge_poisoned=edge_poisoned,
+                         poisoned=int(poison_t.sum()),
+                         fallbacks=int((out_t == FALLBACK_ID).sum()))
+        work = (f"{live} characters, {B} pieces, {probes} candidates, {int(count_t.sum())} ids "
+                f"({extra_out['fallbacks']} fallbacks), {extra_out['poisoned']} poisoned; edge "
+                f"texts poisoned by case {edge_poisoned}; also at maxcand 3, bit for bit")
+        in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     else:
         # every word in groups of 8 lanes and every word a warp (the longer
         # words overflow their group), bit for bit
@@ -1850,18 +1916,20 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
                 f"{warps} warps")
         in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     bound_ms, bound_by = _bound(in_bytes + out_bytes + tbytes, ops)
-    if name != "wordlevel_lookup":
+    if name in ("merge_word_rows", "wordpiece_match"):
         # the yardstick of the dense tiers: [B, 128] ids out, counts (and
         # K10's poison flags)
         dense_out = 4 * B * WORD_LANES + (5 if name == "wordpiece_match" else 4) * B
         extra_out["dense_bound_ms"] = _bound(in_bytes + dense_out + tbytes, ops)[0]
-    else:
+    elif name == "wordlevel_lookup":
         # the dense tier's input: [B, 128] rows of characters and lengths
         extra_out["dense_bound_ms"] = _bound(4 * B * WORD_LANES + 4 * B + out_bytes + tbytes,
                                              ops)[0]
     print(f"[{name}] {label} {shape} match={match} max_abs_err={err} kernel={ms:.4f} ms "
           f"cold={ms_cold:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}; "
-          f"{work}) dense bound={extra_out['dense_bound_ms']:.4f} ms"
+          f"{work})"
+          + (f" dense bound={extra_out['dense_bound_ms']:.4f} ms" if "dense_bound_ms" in extra_out
+             else "")
           + (f" launch={extra_out['launch']}" if "launch" in extra_out else ""), flush=True)
     if parent is not None and name == "wordlevel_lookup":
         extra_out.update(_parent_wordlevel(label, tier, parent, kernel, exp_t[0], words, order))
@@ -1929,33 +1997,41 @@ MODEL_CONFIGS = (
     ("CharBPE (test table)", _charbpe_model, "merge_word_rows"),
     ("WordPiece 30,522", None, "wordpiece_match"),
     ("WordLevel 40,001", None, "wordlevel_lookup"),
+    ("Unigram 32,000", None, "viterbi"),
 )
 
 
 def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
-    """The word-level models at full width, each through ``encode_batch``
-    (the entry point a user calls) on the corpus, with the launch counts
-    set to 0 just before and read just after (its tier's kernel once, no
-    other): ByteLevel BPE on the tracked 50K and 100K tables (K9), CharBPE
-    on its test table (K9), WordPiece at bert-base-uncased's size (K10) and
-    WordLevel at 40,001 entries (K11).  Every text against the host
-    ``encode`` (assembled from each distinct word's host ids), every
-    distinct word through ``encode_batch`` alone against the host; the
-    words the host took (poisoned, over 128 lanes, an ineligible table)
-    are counted.  Then each kernel against its plain version on the main
-    path's input (K11 also against ``parent``'s, when given)."""
+    """The models at full width, each through ``encode_batch`` (the entry
+    point a user calls) on the corpus, with the launch counts set to 0 just
+    before and read just after (its tier's kernel once, no other):
+    ByteLevel BPE on the tracked 50K and 100K tables (K9), CharBPE on its
+    test table (K9), WordPiece at bert-base-uncased's size (K10), WordLevel
+    at 40,001 entries (K11) and Unigram at t5-base's 32,000 pieces (K12) on
+    the corpus's ``▁word`` pieces in text order, one call (what a T5
+    pipeline's ``Metaspace`` hands the model).  Every text (Unigram: every
+    piece) against the host ``encode`` (assembled from each distinct word's
+    host ids), every distinct word or piece through ``encode_batch`` alone
+    against the host; the words the host took (poisoned, over 128 lanes, an
+    ineligible table) are counted.  Then each kernel against its plain
+    version on the main path's input (K11 also against ``parent``'s, when
+    given; K12 also on the edge texts)."""
     import torch
 
-    from complexity_tokenizer_tpu_torch.models import WordLevelModel, WordPieceModel
+    from complexity_tokenizer_tpu_torch.models import UnigramModel, WordLevelModel, WordPieceModel
     from complexity_tokenizer_tpu_torch.utils.corpus import (
         RUN_BREAKS,
         bert_scale_wordpiece_vocab,
+        metaspace_pieces,
         run_rows,
+        unigram_32k_vocab,
+        unigram_edge_texts,
         wordlevel_vocab,
     )
 
     makers = {"WordPiece 30,522": lambda: WordPieceModel(bert_scale_wordpiece_vocab()),
-              "WordLevel 40,001": lambda: WordLevelModel(wordlevel_vocab())}
+              "WordLevel 40,001": lambda: WordLevelModel(wordlevel_vocab()),
+              "Unigram 32,000": lambda: UnigramModel(unigram_32k_vocab())}
     out: dict = {"launches": {}, "checks": {}, "walls": {}, "stats": {}}
     for label, make, kname in MODEL_CONFIGS:
         t0 = time.perf_counter()
@@ -1966,13 +2042,18 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
         setup_s = time.perf_counter() - t1
         if tier is None:
             raise AssertionError(f"[{label}] the tables are not eligible for the device tier")
-        got, counts, wall = _drive_launches(kernels_of, lambda: model.encode_batch(texts))
+        # Unigram segments each text whole: its texts are the corpus's pieces
+        inputs = metaspace_pieces(texts) if kname == "viterbi" else texts
+        got, counts, wall = _drive_launches(kernels_of, lambda: model.encode_batch(inputs))
         stats = dict(model.last_stats)
         if model.last_route != "device":
             raise AssertionError(f"[{label}] encode_batch took the {model.last_route} route")
         _need_only(f"[{label}] encode_batch", counts, {kname: 1})
-        split = model._split_words if hasattr(model, "_split_words") else str.split
-        rows = [split(t) for t in texts]
+        if kname == "viterbi":
+            split = lambda t: [t]  # noqa: E731
+        else:
+            split = model._split_words if hasattr(model, "_split_words") else str.split
+        rows = [split(t) for t in inputs]
         uniq = sorted({w for r in rows for w in r})
         t1 = time.perf_counter()
         host = {w: model.encode(w) for w in uniq}
@@ -1980,11 +2061,13 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
         bad_texts = sum(g != [i for w in r for i in host[w]] for g, r in zip(got, rows))
         per_word = model.encode_batch(uniq)
         bad_words = sum(g != host[w] for g, w in zip(per_word, uniq))
-        print(f"[{label}] encode_batch: {len(texts)} texts, {len(uniq)} distinct words; tables "
-              f"built and to the card {setup_s:.3f} s; wall {wall:.3f} s; host encode of the "
-              f"distinct words {host_s:.3f} s; {bad_texts} texts and {bad_words} words differ from "
-              f"the host; words the host took {stats['host']} (poisoned {stats['poisoned']}, over "
-              f"128 lanes {stats['over_width']}); launches {counts}", flush=True)
+        unit = "pieces" if kname == "viterbi" else "texts"
+        print(f"[{label}] encode_batch: {len(inputs)} {unit}, {len(uniq)} distinct words "
+              f"({sum(map(len, uniq))} characters); tables built and to the card {setup_s:.3f} s; "
+              f"wall {wall:.3f} s; host encode of the distinct words {host_s:.3f} s; {bad_texts} "
+              f"{unit} and {bad_words} words differ from the host; words the host took "
+              f"{stats['host']} (poisoned {stats['poisoned']}, over 128 lanes "
+              f"{stats['over_width']}); launches {counts}", flush=True)
         if bad_texts or bad_words:
             raise AssertionError(f"[{label}] {bad_texts} texts, {bad_words} words differ from the host")
         sym_rows = None
@@ -1992,8 +2075,9 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
             sym_rows = ([list(model._text_to_byte_tokens(w)) for w in uniq]
                         if hasattr(model, "_text_to_byte_tokens")
                         else [list(w)[:-1] + [w[-1] + model.end_of_word_suffix] for w in uniq])
+        edge = unigram_edge_texts(unigram_32k_vocab()) if kname == "viterbi" else None
         out["checks"].setdefault(kname, []).append(
-            check_model_kernel(label, kname, tier, uniq, sym_rows, parent))
+            check_model_kernel(label, kname, tier, uniq, sym_rows, parent, edge))
         if label == "ByteLevel BPE 50K":
             # the rows that separate the greedy apply from the JAX rule, as
             # words of 128 byte-level symbols; with breaks, the run breakers
@@ -2065,6 +2149,7 @@ def main(argv=None) -> int:
             wordlevel_lookup,
             wordpiece_match,
         )
+        from complexity_tokenizer_tpu_torch.ops.unigram_device import viterbi
         from complexity_tokenizer_tpu_torch.utils.corpus import (
             RUN_BREAKS,
             edge_word_pack,
@@ -2162,7 +2247,7 @@ def main(argv=None) -> int:
                   "fill_compact": fill_compact, "word_merge": word_merge,
                   "decode_gather": decode_gather, "norm_stable_rows": norm_stable_rows,
                   "merge_word_rows": merge_word_rows, "wordpiece_match": wordpiece_match,
-                  "wordlevel_lookup": wordlevel_lookup}
+                  "wordlevel_lookup": wordlevel_lookup, "viterbi": viterbi}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
     d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
@@ -2431,7 +2516,7 @@ def main(argv=None) -> int:
         "launch": k7_shape,
         "checks": k7_res,
     })
-    # K8-K11: the paths of this slice
+    # K8-K12: the paths of the later slices
     norm_main = next(r for r in norm["checks"] if r["inputs"] == "corpus rows, NFC")
     for name, res, src, wrapper, replaces, path_name, main in (
         ("norm_stable_rows", norm["checks"], "normcheck.cu", "ops/normalize_device.py",
@@ -2445,6 +2530,8 @@ def main(argv=None) -> int:
         ("wordlevel_lookup", mdl["checks"]["wordlevel_lookup"], "wordpiece.cu",
          "ops/wordpiece_device.py", "complexity_tokenizer_tpu/ops/wordpiece_device.py:384",
          "model WordLevel 40,001", None),
+        ("viterbi", mdl["checks"]["viterbi"], "unigram.cu", "ops/unigram_device.py",
+         "complexity_tokenizer_tpu/ops/unigram_device.py:107", "model Unigram 32,000", None),
     ):
         main = main or res[0]
         kernels.append({
@@ -2474,7 +2561,8 @@ def main(argv=None) -> int:
             "checks": res,
         })
         for key in ("dense_bound_ms", "tile", "tiles", "sweep", "groups", "warps", "blocks",
-                    "launch", "parent_ms", "parent_ms_cold", "ms_in_turns", "parent_shapes"):
+                    "launch", "parent_ms", "parent_ms_cold", "ms_in_turns", "parent_shapes",
+                    "poisoned", "fallbacks", "edge_poisoned"):
             if key in main:
                 kernels[-1][key] = main[key]
     if _sha1(blob50) != blob50_sha1:

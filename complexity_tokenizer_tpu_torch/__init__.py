@@ -6,15 +6,19 @@ merge fixpoint as hand-written CUDA kernels (``csrc/kernels.cu``).  Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version.
 
-The standalone word-level models (``models/``: ByteLevel BPE, CharBPE,
-WordPiece, WordLevel) run their distinct words through kernels K9-K11.
+The standalone models (``models/``: ByteLevel BPE, CharBPE, WordPiece,
+WordLevel) run their distinct words through kernels K9-K11, and the Unigram
+model (SentencePiece's Viterbi) its distinct texts through K12.
 
 The package imports ``torch`` and ``numpy`` only: it keeps its own copy of
 every host layer it needs (loading, normalizers, the GPT-2 split and the
 BPE oracle).
 """
 
-__all__ = ["Tokenizer", "ByteLevelBpeModel", "CharBpeModel", "WordLevelModel", "WordPieceModel"]
+from .version import __version__
+
+__all__ = ["Tokenizer", "ByteLevelBpeModel", "CharBpeModel", "UnigramModel", "WordLevelModel",
+           "WordPieceModel", "__version__"]
 
 
 def __getattr__(name):
@@ -23,7 +27,8 @@ def __getattr__(name):
         from .tokenizer import Tokenizer
 
         return Tokenizer
-    if name in ("ByteLevelBpeModel", "CharBpeModel", "WordLevelModel", "WordPieceModel"):
+    if name in ("ByteLevelBpeModel", "CharBpeModel", "UnigramModel", "WordLevelModel",
+                "WordPieceModel"):
         from . import models
 
         return getattr(models, name)

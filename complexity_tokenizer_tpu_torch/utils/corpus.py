@@ -3,8 +3,11 @@
 The same texts as the repository's ``bench.py`` makes (``_zipf_lexicon``,
 ``_zipf_corpus``, ``_MULTI_PIECES``), kept here so that the port and
 ``chip_smoke.py`` need nothing of the JAX package.  Deterministic for a
-seed.  Also the vocabularies of the word-level models at their published
-sizes (:func:`bert_scale_wordpiece_vocab`, :func:`wordlevel_vocab`).  Also the rows of long runs that separate the merge kernel's apply
+seed.  Also the vocabularies of the models at their published sizes
+(:func:`bert_scale_wordpiece_vocab`, :func:`wordlevel_vocab`,
+:func:`unigram_32k_vocab`), the pieces a Unigram model sees after
+SentencePiece's ``Metaspace`` (:func:`metaspace_pieces`) and texts that
+reach its Viterbi at its edges (:func:`unigram_edge_texts`).  Also the rows of long runs that separate the merge kernel's apply
 rule from the JAX one (:func:`run_rows`), and word packs that reach the
 word path's fill at its edges (:func:`edge_word_pack`), a decode
 vocabulary of long tokens (:func:`long_token_vocab`), and byte rows that
@@ -21,15 +24,17 @@ import numpy as np
 
 from .bytelevel import bytes_to_unicode, unicode_to_bytes
 
+_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), ".cache")
 # the tracked 50K byte-level BPE tokenizer (bench.py's)
-BENCH_50K = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    ".cache", "bench_tokenizer_r4_50k.json",
-)
+BENCH_50K = os.path.join(_CACHE, "bench_tokenizer_r4_50k.json")
+# the tracked 32,000-piece Unigram table (scripts/make_bench_unigram_32k.py)
+BENCH_UNIGRAM_32K = os.path.join(_CACHE, "bench_unigram_32k.json")
 
 __all__ = [
     "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
-    "edge_word_pack", "long_token_vocab", "norm_edge_rows", "norm_trap_bitmap", "run_rows",
+    "edge_word_pack", "long_token_vocab", "metaspace_pieces", "norm_edge_rows",
+    "norm_trap_bitmap", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
     "wordlevel_vocab", "zipf_lexicon", "zipf_corpus",
 ]
 
@@ -364,3 +369,53 @@ def wordlevel_vocab() -> dict:
     for w in zipf_lexicon(50_000)[:WORDLEVEL_WORDS]:
         vocab.setdefault(w, len(vocab))
     return vocab
+
+
+METASPACE = "\u2581"  # SentencePiece's word-boundary mark
+
+
+def unigram_32k_vocab() -> list[tuple[str, float]]:
+    """The tracked Unigram table of t5-base's size (32,000 pieces, pieces up
+    to 16 characters as SentencePiece's default; the longest has 13): the
+    JAX package's ``UnigramTrainer`` on the benchmark corpus's words
+    (``scripts/make_bench_unigram_32k.py``), as ``(piece, score)`` in id
+    order.  Read from :data:`BENCH_UNIGRAM_32K`, never trained here."""
+    with open(BENCH_UNIGRAM_32K, encoding="utf-8") as fh:
+        return [(p, float(s)) for p, s in json.load(fh)]
+
+
+def metaspace_pieces(texts: list[str]) -> list[str]:
+    """The pieces a Unigram model sees after HF's ``Metaspace(replacement="▁",
+    prepend_scheme="always", split=True)``: each whitespace-separated word
+    with ``▁`` in front, in text order."""
+    return [METASPACE + w for t in texts for w in t.split()]
+
+
+def unigram_edge_texts(vocab: list[tuple[str, float]], seed: int = 0) -> list[tuple[str, list]]:
+    """Texts that reach the Viterbi at its edges, by case: the empty text and
+    one-character texts (pieces and characters of no piece); texts of 127,
+    128 and 129 characters (the lanes' edge: 129 goes to the host); one
+    repeated character (equal totals: exact ties); characters outside the
+    table (the UNK fallback), alone and inside pieces; ends past 32 and 64
+    characters (several candidate chunks a text)."""
+    rng = np.random.RandomState(seed)
+    pieces = [p for p, _ in vocab if p and not p.startswith("<")]
+    singles = sorted({p for p in pieces if len(p) == 1})
+    letters = [c for c in singles if c.isalpha()] or singles
+
+    def joined(n: int) -> str:
+        out = ""
+        while len(out) < n:
+            out += pieces[int(rng.randint(len(pieces)))]
+        return out[:n]
+
+    return [
+        ("empty and one character", ["", *singles[:40], "\x00", "\u4e00", "Q", METASPACE]),
+        ("127, 128 and 129 characters", [joined(n) for n in (127, 128, 129, 127, 128)]),
+        ("one repeated character", [c * n for c in letters[:6] for n in (2, 3, 4, 9, 40, 128)]
+         + [METASPACE * 5, METASPACE + letters[0] * 7]),
+        ("characters outside the table", ["\u4e00\u4e01\u4e02", "\x00\x01", "Q" * 5,
+                                          METASPACE + "\u4e00" + letters[0] + "\x07"]
+         + [joined(6) + "\u3042" + joined(5) for _ in range(20)]),
+        ("longer texts", [joined(int(n)) for n in rng.randint(30, 128, size=40)]),
+    ]

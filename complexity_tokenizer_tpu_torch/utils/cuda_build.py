@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # arr, lens, table, out, B, W, stream
     "ctok_seed_tokens": (_P, _P, _P, _P, _I, _I, _P),
@@ -63,6 +64,11 @@ _SIGNATURES = {
     "ctok_wordlevel_lookup": (_P, _P, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P, _I, _I, _P, _P),
     # info[5]
     "ctok_wordlevel_info": (_P,),
+    # chars, offs, lens, B, disp, rows, size_mask, bucket_mask, piece_chars, piece_lens,
+    # piece_scores, Lt, fallback_score, maxcand, fallback_id, pows, res, N, stream
+    "ctok_viterbi": (_P, _P, _P, _I, _P, _P, _U, _U, _P, _P, _P, _I, _F, _I, _I, _P, _P, _I, _P),
+    # info[5]
+    "ctok_viterbi_info": (_P,),
     # chd, policy (0 rows, 1 fill, 2 ragged), L, info[6]
     "ctok_merge_fixpoint_info": (_I, _I, _I, _P),
     # bytes, start_bits, row_len, byte_table, t1, t2, mask, tokens_out, count, B, L, stream

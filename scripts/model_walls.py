@@ -8,7 +8,8 @@ repository), so that one script times two checkouts of the package (unpack
 the other with ``git archive <commit> | tar -x -C DIR``) in turns, one
 process each.  The models are ``chip_smoke.py``'s, at full width:
 ByteLevel BPE on the 50K and 100K tables, CharBPE on its test table,
-WordPiece at 30,522 entries and WordLevel at 40,001, and the text pipeline
+WordPiece at 30,522 entries, WordLevel at 40,001 and Unigram at 32,000
+pieces (on the corpus's ``▁word`` pieces, one call), and the text pipeline
 ``EncodePipeline.encode_batch`` at 50K with its NFC normalizer (K8, then
 K1 and K2); the texts its corpus (``chip_smoke.main_corpus``).  Each
 one's first ``encode_batch`` builds its tier (or tables and bitmap) and is
@@ -30,6 +31,14 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _unigram():
+    # imported here: a checkout from before the Unigram model has none
+    from complexity_tokenizer_tpu_torch.models import UnigramModel
+    from complexity_tokenizer_tpu_torch.utils.corpus import unigram_32k_vocab
+
+    return UnigramModel(unigram_32k_vocab())
 
 
 def main(argv=None) -> int:
@@ -66,20 +75,27 @@ def main(argv=None) -> int:
               "WordPiece 30,522": lambda: WordPieceModel(bert_scale_wordpiece_vocab()),
               "WordLevel 40,001": lambda: WordLevelModel(wordlevel_vocab()),
               "EncodePipeline.encode_batch (NFC, 50K)":
-                  lambda: Tokenizer.from_file(smoke.TOKENIZER_JSON).pipeline("cuda")}
+                  lambda: Tokenizer.from_file(smoke.TOKENIZER_JSON).pipeline("cuda"),
+              "Unigram 32,000": _unigram}
     walls: dict = {}
     for label, make in makers.items():
         if args.only and label not in args.only:
             continue
         model = make()
-        first = model.encode_batch(texts)
+        if label == "Unigram 32,000":
+            from complexity_tokenizer_tpu_torch.utils.corpus import metaspace_pieces
+
+            inputs = metaspace_pieces(texts)
+        else:
+            inputs = texts
+        first = model.encode_batch(inputs)
         torch.cuda.synchronize()
         if getattr(model, "last_route", "device") != "device":
             raise AssertionError(f"[{label}] encode_batch took the {model.last_route} route")
         walls[label] = []
         for _ in range(args.runs):
             t0 = time.perf_counter()
-            got = model.encode_batch(texts)
+            got = model.encode_batch(inputs)
             torch.cuda.synchronize()
             walls[label].append(time.perf_counter() - t0)
             if got != first:

@@ -1423,3 +1423,108 @@ def test_k8_k11_launch_shapes():
     _need_card()
     for shape in (norm_launch_shape(), wordlevel_launch_shape()):
         assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape
+
+
+def _unigram_tier():
+    from complexity_tokenizer_tpu_torch.models import UnigramModel
+    from complexity_tokenizer_tpu_torch.utils.corpus import unigram_32k_vocab
+
+    vocab = unigram_32k_vocab()
+    return vocab, UnigramModel(vocab)._tiers.get("cuda")
+
+
+def _unigram_texts(vocab, seed):
+    """Random texts of 0-128 characters joined from pieces, with characters
+    outside the table, then the corpus's pieces."""
+    from complexity_tokenizer_tpu_torch.utils.corpus import metaspace_pieces
+
+    rng = np.random.RandomState(seed)
+    pieces = [p for p, _ in vocab[:-3]]
+    texts = []
+    for n in rng.randint(0, 129, size=600):
+        t = ""
+        while len(t) < n:
+            t += pieces[rng.randint(len(pieces))] if rng.rand() < 0.9 else chr(0x4E00 + rng.randint(50))
+        texts.append(t[:n])
+    return texts + sorted(set(metaspace_pieces(zipf_corpus(200, seed=seed))))
+
+
+def test_k12_matches_plain():
+    """K12 against its plain version, bit for bit in out, count and poison:
+    random texts and the edge texts, at the longest piece and at maxcand 3,
+    under the -2 marker and a live id as marker, in the tier's length order
+    and in the texts' own order, and with lengths under the slots."""
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import (
+        FALLBACK_ID,
+        split_viterbi,
+        viterbi,
+        viterbi_ragged_plain,
+    )
+    from complexity_tokenizer_tpu_torch.utils.corpus import unigram_edge_texts
+
+    _need_card()
+    vocab, tier = _unigram_tier()
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+
+    def check(chars, offs, lens, maxcand, fid=FALLBACK_ID):
+        c, o, n = on(chars), on(offs), on(lens)
+        got = viterbi(c, o, n, *tier.args(maxcand), fallback_id=fid)
+        torch.cuda.synchronize()
+        exp = viterbi_ragged_plain(c, o, n, *tier.args(maxcand), fallback_id=fid)
+        assert torch.equal(got, exp), (maxcand, fid)
+        return split_viterbi(got, len(lens))
+
+    sets = [_unigram_texts(vocab, 5)] + [t for _c, t in unigram_edge_texts(vocab)]
+    poisoned = 0
+    for texts in sets:
+        chars, offs, lens, order, host = tier.pack(texts)
+        for maxcand in (tier.Lt, 3, 40):
+            res = check(chars, offs, lens, maxcand)
+            poisoned += int(res[2].sum())
+        check(chars, offs, lens, tier.Lt, fid=tier.unk_id)
+        flat, uoffs, ulens = _unsorted(chars, offs, lens, order)
+        check(flat, uoffs, ulens, tier.Lt)
+        short = ulens.copy()
+        short[::3] = np.maximum(short[::3] - 2, 0)
+        check(flat, uoffs, short, tier.Lt)
+    assert poisoned > 0
+
+
+def test_unigram_on_card_matches_host():
+    """``UnigramModel.encode_batch`` on the card launches K12 once and
+    equals the host ``encode`` on every piece."""
+    from complexity_tokenizer_tpu_torch.models import UnigramModel
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import viterbi
+    from complexity_tokenizer_tpu_torch.utils.corpus import metaspace_pieces, unigram_32k_vocab
+
+    _need_card()
+    model = UnigramModel(unigram_32k_vocab())
+    pieces = metaspace_pieces(zipf_corpus(300, seed=31) + list(MULTI_PIECES)) + ["x" * 140, ""]
+    viterbi.launches = 0
+    got = model.encode_batch(pieces)
+    torch.cuda.synchronize()
+    assert viterbi.launches == 1 and model.last_route == "device"
+    assert model.last_stats["over_width"] == 1
+    host = {p: model.encode(p) for p in set(pieces)}
+    assert got == [host[p] for p in pieces]
+
+
+def test_k12_refuses_bad_inputs_and_launches_without_spilling():
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import viterbi, viterbi_launch_shape
+
+    _need_card()
+    _vocab, tier = _unigram_tier()
+    chars = torch.zeros(8, dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 2, 4, 6, 8], dtype=torch.int32, device="cuda")
+    lens = torch.full((4,), 2, dtype=torch.int32, device="cuda")
+    args = list(tier.args())
+    with pytest.raises(ValueError, match="offs"):
+        viterbi(chars, offs[:4], lens, *args)
+    with pytest.raises(ValueError, match="maxcand"):
+        viterbi(chars, offs, lens, *args[:-1], 0)
+    bad = list(args)
+    bad[6] = tier.piece_scores.double()
+    with pytest.raises(ValueError, match="piece_scores"):
+        viterbi(chars, offs, lens, *bad)
+    shape = viterbi_launch_shape()
+    assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape

@@ -138,6 +138,7 @@ def _models():
     from complexity_tokenizer_tpu_torch import (
         ByteLevelBpeModel,
         CharBpeModel,
+        UnigramModel,
         WordLevelModel,
         WordPieceModel,
     )
@@ -149,10 +150,11 @@ def _models():
         WordLevelModel({"<unk>": 0, "ab": 1}),
         # an ineligible table: the host route, but the device is resolved all the same
         CharBpeModel({"a": 0}, []),
+        UnigramModel([("<unk>", -10.0), ("ab", -1.0), ("b", -2.5)]),
     ]
 
 
-@pytest.mark.parametrize("i", range(5))
+@pytest.mark.parametrize("i", range(6))
 def test_models_without_device_raise_without_card(no_card, i):
     """The models' ``encode_batch`` with no ``device`` runs on ``cuda`` and
     raises where there is no card; ``device="cpu"`` runs the plain
