@@ -80,19 +80,21 @@ Phases (each prints its seconds):
    over 128 lanes) printed; each kernel against its plain version on the
    path's input (K9, K10, K11 and K12 on the ragged words or pieces as
    their tiers pack them; K9 also on ``run_rows``; K12 also on
-   ``utils/corpus.py:unigram_edge_texts`` and with ``maxcand`` 3 under the
-   fallback marker -2), timed warm, cold and plain beside its bound and
+   ``utils/corpus.py:unigram_edge_texts``, with ``maxcand`` 3 and 16 under
+   the fallback marker -2, and with every text a warp and every text in a
+   group of 8 lanes), timed warm, cold and plain beside its bound and
    the bound of the dense [B, 128] rows the earlier tiers wrote (K9, K10)
    or read (K11); K9 also at every tile size
    of ``TILE_SWEEP``, each checked; K10's and K11's words counted by lane
    group, K11 also with every word in groups of 8 and every word a warp.
-   With ``--parent DIR`` (a checkout of a commit with the dense K8 and
-   K11, 86e566f to ef545a1): that commit's one-row-a-warp K8 and K11,
-   built by ``scripts/parent_word_kernels.py`` beside the package's
-   kernels, on the same rows and words laid out as that commit laid them
-   out (K8: a zero-padded batch and a launch a length bucket), checked
-   against these and timed in turns (parent, kernel, kernel, parent), and
-   cold.
+   With ``--parent DIR`` (a checkout of an earlier commit): the kernels of
+   it that ``scripts/parent_word_kernels.py`` knows, built beside the
+   package's kernels, on the same rows, words and texts laid out as that
+   commit laid them out, checked against these and timed in turns
+   (parent, kernel, kernel, parent), and cold: the one-row-a-warp K8 and
+   K11 of 86e566f to ef545a1 (K8: a zero-padded batch and a launch a
+   length bucket), the first K12 of e635772 (a warp a text), and a
+   commit's K4 launched plainly after this K6 (the fills in turns).
 4. kernels: each kernel against its plain PyTorch version on the card, bit
    for bit, on the kept batches and packs of every shape.  At 50K: K1 also
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
@@ -121,7 +123,8 @@ Phases (each prints its seconds):
    turns, warm and cold; K3 and K4 against their plain versions, timed
    warm and cold.  K6 and the fill also on both probes with both id widths
    (the 50K CHD table, and int32 ids at 50K) and on ``edge_word_pack``
-   rows.  Kernels and the library expression are timed by replaying a CUDA
+   rows; the fill also replayed from a CUDA graph (K4 is K6's programmatic
+   dependent).  Kernels and the library expression are timed by replaying a CUDA
    graph, the plain versions that synchronise with CUDA events around
    their calls (``_time_ms``).  K7 (``check_decode``, one launch a call) at
    both vocabularies on the corpus's rows, random ids at ``[8192, 128]``
@@ -469,7 +472,8 @@ def check_merge(label: str, tb, arr, lens, byte_table=None, plain_reps: int = 2,
     return res
 
 
-def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> tuple:
+def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int,
+                    parent=None) -> tuple:
     """The word path's fill on one pack (on the card).  K6 (the merge from
     the packed bytes) against its plain version on the card and on the CPU
     and against K3 -> K1 -> the fixpoint (merged rows and counts); the fill
@@ -479,9 +483,14 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
     full capacity; K3 and K4 against their plain versions.  K3, K4 and K6
     are timed warm and cold, the fill and the chain in turns (fill, chain,
     chain, fill) warm and cold at the compact capacity, the plain versions
-    warm.  K6's bound counts the pack's bytes, start bits, lengths and byte
-    table in, the merged rows and counts out and the table bytes its probes
-    touch, once each.  Returns (K3, K4, K6 results)."""
+    warm.  K4 is launched as K6's programmatic dependent: the fill is also
+    captured in a CUDA graph and replayed into a buffer filled with junk,
+    and checked again.  With ``parent`` (``scripts/parent_word_kernels.py``)
+    the earlier K4, launched plainly after this K6, is checked against the
+    fill and the two fills are timed in turns, warm.  K6's bound counts the
+    pack's bytes, start bits, lengths and byte table in, the merged rows and
+    counts out and the table bytes its probes touch, once each.  Returns
+    (K3, K4, K6 results)."""
     import torch
 
     from complexity_tokenizer_tpu_torch.ops.merge import launch_shape
@@ -577,6 +586,31 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
                     (fill_fn, fill_cold)):
         res.append(_time_cold_ms(fn, sets, 50))
     del sets
+    # the fill captured in a graph (K4 a programmatic dependent of K6 there
+    # too) and replayed into junk
+    fill_ref = fill_fn(a, bits, row_len)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fill_fn(a, bits, row_len)
+    replayed.fill_(0xA5)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, fill_ref):
+        raise AssertionError(f"the fill replayed from a CUDA graph differs: {label} [{B},{W}]")
+    del graph
+    parent_fill = {}
+    if parent is not None and parent.has("fill_compact"):
+        def parent_fill_fn(x, y, z):
+            return parent.fill_compact(*word_merge(x, y, z, tables=tb), cap, itemsize)
+
+        if not torch.equal(parent_fill_fn(a, bits, row_len), fill_ref):
+            raise AssertionError(f"the parent's K4 after K6 differs from the fill: {label}")
+        turns_ms, parent_ms = _in_turns(lambda: fill_fn(a, bits, row_len),
+                                        lambda: parent_fill_fn(a, bits, row_len), 50)
+        parent_fill = dict(fill_ms_in_turns=turns_ms, parent_fill_ms=parent_ms)
+        print(f"[word_fill] {label} [{B},{W}] K6 then the parent's K4 (a plain launch) match=True: "
+              f"in turns parent {parent_ms[0]:.4f} ms, fill {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, "
+              f"parent {parent_ms[1]:.4f}", flush=True)
     k6_plain = _time_ms(lambda: word_merge_plain(a, bits, row_len, tables=tb), 3, graph=False)
     # bytes the functions must move: each input read once, each output
     # written once; about one operation a lane
@@ -613,7 +647,7 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> 
              ms_cold=k6_cold, fill_ms=fill_ms, fill_ms_cold=fill_cold, chain_ms=chain_ms,
              chain_ms_cold=chain_cold, plain_ms=k6_plain, bound_ms=b6, bound_by=by6,
              probes=probes, merges=merges, launch=shape, cap=cap, live=total,
-             itemsize=itemsize),
+             itemsize=itemsize, **parent_fill),
     )
 
 
@@ -1580,7 +1614,7 @@ def check_norm(label: str, rows: list[bytes], bitmap, sectors: int, timed: bool 
           f"launch={launch}", flush=True)
     res.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=None, blocks=T, launch=launch)
-    if parent is not None:
+    if parent is not None and parent.has("norm_check"):
         res.update(_parent_norm(label, rows, bitmap, parent, exp,
                                 lambda: norm_stable_rows(data, offs, blocks, bitmap, stable)))
     return res
@@ -1741,7 +1775,9 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
     this kernel's result, and the two are timed in turns, warm, and the
     parent cold.  K12 is also checked on ``edge`` ((case, texts) pairs) and,
     on the main input and the edges, with ``maxcand`` 3 (under the longest
-    piece) and the fallback marker -2."""
+    piece) and 16 and the fallback marker -2, and with every text a warp and
+    every text in a group of 8; with ``parent``, the first K12 (a warp a
+    text) is checked and timed the same way on the main input."""
     import numpy as np
     import torch
 
@@ -1795,11 +1831,11 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         out_bytes = 4 * N + 5 * B
         shape = [N, B]
     elif name == "viterbi":
-        chars_np, offs_np, lens_np, order, _host = tier.pack(words)
+        chars_np, offs_np, lens_np, order, groups, _host = tier.pack(words)
         chars, offs, lens = on(chars_np), on(offs_np), on(lens_np)
-        kernel = lambda: viterbi(chars, offs, lens, *tier.args())  # noqa: E731
+        kernel = lambda: viterbi(chars, offs, lens, groups, *tier.args())  # noqa: E731
         plain = lambda: viterbi_ragged_plain(chars, offs, lens, *tier.args())  # noqa: E731
-        cold_fn = lambda c, o, n: viterbi(c, o, n, *tier.args())  # noqa: E731
+        cold_fn = lambda c, o, n: viterbi(c, o, n, groups, *tier.args())  # noqa: E731
         inputs = (chars, offs, lens)
         B, N = lens.numel(), chars.numel()
         out_bytes = 4 * N + 8 * B
@@ -1857,23 +1893,29 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
                 f"words by lane group {hist}, {warps} warps")
         in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     elif name == "viterbi":
-        # the main input and the edge texts, at the longest piece and at
-        # maxcand 3, under the fallback marker -2, bit for bit
+        # the main input and the edge texts, at the longest piece, at
+        # maxcand 3 and at 16 (the trainer's longest piece), under the
+        # fallback marker -2, bit for bit; and in other lane groups than the
+        # pack's (every text a warp; every text in a group of 8, so that the
+        # longer ones are taken by the whole warp afterwards)
         edge_poisoned = {}
         for case, texts_c in [("main input", None)] + list(edge or []):
             if texts_c is None:
-                c, o, n = chars, offs, lens
+                c, o, n, gr = chars, offs, lens, groups
             else:
-                c, o, n = (on(x) for x in tier.pack(texts_c)[:3])
-            for maxcand in (tier.Lt, 3):
-                got_c = viterbi(c, o, n, *tier.args(maxcand), fallback_id=FALLBACK_ID)
+                packed = tier.pack(texts_c)
+                (c, o, n), gr = (on(x) for x in packed[:3]), packed[4]
+            Bc = n.numel()
+            for maxcand, gr_c in ((tier.Lt, gr), (3, gr), (16, gr), (tier.Lt, (0, 0)),
+                                  (tier.Lt, (Bc, Bc))):
+                got_c = viterbi(c, o, n, gr_c, *tier.args(maxcand), fallback_id=FALLBACK_ID)
                 torch.cuda.synchronize()
                 exp_c = viterbi_ragged_plain(c, o, n, *tier.args(maxcand),
                                              fallback_id=FALLBACK_ID)
                 if not torch.equal(got_c, exp_c):
-                    raise AssertionError(f"K12 on {case} (maxcand {maxcand}) differs from its "
-                                         f"plain version: {label}")
-                if texts_c is not None and maxcand == tier.Lt:
+                    raise AssertionError(f"K12 on {case} (maxcand {maxcand}, groups {gr_c}) "
+                                         f"differs from its plain version: {label}")
+                if texts_c is not None and maxcand == tier.Lt and gr_c == gr:
                     edge_poisoned[case] = int(split_viterbi(exp_c, n.numel())[2].sum())
         live = int(lens.sum())
         Lc = min(tier.Lt, 128)
@@ -1888,12 +1930,18 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
         tbytes = (min(probes * 20, table_bytes_all) + min(8 * path_ids.numel(), 8 * V)
                   + min(4 * path_chars, 4 * tier.piece_chars.numel()))
         ops = probes * OPS_PER_PROBE_CHD + 4 * live
+        # 4 lanes a text of up to 16 characters, 8 a warp in each class; a
+        # warp a longer one
+        hist = {"1-8 characters": groups[0], "9-16 characters": groups[1] - groups[0],
+                "a warp": B - groups[1]}
+        warps = -(-groups[0] // 8) + -(-(groups[1] - groups[0]) // 8) + (B - groups[1])
         extra_out.update(launch=viterbi_launch_shape(), edge_poisoned=edge_poisoned,
                          poisoned=int(poison_t.sum()),
-                         fallbacks=int((out_t == FALLBACK_ID).sum()))
+                         fallbacks=int((out_t == FALLBACK_ID).sum()), groups=hist, warps=warps)
         work = (f"{live} characters, {B} pieces, {probes} candidates, {int(count_t.sum())} ids "
-                f"({extra_out['fallbacks']} fallbacks), {extra_out['poisoned']} poisoned; edge "
-                f"texts poisoned by case {edge_poisoned}; also at maxcand 3, bit for bit")
+                f"({extra_out['fallbacks']} fallbacks), {extra_out['poisoned']} poisoned; pieces "
+                f"by class {hist}, {warps} warps; edge texts poisoned by case "
+                f"{edge_poisoned}; also at maxcand 3 and 16 and in other groups, bit for bit")
         in_bytes = 4 * live + 4 * (B + 1) + 4 * B
     else:
         # every word in groups of 8 lanes and every word a warp (the longer
@@ -1931,8 +1979,10 @@ def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=N
           + (f" dense bound={extra_out['dense_bound_ms']:.4f} ms" if "dense_bound_ms" in extra_out
              else "")
           + (f" launch={extra_out['launch']}" if "launch" in extra_out else ""), flush=True)
-    if parent is not None and name == "wordlevel_lookup":
+    if parent is not None and name == "wordlevel_lookup" and parent.has("wordlevel_lookup"):
         extra_out.update(_parent_wordlevel(label, tier, parent, kernel, exp_t[0], words, order))
+    if parent is not None and name == "viterbi" and parent.has("viterbi"):
+        extra_out.update(_parent_viterbi(label, tier, parent, kernel, exp_t[0], inputs))
     return dict(inputs=label, shape=shape, match=match, max_abs_err=err, ms=ms, ms_cold=ms_cold,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 probes=probes, **extra_out)
@@ -1961,6 +2011,28 @@ def _parent_wordlevel(label: str, tier, parent, kernel, exp, words: list[str], o
     del sets
     print(f"[wordlevel_lookup] {label} parent (a warp a [B, 128] row) match=True: in turns "
           f"parent {parent_ms[0]:.4f} ms, kernel {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, parent "
+          f"{parent_ms[1]:.4f}; parent cold {parent_cold:.4f} ms", flush=True)
+    return dict(parent_ms=parent_ms, parent_ms_cold=parent_cold, ms_in_turns=turns_ms)
+
+
+def _parent_viterbi(label: str, tier, parent, kernel, exp, inputs: tuple) -> dict:
+    """The first K12 (a warp a text, ``parent``'s) on the same packed texts:
+    checked against this kernel's result, the two timed in turns, warm; the
+    parent also cold."""
+    import torch
+
+    targs = tier.args()
+    got = parent.viterbi(*inputs, *targs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, exp):
+        raise AssertionError(f"the parent's K12 differs from this one's: {label}")
+    turns_ms, parent_ms = _in_turns(kernel, lambda: parent.viterbi(*inputs, *targs))
+    N, B = inputs[0].numel(), inputs[2].numel()
+    sets = _cold_sets(inputs, 4 * N + 8 * B)
+    parent_cold = _time_cold_ms(lambda c, o, n: parent.viterbi(c, o, n, *targs), sets, 20)
+    del sets
+    print(f"[viterbi] {label} parent (a warp a text) match=True: in turns parent "
+          f"{parent_ms[0]:.4f} ms, kernel {turns_ms[0]:.4f}, {turns_ms[1]:.4f}, parent "
           f"{parent_ms[1]:.4f}; parent cold {parent_cold:.4f} ms", flush=True)
     return dict(parent_ms=parent_ms, parent_ms_cold=parent_cold, ms_in_turns=turns_ms)
 
@@ -2014,8 +2086,8 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
     host ids), every distinct word or piece through ``encode_batch`` alone
     against the host; the words the host took (poisoned, over 128 lanes, an
     ineligible table) are counted.  Then each kernel against its plain
-    version on the main path's input (K11 also against ``parent``'s, when
-    given; K12 also on the edge texts)."""
+    version on the main path's input (K11 and K12 also against
+    ``parent``'s, where it holds them; K12 also on the edge texts)."""
     import torch
 
     from complexity_tokenizer_tpu_torch.models import UnigramModel, WordLevelModel, WordPieceModel
@@ -2109,8 +2181,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=17, help="corpus and input seed")
     ap.add_argument("--texts", type=int, default=10_000, help="Zipf texts")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of a commit with the dense K8 and K11, whose kernels are "
-                         "built and timed beside these (scripts/parent_word_kernels.py)")
+                    help="a checkout of an earlier commit whose K8 and K11 (dense), K12 (a warp "
+                         "a text) or K4 are built and timed beside these "
+                         "(scripts/parent_word_kernels.py)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2216,12 +2289,14 @@ def main(argv=None) -> int:
         if "error" in parent_build:
             raise parent_build["error"]
         pk = parent_build["kernels"]
-        print(f"parent's K8 and K11 ({args.parent}): {pk.build_seconds:.3f} s nvcc")
+        print(f"parent's {', '.join(pk.kernels)} ({args.parent}): {pk.build_seconds:.3f} s nvcc")
         fn = ""
-        for line in pk.ptxas_log.splitlines():  # the dense K8's and K11's entries only
+        for line in pk.ptxas_log.splitlines():  # the bound kernels' entries only
             if "Compiling entry function" in line:
                 fn = line
-            elif "registers" in line and ("norm_check_kernel" in fn or "wordlevel_kernel" in fn):
+            elif "registers" in line and any(k in fn for k in (
+                    "norm_check_kernel", "wordlevel_kernel", "viterbi_kernel",
+                    "fill_compact_kernel")):
                 print("  parent " + fn.split("'")[1] + ": " + line.split(":", 1)[-1].strip())
     built = f"{lib.build_seconds:.3f} s nvcc" if lib.build_seconds else "reused an earlier build"
     print(f"build: {built} -> {os.path.relpath(lib.path, REPO)}")
@@ -2291,7 +2366,8 @@ def main(argv=None) -> int:
     # of the dependent probe shows
     for B in sorted(packs):
         a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
-        r3, r4, r6 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
+        r3, r4, r6 = check_word_fill("word pack", tb, cpu_tb, a, bits, row_len, itemsize,
+                                     parent_build.get("kernels"))
         k3_res.append(r3)
         k4_res.append(r4)
         k6_res.append(r6)
@@ -2357,7 +2433,8 @@ def main(argv=None) -> int:
     packs, batches = r100["packs"], r100["batches"]
     for B in sorted(packs):
         a, bits, row_len = (torch.from_numpy(x).cuda() for x in packs[B])
-        r3, r4, r6 = check_word_fill("word pack, 100K", tb, cpu_tb, a, bits, row_len, itemsize)
+        r3, r4, r6 = check_word_fill("word pack, 100K", tb, cpu_tb, a, bits, row_len, itemsize,
+                                     parent_build.get("kernels"))
         k3_res.append(r3)
         k4_res.append(r4)
         k6_res.append(r6)
@@ -2483,6 +2560,9 @@ def main(argv=None) -> int:
         if name == "word_merge":
             for key in ("fill_ms", "fill_ms_cold", "chain_ms", "chain_ms_cold"):
                 kernels[-1][key] = min(main[key])
+            for key in ("fill_ms_in_turns", "parent_fill_ms"):
+                if key in main:
+                    kernels[-1][key] = main[key]
         if name == "word_ids":
             kernels[-1]["folded_into"] = "word_merge"
         if name == "seed_tokens":

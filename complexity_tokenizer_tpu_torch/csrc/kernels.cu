@@ -806,8 +806,9 @@ __device__ __forceinline__ void chd_first_round(const int32_t* t, uint64_t* rm,
 // gap); a start is position 0, a set bit before row_len, and row_len
 // itself when a word ends there.  The epilogue is the fixpoint's own.
 //
-// Bound: latency, as the fixpoint's.  With K4 after it, 2.8-3.7 us more
-// than the fixpoint alone on tokens and word ids, K4's launch most of it.
+// Bound: latency, as the fixpoint's.  K4 after it cost 2.6-3.7 us more
+// than K6 alone, its launch most of it, so K4 is this kernel's programmatic
+// dependent (wordfill.cu): each block triggers K4's launch as it starts.
 // A one-launch design that also did K4's work (a decoupled look-back over
 // the rows' counts, a row ticket, a scratch zeroed by the block counted
 // last) took 3.7-8.1 us more than the fixpoint alone, and 1.7-4.4 us more
@@ -960,6 +961,10 @@ merge_fixpoint_kernel(const int32_t* __restrict__ tokens_in,
   // kept in shared memory over the walks (in registers they spill)
   __shared__ int tile_at[4];
   if constexpr (R::kFill) {
+    // K4 (wordfill.cu) is launched as this launch's programmatic dependent:
+    // its blocks may start now and wait in griddepcontrol.wait until this
+    // grid has finished, so its launch overlaps this one's rows
+    asm volatile("griddepcontrol.launch_dependents;");
     fill_load<kThreads>(io, t, aux, blockIdx.x, L, tid);
   } else if constexpr (R::kRagged) {
     const int tw0 = __ldg(io.tiles + blockIdx.x), tw1 = __ldg(io.tiles + blockIdx.x + 1);

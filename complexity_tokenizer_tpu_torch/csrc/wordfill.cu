@@ -15,7 +15,8 @@
 // _local_fill_body), which XLA compiled for the TPU.  At the word path's
 // packs ([64 | 256 | 1024, 128]) each moves well under a megabyte, so both
 // are bound by their launch (about 1.5 us on an H100), not by bytes: they
-// are written to be simple and right, one warp per 128-byte row.
+// are written to be simple and right, one warp per 128-byte row, and K4's
+// launch overlaps K6 (below).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -109,6 +110,18 @@ word_ids_kernel(const uint8_t* __restrict__ bits,
 // warp per row walks it 32 positions at a time: a ballot gives the alive
 // bits of the 32 positions (4 bytes of the bitmap, stored by lanes 0-3) and,
 // with a popcount, each live lane's slot.
+//
+// Bound: K4 moves at most a few hundred KB (0.00005-0.0002 ms at 3.35
+// TB/s), so its launch bounds it: launched plainly it starts only after
+// K6's last block has ended, and took 2.6-2.9 us of the fill's time beyond
+// K6 alone.  So it is launched as a programmatic dependent of the kernel
+// before it on the stream (cudaLaunchKernelEx with programmatic stream
+// serialization): K6 triggers its dependents as it starts
+// (griddepcontrol.launch_dependents), K4's blocks are then scheduled while
+// K6 runs and wait at griddepcontrol.wait until K6 has ended and its rows
+// and counts are visible.  After any other work on the stream (a copy, a
+// kernel that triggers nothing) the wait returns at once and the launch
+// waits as a plain one.  Times in PERF.md, section 6.
 template <typename T>
 __global__ void __launch_bounds__(kFillThreads)
 fill_compact_kernel(const int32_t* __restrict__ merged,
@@ -119,6 +132,9 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
   __shared__ int64_t s_total;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t r0 = (int64_t)blockIdx.x * kRowsPerBlock;
+  // launched as a programmatic dependent of K6: wait until K6 has finished
+  // and its rows and counts are visible (at once after any other launch)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   int64_t before = 0, all = 0;
   for (int64_t k = tid; k < B; k += kFillThreads) {
     const int64_t v = count[k];
@@ -201,14 +217,25 @@ int ctok_fill_compact(const void* merged, const void* count, void* out, int B,
   const auto* m = static_cast<const int32_t*>(merged);
   const auto* c = static_cast<const int32_t*>(count);
   auto* o = static_cast<uint8_t*>(out);
-  const auto s = (cudaStream_t)stream;
+  // a programmatic dependent of the kernel before it on the stream (K6
+  // triggers it early); after any other work the launch waits as usual
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kFillThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
   if (itemsize == 2)
-    fill_compact_kernel<uint16_t><<<blocks, kFillThreads, 0, s>>>(m, c, o, B, W, cap);
+    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<uint16_t>, m, c, o, B, W, cap);
   else if (itemsize == 4)
-    fill_compact_kernel<int32_t><<<blocks, kFillThreads, 0, s>>>(m, c, o, B, W, cap);
+    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<int32_t>, m, c, o, B, W, cap);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

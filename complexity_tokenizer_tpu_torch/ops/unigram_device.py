@@ -7,8 +7,9 @@ with a single-character UNK fallback scored ``min_score - 10``
 (``ops/unigram_device.py``):
 
 - texts are codepoint rows ``[B, W]`` (W = 128), -1 padded, in the plain
-  version (:func:`viterbi_plain`); K12 takes them ragged, as K10 takes its
-  words (:func:`viterbi`, :meth:`UnigramDevice.pack`);
+  version (:func:`viterbi_plain`); K12 takes them ragged and ordered by
+  length with K10's lane groups, as K10 takes its words (:func:`viterbi`,
+  :meth:`UnigramDevice.pack`);
 - a substring's pieces come from the prefix polynomial hashes and the CHD
   table of ``ops/wordpiece_device.py``, keyed on the two hashes, whose rank
   column holds the piece's id; its score from a dense ``[V]`` float32 table;
@@ -267,10 +268,13 @@ def viterbi_ragged_plain(chars, offs, lens, disp, rows, size: int, n_buckets: in
 # K12
 
 
-def _check_viterbi(chars, offs, lens, disp, rows, size, n_buckets, piece_chars, piece_lens,
-                   piece_scores, maxcand) -> None:
+def _check_viterbi(chars, offs, lens, groups, disp, rows, size, n_buckets, piece_chars,
+                   piece_lens, piece_scores, maxcand) -> tuple[int, int]:
     N, B = chars.numel(), lens.numel()
     V, Lt = piece_chars.shape
+    n8, n16 = (int(g) for g in groups)
+    if not 0 <= n8 <= n16 <= B:
+        raise ValueError(f"viterbi: groups {groups} outside 0 <= n8 <= n16 <= {B}")
     if Lt > _W:
         raise ValueError(f"viterbi: pieces of {Lt} characters exceed the kernel's {_W}")
     if maxcand < 1:
@@ -287,24 +291,30 @@ def _check_viterbi(chars, offs, lens, disp, rows, size, n_buckets, piece_chars, 
     ))
     if rows.data_ptr() % 16:
         raise ValueError("viterbi: rows must be 16-byte aligned (one int4 load a probe)")
+    return n8, n16
 
 
-def viterbi(chars, offs, lens, disp, rows, size: int, n_buckets: int, piece_chars, piece_lens,
-            piece_scores, fallback_score: float, maxcand: int, fallback_id: int = FALLBACK_ID):
+def viterbi(chars, offs, lens, groups, disp, rows, size: int, n_buckets: int, piece_chars,
+            piece_lens, piece_scores, fallback_score: float, maxcand: int,
+            fallback_id: int = FALLBACK_ID):
     """K12 on CUDA tensors, the plain version on CPU tensors; same arguments
     and result as :func:`viterbi_ragged_plain` (one ``[N + 2B]`` int32
-    buffer, so that one copy brings it back).  Right for the texts in any
-    order; a warp takes a text, so ordering them by length (as
-    :meth:`UnigramDevice.pack` does) keeps a block's warps alike.  A text's
-    length is cut to its slots and to 128 (the plain version raises on a
-    length over its slots)."""
+    buffer, so that one copy brings it back), with ``groups`` = (n8, n16):
+    the texts [0, n8) and [n8, n16) (those of at most 8 and of 9 to 16
+    characters) are segmented 4 lanes a text, 8 a warp, each class in
+    warps of its own, the rest a warp each.  Right for any order and any
+    groups (a text over 16 characters in the first two is taken by the
+    whole warp afterwards), fastest when they hold the texts of their
+    widths, as :meth:`UnigramDevice.pack` orders them; the plain version
+    does not read them.  A text's length is cut to its slots and to 128
+    (the plain version raises on a length over its slots)."""
     if chars.device.type == "cpu":
         return viterbi_ragged_plain(chars, offs, lens, disp, rows, size, n_buckets, piece_chars,
                                     piece_lens, piece_scores, fallback_score, maxcand, fallback_id)
     if chars.device.type != "cuda":
         raise ValueError(f"viterbi: unsupported device {chars.device}")
-    _check_viterbi(chars, offs, lens, disp, rows, size, n_buckets, piece_chars, piece_lens,
-                   piece_scores, maxcand)
+    n8, n16 = _check_viterbi(chars, offs, lens, groups, disp, rows, size, n_buckets, piece_chars,
+                             piece_lens, piece_scores, maxcand)
     N, B = chars.numel(), lens.numel()
     res = torch.empty(N + 2 * B, dtype=torch.int32, device=chars.device)
     if B == 0:
@@ -313,7 +323,7 @@ def viterbi(chars, offs, lens, disp, rows, size: int, n_buckets: int, piece_char
     stream = torch.cuda.current_stream(chars.device).cuda_stream
     check(
         kernel_library().lib.ctok_viterbi(
-            chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), B, disp.data_ptr(),
+            chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), n8, n16, B, disp.data_ptr(),
             rows.data_ptr(), size - 1, n_buckets - 1, piece_chars.data_ptr(),
             piece_lens.data_ptr(), piece_scores.data_ptr(), piece_chars.shape[1],
             ctypes.c_float(fallback_score), int(min(maxcand, _W)), int(fallback_id),
@@ -367,12 +377,13 @@ class UnigramDevice:
         """K12's input for a batch of texts, ordered by length (stable), as
         K10's words (``ops/wordpiece_device.py:_pack_words``): (chars [N]
         int32, offs [B + 1] int32, lens [B] int32, order [B] (packed text j
-        is ``texts[order[j]]``), the texts over 128 characters, which hold no
-        slot and length 0 and go to the host)."""
+        is ``texts[order[j]]``), groups (n8, n16): the texts of at most 8
+        and 16 characters, the texts over 128 characters, which hold no slot
+        and length 0 and go to the host)."""
         wl = np.fromiter(map(len, texts), np.int64, len(texts))
         slots = np.where(wl > _W, 0, wl)
-        chars, offs, order, _groups = _pack_words(texts, wl, slots)
-        return chars, offs, slots[order].astype(np.int32), order, np.flatnonzero(
+        chars, offs, order, groups = _pack_words(texts, wl, slots)
+        return chars, offs, slots[order].astype(np.int32), order, groups, np.flatnonzero(
             wl > _W).tolist()
 
     def tokenize_texts(self, texts: list[str]) -> list[list[int]]:
@@ -385,10 +396,11 @@ class UnigramDevice:
         if n == 0:
             self.last_poisoned, self.last_over_width = [], 0
             return []
-        chars, offs, lens, order, skipped = self.pack(texts)
+        chars, offs, lens, order, groups, skipped = self.pack(texts)
         N = len(chars)
         buf = torch.from_numpy(np.concatenate([chars, offs, lens])).to(self.device)
-        res = viterbi(buf[:N], buf[N:N + n + 1], buf[N + n + 1:], *self.args()).cpu().numpy()
+        res = viterbi(buf[:N], buf[N:N + n + 1], buf[N + n + 1:], groups,
+                      *self.args()).cpu().numpy()
         out, _count, poison = split_viterbi(res, n)
         out[out == FALLBACK_ID] = self.unk_id
         live = out >= 0

@@ -17,7 +17,9 @@ launches:
   - K1 (``ops/seed.py``): bytes -> token ids, -1 at and past ``row_len``;
   - K2 or K5 (``ops/merge.py``): the merge fixpoint, and each row's live
     count.
-- K4 (:func:`fill_compact`): the fused buffer.
+- K4 (:func:`fill_compact`): the fused buffer, launched as the
+  programmatic dependent of the kernel before it on the stream, so that
+  after K6 its launch overlaps K6's rows (``csrc/wordfill.cu``).
 
 K3 stays a kernel of its own, with its plain version: no path launches
 it, but :func:`word_fill_chain` (K3 -> K1 -> fixpoint -> K4, four
@@ -155,7 +157,9 @@ def fill_compact_plain(
 def fill_compact(
     merged: torch.Tensor, count: torch.Tensor, cap: int, itemsize: int
 ) -> torch.Tensor:
-    """K4 on a CUDA tensor, the plain version on a CPU tensor.
+    """K4 on a CUDA tensor, the plain version on a CPU tensor.  On the card
+    it is launched as the programmatic dependent of the work before it on
+    the stream: right after any work, early after K6 (:func:`word_fill`).
 
     Args:
       merged: [B, W] int32 K2 output, -1 at dead lanes; W % 8 == 0.

@@ -397,7 +397,10 @@ def unigram_edge_texts(vocab: list[tuple[str, float]], seed: int = 0) -> list[tu
     128 and 129 characters (the lanes' edge: 129 goes to the host); one
     repeated character (equal totals: exact ties); characters outside the
     table (the UNK fallback), alone and inside pieces; ends past 32 and 64
-    characters (several candidate chunks a text)."""
+    characters (several candidate chunks a text); texts of 7, 8, 9, 15, 16
+    and 17 characters (the edges of K12's lane groups of 8 and 16), also of
+    one repeated character; and one text of each length 0..128 (every lane
+    group in one launch)."""
     rng = np.random.RandomState(seed)
     pieces = [p for p, _ in vocab if p and not p.startswith("<")]
     singles = sorted({p for p in pieces if len(p) == 1})
@@ -418,4 +421,7 @@ def unigram_edge_texts(vocab: list[tuple[str, float]], seed: int = 0) -> list[tu
                                           METASPACE + "\u4e00" + letters[0] + "\x07"]
          + [joined(6) + "\u3042" + joined(5) for _ in range(20)]),
         ("longer texts", [joined(int(n)) for n in rng.randint(30, 128, size=40)]),
+        ("lane-group edges", [joined(n) for n in (7, 8, 9, 15, 16, 17) for _ in range(6)]
+         + [c * n for c in letters[:2] for n in (8, 9, 16, 17)]),
+        ("every lane group in one batch", [joined(n) for n in range(129)]),
     ]

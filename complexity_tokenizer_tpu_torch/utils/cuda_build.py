@@ -64,9 +64,10 @@ _SIGNATURES = {
     "ctok_wordlevel_lookup": (_P, _P, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P, _I, _I, _P, _P),
     # info[5]
     "ctok_wordlevel_info": (_P,),
-    # chars, offs, lens, B, disp, rows, size_mask, bucket_mask, piece_chars, piece_lens,
-    # piece_scores, Lt, fallback_score, maxcand, fallback_id, pows, res, N, stream
-    "ctok_viterbi": (_P, _P, _P, _I, _P, _P, _U, _U, _P, _P, _P, _I, _F, _I, _I, _P, _P, _I, _P),
+    # chars, offs, lens, n8, n16, B, disp, rows, size_mask, bucket_mask, piece_chars,
+    # piece_lens, piece_scores, Lt, fallback_score, maxcand, fallback_id, pows, res, N, stream
+    "ctok_viterbi": (_P, _P, _P, _I, _I, _I, _P, _P, _U, _U, _P, _P, _P, _I, _F, _I, _I, _P, _P,
+                     _I, _P),
     # info[5]
     "ctok_viterbi_info": (_P,),
     # chd, policy (0 rows, 1 fill, 2 ragged), L, info[6]

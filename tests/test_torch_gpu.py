@@ -755,6 +755,33 @@ def test_k6_on_two_streams_at_once(tok50k):
             assert torch.equal(got, exp[k])
 
 
+def test_fill_replays_from_a_cuda_graph(tok50k, tok100k):
+    """The fill (K6, then K4 as its programmatic dependent) captured in a
+    CUDA graph and replayed into buffers filled with junk equals the fill
+    launched from the host, on both tables; K4 launched alone after a copy
+    (no kernel before it to wait for) also equals its plain version."""
+    _need_card()
+    for tb, itemsize in ((tok50k.pipeline("cuda").tables, 2),
+                         (tok100k.pipeline("cuda").tables, 4)):
+        for B, seed in ((1024, 3), (256, 4)):
+            pack = _fill_pack("edges", B, seed=seed)
+            cap = B * 128 * 3 // 8
+            exp = word_fill(*pack, cap, tables=tb, itemsize=itemsize)
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                got = word_fill(*pack, cap, tables=tb, itemsize=itemsize)
+            for _ in range(3):
+                got.fill_(0xA5)
+                g.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(got, exp), (B, itemsize)
+            merged, count = word_merge(*pack, tables=tb)
+            merged_copy, count_copy = merged.clone(), count.clone()
+            assert torch.equal(fill_compact(merged_copy, count_copy, cap, itemsize),
+                               fill_compact_plain(merged, count, cap, itemsize))
+
+
 def test_word_path_fills_in_two_launches_a_pack(tok50k):
     """On backend="device" every pack's fill is one K6 and one K4 launch,
     and K3, K1 and the standalone fixpoint are not launched."""
@@ -1451,9 +1478,11 @@ def _unigram_texts(vocab, seed):
 
 def test_k12_matches_plain():
     """K12 against its plain version, bit for bit in out, count and poison:
-    random texts and the edge texts, at the longest piece and at maxcand 3,
-    under the -2 marker and a live id as marker, in the tier's length order
-    and in the texts' own order, and with lengths under the slots."""
+    random texts and the edge texts, at the longest piece, at maxcand 3, 16
+    and 40, under the -2 marker and a live id as marker, in the tier's
+    length order with its lane groups, with every text a warp and every
+    text in a group of 8 (the longer ones then taken by the whole warp),
+    in the texts' own order, and with lengths under the slots."""
     from complexity_tokenizer_tpu_torch.ops.unigram_device import (
         FALLBACK_ID,
         split_viterbi,
@@ -1466,28 +1495,71 @@ def test_k12_matches_plain():
     vocab, tier = _unigram_tier()
     on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
 
-    def check(chars, offs, lens, maxcand, fid=FALLBACK_ID):
+    def check(chars, offs, lens, groups, maxcand, fid=FALLBACK_ID):
         c, o, n = on(chars), on(offs), on(lens)
-        got = viterbi(c, o, n, *tier.args(maxcand), fallback_id=fid)
+        got = viterbi(c, o, n, groups, *tier.args(maxcand), fallback_id=fid)
         torch.cuda.synchronize()
         exp = viterbi_ragged_plain(c, o, n, *tier.args(maxcand), fallback_id=fid)
-        assert torch.equal(got, exp), (maxcand, fid)
+        assert torch.equal(got, exp), (maxcand, fid, groups)
         return split_viterbi(got, len(lens))
 
     sets = [_unigram_texts(vocab, 5)] + [t for _c, t in unigram_edge_texts(vocab)]
     poisoned = 0
     for texts in sets:
-        chars, offs, lens, order, host = tier.pack(texts)
-        for maxcand in (tier.Lt, 3, 40):
-            res = check(chars, offs, lens, maxcand)
+        chars, offs, lens, order, groups, host = tier.pack(texts)
+        B = len(lens)
+        for maxcand in (tier.Lt, 3, 16, 40):
+            res = check(chars, offs, lens, groups, maxcand)
             poisoned += int(res[2].sum())
-        check(chars, offs, lens, tier.Lt, fid=tier.unk_id)
+        check(chars, offs, lens, groups, tier.Lt, fid=tier.unk_id)
+        for other in ((0, 0), (B, B), (0, B)):
+            check(chars, offs, lens, other, tier.Lt)
         flat, uoffs, ulens = _unsorted(chars, offs, lens, order)
-        check(flat, uoffs, ulens, tier.Lt)
+        check(flat, uoffs, ulens, (0, 0), tier.Lt)
+        check(flat, uoffs, ulens, (B // 2, B), tier.Lt)
         short = ulens.copy()
         short[::3] = np.maximum(short[::3] - 2, 0)
-        check(flat, uoffs, short, tier.Lt)
+        check(flat, uoffs, short, (B // 3, B // 2), tier.Lt)
     assert poisoned > 0
+
+
+@pytest.mark.parametrize("maxcand", [None, 3, 16])
+def test_k12_every_lane_group_in_one_launch(maxcand):
+    """One launch over texts of every width, packed by the tier: exactly 8,
+    9, 16 and 17 characters (the groups' edges), 1-7 and 10-15 (inside
+    them), 18-128 (a warp each), and texts of one repeated character (exact
+    ties) at the edges; maxcand the longest piece (13), 3, and 16 over the
+    13-character table (the trainer's bound); bit for bit, and each group
+    holds the widths it should."""
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import (
+        viterbi,
+        viterbi_launch_shape,
+        viterbi_ragged_plain,
+    )
+
+    _need_card()
+    vocab, tier = _unigram_tier()
+    rng = np.random.RandomState(41)
+    pieces = [p for p, _ in vocab[:-3]]
+    texts = []
+    for n in [8, 9, 16, 17] * 25 + list(range(1, 129)) * 3:
+        t = ""
+        while len(t) < n:
+            t += pieces[rng.randint(len(pieces))]
+        texts.append(t[:n])
+    texts += [c * n for c in "ae▁" for n in (8, 9, 16, 17)]
+    chars, offs, lens, order, groups, host = tier.pack(texts)
+    n8, n16 = groups
+    assert host == [] and lens[:n8].max() == 8 and lens[n8:n16].min() == 9
+    assert lens[n8:n16].max() == 16 and lens[n16:].min() == 17
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    c, o, n = on(chars), on(offs), on(lens)
+    before = viterbi.launches
+    got = viterbi(c, o, n, groups, *tier.args(maxcand))
+    torch.cuda.synchronize()
+    assert viterbi.launches == before + 1
+    assert torch.equal(got, viterbi_ragged_plain(c, o, n, *tier.args(maxcand)))
+    assert viterbi_launch_shape()["local_bytes"] == 0
 
 
 def test_unigram_on_card_matches_host():
@@ -1519,12 +1591,16 @@ def test_k12_refuses_bad_inputs_and_launches_without_spilling():
     lens = torch.full((4,), 2, dtype=torch.int32, device="cuda")
     args = list(tier.args())
     with pytest.raises(ValueError, match="offs"):
-        viterbi(chars, offs[:4], lens, *args)
+        viterbi(chars, offs[:4], lens, (0, 0), *args)
     with pytest.raises(ValueError, match="maxcand"):
-        viterbi(chars, offs, lens, *args[:-1], 0)
+        viterbi(chars, offs, lens, (0, 0), *args[:-1], 0)
+    with pytest.raises(ValueError, match="groups"):
+        viterbi(chars, offs, lens, (3, 2), *args)
+    with pytest.raises(ValueError, match="groups"):
+        viterbi(chars, offs, lens, (0, 5), *args)
     bad = list(args)
     bad[6] = tier.piece_scores.double()
     with pytest.raises(ValueError, match="piece_scores"):
-        viterbi(chars, offs, lens, *bad)
+        viterbi(chars, offs, lens, (0, 0), *bad)
     shape = viterbi_launch_shape()
     assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape

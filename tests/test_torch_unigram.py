@@ -89,12 +89,32 @@ def _texts(case: str) -> list[str]:
         return ["qqq", "zq", "\x00", "aあb", "日z日", "ééz", "\U0001f600ab"]
     if case == "corpus pieces":
         return _corpus_pieces()
+    if case == "lane-group edges":
+        # exactly 8, 9, 16, 17 and 128 characters (K12's groups of 8 and 16
+        # lanes and the warp's width), and 7 and 15: random letters, one
+        # repeated letter (exact ties), a run of the corpus pieces
+        rng = np.random.RandomState(8)
+        joined = "".join(_corpus_pieces())
+        texts = []
+        for n in (8, 9, 16, 17, 128, 7, 15):
+            start = rng.randint(len(joined) - n)
+            texts += ["".join(rng.choice(list("abxé日"), n)), "a" * n, joined[start:start + n]]
+        return texts
     raise KeyError(case)
 
 
 # (text case, vocabulary)
 CASES = [("fuzz", "fuzz"), ("tie", "tie"), ("edge lengths", "fuzz"),
-         ("missing characters", "fuzz"), ("corpus pieces", "32k")]
+         ("missing characters", "fuzz"), ("corpus pieces", "32k"),
+         ("lane-group edges", "fuzz"), ("lane-group edges", "32k")]
+# maxcand: the longest piece, under it, and the trainer's max_piece_length
+MAXCANDS = ["Lt", 3, 16]
+# the fallback marker: JAX's -2, or the table's UNK id (a live id)
+MARKERS = ["-2", "unk"]
+
+
+def _marker(name: str, tables) -> int:
+    return D.FALLBACK_ID if name == "-2" else int(tables[5])
 
 
 def _dense(texts: list[str], rows: int = _JAX_ROWS):
@@ -116,6 +136,16 @@ def _jax_tables(name: str):
 @functools.lru_cache(maxsize=None)
 def _jax_viterbi(size: int, n_buckets: int, Lt: int, maxcand: int):
     return jax.jit(JD.make_viterbi_fn(size, n_buckets, Lt, maxcand))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dense_viterbi(case: str, vocab: str, maxcand: int):
+    """JAX's (out, count, poison) on a text case's dense rows, once for
+    every fallback marker the tests map it to."""
+    chd, pc, pl, ps, Lt, _unk, ms = _jax_tables(vocab)
+    chars, lens = _dense(_texts(case))
+    return tuple(np.asarray(x) for x in _jax_viterbi(chd.size, chd.n_buckets, Lt, maxcand)(
+        chd.disp, chd.rows, pc, pl, ps, np.float32(ms), chars, lens))
 
 
 def _t(a):
@@ -203,22 +233,26 @@ def test_weights_carried_across_from_the_jax_model():
 # the plain Viterbi against make_viterbi_fn
 
 
-@pytest.mark.parametrize("maxcand", ["Lt", 3])
+@pytest.mark.parametrize("marker", MARKERS)
+@pytest.mark.parametrize("maxcand", MAXCANDS)
 @pytest.mark.parametrize("case,vocab", CASES)
-def test_viterbi_plain_equals_jax(case, vocab, maxcand):
+def test_viterbi_plain_equals_jax(case, vocab, maxcand, marker):
+    """Against JAX's program, whose fallbacks carry -2: under another
+    marker, its -2 entries are that marker (as the JAX model maps them)."""
     tables = _jax_tables(vocab)
-    chd, pc, pl, ps, Lt, _unk, ms = tables
+    Lt = tables[4]
     mc = Lt if maxcand == "Lt" else maxcand
+    fid = _marker(marker, tables)
     chars, lens = _dense(_texts(case))
-    exp = _jax_viterbi(chd.size, chd.n_buckets, Lt, mc)(chd.disp, chd.rows, pc, pl, ps,
-                                                         np.float32(ms), chars, lens)
-    got = D.viterbi_plain(_t(chars), _t(lens), *_plain_args(tables, mc))
+    exp = _jax_dense_viterbi(case, vocab, mc)
+    exp = [np.where(exp[0] == JD.FALLBACK_ID, fid, exp[0])] + list(exp[1:])
+    got = D.viterbi_plain(_t(chars), _t(lens), *_plain_args(tables, mc), fallback_id=fid)
     for g, e, what in zip(got, exp, ("out", "count", "poison")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=what)
     out = got[0].numpy()
-    # fallbacks keep the -2 marker; the tie vocabulary's ties are poisoned
+    # fallbacks carry the marker; the tie vocabulary's ties are poisoned
     if case == "missing characters":
-        assert (out == D.FALLBACK_ID).any()
+        assert (out == fid).any()
     if case == "tie":
         assert got[2][0] and got[2][1]
 
@@ -241,17 +275,20 @@ def test_viterbi_plain_other_fallback_marker():
 # the ragged plain version and the tier's packing
 
 
-@pytest.mark.parametrize("maxcand", ["Lt", 3])
+@pytest.mark.parametrize("marker", MARKERS)
+@pytest.mark.parametrize("maxcand", MAXCANDS)
 @pytest.mark.parametrize("case,vocab", CASES)
-def test_ragged_plain_equals_dense(case, vocab, maxcand):
-    tier = D.UnigramDevice(D.build_unigram_tables(UnigramModel(_vocab(vocab))), "cpu")
+def test_ragged_plain_equals_dense(case, vocab, maxcand, marker):
+    tables = D.build_unigram_tables(UnigramModel(_vocab(vocab)))
+    tier = D.UnigramDevice(tables, "cpu")
     mc = tier.Lt if maxcand == "Lt" else maxcand
+    fid = _marker(marker, tables)
     texts = _texts(case)
-    chars, offs, lens, order, host = tier.pack(texts)
-    res = D.viterbi(_t(chars), _t(offs), _t(lens), *tier.args(mc))
+    chars, offs, lens, order, groups, host = tier.pack(texts)
+    res = D.viterbi(_t(chars), _t(offs), _t(lens), groups, *tier.args(mc), fallback_id=fid)
     out, count, poison = D.split_viterbi(res, len(texts))
     dchars, dlens = _dense([texts[i] for i in order], rows=len(texts))
-    exp = D.viterbi_plain(_t(dchars), _t(dlens), *tier.args(mc))
+    exp = D.viterbi_plain(_t(dchars), _t(dlens), *tier.args(mc), fallback_id=fid)
     assert host == []
     for j in range(len(texts)):
         n = offs[j + 1] - offs[j]
@@ -262,30 +299,57 @@ def test_ragged_plain_equals_dense(case, vocab, maxcand):
 def test_pack_orders_by_length_and_leaves_wide_texts_to_the_host():
     tier = D.UnigramDevice(D.build_unigram_tables(UnigramModel(_vocab("fuzz"))), "cpu")
     texts = ["abc", "x" * 129, "", "日é", "b" * 128, "a"]
-    chars, offs, lens, order, host = tier.pack(texts)
+    chars, offs, lens, order, groups, host = tier.pack(texts)
     assert order.tolist() == [1, 2, 5, 3, 0, 4] and host == [1]
     assert lens.tolist() == [0, 0, 1, 2, 3, 128]
     assert offs.tolist() == [0, 0, 0, 1, 3, 6, 134]
     assert chars[1:3].tolist() == [ord("日"), ord("é")]
+    assert groups == (5, 5)  # five texts of at most 8 characters, none of 9-16
     # a text longer than its slots is refused by the plain version
     with pytest.raises(ValueError, match="slots"):
-        D.viterbi(_t(chars), _t(offs), _t(lens + 1), *tier.args())
+        D.viterbi(_t(chars), _t(offs), _t(lens + 1), groups, *tier.args())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_groups_against_the_slots(seed):
+    """``pack`` on random texts of 0-140 characters, against a brute force:
+    a stable order by slots, the offsets, the lengths and characters of
+    each packed text, and the lane groups: the texts [0, n8) have at most
+    8 characters, [n8, n16) 9 to 16, the rest more (or none, wider than
+    128: those go to the host)."""
+    tier = D.UnigramDevice(D.build_unigram_tables(UnigramModel(_vocab("fuzz"))), "cpu")
+    rng = np.random.RandomState(seed)
+    lengths = rng.choice([0, 1, 7, 8, 9, 15, 16, 17, 40, 128, 129, 140], size=300)
+    texts = ["".join(rng.choice(list("abxé日😀"), n)) for n in lengths]
+    chars, offs, lens, order, (n8, n16), host = tier.pack(texts)
+    slots = [len(t) if len(t) <= _W else 0 for t in texts]
+    assert order.tolist() == sorted(range(len(texts)), key=lambda i: slots[i])
+    assert host == [i for i, t in enumerate(texts) if len(t) > _W]
+    assert offs.tolist() == np.concatenate([[0], np.cumsum([slots[i] for i in order])]).tolist()
+    for j, i in enumerate(order.tolist()):
+        assert lens[j] == slots[i]
+        assert chars[offs[j]:offs[j + 1]].tolist() == [ord(c) for c in texts[i]][:slots[i]]
+    packed = [slots[i] for i in order]
+    assert all(n <= 8 for n in packed[:n8])
+    assert all(8 < n <= 16 for n in packed[n8:n16])
+    assert all(n > 16 or n == 0 for n in packed[n16:]) and 0 not in packed[n8:]
+    assert (n8, n16) == (sum(n <= 8 for n in slots), sum(n <= 16 for n in slots))
 
 
 def test_edge_texts_of_the_full_width_table():
     """``utils/corpus.py:unigram_edge_texts`` (the card's edge cases) through
     the ragged plain version and the dense JAX program, at the longest
-    piece and at maxcand 3."""
+    piece, at maxcand 3 and at 16."""
     tables = _jax_tables("32k")
     chd, pc, pl, ps, Lt, _unk, ms = tables
     tier = D.UnigramDevice(D.build_unigram_tables(UnigramModel(_vocab("32k"))), "cpu")
     edge = [t for _case, texts in unigram_edge_texts(_vocab("32k")) for t in texts]
     assert any(len(t) == 129 for t in edge)
-    chars, offs, lens, order, host = tier.pack(edge)
+    chars, offs, lens, order, groups, host = tier.pack(edge)
     assert [len(edge[i]) for i in host] == [129]
-    for mc in (Lt, 3):
+    for mc in (Lt, 3, 16):
         out, count, poison = D.split_viterbi(
-            D.viterbi(_t(chars), _t(offs), _t(lens), *tier.args(mc)), len(edge))
+            D.viterbi(_t(chars), _t(offs), _t(lens), groups, *tier.args(mc)), len(edge))
         packed = [edge[i] for i in order]
         dchars, dlens = _dense([t if len(t) <= _W else "" for t in packed])
         exp = [np.asarray(x)[: len(edge)] for x in _jax_viterbi(chd.size, chd.n_buckets, Lt, mc)(
