@@ -87,6 +87,25 @@ Phases (each prints its seconds):
    or read (K11); K9 also at every tile size
    of ``TILE_SWEEP``, each checked; K10's and K11's words counted by lane
    group, K11 also with every word in groups of 8 and every word a warp.
+   Then the trainer (``drive_train``): ``DistributedInlTrainer`` on
+   ``cuda`` over the golden files' corpus (``utils/corpus.py:zipf_corpus(8000,
+   seed=29, lo=100, hi=800)``), each route's launches counted from 0 to its
+   end, each route launching its kernels and no other: classic 50,000
+   (``min_frequency=1``; K13 once, K14 a merge, the host's exact heap) and
+   INL 32,000 (the reference's settings; the host's rebuild walk), each
+   saved into a temporary directory byte for byte equal to
+   ``.cache/bench_tokenizer_r4_50k.json`` (its warm-cache sidecar holding
+   the tracked one's words and ids) and ``.cache/bench_inl_32k.json``;
+   classic 4,096 (K13, then K15 -> K14 -> K16 a step on the card) and INL
+   4,096 (windows), also with 96 candidates a window (the host ends each
+   window), their merges the golden files' prefixes; the wall, merges per
+   second and an estimate of the host's share.  Then K13-K16 against their
+   plain versions on the card, bit for bit, on the classic route's initial
+   rows and its state after 1,000 merges (the first 1,000 device-resident
+   steps, equal to the golden file's), K14 also on
+   ``utils/corpus.py:merge_edge_rows``; K15 in both modes; each timed warm,
+   cold (K15's window: warm only) and plainly beside its bound and the
+   library call (K13: ``index_add_``; K15: ``torch.argmax``).
    With ``--parent DIR`` (a checkout of an earlier commit): the kernels of
    it that ``scripts/parent_word_kernels.py`` knows, built beside the
    package's kernels, on the same rows, words and texts laid out as that
@@ -139,7 +158,7 @@ Phases (each prints its seconds):
    warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-The kernels' line lists K1-K12 (``launches_by_path``: every path above).
+The kernels' line lists K1-K16 (``launches_by_path``: every path above).
 Any failure raises and the script exits nonzero without the last line.
 Needs the repository beside it and imports nothing of JAX.
 """
@@ -2176,6 +2195,382 @@ def _call_launches(name: str, *calls) -> dict:
             for route, counts in c["launches"].items()}
 
 
+# ---------------------------------------------------------------------------
+# the trainer (K13-K16)
+
+# the golden file of INL mode at the reference's 32,000 (scripts/make_bench_inl_32k.py)
+INL_32K = os.path.join(REPO, ".cache", "bench_inl_32k.json")
+CLASSIC = dict(inl_alpha=0.0, inl_beta=0.0, inl_gate=0.0)
+# (label, config, _INL_WINDOW_T, golden file, the whole file or its prefix)
+TRAIN_ROUTES = (
+    ("classic 50,000", dict(vocab_size=50_000, min_frequency=1, **CLASSIC), None, TOKENIZER_JSON, True),
+    ("INL 32,000", dict(vocab_size=32_000, min_frequency=2), None, INL_32K, True),
+    ("classic 4,096", dict(vocab_size=4096, min_frequency=1, **CLASSIC), None, TOKENIZER_JSON, False),
+    ("INL 4,096", dict(vocab_size=4096, min_frequency=2), None, INL_32K, False),
+    # fewer candidates than a window's 100 merges: every window ends on the host
+    ("INL 4,096, T 96", dict(vocab_size=4096, min_frequency=2), 96, INL_32K, False),
+)
+TRAIN_KERNELS = ("pair_hist", "merge_step", "select_pair", "hist_update")
+
+
+def _warm_cache_map(path: str) -> dict:
+    """A warm-cache file as {word bytes: ids}."""
+    import numpy as np
+
+    with np.load(path) as z:
+        wb, lens, ids, counts = z["words_buf"], z["lens"], z["ids_flat"], z["counts"]
+    wo = np.concatenate([[0], np.cumsum(lens)])
+    io_ = np.concatenate([[0], np.cumsum(counts)])
+    return {bytes(wb[wo[i]:wo[i + 1]]): tuple(ids[io_[i]:io_[i + 1]].tolist())
+            for i in range(len(lens))}
+
+
+def _time_reset_ms(resets: list, runs: list, reps: int = 3) -> float:
+    """Device ms of one ``runs[i]()``, for kernels that change their own
+    input: a CUDA graph of every ``resets[i]()`` then every ``runs[i]()``
+    (so with many large sets the runs find their inputs cold) less a graph
+    of the resets alone, over the number of runs."""
+    import torch
+
+    def graph(fns):
+        for f in fns:
+            f()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for f in fns:
+                f()
+        g.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    return (graph(resets + runs) - graph(resets)) / len(runs)
+
+
+def _train_inputs(texts, cfg):
+    """The trainer's initial rows on the card, as the device trainer builds
+    them: (words [N, W], freqs [N], vocab, v0)."""
+    import contextlib
+    import io
+    from collections import Counter
+
+    import torch
+
+    from complexity_tokenizer_tpu_torch.parallel.trainer import DistributedInlTrainer, pack_word_rows
+    from complexity_tokenizer_tpu_torch.trainers.inl_trainer import TrainerConfig
+
+    t = DistributedInlTrainer(TrainerConfig(**cfg))
+    wf = t._count_words(texts)
+    wf = Counter({w: f for w, f in wf.items() if f >= t.config.min_frequency})
+    with contextlib.redirect_stdout(io.StringIO()):
+        words_list, freqs_list = t._init_vocab(wf)
+    words, freqs = pack_word_rows(words_list, freqs_list)
+    return torch.from_numpy(words).cuda(), torch.from_numpy(freqs).cuda(), t.vocab, len(t.vocab)
+
+
+def _check_equal(name: str, label: str, got, exp) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, (list, tuple)) else [got]
+    exp = exp if isinstance(exp, (list, tuple)) else [exp]
+    err = max(_max_abs_err(g, e) for g, e in zip(got, exp))
+    match = all(torch.equal(g, e) for g, e in zip(got, exp))
+    print(f"[{name}] {label} match={match} max_abs_err={err}", flush=True)
+    if not match:
+        raise AssertionError(f"{name} kernel differs from its plain version: {label}")
+    return dict(inputs=label, match=match, max_abs_err=err)
+
+
+def check_train_kernels(texts: list[str], golden50: list) -> dict:
+    """K13-K16 against their plain versions on the card, bit for bit, on the
+    classic route's real inputs: its initial rows and the state after 1,000
+    merges (the classic 4,096 route's first 1,000 steps, K15 -> K14 -> K16,
+    whose merges must be the golden file's first 1,000); K14 also on
+    ``utils/corpus.py:merge_edge_rows``.  Each timed warm, cold (except
+    K14, whose rows are restored before each launch: see
+    ``_time_reset_ms``) and plainly, beside its bound and the library call
+    where there is one."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops import trainer_device as td
+    from complexity_tokenizer_tpu_torch.parallel.trainer import run_steps
+    from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
+
+    out = {k: [] for k in TRAIN_KERNELS}
+    words0, freqs, vocab, v0 = _train_inputs(texts, TRAIN_ROUTES[0][1])
+    N, W = words0.shape
+    Vr = 4096  # the device-resident routes' histogram side
+    V50 = 50_000  # the per-merge route's delta rows
+    # K13 on the initial rows
+    got = td.pair_hist(words0, freqs, v0)
+    r = _check_equal("pair_hist", f"initial rows [{N},{W}]", got, td.pair_hist_plain(words0, freqs, v0))
+    left, right = words0[:, :-1].long(), words0[:, 1:].long()
+    valid = (left >= 0) & (right >= 0)
+    key = (left * v0 + right)[valid]
+    fval = freqs[:, None].expand_as(left)[valid]
+    ms = _time_ms(lambda: td.pair_hist(words0, freqs, v0), 50)
+    sets = _cold_sets((words0, freqs), 4 * v0 * v0)
+    ms_cold = _time_cold_ms(lambda w, f: td.pair_hist(w, f, v0), sets, 50)
+    del sets
+    plain_ms = _time_ms(lambda: td.pair_hist_plain(words0, freqs, v0), 3, graph=False)
+    library_ms = _time_ms(
+        lambda: torch.zeros(v0 * v0, dtype=torch.int32, device="cuda").index_add_(0, key, fval), 50)
+    bound_ms, bound_by = _bound(4 * N * W + 4 * N + 4 * v0 * v0, N * (W - 1))
+    out["pair_hist"].append(dict(r, shape=[N, W], ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    print(f"[pair_hist] [{N},{W}] v0={v0} warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} "
+          f"library={library_ms:.4f} bound={bound_ms:.5f} ms ({bound_by})", flush=True)
+
+    # the state after 1,000 merges: the classic 4,096 route's first 1,000 steps
+    hist0 = torch.zeros(Vr, Vr, dtype=torch.int32, device="cuda")
+    hist0[:v0, :v0] = got.view(v0, v0)
+    words1k, hist1k = words0.clone(), hist0.clone()
+    log = torch.empty(3, 1000, dtype=torch.int32, device="cuda")
+    log[2].zero_()
+    deltas = torch.zeros(1000, Vr, 4, dtype=torch.int32, device="cuda")
+    scratch = td.SelectScratch("cuda")
+    run_steps(1000, v0, words1k, freqs, hist1k, log, deltas, scratch=scratch)
+    inv = {i: t for t, i in vocab.items()}
+    ma, mb, _mf = log.cpu().numpy()
+    for i in range(1000):
+        a, b = inv[int(ma[i])], inv[int(mb[i])]
+        inv[v0 + i] = a + b
+        if (a, b) != golden50[i]:
+            raise AssertionError(f"device-resident merge {i} is {(a, b)}, the golden file's {golden50[i]}")
+    tid = {t: i for i, t in inv.items()}
+
+    # K14 (pair as scalars, delta [50,000, 4]: the per-merge route) at both
+    # states, the next golden merge; then the edge rows
+    for label, words, step in (("initial rows", words0, 0), ("after 1,000 merges", words1k, 1000)):
+        a, b = (tid[t] for t in golden50[step])
+        new = v0 + step
+        res = []
+        for fn in (td.merge_step, td.merge_step_plain):
+            w = words.clone()
+            d = torch.zeros(V50, 4, dtype=torch.int32, device="cuda")
+            m = torch.zeros(1, dtype=torch.int32, device="cuda")
+            fn(w, freqs, new, d, m, a=a, b=b)
+            res.append((w, d, m))
+        r = _check_equal("merge_step", f"{label} [{N},{W}], {golden50[step]}", res[0], res[1])
+        changed = int((res[0][0] != words).sum())
+        nz = int((res[0][1] != 0).sum())
+        src = words
+        d = torch.zeros(V50, 4, dtype=torch.int32, device="cuda")
+        m = torch.zeros(1, dtype=torch.int32, device="cuda")
+        timed = {}
+        # warm: 10 restored copies (their rows and sources fit the L2 together);
+        # cold: copies of twice the L2, restored before any of them merges
+        for key, n_sets in (("warm", 10), ("cold", -(-COLD_BYTES // (8 * N * W)) + 1)):
+            copies = [(src.clone(), src.clone()) for _ in range(n_sets)]
+            timed[key] = _time_reset_ms(
+                [lambda s=s, x=x: x.copy_(s) for s, x in copies],
+                [lambda x=x: td.merge_step(x, freqs, new, d, m, a=a, b=b) for _s, x in copies])
+            del copies
+        ms, ms_cold = timed["warm"], timed["cold"]
+        w = words.clone()
+
+        def plain():
+            w.copy_(src)
+            td.merge_step_plain(w, freqs, new, d, m, a=a, b=b)
+
+        plain_ms = _time_ms(plain, reps=3, graph=False)
+        bound_ms, bound_by = _bound(4 * N * W + 4 * N + 4 * changed + 4 * nz + 4, N * W)
+        out["merge_step"].append(dict(r, shape=[N, W], ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                                      changed_slots=changed, delta_entries=nz))
+        print(f"[merge_step] {label} [{N},{W}] warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} "
+              f"bound={bound_ms:.5f} ms ({bound_by}; {changed} slots changed, {nz} delta entries)",
+              flush=True)
+    for label, words_np, freqs_np, a, b, new in merge_edge_rows():
+        res = []
+        for fn in (td.merge_step, td.merge_step_plain):
+            w = torch.from_numpy(words_np.copy()).cuda()
+            d = torch.zeros(new + 1, 4, dtype=torch.int32, device="cuda")
+            m = torch.zeros(1, dtype=torch.int32, device="cuda")
+            fn(w, torch.from_numpy(freqs_np).cuda(), new, d, m, a=a, b=b)
+            res.append((w, d, m))
+        out["merge_step"].append(dict(_check_equal("merge_step", f"edge rows: {label}", res[0], res[1]),
+                                      shape=list(words_np.shape)))
+
+    # K15 classic and K16 on the histogram at both states
+    for label, hist, step, words in (("initial rows", hist0, 0, words0), ("after 1,000 merges", hist1k, 1000, words1k)):
+        logs = [torch.full((2, 4), -7, dtype=torch.int32, device="cuda") for _ in range(2)]
+        td.select_pair(hist, 1, logs[0][0], logs[0][1], scratch=scratch)
+        td.select_pair_plain(hist, 1, logs[1][0], logs[1][1])
+        r = _check_equal("select_pair", f"classic, {label} [{Vr},{Vr}]", logs[0], logs[1])
+        ma2, mb2 = logs[0][0], logs[0][1]
+        ms = _time_ms(lambda: td.select_pair(hist, 1, ma2, mb2, scratch=scratch), 50)
+        sets = _cold_sets((hist,), 8)
+        ms_cold = _time_cold_ms(lambda h: td.select_pair(h, 1, ma2, mb2, scratch=scratch), sets, 50)
+        del sets
+        plain_ms = _time_ms(lambda: td.select_pair_plain(hist, 1, ma2, mb2), 5, graph=False)
+        library_ms = _time_ms(lambda: torch.argmax(hist.view(-1)), 50)
+        bound_ms, bound_by = _bound(4 * Vr * Vr + 8, Vr * Vr)
+        out["select_pair"].append(dict(r, shape=[Vr, Vr], mode="classic", ms=ms, ms_cold=ms_cold,
+                                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=library_ms))
+        print(f"[select_pair] classic {label} [{Vr},{Vr}] warm={ms:.4f} cold={ms_cold:.4f} "
+              f"plain={plain_ms:.4f} library={library_ms:.4f} bound={bound_ms:.4f} ms ({bound_by})",
+              flush=True)
+        # K16: the step's update with K14's delta of the selected pair
+        new = v0 + step
+        w = words.clone()
+        d = torch.zeros(Vr, 4, dtype=torch.int32, device="cuda")
+        m = torch.zeros(1, dtype=torch.int32, device="cuda")
+        td.merge_step(w, freqs, new, d, m, log=(ma2, mb2), step=1)
+        hs = [hist.clone(), hist.clone()]
+        td.hist_update(hs[0], 1, ma2, mb2, new, d)
+        td.hist_update_plain(hs[1], 1, ma2, mb2, new, d)
+        r = _check_equal("hist_update", f"{label} [{Vr},{Vr}]", hs[0], hs[1])
+        h = hs[0]
+        ms = _time_ms(lambda: td.hist_update(h, 1, ma2, mb2, new, d), 50)
+        sets = [(x.clone(), d.clone()) for x in [h] * 4]  # 4 x 64 MB: over twice the L2
+        ms_cold = _time_cold_ms(lambda x, dd: td.hist_update(x, 1, ma2, mb2, new, dd), sets, 50)
+        del sets
+        plain_ms = _time_ms(lambda: td.hist_update_plain(h, 1, ma2, mb2, new, d), 5, graph=False)
+        bound_ms, bound_by = _bound(2 * 4 * 4 * Vr + 16 * Vr + 8, 4 * 4 * Vr)
+        out["hist_update"].append(dict(r, shape=[Vr, Vr], ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        print(f"[hist_update] {label} [{Vr},{Vr}] warm={ms:.4f} cold={ms_cold:.4f} "
+              f"plain={plain_ms:.4f} bound={bound_ms:.5f} ms ({bound_by})", flush=True)
+        # K15, INL window: the 2,048 pairs of largest count in a shuffled walk
+        # order with dead pairs among them; from the window's start, from a
+        # cursor inside it, and stopped
+        rng = np.random.RandomState(step)
+        flat = torch.topk(hist.view(-1), 1536).indices.cpu().numpy()
+        dead = rng.randint(0, Vr * Vr, size=512)
+        walk = np.concatenate([flat, dead])
+        rng.shuffle(walk)
+        T = 2048
+        ca = torch.from_numpy((walk // Vr).astype(np.int32)).cuda()
+        cb = torch.from_numpy((walk % Vr).astype(np.int32)).cuda()
+        for state0 in ((-1, 0), (700, 0), (-1, 1)):
+            res = []
+            for fn in (td.select_pair, td.select_pair_plain):
+                lg = torch.full((2, 4), -7, dtype=torch.int32, device="cuda")
+                st = torch.tensor(state0, dtype=torch.int32, device="cuda")
+                kw = dict(scratch=scratch) if fn is td.select_pair else {}
+                fn(hist, 2, lg[0], lg[1], cand=(ca, cb, T - 3, st), **kw)
+                res.append((lg, st))
+            out["select_pair"].append(dict(_check_equal(
+                "select_pair", f"window, {label}, state {state0}", res[0], res[1]), shape=[T], mode="window"))
+        # the walk moves its cursor: 64 cursors, each restored before the
+        # launches (a launch is a few µs; one alone is lost in the graph's)
+        st0 = torch.tensor((-1, 0), dtype=torch.int32, device="cuda")
+        sts = [st0.clone() for _ in range(64)]
+        lg = torch.empty(2, 4, dtype=torch.int32, device="cuda")
+        ms = _time_reset_ms([lambda x=x: x.copy_(st0) for x in sts],
+                            [lambda x=x: td.select_pair(hist, 2, lg[0], lg[1], cand=(ca, cb, T, x))
+                             for x in sts])
+        st = sts[0]
+        plain_ms = _time_ms(lambda: (st.copy_(st0), td.select_pair_plain(hist, 2, lg[0], lg[1],
+                                                                          cand=(ca, cb, T, st))), 5,
+                            graph=False)
+        bound_ms, bound_by = _bound(12 * T + 16, 3 * T)
+        out["select_pair"][-1].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=None)
+        print(f"[select_pair] window {label} T={T} warm={ms:.4f} plain={plain_ms:.4f} "
+              f"bound={bound_ms:.5f} ms ({bound_by})", flush=True)
+    return out
+
+
+def drive_train(kernels_of: dict) -> dict:
+    """The device trainer on the card at world size 1, every route on the
+    golden files' corpus (``zipf_corpus(8000, seed=29, lo=100, hi=800)``),
+    counting launches from 0 to the end of each: classic 50,000 and INL
+    32,000 (K13 once, K14 a merge, the host's selection), classic 4,096
+    (K13, then K15 -> K14 -> K16 a step) and INL 4,096 (windows), also with
+    96 candidates a window (the host ends every window).  Each saves into a
+    temporary directory; the 50K and 32K files equal the golden files byte
+    for byte (the 50K one's warm-cache sidecar holds the tracked one's words
+    and ids), the 4,096 routes' merges are the golden files' prefixes.  Then
+    K13-K16 against their plain versions (``check_train_kernels``)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from complexity_tokenizer_tpu_torch.parallel.trainer import DistributedInlTrainer
+    from complexity_tokenizer_tpu_torch.trainers.inl_trainer import TrainerConfig
+    from complexity_tokenizer_tpu_torch.utils.corpus import zipf_corpus
+
+    t0 = time.perf_counter()
+    texts = zipf_corpus(8000, seed=29, lo=100, hi=800)
+    goldens = {}
+    for path in (TOKENIZER_JSON, INL_32K):
+        with open(path, "rb") as f:
+            raw = f.read()
+        merges = [tuple(m.split(" ")) for m in json.loads(raw)["model"]["merges"]]
+        goldens[path] = (raw, merges)
+    launches, walls = {}, {}
+    tmp = tempfile.mkdtemp(prefix="ctok_train_")
+    for label, cfg, window_t, golden, whole in TRAIN_ROUTES:
+        DistributedInlTrainer._INL_WINDOW_T = window_t or 2048
+        trainer = DistributedInlTrainer(TrainerConfig(**cfg))
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            _res, counts, wall = _drive_launches(kernels_of, lambda: trainer.train_from_texts(texts))
+        DistributedInlTrainer._INL_WINDOW_T = 2048
+        raw, gmerges = goldens[golden]
+        n = len(trainer.merges)
+        if trainer.merges != gmerges[:n] or (whole and n != len(gmerges)):
+            raise AssertionError(f"train {label}: {n} merges, not the golden file's")
+        route = "device-resident" if getattr(trainer, "_select_block_times", None) else "per merge"
+        on_host = n - sum(getattr(trainer, "_select_block_merges", []))
+        need = {"pair_hist": 1, "merge_step": n}
+        if route == "device-resident":
+            steps = counts["select_pair"]
+            need = {"pair_hist": 1, "select_pair": steps, "hist_update": steps,
+                    "merge_step": steps + on_host}
+            if steps < n - on_host or (window_t is not None) != (on_host > 0):
+                raise AssertionError(f"train {label}: {steps} steps, {on_host} merges on the host")
+        _need_only(f"train {label}", counts, need)
+        if whole:
+            out = os.path.join(tmp, f"{label.split()[0]}.json")
+            trainer.save(out)
+            with open(out, "rb") as f:
+                if f.read() != raw:
+                    raise AssertionError(f"train {label}: the saved file differs from {golden}")
+            if golden == TOKENIZER_JSON:
+                # the same words and ids; words of equal frequency come in
+                # the order of the native count's threads
+                blob = TOKENIZER_JSON.replace(".json", ".warmcache.npz")
+                if _warm_cache_map(out.replace(".json", ".warmcache.npz")) != _warm_cache_map(blob):
+                    raise AssertionError(f"train {label}: the warm-cache sidecar differs")
+        launches[f"train {label}"] = counts
+        walls[label] = dict(wall_s=wall, merges=n, merges_per_s=n / wall, route=route,
+                            merges_on_host=on_host)
+        print(f"[train] {label}: {route}, {n} merges ({on_host} with the host's walk), "
+              f"wall {wall:.3f} s, {n / wall:.1f} merges/s; launches "
+              + ", ".join(f"{k} {counts[k]}" for k in TRAIN_KERNELS), flush=True)
+    shutil.rmtree(tmp)
+    _phase("train routes", t0)
+    t0 = time.perf_counter()
+    checks = check_train_kernels(texts, goldens[TOKENIZER_JSON][1])
+    # the host's share of each route's wall: the wall less the kernels' time
+    # (each launch at the warm time of its check on the classic rows)
+    warm = {k: min(r["ms"] for r in checks[k] if "ms" in r) for k in TRAIN_KERNELS}
+    for label, wl in walls.items():
+        dev_s = sum(launches[f"train {label}"][k] * warm[k] for k in TRAIN_KERNELS) / 1e3
+        wl["kernel_s_est"] = dev_s
+        wl["host_share_est"] = 1.0 - dev_s / wl["wall_s"]
+        print(f"[train] {label}: kernels about {dev_s:.3f} s of {wl['wall_s']:.3f} s "
+              f"(host share about {wl['host_share_est']:.4f})", flush=True)
+    _phase("train kernels", t0)
+    torch.cuda.synchronize()
+    return {"launches": launches, "walls": walls, "checks": checks}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17, help="corpus and input seed")
@@ -2223,6 +2618,7 @@ def main(argv=None) -> int:
             wordpiece_match,
         )
         from complexity_tokenizer_tpu_torch.ops.unigram_device import viterbi
+        from complexity_tokenizer_tpu_torch.ops import trainer_device
         from complexity_tokenizer_tpu_torch.utils.corpus import (
             RUN_BREAKS,
             edge_word_pack,
@@ -2245,7 +2641,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line)
-    for path in (TOKENIZER_JSON, TOKENIZER_100K):
+    for path in (TOKENIZER_JSON, TOKENIZER_100K, INL_32K):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 4
@@ -2322,7 +2718,8 @@ def main(argv=None) -> int:
                   "fill_compact": fill_compact, "word_merge": word_merge,
                   "decode_gather": decode_gather, "norm_stable_rows": norm_stable_rows,
                   "merge_word_rows": merge_word_rows, "wordpiece_match": wordpiece_match,
-                  "wordlevel_lookup": wordlevel_lookup, "viterbi": viterbi}
+                  "wordlevel_lookup": wordlevel_lookup, "viterbi": viterbi,
+                  **{k: getattr(trainer_device, k) for k in TRAIN_KERNELS}}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
     d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
@@ -2333,8 +2730,10 @@ def main(argv=None) -> int:
     warm = drive_warm_cache(texts, r100["host"])
     norm = drive_norm(texts, r50["host"], kernels_of, parent_build.get("kernels"))
     mdl = drive_models(texts, kernels_of, parent_build.get("kernels"))
-    # the paths of this slice, by name, for every kernel's launches_by_path
-    new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()}}
+    train = drive_train(kernels_of)
+    # the paths of the later slices, by name, for every kernel's launches_by_path
+    new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()},
+                 **train["launches"]}
     # every kernel of a path was launched on it and no other: the text
     # pipeline runs K1 and the fixpoint of its table, the word paths one K6
     # (K3, K1 and the fixpoint folded into it) and one K4 a pack
@@ -2645,13 +3044,48 @@ def main(argv=None) -> int:
                     "poisoned", "fallbacks", "edge_poisoned"):
             if key in main:
                 kernels[-1][key] = main[key]
+    # K13-K16: the trainer's routes
+    for name, replaces, path_name in (
+        ("pair_hist", "complexity_tokenizer_tpu/parallel/trainer.py:48", "train classic 50,000"),
+        ("merge_step", "complexity_tokenizer_tpu/parallel/trainer.py:64", "train classic 50,000"),
+        ("select_pair", "complexity_tokenizer_tpu/parallel/trainer.py:179", "train classic 4,096"),
+        ("hist_update", "complexity_tokenizer_tpu/parallel/trainer.py:220", "train classic 4,096"),
+    ):
+        res = train["checks"][name]
+        main = res[0]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "complexity_tokenizer_tpu_torch/csrc/train.cu",
+            "wrapper": "complexity_tokenizer_tpu_torch/ops/trainer_device.py",
+            "replaces": replaces,
+            "launches": new_paths[path_name][name],
+            "launches_path": path_name,
+            "launches_by_path": {
+                **{f"{label} {p}": counts[name]
+                   for label, r in (("50K", r50), ("100K", r100))
+                   for p, counts in r["launches"].items()},
+                **_call_launches(name, call50, call100),
+                **{p: c[name] for p, c in new_paths.items()},
+            },
+            "match": all(r["match"] for r in res),
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "shape": main["shape"],
+            "ms": main["ms"],
+            "ms_cold": main["ms_cold"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "checks": res,
+        })
     if _sha1(blob50) != blob50_sha1:
         raise AssertionError("the tracked 50K warm-cache file changed during the run")
     print(json.dumps({"call": {
         label: {"walls_s": c["walls"], "launches": c["launches"]}
         for label, c in (("50K", call50), ("100K", call100))
     }, "warm_cache": warm, "models": {"walls_s": mdl["walls"], "host_words": mdl["stats"]},
-        "card": smi_line}))
+        "train": train["walls"], "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -10,6 +10,10 @@ The standalone models (``models/``: ByteLevel BPE, CharBPE, WordPiece,
 WordLevel) run their distinct words through kernels K9-K11, and the Unigram
 model (SentencePiece's Viterbi) its distinct texts through K12.
 
+The trainers (``Trainer``, the INL-BPE trainer, and ``BpeTrainer``) run on
+the host; ``parallel.DistributedInlTrainer`` counts pairs and applies merges
+on the card (K13-K16).
+
 The package imports ``torch`` and ``numpy`` only: it keeps its own copy of
 every host layer it needs (loading, normalizers, the GPT-2 split and the
 BPE oracle).
@@ -18,7 +22,7 @@ BPE oracle).
 from .version import __version__
 
 __all__ = ["Tokenizer", "ByteLevelBpeModel", "CharBpeModel", "UnigramModel", "WordLevelModel",
-           "WordPieceModel", "__version__"]
+           "WordPieceModel", "Trainer", "BpeTrainer", "__version__"]
 
 
 def __getattr__(name):
@@ -32,4 +36,8 @@ def __getattr__(name):
         from . import models
 
         return getattr(models, name)
+    if name in ("Trainer", "BpeTrainer"):
+        from . import trainers
+
+        return getattr(trainers, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,7 +28,8 @@ import threading
 
 import numpy as np
 
-__all__ = ["load_library", "load_ext", "NativeEncoder", "NativeDecoder", "match_any"]
+__all__ = ["load_library", "load_ext", "NativeEncoder", "NativeDecoder", "match_any",
+           "scanner_ctx", "count_words", "native_pack"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ctok_host.cpp")
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "ctok_decoder_new": (_P, (_P, _P, _I64, _P, _P, _I64)),
     "ctok_decoder_free": (None, (_P,)),
     "ctok_decode_batch": (_I64, (_P, _P, _P, _I64, _I32, _I32, _P, _P, _P, _I64)),
+    "ctok_pack": (None, (_P, _P, _I64, _I64, _P, _P)),
 }
 
 
@@ -531,3 +533,56 @@ def match_any(data: list[bytes], patterns: list[bytes],
         _ptr(flags), int(n_threads),
     )
     return flags.astype(bool)
+
+
+_scan_ctx = None
+_scan_keep = None
+
+
+def scanner_ctx():
+    """A native context with no vocabulary, for scanning alone: the word
+    boundaries of the trainers' word count."""
+    global _scan_ctx, _scan_keep
+    lib = load_library()
+    with _lock:
+        if _scan_ctx is None:
+            from ..utils.unicode_tables import gpt2_class_table
+
+            cls = np.ascontiguousarray(gpt2_class_table())
+            empty = np.zeros(1, np.int32)
+            bt = np.full(256, -1, np.int32)
+            _scan_keep = (cls, empty, bt)
+            _scan_ctx = lib.ctok_new(
+                0, _ptr(empty), _ptr(empty), _ptr(empty), _ptr(empty), 0,
+                _ptr(bt), _ptr(cls), len(cls),
+            )
+    return _scan_ctx
+
+
+def count_words(texts: list[str], min_len: int = 1,
+                n_threads: int | None = None) -> dict[bytes, int] | None:
+    """The corpus's word frequencies through the native scanner: {raw word
+    bytes: count}, words of at least ``min_len`` bytes.  None when the
+    library was built without ``Python.h`` (no extension surface)."""
+    ext = load_ext()
+    if ext is None:
+        return None
+    ctx = scanner_ctx()
+    if n_threads is None:
+        n_threads = os.cpu_count() or 1
+    return ext.count_words(ctx, texts, int(min_len), int(n_threads))
+
+
+def native_pack(data: list[bytes], L: int, B: int):
+    """``ops.pipeline.pack_texts`` in C: a zero-padded [B, L] uint8 matrix
+    (each row cut at L bytes) and [B] int32 lengths."""
+    if len(data) > B:
+        raise ValueError(f"native_pack: {len(data)} strings for {B} rows")
+    lib = load_library()
+    jb, offsets = _joined(data)
+    arr = np.empty((B, L), np.uint8)
+    lens = np.zeros(B, np.int32)
+    lib.ctok_pack(_ptr(jb), _ptr(offsets), len(data), L, _ptr(arr), _ptr(lens))
+    if len(data) < B:
+        arr[len(data):] = 0
+    return arr, lens

@@ -2251,6 +2251,19 @@ int64_t ctok_pack_seg(const uint8_t* joined, const int64_t* offsets,
     return w;
 }
 
+// Batch pack: joined byte buffer + offsets -> zero-padded [B, L] matrix.
+void ctok_pack(const uint8_t* joined, const int64_t* offsets, int64_t B,
+               int64_t L, uint8_t* out, int32_t* lens) {
+    std::memset(out, 0, (size_t)(B * L));
+    for (int64_t i = 0; i < B; ++i) {
+        int64_t a = offsets[i], b = offsets[i + 1];
+        int64_t m = b - a;
+        if (m > L) m = L;
+        std::memcpy(out + i * L, joined + a, (size_t)m);
+        lens[i] = (int32_t)m;
+    }
+}
+
 }  // extern "C"
 
 #ifdef CTOK_WITH_PYTHON
@@ -2536,6 +2549,103 @@ static PyObject* ctok_py_encode_rows(PyObject* self, PyObject* args) {
     }
     Py_DECREF(tup);
     return rows;
+}
+
+// Corpus word-frequency count for the trainer (trainer.rs:247-263): the
+// same scanner as the encode path, accumulating per-thread hash maps that
+// merge into a Python dict {raw word bytes: count}.  min_len filters on
+// byte length (== encoded char length, the byte-level alphabet is
+// one-char-per-byte).
+static PyObject* ctok_py_count_words(PyObject*, PyObject* args) {
+    unsigned long long addr;
+    PyObject* texts_obj;
+    long long min_len;
+    int n_threads;
+    if (!PyArg_ParseTuple(args, "KOLi", &addr, &texts_obj, &min_len,
+                          &n_threads))
+        return nullptr;
+    Ctx* c = (Ctx*)(uintptr_t)addr;
+    PyObject* seq = PySequence_Fast(texts_obj, "texts must be a sequence");
+    if (!seq) return nullptr;
+    Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    std::vector<const char*> ptrs((size_t)n);
+    std::vector<Py_ssize_t> szs((size_t)n);
+    int64_t total = 0;
+    for (Py_ssize_t i = 0; i < n; ++i) {
+        Py_ssize_t sz;
+        const char* u =
+            PyUnicode_AsUTF8AndSize(PySequence_Fast_GET_ITEM(seq, i), &sz);
+        if (!u) {
+            Py_DECREF(seq);
+            return nullptr;
+        }
+        ptrs[i] = u;
+        szs[i] = sz;
+        total += sz;
+    }
+    std::unique_ptr<uint8_t[]> joined(new uint8_t[(size_t)(total > 0 ? total : 1)]);
+    std::vector<int64_t> offsets((size_t)n + 1, 0);
+    {
+        int64_t pos = 0;
+        for (Py_ssize_t i = 0; i < n; ++i) {
+            std::memcpy(joined.get() + pos, ptrs[i], (size_t)szs[i]);
+            pos += szs[i];
+            offsets[(size_t)i + 1] = pos;
+        }
+    }
+    Py_DECREF(seq);
+
+    if (n_threads < 1) n_threads = 1;
+    if (n_threads > kMaxThreads) n_threads = kMaxThreads;
+    if (n < n_threads * 4) n_threads = 1;
+    std::vector<std::unordered_map<std::string, int64_t>> maps(
+        (size_t)n_threads);
+    Py_BEGIN_ALLOW_THREADS
+    {
+        auto worker = [&](int tid) {
+            auto& m = maps[(size_t)tid];
+            m.reserve(1 << 14);
+            int64_t lo_b = total * tid / n_threads;
+            int64_t hi_b = shard_hi(total, tid, n_threads);
+            for (Py_ssize_t t = 0; t < n; ++t) {
+                int64_t a = offsets[(size_t)t];
+                if (a < lo_b || a >= hi_b) continue;
+                const uint8_t* data = joined.get() + a;
+                int64_t len = offsets[(size_t)t + 1] - a;
+                int64_t i = 0;
+                while (i < len) {
+                    int64_t end = word_end_at(c, data, len, i);
+                    if (end - i >= min_len)
+                        ++m[std::string((const char*)data + i,
+                                        (size_t)(end - i))];
+                    i = end;
+                }
+            }
+        };
+        pool().run(n_threads, worker);
+        for (int t = 1; t < n_threads; ++t) {
+            for (auto& kv : maps[(size_t)t]) maps[0][kv.first] += kv.second;
+            maps[(size_t)t].clear();
+        }
+    }
+    Py_END_ALLOW_THREADS
+
+    PyObject* d = PyDict_New();
+    if (!d) return nullptr;
+    for (auto& kv : maps[0]) {
+        PyObject* k =
+            PyBytes_FromStringAndSize(kv.first.data(), (Py_ssize_t)kv.first.size());
+        PyObject* v = PyLong_FromLongLong(kv.second);
+        if (!k || !v || PyDict_SetItem(d, k, v) < 0) {
+            Py_XDECREF(k);
+            Py_XDECREF(v);
+            Py_DECREF(d);
+            return nullptr;
+        }
+        Py_DECREF(k);
+        Py_DECREF(v);
+    }
+    return d;
 }
 
 // Single-text encode with minimal overhead: cached UTF-8 view, optional
@@ -3099,6 +3209,8 @@ static PyMethodDef CtokExtMethods[] = {
     {"encode_one", ctok_py_encode_one, METH_VARARGS,
      "encode_one(ctx, text, add_prefix_space, patterns_or_None) -> "
      "list[int] | None (None = added-token candidate)"},
+    {"count_words", ctok_py_count_words, METH_VARARGS,
+     "count_words(ctx, texts, min_len, n_threads) -> dict[bytes, int]"},
     {"encode_rows", ctok_py_encode_rows, METH_VARARGS,
      "encode_rows(ctx, texts, add_prefix_space, patterns, n_threads) -> "
      "list[list[int]] (None rows = added-token candidates)"},

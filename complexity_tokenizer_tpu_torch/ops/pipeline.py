@@ -50,17 +50,10 @@ def _bucket(n: int, buckets) -> int | None:
 
 def pack_texts(data: list[bytes], L: int, B: int):
     """Pack UTF-8 byte strings into a zero-padded [B, L] uint8 matrix and
-    [B] int32 lengths."""
-    arr = np.zeros((B, L), dtype=np.uint8)
-    lens = np.zeros(B, dtype=np.int32)
-    flat = np.frombuffer(b"".join(data), dtype=np.uint8)
-    off = 0
-    for i, d in enumerate(data):
-        n = len(d)
-        arr[i, :n] = flat[off : off + n]
-        lens[i] = n
-        off += n
-    return arr, lens
+    [B] int32 lengths, with the native C packer (one copy a row)."""
+    from ..native import native_pack
+
+    return native_pack(data, L, B)
 
 
 class EncodePipeline:

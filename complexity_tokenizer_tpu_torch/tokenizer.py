@@ -1594,6 +1594,48 @@ class Tokenizer:
         self.added_tokens_config.setdefault(content, AddedToken(content, tid, True))
 
     # ------------------------------------------------------------------
+    # training
+
+    def train_new_from_iterator(self, texts, vocab_size: int) -> "Tokenizer":
+        """A new tokenizer trained on ``texts`` with this one's pipeline
+        (normalizer, pre-tokenizer, post-processor, decoder, special tokens):
+        the classic ``BpeTrainer`` on the host, as the JAX package's."""
+        from .trainers.bpe_trainer import BpeTrainer, BpeTrainerConfig
+
+        special_tokens = self.all_special_tokens
+        config = BpeTrainerConfig(
+            vocab_size=vocab_size,
+            min_frequency=2,
+            special_tokens=list(special_tokens),
+            show_progress=True,
+            end_of_word_suffix=None,
+            continuing_subword_prefix=None,
+        )
+        texts_list = list(texts)
+        if self.pre_tokenizer is not None:
+            processed = []
+            for t in texts_list:
+                normalized = self.normalizer.normalize(t) if self.normalizer else t
+                processed.extend(self.pre_tokenizer.pre_tokenize(normalized))
+        else:
+            processed = [str(t) for t in texts_list]
+        vocab, merges = BpeTrainer(config).train(processed)
+
+        new = Tokenizer(TokenizerSpec(
+            vocab=vocab, merges=merges, normalizer=self.normalizer,
+            pre_tokenizer=self.pre_tokenizer, decoder=self.decoder,
+            added_tokens=[AddedToken(t, vocab[t], True) for t in special_tokens if t in vocab],
+            post_processor=self.post_processor, named_specials=self.vocab.special_tokens(),
+        ))
+        new._model_max_length = self._model_max_length
+        new._padding_side = self._padding_side
+        new._truncation_side = self._truncation_side
+        new._chat_template = self._chat_template
+        new.padding_config = self.padding_config
+        new.truncation_config = self.truncation_config
+        return new
+
+    # ------------------------------------------------------------------
     # post-processing, chat, prepare_for_model
 
     def post_process(self, encoding: Encoding, pair_encoding: Encoding | None = None) -> Encoding:

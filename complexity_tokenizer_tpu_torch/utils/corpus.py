@@ -12,7 +12,8 @@ rule from the JAX one (:func:`run_rows`), and word packs that reach the
 word path's fill at its edges (:func:`edge_word_pack`), a decode
 vocabulary of long tokens (:func:`long_token_vocab`), and byte rows that
 reach the normalization check at a row's and a block's edge
-(:func:`norm_edge_rows`).
+(:func:`norm_edge_rows`), and word rows that reach the trainer's merge step
+at its edges (:func:`merge_edge_rows`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ BENCH_UNIGRAM_32K = os.path.join(_CACHE, "bench_unigram_32k.json")
 
 __all__ = [
     "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
-    "edge_word_pack", "long_token_vocab", "metaspace_pieces", "norm_edge_rows",
+    "edge_word_pack", "long_token_vocab", "merge_edge_rows", "metaspace_pieces", "norm_edge_rows",
     "norm_trap_bitmap", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
     "wordlevel_vocab", "zipf_lexicon", "zipf_corpus",
 ]
@@ -425,3 +426,39 @@ def unigram_edge_texts(vocab: list[tuple[str, float]], seed: int = 0) -> list[tu
          + [c * n for c in letters[:2] for n in (8, 9, 16, 17)]),
         ("every lane group in one batch", [joined(n) for n in range(129)]),
     ]
+
+
+def merge_edge_rows(V: int = 64, seed: int = 0) -> list[tuple]:
+    """Word rows that reach the trainer's merge step (K14) at its edges, as
+    ``(label, words [N, W] int32, freqs [N] int32, a, b, new_id)`` with
+    numpy arrays, ids below ``V`` and ``new_id = V - 1``: the JAX tests'
+    ``x a b a b y`` (adjacent occurrences) and ``a a a`` (a run of
+    ``a == b``); runs of 1 to 7 equal tokens; rows of one alive token,
+    all-tombstone rows and empty rows; tombstones between the pair's
+    tokens; and random tombstoned rows over three ids, with ``a == b`` and
+    with ``a != b``."""
+    rng = np.random.RandomState(seed)
+    new = V - 1
+    x, a, b, y = 5, 1, 2, 6
+
+    def rows(lst, W):
+        arr = np.full((len(lst), W), -1, np.int32)
+        for i, r in enumerate(lst):
+            arr[i, : len(r)] = r
+        return arr
+
+    out = [
+        ("x a b a b y", rows([[x, a, b, a, b, y]], 6), np.array([3], np.int32), a, b, new),
+        ("a a a", rows([[a, a, a]], 4), np.array([2], np.int32), a, a, new),
+        ("runs of a == b", rows([[a] * n for n in range(1, 8)] + [[x] + [a] * 5 + [y]], 9),
+         np.arange(1, 9, dtype=np.int32), a, a, new),
+    ]
+    edge = rows([[a], [], [-1, -1, a, -1], [a, -1, -1, b], [a, -1, b, -1, a, -1, b],
+                 [x, a, -1, b, -1, y], [b, a], [a, b], [-1] * 8], 8)
+    out.append(("one token, tombstones, empty", edge, np.arange(1, 10, dtype=np.int32), a, b, new))
+    for label, pa, pb in (("random, a != b", 0, 1), ("random, a == b", 2, 2)):
+        words = rng.randint(0, 3, size=(300, 13)).astype(np.int32)
+        words[rng.rand(300, 13) < 0.3] = -1
+        freqs = rng.randint(1, 1000, size=300).astype(np.int32)
+        out.append((label, words, freqs, pa, pb, new))
+    return out

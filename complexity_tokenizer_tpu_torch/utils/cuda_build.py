@@ -85,6 +85,16 @@ _SIGNATURES = {
     "ctok_decode_gather": (_P, _L, _P, _I, _P, _P, _I, _I, _P, _P, _L, _P),
     # info[5]
     "ctok_decode_info": (_P,),
+    # words, freqs, N, W, v0, hist, stream
+    "ctok_pair_hist": (_P, _P, _I, _I, _I, _P, _P),
+    # words, freqs, N, W, ma, mb, step, a, b, new_id, delta, V, minted, stream
+    "ctok_merge_step": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P),
+    # hist, V, scratch, step, ma, mb, stream
+    "ctok_select_argmax": (_P, _I, _P, _I, _P, _P, _P),
+    # hist, V, ca, cb, T, n_cand, state, step, ma, mb, stream
+    "ctok_select_window": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P),
+    # hist, V, step, ma, mb, new_id, delta, stream
+    "ctok_hist_update": (_P, _I, _I, _P, _P, _I, _P, _P),
 }
 
 

@@ -1604,3 +1604,166 @@ def test_k12_refuses_bad_inputs_and_launches_without_spilling():
         viterbi(chars, offs, lens, (0, 0), *bad)
     shape = viterbi_launch_shape()
     assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape
+
+
+# ---------------------------------------------------------------------------
+# K13-K16: the device trainer's kernels
+
+
+def _k14_case(words, freqs, a, b, new, dev, log_step=None):
+    """K14 (on ``dev``) on the rows: (words, delta, minted) as numpy."""
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import merge_step
+
+    w = torch.from_numpy(words.copy()).to(dev)
+    delta = torch.zeros(new + 1, 4, dtype=torch.int32, device=dev)
+    minted = torch.zeros(1, dtype=torch.int32, device=dev)
+    if log_step is None:
+        merge_step(w, torch.from_numpy(freqs).to(dev), new, delta, minted, a=a, b=b)
+    else:
+        ma = torch.full((4,), -1, dtype=torch.int32, device=dev)
+        mb = torch.full((4,), -1, dtype=torch.int32, device=dev)
+        ma[log_step], mb[log_step] = a, b
+        merge_step(w, torch.from_numpy(freqs).to(dev), new, delta, minted, log=(ma, mb),
+                   step=log_step)
+    return w.cpu().numpy(), delta.cpu().numpy(), int(minted)
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_k13_k14_match_plain_on_edge_rows(case):
+    """K13 and K14 against their plain versions on the card, bit for bit, on
+    ``utils/corpus.py:merge_edge_rows`` (the pair as scalars and from the
+    merge log; a logged step of -1 changes nothing)."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import (
+        merge_step,
+        merge_step_plain,
+        pair_hist,
+        pair_hist_plain,
+    )
+    from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
+
+    label, words, freqs, a, b, new = merge_edge_rows()[case]
+    dev = torch.device("cuda")
+    w, f = torch.from_numpy(words).to(dev), torch.from_numpy(freqs).to(dev)
+    n0 = pair_hist.launches
+    assert torch.equal(pair_hist(w, f, new + 1), pair_hist_plain(w, f, new + 1)), label
+    assert pair_hist.launches == n0 + 1
+    want_w = torch.from_numpy(words.copy()).to(dev)
+    want_d = torch.zeros(new + 1, 4, dtype=torch.int32, device=dev)
+    want_m = torch.zeros(1, dtype=torch.int32, device=dev)
+    merge_step_plain(want_w, f, new, want_d, want_m, a=a, b=b)
+    n0 = merge_step.launches
+    for step in (None, 2):
+        got = _k14_case(words, freqs, a, b, new, dev, step)
+        assert (got[0] == want_w.cpu().numpy()).all(), label
+        assert (got[1] == want_d.cpu().numpy()).all(), label
+        assert got[2] == int(want_m), label
+    assert merge_step.launches == n0 + 2
+    # a step that does nothing leaves every buffer as it was
+    ma = torch.full((2,), -1, dtype=torch.int32, device=dev)
+    w2 = w.clone()
+    delta = torch.zeros(new + 1, 4, dtype=torch.int32, device=dev)
+    minted = torch.zeros(1, dtype=torch.int32, device=dev)
+    merge_step(w2, f, new, delta, minted, log=(ma, ma.clone()), step=1)
+    assert torch.equal(w2, w) and not delta.any() and not minted.any()
+
+
+def _block(dev, words, freqs, V, n_steps, window=None):
+    """``n_steps`` K15 -> K14 -> K16 steps from the rows' seed histogram on
+    ``dev``: (words, hist, log, deltas, state) as numpy."""
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import (
+        SelectScratch,
+        hist_update,
+        merge_step,
+        pair_hist,
+        select_pair,
+    )
+
+    w = torch.from_numpy(words.copy()).to(dev)
+    f = torch.from_numpy(freqs).to(dev)
+    v0 = int(words.max()) + 1
+    seed = pair_hist(w, f, v0).view(v0, v0)
+    hist = torch.zeros(V, V, dtype=torch.int32, device=dev)
+    hist[:v0, :v0] = seed
+    log = torch.zeros(3, n_steps, dtype=torch.int32, device=dev)
+    deltas = torch.zeros(n_steps, V, 4, dtype=torch.int32, device=dev)
+    scratch = SelectScratch(dev) if dev.type == "cuda" else None
+    cand = state = None
+    if window is not None:
+        ca, cb, n_cand = window
+        state = torch.tensor([-1, 0], dtype=torch.int32, device=dev)
+        cand = (torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev), n_cand, state)
+    for i in range(n_steps):
+        select_pair(hist, i, log[0], log[1], cand=cand, scratch=scratch)
+        merge_step(w, f, v0 + i, deltas[i], log[2][i : i + 1], log=(log[0], log[1]), step=i)
+        hist_update(hist, i, log[0], log[1], v0 + i, deltas[i])
+    out = [t.cpu().numpy() for t in (w, hist, log, deltas)]
+    return out + [None if state is None else state.cpu().numpy()]
+
+
+@pytest.mark.parametrize("rows", [2, 4])
+@pytest.mark.parametrize("mode", ["classic", "window", "window, T overflows"])
+def test_k15_k16_blocks_match_plain(mode, rows):
+    """A block of K15 -> K14 -> K16 steps on the card against the plain
+    versions on the card, bit for bit: words, histogram, merge log, deltas,
+    the window's cursor; on the runs of ``a == b`` and the random edge rows
+    of ``merge_edge_rows``, on the runs until the histogram is exhausted
+    (classic) and until the candidates run out (window)."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
+
+    _, words, freqs, *_ = merge_edge_rows()[rows]
+    V, steps = 64, 40
+    window = None
+    if mode != "classic":
+        rng = np.random.RandomState(1)
+        T = 4 if "overflows" in mode else 64
+        ca = rng.randint(0, 3, size=T).astype(np.int32)
+        cb = rng.randint(0, 3, size=T).astype(np.int32)
+        window = (ca, cb, T - 1)
+    from complexity_tokenizer_tpu_torch.ops import trainer_device as td
+
+    got = _block(torch.device("cuda"), words, freqs, V, steps, window)
+    saved = {f: getattr(td, f) for f in ("pair_hist", "merge_step", "select_pair", "hist_update")}
+    try:  # the plain versions, on the card, through the same loop
+        for name in saved:
+            setattr(td, name, getattr(td, name + "_plain"))
+        td.select_pair = lambda *args, scratch=None, **kw: td.select_pair_plain(*args, **kw)
+        want = _block(torch.device("cuda"), words, freqs, V, steps, window)
+    finally:
+        for name, fn in saved.items():
+            setattr(td, name, fn)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or (g == w).all()
+    assert (got[2][0] >= 0).any()
+    if mode != "classic" or rows == 2:
+        assert (got[2][0] < 0).any()  # exhausted
+
+
+def test_trainer_on_card_matches_cpu():
+    """``DistributedInlTrainer`` on the card equals it on the CPU (the plain
+    versions), classic and INL, on both routes."""
+    _need_card()
+    import contextlib
+    import io
+
+    from complexity_tokenizer_tpu_torch.parallel.trainer import DistributedInlTrainer
+    from complexity_tokenizer_tpu_torch.trainers.inl_trainer import TrainerConfig
+
+    texts = zipf_corpus(200, seed=3)
+    for gate in (0.0, 0.5):
+        for max_v in ("4096", "1"):
+            os.environ["CTOK_TRAINER_DEVICE_SELECT_MAX_V"] = max_v
+            try:
+                runs = []
+                for dev in ("cuda", "cpu"):
+                    t = DistributedInlTrainer(TrainerConfig(vocab_size=700, min_frequency=1,
+                                                            inl_gate=gate), device=dev)
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        t.train_from_texts(texts)
+                    runs.append(t)
+            finally:
+                del os.environ["CTOK_TRAINER_DEVICE_SELECT_MAX_V"]
+            assert runs[0].merges == runs[1].merges and len(runs[0].merges) > 300
+            assert dict(runs[0].pair_freqs) == dict(runs[1].pair_freqs)
+            assert dict(runs[0].token_freqs) == dict(runs[1].token_freqs)

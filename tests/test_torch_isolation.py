@@ -229,3 +229,18 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.kernel_library()
+
+
+def test_device_trainer_without_device_raises_without_card(no_card):
+    """``DistributedInlTrainer`` runs on ``cuda`` unless it is given
+    ``device="cpu"``: with no card it raises at construction, and on the CPU
+    it trains (the kernels' plain versions)."""
+    from complexity_tokenizer_tpu_torch.parallel import DistributedInlTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedInlTrainer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedInlTrainer(vocab_size=300, device="cuda")
+    t = DistributedInlTrainer(vocab_size=270, min_frequency=1, device="cpu")
+    t.train_from_texts(["ab ab abc", "abc ab"])
+    assert t.device.type == "cpu" and t.merges[:2] == [("a", "b"), ("Ġ", "ab")]
