@@ -106,6 +106,26 @@ Phases (each prints its seconds):
    ``utils/corpus.py:merge_edge_rows``; K15 in both modes; each timed warm,
    cold (K15's window: warm only) and plainly beside its bound and the
    library call (K13: ``index_add_``; K15: ``torch.argmax``).
+   Then the WordPiece and Unigram trainers (``drive_train2``) on
+   ``zipf_corpus(10_000, seed=17)`` and the multilingual pieces, each run's
+   launches counted from 0 to its end: ``DistributedUnigramTrainer`` at
+   t5-base's 32,000 pieces (JAX's defaults, every word its own text),
+   byte for byte ``.cache/bench_unigram_32k.json``, launching K12 and K17
+   once a device E-step and nothing else (each E-step's pieces, table
+   build, copy, poisoned and over-wide sentences printed);
+   ``DistributedWordPieceTrainer`` at bert-base-uncased's 30,522 (JAX's
+   defaults), entry for entry ``.cache/bench_wordpiece_30k.json``,
+   launching K18 and K19 once a round and nothing else, and at 400 on
+   ``utils/corpus.py:wordpiece_train_edge_texts`` (words of 1, 13, 127, 128
+   and 129 characters) equal to the host trainer's; the walls, rounds, poisoned
+   words and the host's ms a round.  Then K12 against its plain version
+   on every E-step's inputs (the first timed), K17 on every E-step's K12
+   result and a crafted one (ids 0 and V - 1,
+   fallbacks, poisoned texts), K18 and K19 on the 30,522 run's rounds 0
+   and 1,000, the edge run's and its forged tables, bit for bit (K19 as a
+   set); each timed warm, cold and plainly beside its bound and the
+   library call (K17: ``index_add_``; K19: ``torch.unique`` then
+   ``index_add_``).
    With ``--parent DIR`` (a checkout of an earlier commit): the kernels of
    it that ``scripts/parent_word_kernels.py`` knows, built beside the
    package's kernels, on the same rows, words and texts laid out as that
@@ -158,7 +178,7 @@ Phases (each prints its seconds):
    warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-The kernels' line lists K1-K16 (``launches_by_path``: every path above).
+The kernels' line lists K1-K19 (``launches_by_path``: every path above).
 Any failure raises and the script exits nonzero without the last line.
 Needs the repository beside it and imports nothing of JAX.
 """
@@ -2571,6 +2591,441 @@ def drive_train(kernels_of: dict) -> dict:
     return {"launches": launches, "walls": walls, "checks": checks}
 
 
+# ---------------------------------------------------------------------------
+# the WordPiece and Unigram trainers (K12, K17-K19)
+
+# the golden vocabularies (scripts/make_bench_unigram_32k.py,
+# scripts/make_bench_wordpiece_30k.py)
+UNIGRAM_32K = os.path.join(REPO, ".cache", "bench_unigram_32k.json")
+WORDPIECE_30K = os.path.join(REPO, ".cache", "bench_wordpiece_30k.json")
+TRAIN2_KERNELS = ("viterbi", "piece_hist", "train_match", "pair_count")
+WP_CAPTURE_ROUNDS = (0, 1000)  # the rounds whose K18 inputs are checked and timed
+
+
+def _sorted_pairs(res):
+    """K19's result as (keys, counts) int64 tensors in key order, its number
+    and the poisoned words."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import split_pairs
+
+    keys, counts, n, n_poison = split_pairs(res.cpu())
+    order = torch.argsort(keys.long())
+    return keys.long()[order], counts.long()[order], n, n_poison
+
+
+def _check_pairs(label: str, got, exp) -> dict:
+    gk, gc, gn, gp = _sorted_pairs(got)
+    ek, ec, en, ep = _sorted_pairs(exp)
+    if (gn, gp) != (en, ep):
+        raise AssertionError(f"pair_count kernel differs from its plain version: {label}: "
+                             f"{gn} keys, {gp} poisoned against {en}, {ep}")
+    r = _check_equal("pair_count", label, [gk, gc], [ek, ec])
+    return dict(r, keys=gn, poisoned_words=gp)
+
+
+def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
+    """K12 (on the Unigram trainer's inputs: ``maxcand`` 16, the marker -2,
+    the first E-step timed warm and cold), K17, K18 and K19 against their
+    plain versions on the card, bit for bit (K19 as a set of (key, count),
+    their number and the poisoned words): K17 on K12's results of the Unigram 32,000 run's first and last
+    E-steps (each with its poisoned pieces) and on a crafted result holding
+    ids 0 and V - 1, fallbacks and poisoned texts; K18 and K19 on the
+    WordPiece 30,522 run's rounds ``WP_CAPTURE_ROUNDS``, on the edge run's
+    (words of 1, 13, 127 and 128 characters) and on its tables with every
+    form of two characters or more forged (which poisons the words that
+    choose one).  Each timed warm and cold on the main run's inputs, and
+    plainly, beside its bound and the library call (K17: ``index_add_`` of
+    the frequencies; K19: ``torch.unique(return_inverse=True)`` then
+    ``index_add_`` over the pairs' keys; K18: none)."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import (
+        FALLBACK_ID,
+        piece_hist,
+        piece_hist_launch_shape,
+        piece_hist_plain,
+        viterbi,
+        viterbi_ragged_plain,
+    )
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        PairCountScratch,
+        pair_count,
+        pair_count_launch_shape,
+        pair_count_plain,
+        train_match,
+        train_match_launch_shape,
+        train_match_plain,
+    )
+
+    out = {"viterbi": [], "piece_hist": [], "train_match": [], "pair_count": []}
+    # K12 and K17 on the Unigram run's E-steps
+    for r, inp in sorted(ug_kept.items()):
+        vit = inp["viterbi"]
+        res = viterbi(*vit)
+        a = _check_equal("viterbi", f"Unigram 32,000 E-step {r} (maxcand {vit[12]}, marker "
+                         f"{vit[13]})", res, viterbi_ragged_plain(*vit[:3], *vit[4:]))
+        if r == min(ug_kept):
+            ms = _time_ms(lambda: viterbi(*vit), 20)
+            sets = _cold_sets(vit[:3], 4 * res.numel())
+            ms_cold = _time_cold_ms(lambda c, o, n: viterbi(c, o, n, *vit[3:]), sets, 20)
+            del sets
+            a.update(ms=ms, ms_cold=ms_cold, pieces=int(vit[8].shape[0]))
+            print(f"[viterbi] trainer E-step {r}: {a['pieces']} pieces, {vit[2].numel()} texts: "
+                  f"warm={ms:.4f} cold={ms_cold:.4f} ms", flush=True)
+        out["viterbi"].append(a)
+        offs, freqs, gidx, V, n_global = inp["piece_hist"]
+        B = offs.numel() - 1
+        N = res.numel() - 2 * B
+        label = f"Unigram 32,000 E-step {r} (V {V}, {B} texts)"
+        got = piece_hist(res, offs, freqs, gidx, V, n_global)
+        exp = piece_hist_plain(res, offs, freqs, gidx, V, n_global)
+        c = _check_equal("piece_hist", label, got, exp)
+        poisoned = int(exp[V:].sum())
+        c.update(poisoned=poisoned, shape=[N, B, V])
+        if r == min(ug_kept):
+            args = (res, offs, freqs, gidx)
+            fn = lambda x, o, f, g: piece_hist(x, o, f, g, V, n_global)  # noqa: E731
+            ms = _time_ms(lambda: fn(*args), 20)
+            sets = _cold_sets(args, 4 * (V + n_global))
+            ms_cold = _time_cold_ms(fn, sets, 20)
+            del sets
+            plain_ms = _time_ms(lambda: piece_hist_plain(res, offs, freqs, gidx, V, n_global), 3,
+                                graph=False)
+            # the library call: index_add_ of the frequencies at the ids
+            word = torch.repeat_interleave(torch.arange(B, device="cuda"),
+                                           (offs[1:] - offs[:-1]).long())
+            ids = res[:N]
+            ok = (ids >= 0) & (res[N + B:][word] == 0)
+            lib_ids, lib_f = ids[ok].long(), freqs[word[ok]]
+            library_ms = _time_ms(lambda: torch.zeros(V, dtype=torch.int32, device="cuda")
+                                  .index_add_(0, lib_ids, lib_f), 20)
+            bound_ms, bound_by = _bound(4 * (N + 4 * B + 1) + 4 * (V + n_global), N)
+            c.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, launch=piece_hist_launch_shape())
+            print(f"[piece_hist] {label}: warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} "
+                  f"library={library_ms:.4f} bound={bound_ms:.5f} ms ({bound_by}); "
+                  f"{poisoned} poisoned; launch {c['launch']}", flush=True)
+        out["piece_hist"].append(c)
+    # K17 on a crafted result: ids 0 and V - 1, fallbacks, -1, poisoned texts
+    rng = np.random.RandomState(5)
+    V, B = 32_000, 4096
+    lens = rng.randint(0, 129, size=B)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    ids = rng.randint(-1, V, size=offs[-1]).astype(np.int32)
+    ids[::5] = 0
+    ids[2::7] = V - 1
+    ids[3::11] = FALLBACK_ID
+    poison = (rng.rand(B) < 0.1).astype(np.int32)
+    res = torch.from_numpy(np.concatenate([ids, lens.astype(np.int32), poison])).cuda()
+    freqs = torch.from_numpy(rng.randint(1, 1 << 12, size=B).astype(np.int32)).cuda()
+    gidx = torch.from_numpy(rng.permutation(B + 7)[:B].astype(np.int32)).cuda()
+    o = torch.from_numpy(offs).cuda()
+    exp = piece_hist_plain(res, o, freqs, gidx, V, B + 7)
+    if not (int(exp[0]) > 0 and int(exp[V - 1]) > 0 and int(exp[V:].sum()) == int(poison.sum())):
+        raise AssertionError("piece_hist: the crafted result does not reach ids 0 and V - 1")
+    out["piece_hist"].append(_check_equal("piece_hist", "crafted: ids 0 and V - 1, fallbacks, "
+                                          "poisoned texts", piece_hist(res, o, freqs, gidx, V, B + 7),
+                                          exp))
+
+    # K18 and K19 on the WordPiece runs' rounds
+    def match_args(inp):
+        return (inp["chars"], inp["offs"], inp["lens"], inp["table"], inp["slot_meta"],
+                inp["slot_chars"], inp["fb_map"], inp["lt_cap"])
+
+    cases = [(f"WordPiece round {r}", inp, r == WP_CAPTURE_ROUNDS[-1])
+             for r, inp in sorted(wp_kept.items())]
+    cases += [(f"edge words round {r}", inp, False) for r, inp in sorted(edge_kept.items())]
+    last = dict(edge_kept[max(edge_kept)])
+    last["slot_chars"] = last["slot_chars"].clone()
+    last["slot_chars"][last["slot_meta"][:, 0] >= 2, 0] += 1
+    cases.append(("edge words, forms of 2+ characters forged", last, False))
+    for label, inp, timed in cases:
+        args = match_args(inp)
+        N, B = inp["chars"].numel(), inp["lens"].numel()
+        m, p = train_match(*args)
+        mp_, pp = train_match_plain(*args)
+        c = _check_equal("train_match", label, [m, p], [mp_, pp])
+        c.update(poisoned=int(pp.sum()), shape=[N, B], lt_cap=inp["lt_cap"])
+        if "forged" in label and c["poisoned"] == 0:
+            raise AssertionError("train_match: the forged rows poisoned no word")
+        scratch = PairCountScratch(N, "cuda")
+        got = pair_count(m, inp["offs"], inp["freqs"], p, scratch)
+        d = _check_pairs(label, got, pair_count_plain(m, inp["offs"], inp["freqs"], p,
+                                                      scratch.t_size))
+        d.update(shape=[N, B], table=scratch.t_size)
+        if timed:
+            fn = lambda *a: train_match(*a, inp["lt_cap"])  # noqa: E731
+            ms = _time_ms(lambda: train_match(*args), 20)
+            sets = _cold_sets(args[:-1], 4 * (N + B))
+            ms_cold = _time_cold_ms(fn, sets, 20)
+            del sets
+            plain_ms = _time_ms(lambda: train_match_plain(*args), 2, graph=False)
+            # the bytes: the words in, the symbols and poison flags out, and
+            # the table's bytes that the round's probes need, each once
+            n_probe, table_bytes = _k18_need(inp)
+            bound_ms, bound_by = _bound(4 * (N + 2 * B + 1) + 4 * (N + B) + table_bytes,
+                                        14 * n_probe)
+            c.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, library_ms=None,
+                     bound_ms=bound_ms, bound_by=bound_by, probes=n_probe, table_bytes=table_bytes,
+                     launch=train_match_launch_shape())
+            print(f"[train_match] {label}: [{N} chars, {B} words] lt_cap {inp['lt_cap']} "
+                  f"warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} bound={bound_ms:.5f} "
+                  f"ms ({bound_by}); {n_probe} probes; launch {c['launch']}", flush=True)
+            pargs = (m, inp["offs"], inp["freqs"], p)
+            ms = _time_ms(lambda: pair_count(*pargs, scratch), 20)
+            csets = [tuple(t.clone() for t in pargs) + (PairCountScratch(N, "cuda"),)
+                     for _ in range(-(-COLD_BYTES // (12 * scratch.t_size + 4 * (N + 3 * B))))]
+            ms_cold = _time_cold_ms(lambda a, b, c_, d_, s: pair_count(a, b, c_, d_, s), csets, 20)
+            del csets
+            plain_ms = _time_ms(lambda: pair_count_plain(*pargs, scratch.t_size), 2, graph=False)
+            # the library call: unique and index_add_ over the pairs' keys
+            keys, wts = _pair_keys(*pargs)
+
+            def library():
+                u, inv = torch.unique(keys, return_inverse=True)
+                return torch.zeros(u.numel(), dtype=torch.int32, device="cuda").index_add_(
+                    0, inv, wts)
+
+            library_ms = _time_ms(library, 5, graph=False)
+            n = d["keys"]
+            bound_ms, bound_by = _bound(4 * (N + 3 * B + 1) + 8 * n + 8, keys.numel())
+            d.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, pairs=keys.numel(),
+                     launch=pair_count_launch_shape())
+            print(f"[pair_count] {label}: {keys.numel()} pairs, {n} keys, table {scratch.t_size}: "
+                  f"warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} library={library_ms:.4f} "
+                  f"bound={bound_ms:.5f} ms ({bound_by}); launch {d['launch']}", flush=True)
+        out["train_match"].append(c)
+        out["pair_count"].append(d)
+    return out
+
+
+def _pair_keys(out, offs, freqs, poison):
+    """The adjacent pairs' keys and weights of K18's output (the input of the
+    library call beside K19): weight 0 pairs of poisoned words left out."""
+    import torch
+
+    B = offs.numel() - 1
+    word = torch.repeat_interleave(torch.arange(B, device=out.device), (offs[1:] - offs[:-1]).long())
+    live = torch.nonzero(out >= 0)[:, 0]
+    w = word[live]
+    same = (w[:-1] == w[1:]) & (poison[w[:-1]] == 0)
+    keys = (out[live[:-1]][same].long() << 16) | out[live[1:]][same].long()
+    return keys, freqs[w[:-1][same]]
+
+
+def _k18_need(inp) -> tuple[int, int]:
+    """The candidates K18 probes on these inputs and the table bytes they
+    need, each once: the greedy walk's starts from the plain version's
+    pieces, every length up to lt_cap that fits hashed and probed as the
+    kernel probes it (from the mixed hash's row to the key's row or an empty
+    one, at most 16 rows).  The bytes: each distinct table row touched
+    (16 B), each distinct slot entry a hit reads (8 B), the characters of
+    each distinct longest hit checked (4 B each) and each distinct fallback
+    symbol a miss reads (4 B)."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.hashtable import mix_hash
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import (
+        _B1,
+        _B2,
+        _M32,
+        _SEED_CONT1,
+        _SEED_CONT2,
+        _to_i32,
+    )
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        MAXP,
+        MAX_CP,
+        train_match_plain,
+    )
+
+    out, _poison = train_match_plain(inp["chars"], inp["offs"], inp["lens"], inp["table"],
+                                     inp["slot_meta"], inp["slot_chars"], inp["fb_map"],
+                                     inp["lt_cap"])
+    chars, offs, lens = inp["chars"].long(), inp["offs"].long(), inp["lens"].long()
+    table, meta = inp["table"], inp["slot_meta"]
+    mask = table.shape[0] - 1
+    starts = torch.nonzero(out >= 0)[:, 0]
+    word = torch.searchsorted(offs, starts, right=True) - 1
+    rest = lens[word] - (starts - offs[word])
+    cont = starts > offs[word]
+    h1 = torch.where(cont, _SEED_CONT1, 0)
+    h2 = torch.where(cont, _SEED_CONT2, 0)
+    best_l = torch.zeros_like(starts)
+    best = torch.zeros_like(starts)
+    rows, slots, n_cand = [], [], 0
+    for length in range(1, inp["lt_cap"] + 1):
+        live = torch.nonzero(rest >= length)[:, 0]
+        if live.numel() == 0:
+            break
+        n_cand += live.numel()
+        u = chars[starts[live] + length - 1] + 1
+        h1[live] = (h1[live] * _B1 + u) & _M32
+        h2[live] = (h2[live] * _B2 + u) & _M32
+        k1, k2 = _to_i32(h1[live]), _to_i32(h2[live])
+        base = mix_hash(k1, k2, mask).long()
+        slot = torch.full_like(live, -1)
+        going = torch.ones_like(live, dtype=torch.bool)
+        for j in range(MAXP):
+            r = (base + j) & mask
+            rows.append(r[going])
+            t = table[r]
+            hit = going & (t[:, 0] == k1) & (t[:, 1] == k2)
+            slot = torch.where(hit, t[:, 2].long(), slot)
+            going &= ~hit & ~((t[:, 0] == 0) & (t[:, 1] == 1))
+        slots.append(slot[slot >= 0])
+        ok = (slot >= 0) & (meta[slot.clamp(min=0), 0] == length)
+        best_l[live[ok]] = length
+        best[live[ok]] = slot[ok]
+    read = torch.unique(torch.cat(slots))
+    checked = torch.unique(best[best_l > 0])
+    miss = best_l == 0
+    fb = torch.unique(cont[miss].long() * MAX_CP + chars[starts[miss]].clamp(0, MAX_CP - 1))
+    n_rows = min(int(torch.unique(torch.cat(rows)).numel()), table.shape[0])
+    return n_cand, (16 * n_rows + 8 * read.numel() + 4 * int(meta[checked, 0].sum())
+                    + 4 * fb.numel())
+
+
+def drive_train2(kernels_of: dict, wp_size: int = 30_522) -> dict:
+    """The WordPiece and Unigram trainers on the card at world size 1, each
+    run's launches counted from 0 to its end and each launching its kernels
+    and no other, on ``zipf_corpus(10_000, seed=17)`` and the multilingual
+    pieces:
+    - ``DistributedUnigramTrainer`` at t5-base's 32,000 pieces (the JAX
+      defaults, ``vocab_size=31_997``; every word its own text), its
+      ``[piece, score]`` list byte for byte ``.cache/bench_unigram_32k.json``;
+      K12 and K17 once a device E-step;
+    - ``DistributedWordPieceTrainer`` at bert-base-uncased's 30,522 (the JAX
+      defaults), its vocabulary entry for entry
+      ``.cache/bench_wordpiece_30k.json``; K18 and K19 once a round;
+    - the same at 400 entries on ``utils/corpus.py:wordpiece_train_edge_texts``
+      (words of 1, 13, 127, 128 and 129 characters), equal to the host
+      trainer's.
+    Prints the walls, rounds, poisoned and over-wide words and sentences,
+    the host's table builds and ms a round.  Then K17-K19 against their
+    plain versions, and K12 on the Unigram run's E-steps
+    (``check_train2_kernels``)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from complexity_tokenizer_tpu_torch.parallel.unigram_trainer import DistributedUnigramTrainer
+    from complexity_tokenizer_tpu_torch.parallel.wordpiece_trainer import (
+        DistributedWordPieceTrainer,
+    )
+    from complexity_tokenizer_tpu_torch.trainers import (
+        UnigramTrainerConfig,
+        WordPieceTrainer,
+        WordPieceTrainerConfig,
+    )
+    from complexity_tokenizer_tpu_torch.utils.corpus import (
+        MULTI_PIECES,
+        wordpiece_30k_vocab,
+        wordpiece_train_edge_texts,
+        zipf_corpus,
+    )
+
+    t0 = time.perf_counter()
+    texts = zipf_corpus(10_000, seed=17) + list(MULTI_PIECES)
+    launches, walls = {}, {}
+
+    # Unigram 32,000: every device E-step's inputs kept for K17's check
+    ug_kept = {}
+    words = [w for t in texts for w in t.split()]
+    trainer = DistributedUnigramTrainer(UnigramTrainerConfig(vocab_size=31_997))
+    trainer.capture = ug_kept.__setitem__
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, counts, wall = _drive_launches(kernels_of, lambda: trainer.train_from_texts(words))
+    pieces = [[model.vocab_r[i], model.vocab[model.vocab_r[i]][1]] for i in range(len(model.vocab_r))]
+    raw = json.dumps(pieces, ensure_ascii=False).encode("utf-8")
+    with open(UNIGRAM_32K, "rb") as f:
+        if raw != f.read():
+            raise AssertionError("train Unigram 32,000: the pieces differ from the golden file")
+    dev_rounds = [r for r in trainer.rounds if r["route"] == "device"]
+    for r in trainer.rounds:
+        if r["route"] != "device":
+            print(f"[train] Unigram 32,000: an E-step on the host ({r['reason']}, "
+                  f"{r['pieces']} pieces)", flush=True)
+    _need_only("train Unigram 32,000", counts,
+               {"viterbi": len(dev_rounds), "piece_hist": len(dev_rounds)})
+    launches["train Unigram 32,000"] = counts
+    table_s = sum(r["table_s"] for r in trainer.rounds)
+    walls["Unigram 32,000"] = dict(
+        wall_s=wall, words=len(words), pieces=len(pieces), em_rounds=len(trainer.rounds),
+        device_rounds=len(dev_rounds), table_s=table_s,
+        to_card_s=sum(r["to_card_s"] for r in dev_rounds),
+        e_step_s=sum(r["e_step_s"] for r in dev_rounds),
+        rounds=[{k: v for k, v in r.items()} for r in trainer.rounds])
+    print(f"[train] Unigram 32,000: {len(words)} words, {len(pieces)} pieces byte for byte the "
+          f"golden file; wall {wall:.3f} s, {len(trainer.rounds)} EM rounds, {len(dev_rounds)} "
+          f"with K12 and K17; host table builds {table_s:.3f} s; launches "
+          + ", ".join(f"{k} {counts[k]}" for k in TRAIN2_KERNELS), flush=True)
+    for i, r in enumerate(trainer.rounds):
+        print(f"  E-step {i}: {r['route']}, {r['pieces']} pieces, tables {r['table_s']:.3f} s"
+              + (f", to the card {r['to_card_s']:.4f} s, E-step {r['e_step_s']:.3f} s, "
+                 f"{r['poisoned']} poisoned, {r['over_wide']} over 128" if r["route"] == "device"
+                 else ""), flush=True)
+    del trainer, model
+
+    # WordPiece 30,522, and the edge words at 400
+    golden = wordpiece_30k_vocab()
+
+    def keeper(kept, rounds):
+        def keep(r, inp):
+            if r in rounds:
+                kept[r] = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                           for k, v in inp.items()}
+        return keep
+
+    wp_kept, edge_kept = {}, {}
+    for label, size, corpus, kept, rounds in (
+        (f"WordPiece {wp_size:,}", wp_size, texts, wp_kept, WP_CAPTURE_ROUNDS),
+        ("WordPiece edge words 400", 400, wordpiece_train_edge_texts(), edge_kept, (0, 40, 300)),
+    ):
+        trainer = DistributedWordPieceTrainer(WordPieceTrainerConfig(vocab_size=size))
+        trainer.capture = keeper(kept, rounds)
+        model, counts, wall = _drive_launches(kernels_of, lambda: trainer.train_from_texts(corpus))
+        entries = sorted(model.vocab, key=model.vocab.__getitem__)
+        st = trainer.last_stats
+        if st["route"] != "device":
+            raise AssertionError(f"train {label}: the host trainer ran ({st})")
+        if size == wp_size:
+            if entries != golden[:size]:
+                n_same = next((i for i, (a, b) in enumerate(zip(entries, golden)) if a != b),
+                              min(len(entries), len(golden)))
+                raise AssertionError(f"train {label}: {len(entries)} entries, the golden file's "
+                                     f"{len(golden)}; the first {n_same} equal")
+        else:
+            host = WordPieceTrainer(WordPieceTrainerConfig(vocab_size=size))
+            host.train_from_texts(corpus)
+            if host.vocab != model.vocab or st["over_wide"] == 0:
+                raise AssertionError(f"train {label}: the card's vocabulary differs from the host's")
+        _need_only(f"train {label}", counts, {"train_match": st["rounds"], "pair_count": st["rounds"]})
+        launches[f"train {label}"] = counts
+        walls[label] = dict(wall_s=wall, entries=len(entries), rounds=st["rounds"],
+                            poisoned=st["poisoned"], over_wide=st["over_wide"],
+                            device_ms_per_round=1e3 * st["device_s"] / st["rounds"],
+                            host_ms_per_round=1e3 * st["host_s"] / st["rounds"])
+        print(f"[train] {label}: {len(entries)} entries"
+              + (" entry for entry the golden file" if size == wp_size else ", the host trainer's")
+              + f"; wall {wall:.3f} s, {st['rounds']} rounds, launches "
+              + ", ".join(f"{k} {counts[k]}" for k in TRAIN2_KERNELS)
+              + f"; {st['poisoned']} poisoned word-rounds, {st['over_wide']} words over 128; "
+              f"launch and read back {walls[label]['device_ms_per_round']:.3f} ms a round, "
+              f"host {walls[label]['host_ms_per_round']:.3f} ms a round", flush=True)
+        del trainer, model
+    _phase("train WordPiece and Unigram", t0)
+    t0 = time.perf_counter()
+    checks = check_train2_kernels(ug_kept, wp_kept, edge_kept)
+    _phase("train WordPiece and Unigram kernels", t0)
+    torch.cuda.synchronize()
+    return {"launches": launches, "walls": walls, "checks": checks}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=17, help="corpus and input seed")
@@ -2617,8 +3072,12 @@ def main(argv=None) -> int:
             wordlevel_lookup,
             wordpiece_match,
         )
-        from complexity_tokenizer_tpu_torch.ops.unigram_device import viterbi
+        from complexity_tokenizer_tpu_torch.ops.unigram_device import piece_hist, viterbi
         from complexity_tokenizer_tpu_torch.ops import trainer_device
+        from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+            pair_count,
+            train_match,
+        )
         from complexity_tokenizer_tpu_torch.utils.corpus import (
             RUN_BREAKS,
             edge_word_pack,
@@ -2641,7 +3100,7 @@ def main(argv=None) -> int:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line)
-    for path in (TOKENIZER_JSON, TOKENIZER_100K, INL_32K):
+    for path in (TOKENIZER_JSON, TOKENIZER_100K, INL_32K, UNIGRAM_32K, WORDPIECE_30K):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 4
@@ -2719,7 +3178,8 @@ def main(argv=None) -> int:
                   "decode_gather": decode_gather, "norm_stable_rows": norm_stable_rows,
                   "merge_word_rows": merge_word_rows, "wordpiece_match": wordpiece_match,
                   "wordlevel_lookup": wordlevel_lookup, "viterbi": viterbi,
-                  **{k: getattr(trainer_device, k) for k in TRAIN_KERNELS}}
+                  **{k: getattr(trainer_device, k) for k in TRAIN_KERNELS},
+                  "piece_hist": piece_hist, "train_match": train_match, "pair_count": pair_count}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
     d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
@@ -2731,9 +3191,10 @@ def main(argv=None) -> int:
     norm = drive_norm(texts, r50["host"], kernels_of, parent_build.get("kernels"))
     mdl = drive_models(texts, kernels_of, parent_build.get("kernels"))
     train = drive_train(kernels_of)
+    train2 = drive_train2(kernels_of)
     # the paths of the later slices, by name, for every kernel's launches_by_path
     new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()},
-                 **train["launches"]}
+                 **train["launches"], **train2["launches"]}
     # every kernel of a path was launched on it and no other: the text
     # pipeline runs K1 and the fixpoint of its table, the word paths one K6
     # (K3, K1 and the fixpoint folded into it) and one K4 a pack
@@ -3079,13 +3540,54 @@ def main(argv=None) -> int:
             "library_ms": main["library_ms"],
             "checks": res,
         })
+    # K12 inside the Unigram trainer: its checks and times on the E-steps
+    next(k for k in kernels if k["name"] == "viterbi")["trainer_checks"] = train2["checks"]["viterbi"]
+    # K17-K19: the WordPiece and Unigram trainers' routes
+    for name, src, wrapper, replaces, path_name in (
+        ("piece_hist", "unigram_train.cu", "ops/unigram_device.py",
+         "complexity_tokenizer_tpu/parallel/unigram_trainer.py:64", "train Unigram 32,000"),
+        ("train_match", "wordpiece_train.cu", "ops/wordpiece_train_device.py",
+         "complexity_tokenizer_tpu/parallel/wordpiece_trainer.py:197", "train WordPiece 30,522"),
+        ("pair_count", "wordpiece_train.cu", "ops/wordpiece_train_device.py",
+         "complexity_tokenizer_tpu/parallel/wordpiece_trainer.py:274", "train WordPiece 30,522"),
+    ):
+        res = train2["checks"][name]
+        main = next(r for r in res if "ms" in r)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
+            "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
+            "replaces": replaces,
+            "launches": new_paths[path_name][name],
+            "launches_path": path_name,
+            "launches_by_path": {
+                **{f"{label} {p}": counts[name]
+                   for label, r in (("50K", r50), ("100K", r100))
+                   for p, counts in r["launches"].items()},
+                **_call_launches(name, call50, call100),
+                **{p: c[name] for p, c in new_paths.items()},
+            },
+            "match": all(r["match"] for r in res),
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "inputs": main["inputs"],
+            "shape": main["shape"],
+            "ms": main["ms"],
+            "ms_cold": main["ms_cold"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "launch": main["launch"],
+            "checks": res,
+        })
     if _sha1(blob50) != blob50_sha1:
         raise AssertionError("the tracked 50K warm-cache file changed during the run")
     print(json.dumps({"call": {
         label: {"walls_s": c["walls"], "launches": c["launches"]}
         for label, c in (("50K", call50), ("100K", call100))
     }, "warm_cache": warm, "models": {"walls_s": mdl["walls"], "host_words": mdl["stats"]},
-        "train": train["walls"], "card": smi_line}))
+        "train": {**train["walls"], **train2["walls"]}, "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

@@ -10,9 +10,12 @@ The standalone models (``models/``: ByteLevel BPE, CharBPE, WordPiece,
 WordLevel) run their distinct words through kernels K9-K11, and the Unigram
 model (SentencePiece's Viterbi) its distinct texts through K12.
 
-The trainers (``Trainer``, the INL-BPE trainer, and ``BpeTrainer``) run on
-the host; ``parallel.DistributedInlTrainer`` counts pairs and applies merges
-on the card (K13-K16).
+The trainers (``Trainer``, the INL-BPE trainer, ``BpeTrainer``,
+``WordPieceTrainer`` and ``UnigramTrainer``) run on the host;
+``parallel.DistributedInlTrainer`` counts pairs and applies merges on the
+card (K13-K16), ``parallel.DistributedWordPieceTrainer`` re-tokenizes and
+counts pairs there (K18, K19) and ``parallel.DistributedUnigramTrainer``
+runs its E-step there (K12, K17).
 
 The package imports ``torch`` and ``numpy`` only: it keeps its own copy of
 every host layer it needs (loading, normalizers, the GPT-2 split and the
@@ -22,7 +25,8 @@ BPE oracle).
 from .version import __version__
 
 __all__ = ["Tokenizer", "ByteLevelBpeModel", "CharBpeModel", "UnigramModel", "WordLevelModel",
-           "WordPieceModel", "Trainer", "BpeTrainer", "__version__"]
+           "WordPieceModel", "Trainer", "BpeTrainer", "WordPieceTrainer", "WordPieceTrainerConfig",
+           "UnigramTrainer", "UnigramTrainerConfig", "__version__"]
 
 
 def __getattr__(name):
@@ -36,7 +40,8 @@ def __getattr__(name):
         from . import models
 
         return getattr(models, name)
-    if name in ("Trainer", "BpeTrainer"):
+    if name in ("Trainer", "BpeTrainer", "WordPieceTrainer", "WordPieceTrainerConfig",
+                "UnigramTrainer", "UnigramTrainerConfig"):
         from . import trainers
 
         return getattr(trainers, name)

@@ -25,6 +25,12 @@ with a single-character UNK fallback scored ``min_score - 10``
 - the backtrack writes ids at their start positions, -1 elsewhere (the
   tombstone layout); single-character fallbacks carry ``fallback_id`` (-2,
   :data:`FALLBACK_ID`), which the model maps to its UNK id.
+
+The Unigram trainer's E-step (``parallel/unigram_trainer.py``) runs K12 over
+the distinct sentences, then K17 (:func:`piece_hist`, ``csrc/unigram_train.cu``):
+the expected count of each piece, the frequency of every text that chose it
+summed into a ``[V]`` histogram, the histogram inside the JAX package's
+``_counts_program`` (``parallel/unigram_trainer.py:64-76``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from ..utils.cuda_build import check, kernel_library, launch_info
 from ..utils.device import resolve_device
 from .hashtable import INF_RANK, build_chd_table, chd_lookup
+from .merge import _ragged_index
 from .wordpiece_device import (
     _B1,
     _B2,
@@ -61,6 +68,9 @@ __all__ = [
     "viterbi",
     "split_viterbi",
     "viterbi_launch_shape",
+    "piece_hist",
+    "piece_hist_plain",
+    "piece_hist_launch_shape",
     "UnigramDevice",
 ]
 
@@ -345,6 +355,78 @@ def viterbi_launch_shape() -> dict:
     return launch_info("ctok_viterbi_info", "viterbi_launch_shape")
 
 
+# ---------------------------------------------------------------------------
+# K17: the expected counts of the pieces
+
+
+def piece_hist_plain(res, offs, freqs, gidx, V: int, n_global: int):
+    """Plain PyTorch version of K17, on any device: the histogram of
+    ``_counts_program``, ``hist[id] += freqs[text]`` over the ids >= 0 (and
+    below V) that K12 wrote for each text that is not poisoned (fallbacks,
+    -2, and -1 add nothing), and each text's poison flag at its place in the
+    corpus.
+
+    Args:
+      res: [N + 2B] int32, K12's result buffer over the texts ``offs``.
+      offs: [B + 1] int32, text j's slots are ``offs[j]:offs[j + 1]``.
+      freqs: [B] int32, each text's frequency.
+      gidx: [B] int32, each text's index in the corpus (below ``n_global``).
+      V: the histogram's size; n_global: the corpus's texts.
+    Returns:
+      [V + n_global] int32: the histogram, then 1 at ``V + gidx[j]`` for a
+      poisoned text j and 0 elsewhere (texts of other processes, the host's).
+    """
+    B = offs.numel() - 1
+    N = res.numel() - 2 * B
+    out = res[:N]
+    poison = res[N + B:] != 0
+    word, _col = _ragged_index(offs)
+    ok = (out >= 0) & (out < V) & ~poison[word]
+    buf = torch.zeros(V + n_global, dtype=torch.int32, device=res.device)
+    buf.index_add_(0, out[ok].long(), freqs[word[ok]])
+    buf[V + gidx.long()] = poison.to(torch.int32)
+    return buf
+
+
+def piece_hist(res, offs, freqs, gidx, V: int, n_global: int):
+    """K17 on CUDA tensors, the plain version on CPU tensors; same arguments
+    and result as :func:`piece_hist_plain`.  int32 atomics give the same
+    sums in any order, so K17 equals its plain version bit for bit."""
+    if res.device.type == "cpu":
+        return piece_hist_plain(res, offs, freqs, gidx, V, n_global)
+    if res.device.type != "cuda":
+        raise ValueError(f"piece_hist: unsupported device {res.device}")
+    B = offs.numel() - 1
+    N = res.numel() - 2 * B
+    if B < 0 or N < 0 or V < 1 or n_global < 0:
+        raise ValueError(f"piece_hist: res [{res.numel()}] for {B} texts, V {V}, {n_global} texts")
+    i32 = torch.int32
+    _check_args("piece_hist", (
+        ("res", res, i32, (N + 2 * B,)), ("offs", offs, i32, (B + 1,)),
+        ("freqs", freqs, i32, (B,)), ("gidx", gidx, i32, (B,)),
+    ))
+    buf = torch.zeros(V + n_global, dtype=i32, device=res.device)
+    if B == 0:
+        return buf
+    check(
+        kernel_library().lib.ctok_piece_hist(
+            res.data_ptr(), offs.data_ptr(), freqs.data_ptr(), gidx.data_ptr(), B, N, V,
+            n_global, buf.data_ptr(), torch.cuda.current_stream(res.device).cuda_stream,
+        ),
+        "piece_hist",
+    )
+    piece_hist.launches += 1
+    return buf
+
+
+piece_hist.launches = 0  # launches of K17 (not of the plain version)
+
+
+def piece_hist_launch_shape() -> dict:
+    """How the card launches K17, as :func:`viterbi_launch_shape`."""
+    return launch_info("ctok_piece_hist_info", "piece_hist_launch_shape")
+
+
 class UnigramDevice:
     """The Viterbi segmentation over ragged texts on one device (``cuda``
     unless the caller passes ``"cpu"``)."""
@@ -373,7 +455,8 @@ class UnigramDevice:
                 self.piece_lens, self.piece_scores, self.min_score,
                 self.Lt if maxcand is None else maxcand)
 
-    def pack(self, texts: list[str]):
+    @staticmethod
+    def pack(texts: list[str]):
         """K12's input for a batch of texts, ordered by length (stable), as
         K10's words (``ops/wordpiece_device.py:_pack_words``): (chars [N]
         int32, offs [B + 1] int32, lens [B] int32, order [B] (packed text j

@@ -1,5 +1,8 @@
 """Training across processes: ``DistributedInlTrainer`` (pair counts and
-merge steps on the card, kernels K13-K16) and its process-group helpers."""
+merge steps on the card, kernels K13-K16), ``DistributedWordPieceTrainer``
+(each round's greedy match and pair count, K18 and K19),
+``DistributedUnigramTrainer`` (the E-step, K12 and K17) and their
+process-group helpers."""
 
 from . import mesh
 from .mesh import initialize_distributed, rank_and_world, reduce_sum
@@ -12,4 +15,12 @@ def __getattr__(name):
         from .trainer import DistributedInlTrainer
 
         return DistributedInlTrainer
+    if name == "DistributedWordPieceTrainer":
+        from .wordpiece_trainer import DistributedWordPieceTrainer
+
+        return DistributedWordPieceTrainer
+    if name == "DistributedUnigramTrainer":
+        from .unigram_trainer import DistributedUnigramTrainer
+
+        return DistributedUnigramTrainer
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,7 +13,10 @@ word path's fill at its edges (:func:`edge_word_pack`), a decode
 vocabulary of long tokens (:func:`long_token_vocab`), and byte rows that
 reach the normalization check at a row's and a block's edge
 (:func:`norm_edge_rows`), and word rows that reach the trainer's merge step
-at its edges (:func:`merge_edge_rows`).
+at its edges (:func:`merge_edge_rows`).  The golden vocabulary of the
+WordPiece trainer at bert-base-uncased's 30,522 entries
+(:func:`wordpiece_30k_vocab`) and texts whose words reach its match at the
+lanes' edge (:func:`wordpiece_train_edge_texts`).
 """
 
 from __future__ import annotations
@@ -31,12 +34,15 @@ _CACHE = os.path.join(
 BENCH_50K = os.path.join(_CACHE, "bench_tokenizer_r4_50k.json")
 # the tracked 32,000-piece Unigram table (scripts/make_bench_unigram_32k.py)
 BENCH_UNIGRAM_32K = os.path.join(_CACHE, "bench_unigram_32k.json")
+# the tracked WordPiece vocabulary at 30,522 (scripts/make_bench_wordpiece_30k.py)
+BENCH_WORDPIECE_30K = os.path.join(_CACHE, "bench_wordpiece_30k.json")
 
 __all__ = [
     "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
     "edge_word_pack", "long_token_vocab", "merge_edge_rows", "metaspace_pieces", "norm_edge_rows",
     "norm_trap_bitmap", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
-    "wordlevel_vocab", "zipf_lexicon", "zipf_corpus",
+    "wordlevel_vocab", "wordpiece_30k_vocab", "wordpiece_train_edge_texts", "zipf_lexicon",
+    "zipf_corpus",
 ]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
@@ -462,3 +468,28 @@ def merge_edge_rows(V: int = 64, seed: int = 0) -> list[tuple]:
         freqs = rng.randint(1, 1000, size=300).astype(np.int32)
         out.append((label, words, freqs, pa, pb, new))
     return out
+
+
+def wordpiece_30k_vocab() -> list[str]:
+    """The WordPiece trainer's golden vocabulary, its entries in id order:
+    the JAX host trainer at bert-base-uncased's 30,522 entries on
+    ``zipf_corpus(10_000, seed=17)`` and :data:`MULTI_PIECES`
+    (``scripts/make_bench_wordpiece_30k.py``)."""
+    with open(BENCH_WORDPIECE_30K, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def wordpiece_train_edge_texts(seed: int = 0) -> list[str]:
+    """Texts for the WordPiece trainer whose words reach its match at the
+    lanes' edge: words of 1, 13, 127, 128 and 129 characters (the last
+    wider than the lanes, so the host tokenizes it each round), each twice
+    so ``min_frequency`` 2 keeps it, over a small alphabet so that merges
+    reach into them; with some corpus texts."""
+    rng = np.random.RandomState(seed)
+    abc = "abcdeé"
+    words = []
+    for n in (1, 13, 127, 128, 129):
+        for _ in range(3):
+            words.append("".join(abc[i] for i in rng.randint(0, len(abc), size=n)))
+    words += ["ab" * 64, "ab" * 64 + "c", "é" * 128]
+    return [" ".join(words)] * 2 + zipf_corpus(60, seed=seed)

@@ -95,6 +95,19 @@ _SIGNATURES = {
     "ctok_select_window": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P),
     # hist, V, step, ma, mb, new_id, delta, stream
     "ctok_hist_update": (_P, _I, _I, _P, _P, _I, _P, _P),
+    # res, offs, freqs, gidx, B, N, V, n_global, buf, stream
+    "ctok_piece_hist": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # info[5]
+    "ctok_piece_hist_info": (_P,),
+    # chars, offs, lens, B, table, t_mask, slot_meta, slot_chars, fb_map, lt_cap, out,
+    # poison, stream
+    "ctok_train_match": (_P, _P, _P, _I, _P, _U, _P, _P, _P, _I, _P, _P, _P),
+    # info[5]
+    "ctok_train_match_info": (_P,),
+    # out, offs, freqs, poison, B, keys, counts, t_size, res, cap, stream
+    "ctok_pair_count": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P),
+    # info[5]
+    "ctok_pair_count_info": (_P,),
 }
 
 

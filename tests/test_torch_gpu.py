@@ -1767,3 +1767,227 @@ def test_trainer_on_card_matches_cpu():
             assert runs[0].merges == runs[1].merges and len(runs[0].merges) > 300
             assert dict(runs[0].pair_freqs) == dict(runs[1].pair_freqs)
             assert dict(runs[0].token_freqs) == dict(runs[1].token_freqs)
+
+
+# ---------------------------------------------------------------------------
+# K17-K19: the WordPiece and Unigram trainers' kernels
+
+
+def _unigram_capture(texts, cfg, device="cuda"):
+    """Every device E-step's inputs of ``DistributedUnigramTrainer`` on
+    ``texts``, the tables copied (the trainer frees them)."""
+    import contextlib
+    import io
+
+    from complexity_tokenizer_tpu_torch.parallel.unigram_trainer import DistributedUnigramTrainer
+    from complexity_tokenizer_tpu_torch.trainers.unigram_trainer import UnigramTrainerConfig
+
+    kept = []
+    t = DistributedUnigramTrainer(UnigramTrainerConfig(**cfg), device=device)
+    t.capture = lambda r, inp: kept.append(inp)
+    with contextlib.redirect_stdout(io.StringIO()):
+        t.train_from_texts(texts)
+    return t, kept
+
+
+def test_k17_matches_plain():
+    """K17 against its plain version, bit for bit: on K12's results of every
+    E-step of a small training run, and on synthetic results holding ids 0
+    and V - 1, fallbacks, -1, ids at and past V and poisoned texts."""
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import (
+        piece_hist,
+        piece_hist_launch_shape,
+        piece_hist_plain,
+        viterbi,
+    )
+
+    _need_card()
+    texts = [w for t in zipf_corpus(200, seed=7) + list(MULTI_PIECES) for w in t.split()]
+    _t, kept = _unigram_capture(texts, dict(vocab_size=300, initial_vocab_size=4000,
+                                            n_iterations=4))
+    assert len(kept) >= 2
+    for inp in kept:
+        res = viterbi(*inp["viterbi"])
+        args = inp["piece_hist"]
+        before = piece_hist.launches
+        got = piece_hist(res, *args)
+        torch.cuda.synchronize()
+        assert piece_hist.launches == before + 1
+        assert torch.equal(got, piece_hist_plain(res, *args))
+    rng = np.random.RandomState(3)
+    V, B = 1000, 3000
+    lens = rng.randint(0, 129, size=B)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    out = rng.randint(-2, V + 2, size=offs[-1]).astype(np.int32)
+    out[:: 7] = 0
+    out[3:: 11] = V - 1
+    poison = (rng.rand(B) < 0.1).astype(np.int32)
+    res = torch.from_numpy(np.concatenate([out, lens.astype(np.int32), poison])).cuda()
+    freqs = torch.from_numpy(rng.randint(1, 1000, size=B).astype(np.int32)).cuda()
+    gidx = torch.from_numpy(rng.permutation(B + 50)[:B].astype(np.int32)).cuda()
+    o = torch.from_numpy(offs).cuda()
+    got = piece_hist(res, o, freqs, gidx, V, B + 50)
+    exp = piece_hist_plain(res, o, freqs, gidx, V, B + 50)
+    assert torch.equal(got, exp) and int(exp[0]) > 0 and int(exp[V - 1]) > 0
+    assert int(exp[V:].sum()) == int(poison.sum()) > 0
+    with pytest.raises(ValueError, match="freqs"):
+        piece_hist(res, o, freqs[:-1], gidx, V, B + 50)
+    shape = piece_hist_launch_shape()
+    assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape
+
+
+def _wordpiece_capture(texts, vocab_size, rounds, device="cuda"):
+    """The inputs of K18 at the given rounds of ``DistributedWordPieceTrainer``
+    on ``texts``, the tables cloned (they grow in place)."""
+    from complexity_tokenizer_tpu_torch.parallel.wordpiece_trainer import (
+        DistributedWordPieceTrainer,
+    )
+    from complexity_tokenizer_tpu_torch.trainers.wordpiece_trainer import WordPieceTrainerConfig
+
+    kept = []
+
+    def keep(r, inp):
+        if r in rounds:
+            kept.append({k: v.clone() if isinstance(v, torch.Tensor) else v
+                         for k, v in inp.items()})
+
+    t = DistributedWordPieceTrainer(WordPieceTrainerConfig(vocab_size=vocab_size), device=device)
+    t.capture = keep
+    t.train_from_texts(texts)
+    return t, kept
+
+
+def _sorted_pairs(res):
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import split_pairs
+
+    keys, counts, n, n_poison = split_pairs(res.cpu().numpy())
+    order = np.argsort(keys)
+    return keys[order].tolist(), counts[order].tolist(), n, n_poison
+
+
+def _check_k18_k19(inp):
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        PairCountScratch,
+        pair_count,
+        pair_count_plain,
+        train_match,
+        train_match_plain,
+    )
+
+    args = (inp["chars"], inp["offs"], inp["lens"], inp["table"], inp["slot_meta"],
+            inp["slot_chars"], inp["fb_map"], inp["lt_cap"])
+    before = train_match.launches, pair_count.launches
+    out, poison = train_match(*args)
+    out_p, poison_p = train_match_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_p) and torch.equal(poison, poison_p)
+    scratch = PairCountScratch(inp["chars"].numel(), "cuda")
+    got = _sorted_pairs(pair_count(out, inp["offs"], inp["freqs"], poison, scratch))
+    exp = _sorted_pairs(pair_count_plain(out, inp["offs"], inp["freqs"], poison, scratch.t_size))
+    assert got == exp
+    assert (train_match.launches, pair_count.launches) == (before[0] + 1, before[1] + 1)
+    return exp, int(poison.sum())
+
+
+def test_k18_k19_match_plain():
+    """K18 and K19 against their plain versions, bit for bit (K19 as a set of
+    (key, count), its number and the poisoned words): the trainer's inputs
+    at rounds 0, 40 and 300 on texts with words of 1, 13, 127 and 128
+    characters (and 129, which the host takes), then with every form of two
+    characters or more forged (its first character changed), which poisons
+    the words whose chosen form it is."""
+    from complexity_tokenizer_tpu_torch.utils.corpus import wordpiece_train_edge_texts
+
+    _need_card()
+    _t, kept = _wordpiece_capture(wordpiece_train_edge_texts(), 400, {0, 40, 300})
+    assert len(kept) == 3
+    for inp in kept:
+        lens = inp["lens"].cpu().numpy()
+        assert {1, 13, 127, 128} <= set(lens.tolist()) and lens.max() == 128
+        (_keys, _counts, n, _np), poisoned = _check_k18_k19(inp)
+        assert n > 0 and poisoned == 0
+    forged = dict(kept[-1])
+    forged["slot_chars"] = forged["slot_chars"].clone()
+    long_forms = forged["slot_meta"][:, 0] >= 2
+    forged["slot_chars"][long_forms, 0] += 1
+    _pairs, poisoned = _check_k18_k19(forged)
+    assert poisoned > 0
+
+
+def test_trainers_on_card_match_cpu():
+    """``DistributedWordPieceTrainer`` and ``DistributedUnigramTrainer`` on
+    the card equal the host trainers and, on a smaller case, themselves on
+    the CPU (the plain versions), launching K18 and K19 once a round and K12 and K17 once a
+    device E-step, and nothing else of the trainers' kernels."""
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import piece_hist
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import pair_count, train_match
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import viterbi
+    from complexity_tokenizer_tpu_torch.trainers import (
+        UnigramTrainer,
+        UnigramTrainerConfig,
+        WordPieceTrainer,
+        WordPieceTrainerConfig,
+    )
+    from complexity_tokenizer_tpu_torch.utils.corpus import wordpiece_train_edge_texts
+
+    _need_card()
+    texts = wordpiece_train_edge_texts(1)
+    counts = {}
+    for k in (train_match, pair_count, viterbi, piece_hist):
+        counts[k] = k.launches
+    card, _kept = _wordpiece_capture(texts, 300, set())
+    cpu, _kept = _wordpiece_capture(texts[:2], 100, set(), device="cpu")
+    small, _kept = _wordpiece_capture(texts[:2], 100, set())
+    host = WordPieceTrainer(WordPieceTrainerConfig(vocab_size=300))
+    host.train_from_texts(texts)
+    rounds = card.last_stats["rounds"] + small.last_stats["rounds"]
+    assert card.vocab == host.vocab and len(card.vocab) == 300 and small.vocab == cpu.vocab
+    assert train_match.launches - counts[train_match] == rounds
+    assert pair_count.launches - counts[pair_count] == rounds
+    assert card.last_stats["over_wide"] > 0
+    words = [w for t in zipf_corpus(150, seed=9) for w in t.split()] + ["x" * 140]
+    cfg = dict(vocab_size=200, initial_vocab_size=3000, n_iterations=5)
+    ug, _kept = _unigram_capture(words, cfg)
+    ug_cpu, _kept = _unigram_capture(words, cfg, device="cpu")
+    ug_host = UnigramTrainer(UnigramTrainerConfig(**cfg))
+    ug_host.train_from_texts(words)
+    assert ug.vocab == ug_cpu.vocab == ug_host.vocab
+    device_rounds = sum(r["route"] == "device" for r in ug.rounds)
+    assert device_rounds == len(ug.rounds) > 0
+    assert viterbi.launches - counts[viterbi] == device_rounds
+    assert piece_hist.launches - counts[piece_hist] == device_rounds
+
+
+def test_k18_k19_refuse_bad_inputs_and_launch_without_spilling():
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        PairCountScratch,
+        match_table_views,
+        pair_count,
+        pair_count_launch_shape,
+        train_match,
+        train_match_launch_shape,
+    )
+
+    _need_card()
+    chars = torch.zeros(8, dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 2, 4, 6, 8], dtype=torch.int32, device="cuda")
+    lens = torch.full((4,), 2, dtype=torch.int32, device="cuda")
+    buf = torch.zeros(4 * 64 + 130 * 16, dtype=torch.int32, device="cuda")
+    table, meta, schars = match_table_views(buf, 64, 16)
+    fb = torch.full((2, 0x110000), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="lt_cap"):
+        train_match(chars, offs, lens, table, meta, schars, fb, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        train_match(chars, offs, lens, table[:48], meta, schars, fb, 8)
+    with pytest.raises(ValueError, match="offs"):
+        train_match(chars, offs[:4], lens, table, meta, schars, fb, 8)
+    out, poison = train_match(chars, offs, lens, table, meta, schars, fb, 8)
+    assert poison.tolist() == [1, 1, 1, 1]  # no fallback symbol for any character
+    small = PairCountScratch(8, "cuda")
+    small.t_size = 32
+    with pytest.raises(ValueError, match="table"):
+        pair_count(out, offs, lens, poison, small)
+    with pytest.raises(ValueError, match="poison"):
+        pair_count(out, offs, lens, poison.bool(), PairCountScratch(8, "cuda"))
+    for shape in (train_match_launch_shape(), pair_count_launch_shape()):
+        assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape

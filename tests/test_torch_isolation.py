@@ -244,3 +244,24 @@ def test_device_trainer_without_device_raises_without_card(no_card):
     t = DistributedInlTrainer(vocab_size=270, min_frequency=1, device="cpu")
     t.train_from_texts(["ab ab abc", "abc ab"])
     assert t.device.type == "cpu" and t.merges[:2] == [("a", "b"), ("Ġ", "ab")]
+
+
+@pytest.mark.parametrize("name", ["DistributedWordPieceTrainer", "DistributedUnigramTrainer"])
+def test_wordpiece_and_unigram_device_trainers_raise_without_card(no_card, name):
+    """``DistributedWordPieceTrainer`` and ``DistributedUnigramTrainer`` run
+    on ``cuda`` unless given ``device="cpu"``: with no card they raise at
+    construction, and on the CPU they train (the kernels' plain versions)."""
+    from complexity_tokenizer_tpu_torch import parallel, trainers
+
+    cls = getattr(parallel, name)
+    cfg_cls = (trainers.WordPieceTrainerConfig if "WordPiece" in name
+               else trainers.UnigramTrainerConfig)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(cfg_cls(vocab_size=40), device="cuda")
+    t = cls(cfg_cls(vocab_size=40, **({"min_frequency": 1} if "WordPiece" in name
+                                       else {"initial_vocab_size": 200, "n_iterations": 2})),
+            device="cpu")
+    t.train_from_texts(["ab ab abc", "abc ab"] * 3)
+    assert t.device.type == "cpu" and len(t.vocab) > 5

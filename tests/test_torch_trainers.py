@@ -201,17 +201,32 @@ def test_train_new_from_iterator_matches_jax():
 def test_package_exports():
     import complexity_tokenizer_tpu_torch as pkg
     from complexity_tokenizer_tpu_torch import parallel, trainers
+    from complexity_tokenizer_tpu_torch.parallel.unigram_trainer import DistributedUnigramTrainer
+    from complexity_tokenizer_tpu_torch.parallel.wordpiece_trainer import (
+        DistributedWordPieceTrainer,
+    )
+    from complexity_tokenizer_tpu_torch.trainers.unigram_trainer import (
+        UnigramTrainer,
+        UnigramTrainerConfig,
+    )
+    from complexity_tokenizer_tpu_torch.trainers.wordpiece_trainer import (
+        WordPieceTrainer,
+        WordPieceTrainerConfig,
+    )
 
     assert pkg.Trainer is InlBpeTrainer and pkg.BpeTrainer is BpeTrainer
     assert parallel.DistributedInlTrainer is DistributedInlTrainer
-    # the WordPiece and Unigram trainers come with a later slice
-    for name in ("WordPieceTrainer", "UnigramTrainer"):
-        with pytest.raises(AttributeError):
-            getattr(pkg, name)
-        with pytest.raises(AttributeError):
-            getattr(trainers, name)
+    # the WordPiece and Unigram trainers, on the host and on the card
+    for mod in (pkg, trainers):
+        assert mod.WordPieceTrainer is WordPieceTrainer
+        assert mod.WordPieceTrainerConfig is WordPieceTrainerConfig
+        assert mod.UnigramTrainer is UnigramTrainer
+        assert mod.UnigramTrainerConfig is UnigramTrainerConfig
+    assert {"WordPieceTrainer", "UnigramTrainer"} <= set(pkg.__all__) & set(trainers.__all__)
+    assert parallel.DistributedWordPieceTrainer is DistributedWordPieceTrainer
+    assert parallel.DistributedUnigramTrainer is DistributedUnigramTrainer
     with pytest.raises(AttributeError):
-        parallel.DistributedUnigramTrainer
+        parallel.DistributedBpeTrainer
 
 
 def _train_both(cfg, texts, monkeypatch, max_v=None, window_t=None):
