@@ -31,6 +31,15 @@ Phases (each prints its seconds):
    K1 and the fixpoint of its table, the word paths K6 and K4 (the fill in
    two launches) and not K1, K2, K3 or K5.  The first ``[B, L]`` batch and
    word pack of every shape are kept.
+   Then the sharded and the phased fill at both vocabularies
+   (``drive_shards``): every distinct word again, unsharded, sharded over
+   ``[cuda:0]`` and over ``[cuda:0, cuda:0]`` (two blocks on two streams;
+   the machine has one card), phased (``CTOK_PHASE_N1=6``: K20, the
+   fixpoint, K4's phased mode) and phased over two blocks, two rounds in
+   turns; each variant's ids and counts equal the unsharded fill's and the
+   host merge's bit for bit, each launches its kernels only, and each
+   variant's wall is printed on a line of its own; and the text pipeline
+   over ``[cuda:0, cuda:0]`` against the host oracle.
    Then decode (``drive_decode``) at both vocabularies, on the ids the
    corpus encoded to (every seventh row framed by special ids): the device
    pipeline (``decode_pipeline("cuda")``, K7) in its batch and ragged
@@ -163,7 +172,11 @@ Phases (each prints its seconds):
    warm and cold.  K6 and the fill also on both probes with both id widths
    (the 50K CHD table, and int32 ids at 50K) and on ``edge_word_pack``
    rows; the fill also replayed from a CUDA graph (K4 is K6's programmatic
-   dependent).  Kernels and the library expression are timed by replaying a CUDA
+   dependent).  On the same packs, the phased fill at ``n1 = 6``
+   (``check_phased``): K20 and K4's phased mode against their plain
+   versions, the phased fill against its plain versions on the card and on
+   the CPU, K20 and K4's phased mode timed warm, cold and plainly beside
+   their bounds, and the phased and the unphased fill in turns.  Kernels and the library expression are timed by replaying a CUDA
    graph, the plain versions that synchronise with CUDA events around
    their calls (``_time_ms``).  K7 (``check_decode``, one launch a call) at
    both vocabularies on the corpus's rows, random ids at ``[8192, 128]``
@@ -178,7 +191,8 @@ Phases (each prints its seconds):
    warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-The kernels' line lists K1-K19 (``launches_by_path``: every path above).
+The kernels' line lists K1-K20 and K4's phased mode (``launches_by_path``:
+every path above).
 Any failure raises and the script exits nonzero without the last line.
 Needs the repository beside it and imports nothing of JAX.
 """
@@ -690,6 +704,117 @@ def check_word_fill(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int,
     )
 
 
+PHASE_N1 = 6  # the phased fill's steps before its compaction (CTOK_PHASE_N1)
+
+
+def check_phased(label: str, tb, cpu_tb, a, bits, row_len, itemsize: int) -> tuple:
+    """The phased fill on one pack (on the card), at ``PHASE_N1`` steps:
+    K20 (block-flat word ids, the seed, the JAX steps, the half-row
+    compaction) against its plain version on the card, bit for bit (tokens,
+    word ids, kept lanes); K4's phased mode on the fixpoint's rows against
+    its plain version; the phased fill (K20, K2 or K5, K4's phased mode)
+    against its plain versions on the card and on the CPU, byte for byte.
+    K20 and K4's phased mode timed warm, cold and plainly; the phased and
+    the unphased fill (K6, K4) in turns, warm.  K20's bound counts the
+    pack's bytes, start bits, lengths and byte table in, the half rows
+    (tokens and word ids) and kept lanes out, and the table bytes its
+    first phase's probes touch (every adjacent pair of a word once and the
+    two new pairs of each merge it makes), once each.  Returns (K20, K4
+    phased mode) results."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.merge import segmented_fixpoint_bounded_plain
+    from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens_plain
+    from complexity_tokenizer_tpu_torch.ops.wordfill import (
+        block_word_ids_plain,
+        fill_compact_phased,
+        fill_compact_phased_plain,
+        fill_layout_phased,
+        phase_compact,
+        phase_compact_plain,
+        word_fill,
+        word_fill_phased,
+        word_fill_phased_plain,
+    )
+
+    B, W = a.shape
+    cap = B * W * 3 // 8
+    n1 = PHASE_N1
+    got = phase_compact(a, bits, row_len, n1, tables=tb)
+    exp = phase_compact_plain(a, bits, row_len, n1, tables=tb)
+    torch.cuda.synchronize()
+    match20 = all(torch.equal(g, e) for g, e in zip(got, exp))
+    err20 = max(_max_abs_err(g, e) for g, e in zip(got, exp))
+    t2, w2, kept = got
+    merged, count = tb.merge_fixpoint(t2, w2)
+    got4 = fill_compact_phased(merged, count, w2, kept, cap, itemsize)
+    exp4 = fill_compact_phased_plain(merged, count, w2, kept, cap, itemsize)
+    match4 = bool(torch.equal(got4, exp4))
+    err4 = _max_abs_err(got4, exp4)
+    fill = word_fill_phased(a, bits, row_len, cap, n1, tables=tb, itemsize=itemsize)
+    plain = word_fill_phased_plain(a, bits, row_len, cap, n1, tables=tb, itemsize=itemsize)
+    cpu = word_fill_phased(a.cpu(), bits.cpu(), row_len.cpu(), cap, n1, tables=cpu_tb,
+                           itemsize=itemsize)
+    torch.cuda.synchronize()
+    match_fill = bool(torch.equal(fill, plain) and torch.equal(fill.cpu(), cpu))
+    total = int(fill[-4:].cpu().numpy().view("int32")[0])
+    spilled = bool((kept > W // 2).any())
+    print(
+        f"[phased] {label} [{B},{W}] n1={n1}: K20 == plain (card) {match20}; K4 phased mode == "
+        f"plain {match4}; phased fill (K20 + fixpoint + K4 phased) == plain (card) == plain (CPU) "
+        f"{match_fill}; rows kept up to {int(kept.max())} of {W} lanes "
+        f"({'spills: B*W + 1 in the total' if spilled else 'fits'}), total {total}",
+        flush=True,
+    )
+    if not (match20 and match4 and match_fill):
+        raise AssertionError(f"the phased fill's kernels differ from their plain versions: "
+                             f"{label} [{B},{W}]")
+    reps = 50
+    out20 = 4 * B * W + 4 * B
+    k20_ms, k20_cold, k20_plain = _timings(
+        lambda: phase_compact(a, bits, row_len, n1, tables=tb),
+        lambda: phase_compact_plain(a, bits, row_len, n1, tables=tb),
+        lambda x, y, z: phase_compact(x, y, z, n1, tables=tb), (a, bits, row_len), out20,
+    )
+    out4 = fill_layout_phased(B, W, cap, itemsize)[3]
+    k4_ms, k4_cold, k4_plain = _timings(
+        lambda: fill_compact_phased(merged, count, w2, kept, cap, itemsize),
+        lambda: fill_compact_phased_plain(merged, count, w2, kept, cap, itemsize),
+        lambda m, c, w, k: fill_compact_phased(m, c, w, k, cap, itemsize),
+        (merged, count, w2, kept), out4,
+    )
+    phased_ms, unphased_ms = _in_turns(
+        lambda: word_fill_phased(a, bits, row_len, cap, n1, tables=tb, itemsize=itemsize),
+        lambda: word_fill(a, bits, row_len, cap, tables=tb, itemsize=itemsize), reps)
+    # the first phase's probes: every adjacent pair of a word, and the two
+    # new pairs of each merge the n1 steps make
+    tokens = seed_tokens_plain(a, row_len, tb.byte_token_table)
+    wid = block_word_ids_plain(bits, row_len)
+    after = segmented_fixpoint_bounded_plain(tokens, wid, tb.pair_lookup, n1)
+    table = "qc" if tb.qc_t1 is not None else "chd"
+    probes, merges, table_bytes, ops = _probe_work(
+        tb, table, tokens, wid, (after >= 0).sum(dim=1, dtype=torch.int32))
+    b20, by20 = _bound(B * W + B * W // 8 + 4 * B + 4 * 256 + out20 + table_bytes, ops)
+    b4, by4 = _bound(4 * B * W + 2 * B + 4 * B + out4, B * W // 2)
+    print(
+        f"[phased] {label} [{B},{W}] K20 warm={k20_ms:.4f} ms cold={k20_cold:.4f} ms "
+        f"plain={k20_plain:.4f} ms bound={b20:.4f} ms ({by20}; {probes} probes, {merges} merges "
+        f"in {n1} steps; warm share {b20 / k20_ms:.3f}); K4 phased mode warm={k4_ms:.4f} ms "
+        f"cold={k4_cold:.4f} ms plain={k4_plain:.4f} ms bound={b4:.4f} ms ({by4}); in turns the "
+        f"phased fill {phased_ms[0]:.4f}, {phased_ms[1]:.4f} ms against the unphased fill (K6 + "
+        f"K4) {unphased_ms[0]:.4f}, {unphased_ms[1]:.4f} ms",
+        flush=True,
+    )
+    common = dict(inputs=label, shape=[B, W], library_ms=None, n1=n1, spilled=spilled)
+    return (
+        dict(common, match=match20 and match_fill, max_abs_err=err20, ms=k20_ms, ms_cold=k20_cold,
+             plain_ms=k20_plain, bound_ms=b20, bound_by=by20, probes=probes, merges=merges,
+             kept_max=int(kept.max()), phased_fill_ms=phased_ms, unphased_fill_ms=unphased_ms),
+        dict(common, match=match4, max_abs_err=err4, ms=k4_ms, ms_cold=k4_cold,
+             plain_ms=k4_plain, bound_ms=b4, bound_by=by4, cap=cap, itemsize=itemsize),
+    )
+
+
 def check_k6_probes(label: str, tables: list, a, bits, row_len) -> None:
     """K6 against K3 -> K1 -> the fixpoint on one pack, merged rows and
     counts bit for bit, for each (probe, tables) of ``tables`` ("qc": the
@@ -1037,6 +1162,128 @@ def drive_paths(label: str, path: str, texts: list[str], kernels_of: dict, nativ
     _phase(f"{label}: backend=auto", t0)
     return dict(launches=out, batches=batches, shapes=shapes, packs=packs, pipe=pipe, wp=wp,
                 tok=tok, host=host)
+
+
+# the fill variants of drive_shards: (name, mesh or None, CTOK_PHASE_N1)
+FILL_VARIANTS = (
+    ("unsharded", None, 0),
+    ("one block", ["cuda:0"], 0),
+    ("two blocks", ["cuda:0", "cuda:0"], 0),
+    ("phased", None, 6),
+    ("phased, two blocks", ["cuda:0", "cuda:0"], 6),
+)
+
+
+def drive_shards(label: str, r: dict, texts: list[str], kernels_of: dict, native) -> dict:
+    """The sharded and the phased fill on one configuration: every distinct
+    word of the corpus (the words of drive_paths' "every distinct word")
+    through ``DeviceWordEncoder._encode_words_packed`` on a fresh native
+    context, in each of ``FILL_VARIANTS``: unsharded, sharded over
+    ``[cuda:0]`` (one block) and over ``[cuda:0, cuda:0]`` (two blocks on
+    two streams, ``parallel.shard_word_encoder``), phased
+    (``CTOK_PHASE_N1=6``: K20, the fixpoint, K4's phased mode; a spilled
+    pack again through K6 and K4) and phased over two blocks.  Two rounds
+    in turns; the launch counts set to 0 just before each call and read
+    just after.  Every variant's ids and counts equal the unsharded fill's
+    and the host merge's bit for bit; each launches its kernels and no
+    other.  Then the text pipeline split over ``[cuda:0, cuda:0]``
+    (``parallel.shard_encode_pipeline``) against the host oracle.  Prints
+    each variant's wall on a line of its own.  Returns the launches by
+    path, the walls and the per-variant fill statistics."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.pipeline import build_encode_pipeline
+    from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
+    from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
+    from complexity_tokenizer_tpu_torch.parallel import (
+        data_mesh,
+        shard_encode_pipeline,
+        shard_word_encoder,
+    )
+
+    t0 = time.perf_counter()
+    tok, pipe = r["tok"], r["pipe"]
+    fixpoint = "merge_fixpoint_qc" if pipe.tables.qc_t1 is not None else "merge_fixpoint_chd"
+
+    def fresh_native():
+        return native.NativeEncoder(tok.bpe.packed_merge_arrays(), byte_token_table(tok.bpe.vocab))
+
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
+    words, lens = fresh_native().collect_miss_words(data, 128)
+    exp_ids, exp_counts = fresh_native().warm_start(words, lens)
+    encoders = {}
+    for name, mesh, n1 in FILL_VARIANTS:
+        saved = os.environ.get("CTOK_PHASE_N1")
+        os.environ["CTOK_PHASE_N1"] = str(n1)
+        try:
+            wp = DeviceWordEncoder(pipe, fresh_native())
+            if wp._phase_n1 != n1:
+                raise AssertionError(f"[{label}] CTOK_PHASE_N1={n1} read as {wp._phase_n1}")
+        finally:
+            if saved is None:
+                del os.environ["CTOK_PHASE_N1"]
+            else:
+                os.environ["CTOK_PHASE_N1"] = saved
+        if mesh is not None:
+            shard_word_encoder(wp, data_mesh(devices=mesh))
+        encoders[name] = wp
+    launches: dict = {}
+    walls: dict = {name: [] for name, _m, _n in FILL_VARIANTS}
+    stats: dict = {}
+    for rnd in range(2):
+        for name, mesh, n1 in FILL_VARIANTS:
+            wp = encoders[name]
+            (ids, counts), counts_l, wall = _drive_launches(
+                kernels_of, lambda wp=wp: wp._encode_words_packed(words, lens))
+            walls[name].append(wall)
+            fill = wp.last_fill
+            path = f"{label} every distinct word, {name}"
+            if not (np.array_equal(counts, exp_counts) and np.array_equal(ids, exp_ids)):
+                bad = int((counts != exp_counts).sum())
+                raise AssertionError(f"[{path}] ids or counts differ from the unsharded fill "
+                                     f"and the host merge ({bad} counts differ)")
+            packs, blocks = sum(fill["packs"].values()), fill["blocks"]
+            if n1 == 0:
+                need = {"word_merge": (packs + fill["spills"]) * blocks,
+                        "fill_compact": (packs + fill["spills"]) * blocks}
+            else:
+                # a pack's blocks each go through K20, the fixpoint and K4's
+                # phased mode; a spilled pack again unphased through K6, K4
+                need = {"phase_compact": packs * blocks, fixpoint: packs * blocks,
+                        "fill_compact_phased": packs * blocks,
+                        "word_merge": fill["spills"] * blocks,
+                        "fill_compact": fill["spills"] * blocks}
+            _need_only(path, counts_l, {k: v for k, v in need.items() if v})
+            if rnd == 0:
+                launches[path] = counts_l
+                stats[name] = dict(packs=dict(sorted(fill["packs"].items())),
+                                   spills=fill["spills"], blocks=fill["blocks"],
+                                   phase_n1=fill["phase_n1"])
+    for name, _mesh, _n1 in FILL_VARIANTS:
+        st = stats[name]
+        print(
+            f"[{label}] fill wall, {name}: {walls[name][0]:.4f} s first, {walls[name][1]:.4f} s "
+            f"second ({len(lens)} words; packs {st['packs']}, blocks {st['blocks']}, "
+            f"CTOK_PHASE_N1={st['phase_n1']}, spills {st['spills']}); ids and counts equal the "
+            f"unsharded fill and the host merge",
+            flush=True,
+        )
+    # the text pipeline over two blocks on one card
+    sp = build_encode_pipeline(tok, "cuda")
+    shard_encode_pipeline(sp, data_mesh(devices=["cuda:0", "cuda:0"]))
+    got, counts_l, wall = _drive_launches(kernels_of, lambda: text_pipeline_encode(tok, sp, texts))
+    _compare(f"[{label}] text pipeline, two blocks", texts, got, r["host"])
+    _need_only(f"{label} text pipeline, two blocks", counts_l,
+               {"seed_tokens": None, fixpoint: None})
+    if counts_l["seed_tokens"] != counts_l[fixpoint] or counts_l["seed_tokens"] % 2:
+        raise AssertionError(f"[{label}] the two-block text pipeline launched K1 and the "
+                             f"fixpoint {counts_l['seed_tokens']} / {counts_l[fixpoint]} times")
+    launches[f"{label} text pipeline, two blocks"] = counts_l
+    print(f"[{label}] text pipeline over [cuda:0, cuda:0]: {wall:.3f} s, equal to the host oracle; "
+          f"launches {counts_l}", flush=True)
+    _phase(f"{label}: sharded and phased fills", t0)
+    return dict(launches=launches, walls=walls, stats=stats, text_two_blocks_s=wall)
 
 
 def _ragged_on_card(rows):
@@ -3064,6 +3311,8 @@ def main(argv=None) -> int:
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
         from complexity_tokenizer_tpu_torch.ops.wordfill import (
             fill_compact,
+            fill_compact_phased,
+            phase_compact,
             word_ids,
             word_ids_plain,
             word_merge,
@@ -3179,9 +3428,12 @@ def main(argv=None) -> int:
                   "merge_word_rows": merge_word_rows, "wordpiece_match": wordpiece_match,
                   "wordlevel_lookup": wordlevel_lookup, "viterbi": viterbi,
                   **{k: getattr(trainer_device, k) for k in TRAIN_KERNELS},
-                  "piece_hist": piece_hist, "train_match": train_match, "pair_count": pair_count}
+                  "piece_hist": piece_hist, "train_match": train_match, "pair_count": pair_count,
+                  "phase_compact": phase_compact, "fill_compact_phased": fill_compact_phased}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
+    s50 = drive_shards("50K", r50, texts, kernels_of, native)
+    s100 = drive_shards("100K", r100, texts, kernels_of, native)
     d50 = drive_decode("50K", r50["tok"], r50["host"], kernels_of)
     d100 = drive_decode("100K", r100["tok"], r100["host"], kernels_of)
     added = drive_added_tokens(TOKENIZER_JSON, texts, kernels_of)
@@ -3193,7 +3445,8 @@ def main(argv=None) -> int:
     train = drive_train(kernels_of)
     train2 = drive_train2(kernels_of)
     # the paths of the later slices, by name, for every kernel's launches_by_path
-    new_paths = {**norm["launches"], **{f"model {k}": v for k, v in mdl["launches"].items()},
+    new_paths = {**s50["launches"], **s100["launches"], **norm["launches"],
+                 **{f"model {k}": v for k, v in mdl["launches"].items()},
                  **train["launches"], **train2["launches"]}
     # every kernel of a path was launched on it and no other: the text
     # pipeline runs K1 and the fixpoint of its table, the word paths one K6
@@ -3220,6 +3473,8 @@ def main(argv=None) -> int:
     k3_res: list[dict] = []
     k4_res: list[dict] = []
     k6_res: list[dict] = []
+    k20_res: list[dict] = []
+    k4p_res: list[dict] = []
     packs, batches = r50["packs"], r50["batches"]
     # 50K: K5 on the same rows as K2 (on the vocabulary's CHD table, which
     # the pipeline does not build where the cuckoo table fits), so the cost
@@ -3231,6 +3486,9 @@ def main(argv=None) -> int:
         k3_res.append(r3)
         k4_res.append(r4)
         k6_res.append(r6)
+        r20, r4p = check_phased("word pack", tb, cpu_tb, a, bits, row_len, itemsize)
+        k20_res.append(r20)
+        k4p_res.append(r4p)
         check_k6_probes("word pack", [("qc", tb), ("chd", tb_chd)], a, bits, row_len)
         seed_res.append(check_seed("word pack", a, row_len, tb.byte_token_table))
         wid = word_ids_plain(bits, row_len)
@@ -3298,6 +3556,9 @@ def main(argv=None) -> int:
         k3_res.append(r3)
         k4_res.append(r4)
         k6_res.append(r6)
+        r20, r4p = check_phased("word pack, 100K", tb, cpu_tb, a, bits, row_len, itemsize)
+        k20_res.append(r20)
+        k4p_res.append(r4p)
         check_k6_probes("word pack, 100K", [("chd", tb)], a, bits, row_len)
         seed_res.append(check_seed("word pack, 100K", a, row_len, tb.byte_token_table, timed=False))
         chd_res.append(check_merge("word pack", tb, a, row_len, wid=word_ids_plain(bits, row_len),
@@ -3540,6 +3801,45 @@ def main(argv=None) -> int:
             "library_ms": main["library_ms"],
             "checks": res,
         })
+    # K20 and K4's phased mode: the phased fill (CTOK_PHASE_N1), on the
+    # 50K word path's largest pack; launches on the phased fill of every
+    # distinct word
+    for name, res, src, wrapper, replaces in (
+        ("phase_compact", k20_res, "kernels.cu", "ops/wordfill.py",
+         "complexity_tokenizer_tpu/ops/merge.py:294"),
+        ("fill_compact_phased", k4p_res, "wordfill.cu", "ops/wordfill.py",
+         "complexity_tokenizer_tpu/ops/wordpath.py:303"),
+    ):
+        largest = [max(r50["packs"]), 128]
+        main = next(r for r in res if r["inputs"] == "word pack" and r["shape"] == largest)
+        path_name = "50K every distinct word, phased"
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
+            "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
+            "replaces": replaces,
+            "launches": new_paths[path_name][name],
+            "launches_path": path_name,
+            "launches_by_path": {
+                **{f"{label} {p}": counts[name]
+                   for label, r in (("50K", r50), ("100K", r100))
+                   for p, counts in r["launches"].items()},
+                **_call_launches(name, call50, call100),
+                **{p: c[name] for p, c in new_paths.items()},
+            },
+            "match": all(r["match"] for r in res),
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "inputs": main["inputs"],
+            "shape": main["shape"],
+            "ms": main["ms"],
+            "ms_cold": main["ms_cold"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "checks": res,
+        })
     # K12 inside the Unigram trainer: its checks and times on the E-steps
     next(k for k in kernels if k["name"] == "viterbi")["trainer_checks"] = train2["checks"]["viterbi"]
     # K17-K19: the WordPiece and Unigram trainers' routes
@@ -3587,7 +3887,11 @@ def main(argv=None) -> int:
         label: {"walls_s": c["walls"], "launches": c["launches"]}
         for label, c in (("50K", call50), ("100K", call100))
     }, "warm_cache": warm, "models": {"walls_s": mdl["walls"], "host_words": mdl["stats"]},
-        "train": {**train["walls"], **train2["walls"]}, "card": smi_line}))
+        "train": {**train["walls"], **train2["walls"]},
+        "fill_walls_s": {"50K": s50["walls"], "100K": s100["walls"]},
+        "text_pipeline_two_blocks_s": {"50K": s50["text_two_blocks_s"],
+                                       "100K": s100["text_two_blocks_s"]},
+        "card": smi_line}))
     print(json.dumps({"kernels": kernels}))
     print(f"power: {smi_line}")
     _phase("total", t_start)

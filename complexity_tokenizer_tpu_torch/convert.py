@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .ops.hashtable import chd_lookup_rows, qc_lookup
 from .ops.merge import merge_words, merge_words_qc
 from .ops.wordfill import word_merge_chd, word_merge_qc
 
@@ -46,6 +47,16 @@ class TorchTables:
         return merge_words(
             tokens, wid, self.chd_disp, self.chd_rows, self.chd_size, self.chd_n_buckets
         )
+
+    def pair_lookup(self, a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor):
+        """(rank, minted) of each pair ``(a, b)`` in the table that
+        ``merge_fixpoint`` picks, ``INF_RANK`` on a miss or where
+        ``~valid``: the plain probe (the JAX package's
+        ``EncodePipeline.pair_lookup``)."""
+        if self.qc_t1 is not None:
+            return qc_lookup(self.qc_t1, self.qc_t2, self.qc_size, a, b, valid)
+        return chd_lookup_rows(self.chd_disp, self.chd_rows, self.chd_size, self.chd_n_buckets,
+                               a, b, valid)
 
     def word_merge(self, bytes_bw, start_bits, row_len):
         """The merge of one pack of word rows over these tables (K6, or its

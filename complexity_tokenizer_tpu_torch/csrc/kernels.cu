@@ -1296,6 +1296,208 @@ cudaError_t launch_seed(const uint8_t* arr, const int32_t* lens,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K20: the phased fill's first phase and its lane compaction.
+//
+// Replaces, of the JAX package's phased fill body
+// (complexity_tokenizer_tpu/ops/wordpath.py, DeviceWordEncoder.
+// _local_fill_body with CTOK_PHASE_N1 = n1), the start-bit unpack, the word
+// ids, the byte seed and, of ops/merge.py:phased_merge_words, the first n1
+// steps (_segmented_fixpoint_bounded) and the compaction into half rows:
+// packed word rows [B, W] -> tokens [B/2, W] int32 and word ids wid2
+// [B/2, W] int32, and kept [B] int32, each input row's kept lanes (a row
+// with more than W/2 spills; K4's phased mode reports it).  The fixpoint
+// then finishes on the [B/2, W] rows in K2 or K5 with wid2 as word ids, and
+// K4's phased mode (wordfill.cu) writes the fused buffer.  Bit for bit
+// ops/wordfill.py:phase_compact_plain.
+//
+// Three things differ from K6 and must not:
+// - Word ids count the starts over the whole pack (block-flat), as the JAX
+//   body's cumsum over the flattened pack: row 2k + 1's first word meets
+//   row 2k's last one in the same fused row, and with row-local ids a row
+//   holding one word would give both the id 0.  Each block counts the start
+//   bits before row_len of the rows before its own (a popcount a 32-bit
+//   word, at most a few thousand loads from L2).
+// - The steps are the JAX step, not K2's greedy one: in each word every
+//   occurrence of its lowest-rank pair merges, except one whose previous
+//   alive lane also starts a best pair (so a run of n equal tokens takes
+//   about n/2 steps where K2 takes one).  After n1 steps the two differ,
+//   and so would the compacted layout and which packs spill.
+// - A word's first lane is kept even when dead (an all-OOV word keeps its
+//   slot and its start bit) and stays a tombstone in the finishing
+//   fixpoint.
+//
+// Design: a block a row, a thread a lane (W threads, W % 32 == 0, at most
+// 1,024), the row in shared memory.  A step: a ballot of the alive lanes;
+// each lane finds its next and previous alive lanes in the mask, probes its
+// pair, and takes its word's minimum with a shared atomicMin at the word's
+// first lane (words are the static runs of equal ids, as the JAX segments);
+// two more ballots give the best and the selected lanes.  The block ends
+// early when a step selects nothing, as the JAX loop.  Then a ballot and a
+// prefix over the warps give each kept lane its place.  A simple kernel:
+// its bound and time are in PERF.md, section 6.
+constexpr int kPhaseMaxW = 1024;
+
+// the first set bit of the [W/32] mask m at or after `from`, or W
+__device__ __forceinline__ int next_set(const uint32_t* m, int from, int W) {
+  if (from >= W) return W;
+  int k = from >> 5;
+  uint32_t x = m[k] & (kFull << (from & 31));
+  while (!x) {
+    if (++k >= (W >> 5)) return W;
+    x = m[k];
+  }
+  return (k << 5) + __ffs(x) - 1;
+}
+
+// the last set bit of the mask m at or before `from`, or -1
+__device__ __forceinline__ int prev_set(const uint32_t* m, int from) {
+  if (from < 0) return -1;
+  int k = from >> 5;
+  uint32_t x = m[k] & (kFull >> (31 - (from & 31)));
+  while (!x) {
+    if (--k < 0) return -1;
+    x = m[k];
+  }
+  return (k << 5) + 31 - __clz(x);
+}
+
+__device__ __forceinline__ bool bit_of(const uint32_t* m, int i) {
+  return (m[i >> 5] >> (i & 31)) & 1u;
+}
+
+// the sum of x over the warps before this one (x the same in every lane of
+// a warp) and, in *total, over the block; every thread of the block calls it
+__device__ __forceinline__ int warps_before(int x, int* scratch, int nw, int warp, int lane,
+                                            int* total) {
+  if (lane == 0) scratch[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int k = 0; k < nw; ++k) {
+    const int v = scratch[k];
+    all += v;
+    before += k < warp ? v : 0;
+  }
+  *total = all;
+  __syncthreads();  // scratch is free again
+  return before;
+}
+
+template <class P>
+__global__ void __launch_bounds__(kPhaseMaxW)
+phase_compact_kernel(const uint8_t* __restrict__ bytes,
+                     const uint32_t* __restrict__ start_bits,
+                     const int32_t* __restrict__ row_len,
+                     const int32_t* __restrict__ byte_table, P tb, int n1,
+                     int32_t* __restrict__ out_t, int32_t* __restrict__ out_w,
+                     int32_t* __restrict__ kept, int W) {
+  __shared__ int32_t s_t[kPhaseMaxW], s_w[kPhaseMaxW];
+  __shared__ uint32_t s_min[kPhaseMaxW];
+  __shared__ uint32_t m_alive[kPhaseMaxW / 32], m_best[kPhaseMaxW / 32],
+      m_sel[kPhaseMaxW / 32], m_seg[kPhaseMaxW / 32];
+  __shared__ int scratch[kPhaseMaxW / 32];
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5, nw = W >> 5;
+  const int64_t r = blockIdx.x;
+  const int words = W >> 5;  // 32-bit words of start bits a row
+  auto len_of = [&](int64_t row) { return min(max(__ldg(row_len + row), 0), W); };
+
+  // the starts of the rows before this one (block-flat word ids)
+  int before = 0;
+  for (int64_t j = i; j < r; j += W) {
+    const int lj = len_of(j);
+    const uint32_t* sw = start_bits + j * words;
+    for (int k = 0; k < words && 32 * k < lj; ++k) {
+      uint32_t x = __ldg(sw + k);
+      if (lj - 32 * k < 32) x &= (1u << (lj - 32 * k)) - 1u;
+      before += __popc(x);
+    }
+  }
+  before = __reduce_add_sync(kFull, before);
+  int dummy;
+  warps_before(before, scratch, nw, warp, lane, &before);
+
+  // this row: word ids, the seed, the static word runs
+  const int len = len_of(r);
+  const bool st = i < len && ((__ldg(start_bits + r * words + warp) >> lane) & 1u);
+  const uint32_t sm = __ballot_sync(kFull, st);
+  const int sw_before = warps_before(__popc(sm), scratch, nw, warp, lane, &dummy);
+  const int32_t w = i < len ? before + sw_before + __popc(sm & ((2u << lane) - 1u)) - 1 : -1;
+  s_w[i] = w;
+  s_t[i] = i < len ? __ldg(byte_table + bytes[r * W + i]) : -1;
+  __syncthreads();
+  const bool seg_start = i == 0 || w != s_w[i - 1];
+  const uint32_t seg = __ballot_sync(kFull, seg_start);
+  if (lane == 0) m_seg[warp] = seg;
+  __syncthreads();
+  const int head = prev_set(m_seg, i);  // the first lane of this lane's word run
+
+  // n1 JAX steps, fewer when a step selects nothing
+  for (int step = 0, any = 1; step < n1 && any; ++step) {
+    const int32_t t = s_t[i];
+    const bool alive = t >= 0;
+    const uint32_t am = __ballot_sync(kFull, alive);
+    if (lane == 0) m_alive[warp] = am;
+    s_min[i] = kMiss;
+    __syncthreads();
+    const int nx = next_set(m_alive, i + 1, W);
+    uint32_t key = kMiss;
+    typename P::Entry e = P::kMissEntry;
+    if (alive && nx < W && w >= 0 && s_w[nx] == w) {
+      e = tb.probe(t, s_t[nx]);
+      key = P::key(e);
+      if (key != kMiss) atomicMin(&s_min[head], key);
+    }
+    __syncthreads();
+    const bool best = key != kMiss && key == s_min[head];
+    const uint32_t bm = __ballot_sync(kFull, best);
+    if (lane == 0) m_best[warp] = bm;
+    __syncthreads();
+    const int pv = prev_set(m_alive, i - 1);
+    const bool sel = best && !(pv >= 0 && bit_of(m_best, pv));
+    const uint32_t selm = __ballot_sync(kFull, sel);
+    if (lane == 0) m_sel[warp] = selm;
+    __syncthreads();
+    const bool killed = alive && pv >= 0 && bit_of(m_sel, pv);
+    any = __syncthreads_or(sel);
+    s_t[i] = killed ? -1 : sel ? P::minted(e) : t;
+  }
+  __syncthreads();
+
+  // compaction: the kept lanes (alive, or a word's first lane) to the
+  // left of this row's half of fused row r / 2
+  const int32_t t = s_t[i];
+  const bool keep = t >= 0 || (seg_start && w >= 0);
+  const uint32_t km = __ballot_sync(kFull, keep);
+  int n_kept;
+  const int rank = warps_before(__popc(km), scratch, nw, warp, lane, &n_kept) +
+                   __popc(km & ((1u << lane) - 1u));
+  const int half = W >> 1;
+  const int64_t base = (r >> 1) * W + (r & 1) * half;
+  if (keep && rank < half) {
+    out_t[base + rank] = t;
+    out_w[base + rank] = w;
+  }
+  if (i >= min(n_kept, half) && i < half) {
+    out_t[base + i] = -1;
+    out_w[base + i] = -1;
+  }
+  if (i == 0) kept[r] = n_kept;
+}
+
+template <class P>
+cudaError_t launch_phase_compact(const void* bytes, const void* start_bits, const void* row_len,
+                                 const void* byte_table, P tb, int n1, void* out_t, void* out_w,
+                                 void* kept, int B, int W, void* stream) {
+  if (B <= 0) return cudaSuccess;
+  if (B % 2 || W % 32 || W <= 0 || W > kPhaseMaxW || n1 < 0) return cudaErrorInvalidValue;
+  phase_compact_kernel<P><<<B, W, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(bytes), static_cast<const uint32_t*>(start_bits),
+      static_cast<const int32_t*>(row_len), static_cast<const int32_t*>(byte_table), tb, n1,
+      static_cast<int32_t*>(out_t), static_cast<int32_t*>(out_w), static_cast<int32_t*>(kept),
+      W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1395,6 +1597,32 @@ int ctok_merge_fixpoint_info(int chd, int policy, int L, int* info) {
                                nullptr, info);
   return (int)dispatch_merge(nullptr, nullptr, QcProbe{}, nullptr, nullptr, 1, L,
                              nullptr, info);
+}
+
+// K20, the phased fill's first phase and compaction, on the cuckoo table or
+// on the CHD table (rows 16-byte aligned): bytes [B, W] uint8, start_bits
+// [B, W/8] uint8 (4-byte aligned), row_len [B] int32, byte_table [256] int32
+// -> out_t, out_w [B/2, W] int32, kept [B] int32; B even, W % 32 == 0,
+// W <= 1024.
+int ctok_phase_compact_qc(const void* bytes, const void* start_bits, const void* row_len,
+                          const void* byte_table, const void* t1, const void* t2,
+                          unsigned mask, int n1, void* out_t, void* out_w, void* kept, int B,
+                          int W, void* stream) {
+  const QcProbe tb{static_cast<const uint2*>(t1),
+                   static_cast<const uint2*>(t2), (uint32_t)mask};
+  return (int)launch_phase_compact(bytes, start_bits, row_len, byte_table, tb, n1, out_t, out_w,
+                                   kept, B, W, stream);
+}
+
+int ctok_phase_compact_chd(const void* bytes, const void* start_bits, const void* row_len,
+                           const void* byte_table, const void* disp, const void* rows,
+                           unsigned size_mask, unsigned bucket_mask, int n1, void* out_t,
+                           void* out_w, void* kept, int B, int W, void* stream) {
+  const ChdProbe tb{static_cast<const int32_t*>(disp),
+                    static_cast<const int4*>(rows), (uint32_t)size_mask,
+                    (uint32_t)bucket_mask};
+  return (int)launch_phase_compact(bytes, start_bits, row_len, byte_table, tb, n1, out_t, out_w,
+                                   kept, B, W, stream);
 }
 
 const char* ctok_error_string(int code) {

@@ -1,5 +1,6 @@
 // Hand-written CUDA kernels of the word path's fill, for Hopper (sm_90a):
-// K3 (word ids from start bits) and K4 (compaction into the fused buffer).
+// K3 (word ids from start bits) and K4 (compaction into the fused buffer;
+// its phased mode after K20, kernels.cu, when CTOK_PHASE_N1 is set).
 // With K1 (kernels.cu, the byte seed) and K2 or K5 (kernels.cu, the merge
 // fixpoint) between them they make the fill in four launches.  The word
 // path runs K6 (kernels.cu: K3, K1 and the fixpoint in one launch) and
@@ -122,14 +123,27 @@ word_ids_kernel(const uint8_t* __restrict__ bits,
 // and counts are visible.  After any other work on the stream (a copy, a
 // kernel that triggers nothing) the wait returns at once and the launch
 // waits as a plain one.  Times in PERF.md, section 6.
-template <typename T>
+//
+// The phased mode (kPhased) writes the phased fill's layout
+// (wordpath.py:264-278, 303-361) from the [B, W] rows the fixpoint
+// finished after K20 (kernels.cu; B here is half the pack's rows):
+//   [cap ids | B*W/8 alive bits | B*W/8 word-start bits | int32 total]
+// with the start bits of wid2's transitions (wid2[c] >= 0 and c == 0 or
+// wid2[c] != wid2[c - 1]), and as the total the spill sentinel 2*B*W + 1
+// (the pack's lanes plus one) when some input row kept more than W/2 lanes
+// (kept [2B], K20's), the number of live ids otherwise.  The ids are
+// written as in the plain mode, whatever the total says.
+template <typename T, bool kPhased>
 __global__ void __launch_bounds__(kFillThreads)
 fill_compact_kernel(const int32_t* __restrict__ merged,
                     const int32_t* __restrict__ count,
+                    const int32_t* __restrict__ wid2,
+                    const int32_t* __restrict__ kept,
                     uint8_t* __restrict__ out, int B, int W, int64_t cap) {
   __shared__ int64_t red_before[kRowsPerBlock], red_all[kRowsPerBlock];
   __shared__ int64_t row_off[kRowsPerBlock];
   __shared__ int64_t s_total;
+  __shared__ int s_spill;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t r0 = (int64_t)blockIdx.x * kRowsPerBlock;
   // launched as a programmatic dependent of K6: wait until K6 has finished
@@ -141,6 +155,9 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
     all += v;
     before += k < r0 ? v : 0;
   }
+  int spill = 0;
+  if constexpr (kPhased)
+    for (int64_t k = tid; k < 2 * (int64_t)B; k += kFillThreads) spill |= kept[k] > W / 2;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     before += __shfl_down_sync(kAll, before, o);
@@ -149,6 +166,11 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
   if (lane == 0) {
     red_before[warp] = before;
     red_all[warp] = all;
+  }
+  if constexpr (kPhased) {
+    if (tid == 0) s_spill = 0;
+    __syncthreads();
+    if (__any_sync(kAll, spill) && lane == 0) atomicOr(&s_spill, 1);
   }
   __syncthreads();
   if (tid == 0) {
@@ -167,6 +189,7 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
   const int64_t total = s_total;
   T* ids = reinterpret_cast<T*>(out);
   uint8_t* alive_bits = out + cap * (int64_t)sizeof(T);
+  uint8_t* start_bits = alive_bits + (int64_t)B * (W / 8);
 
   const int64_t r = r0 + warp;
   if (r < B) {
@@ -182,6 +205,15 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
       if (v >= 0 && slot < cap) ids[slot] = (T)v;
       if (lane < 4 && c0 + 8 * lane < W) rbits[c0 / 8 + lane] = (uint8_t)(m >> (8 * lane));
       base += __popc(m);
+      if constexpr (kPhased) {
+        const int32_t* wrow = wid2 + r * W;
+        const int32_t wv = c < W ? wrow[c] : -1;
+        int32_t left = __shfl_up_sync(kAll, wv, 1);
+        if (lane == 0) left = c > 0 ? wrow[c - 1] : -2;
+        const uint32_t sm = __ballot_sync(kAll, c < W && wv >= 0 && wv != left);
+        if (lane < 4 && c0 + 8 * lane < W)
+          start_bits[r * (W / 8) + c0 / 8 + lane] = (uint8_t)(sm >> (8 * lane));
+      }
     }
   }
   // the slots past the live ids hold -1, as the TPU's sort leaves them
@@ -189,9 +221,51 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
   for (int64_t j = total + (int64_t)blockIdx.x * kFillThreads + tid; j < cap; j += stride)
     ids[j] = (T)-1;
   if (blockIdx.x == 0 && tid < 4) {
-    const uint32_t t = (uint32_t)(int32_t)total;
-    out[cap * (int64_t)sizeof(T) + (int64_t)B * (W / 8) + tid] = (uint8_t)(t >> (8 * tid));
+    int64_t shown = total;
+    uint8_t* tail = alive_bits + (int64_t)B * (W / 8);
+    if constexpr (kPhased) {
+      if (s_spill) shown = 2 * (int64_t)B * W + 1;
+      tail = start_bits + (int64_t)B * (W / 8);
+    }
+    const uint32_t t = (uint32_t)(int32_t)shown;
+    tail[tid] = (uint8_t)(t >> (8 * tid));
   }
+}
+
+// cudaLaunchKernelEx of fill_compact_kernel<T, kPhased> as the programmatic
+// dependent of the kernel before it on the stream (K6 triggers it early);
+// after any other work the launch waits as usual
+template <bool kPhased>
+int launch_fill_compact(const void* merged, const void* count, const void* wid2,
+                        const void* kept, void* out, int B, int W, long long cap, int itemsize,
+                        void* stream) {
+  if (B < 0 || W <= 0 || W % 8 || cap < 0) return (int)cudaErrorInvalidValue;
+  // at least one block: block 0 writes the total
+  const int blocks = B > 0 ? (B + kRowsPerBlock - 1) / kRowsPerBlock : 1;
+  const auto* m = static_cast<const int32_t*>(merged);
+  const auto* c = static_cast<const int32_t*>(count);
+  const auto* w = static_cast<const int32_t*>(wid2);
+  const auto* k = static_cast<const int32_t*>(kept);
+  auto* o = static_cast<uint8_t*>(out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kFillThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err;
+  if (itemsize == 2)
+    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<uint16_t, kPhased>, m, c, w, k, o, B, W,
+                             (int64_t)cap);
+  else if (itemsize == 4)
+    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<int32_t, kPhased>, m, c, w, k, o, B, W,
+                             (int64_t)cap);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -211,31 +285,16 @@ int ctok_word_ids(const void* bits, const void* row_len, void* wid, int B,
 
 int ctok_fill_compact(const void* merged, const void* count, void* out, int B,
                       int W, long long cap, int itemsize, void* stream) {
-  if (B < 0 || W <= 0 || W % 8 || cap < 0) return (int)cudaErrorInvalidValue;
-  // at least one block: block 0 writes the total
-  const int blocks = B > 0 ? (B + kRowsPerBlock - 1) / kRowsPerBlock : 1;
-  const auto* m = static_cast<const int32_t*>(merged);
-  const auto* c = static_cast<const int32_t*>(count);
-  auto* o = static_cast<uint8_t*>(out);
-  // a programmatic dependent of the kernel before it on the stream (K6
-  // triggers it early); after any other work the launch waits as usual
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kFillThreads);
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err;
-  if (itemsize == 2)
-    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<uint16_t>, m, c, o, B, W, cap);
-  else if (itemsize == 4)
-    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<int32_t>, m, c, o, B, W, cap);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return launch_fill_compact<false>(merged, count, nullptr, nullptr, out, B, W, cap, itemsize,
+                                    stream);
+}
+
+// K4's phased mode: merged, count, wid2 of the [B, W] fused rows and kept
+// [2B] of the pack's rows (K20's) -> the phased layout
+int ctok_fill_compact_phased(const void* merged, const void* count, const void* wid2,
+                             const void* kept, void* out, int B, int W, long long cap,
+                             int itemsize, void* stream) {
+  return launch_fill_compact<true>(merged, count, wid2, kept, out, B, W, cap, itemsize, stream);
 }
 
 }  // extern "C"

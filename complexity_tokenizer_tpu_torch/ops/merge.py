@@ -20,7 +20,12 @@ The plain version repeats the JAX package's ``_segmented_fixpoint``
 (``ops/merge.py``) step for step in torch ops: the leading occurrence of
 an equal-pair run wins, the carries are ``cummax``/``cummin`` over
 position indices, the per-word minimum a ``scatter_reduce(..., "amin")``
-and the loop a Python ``while``.  The kernel (``csrc/kernels.cu``) runs
+and the loop a Python ``while``.  The same step, capped at ``n1`` steps,
+is the first phase of the phased fixpoint (:func:`phased_merge_words_plain`,
+the JAX ``phased_merge_words``): the rows' kept lanes are then compacted to
+the left, half-rows 2k and 2k + 1 fused into one row, and the fixpoint
+finished there; kernel K20 (``ops/wordfill.py:phase_compact``) runs that
+first phase and the compaction.  The kernel (``csrc/kernels.cu``) runs
 each row in one block, probes each pair once and then only the pairs a
 merge makes, and applies every non-overlapping occurrence of a word's best
 pair per step, greedily from the left: on a well-formed table the same
@@ -45,6 +50,9 @@ __all__ = [
     "merge_word_rows",
     "merge_word_rows_plain",
     "merge_word_rows_ragged_plain",
+    "segmented_fixpoint_bounded_plain",
+    "compact_half_rows_plain",
+    "phased_merge_words_plain",
     "word_tiles",
     "TILE_SYMBOLS",
     "WORD_LANES",
@@ -112,12 +120,15 @@ def _segment_min(r: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
     return mins[seg]
 
 
-def _fixpoint_plain(tokens, wid, lookup):
+def _fixpoint_plain(tokens, wid, lookup, max_steps: int | None = None):
     """The JAX ``_segmented_fixpoint`` step for step; ``lookup(a, b,
-    valid) -> (rank, minted)`` probes the pair table."""
+    valid) -> (rank, minted)`` probes the pair table.  With ``max_steps``,
+    at most that many steps (``_segmented_fixpoint_bounded``)."""
     seg_start = wid != _shift_right(wid, -2)
     t = tokens
-    while True:
+    steps = 0
+    while max_steps is None or steps < max_steps:
+        steps += 1
         alive = t >= 0
         tn_incl, wn_incl = _carry_first2(t, wid, alive)
         t_next = _shift_left(tn_incl, -1)
@@ -137,6 +148,53 @@ def _fixpoint_plain(tokens, wid, lookup):
             break
     count = (t >= 0).sum(dim=1, dtype=torch.int32)
     return t, count
+
+
+def segmented_fixpoint_bounded_plain(tokens, wid, lookup, max_steps: int) -> torch.Tensor:
+    """The JAX ``_segmented_fixpoint_bounded``: the first ``max_steps``
+    steps of the JAX fixpoint (fewer when a step selects nothing), on any
+    device.  Returns the tokens, the words possibly unfinished."""
+    return _fixpoint_plain(tokens, wid, lookup, max_steps)[0]
+
+
+def compact_half_rows_plain(t: torch.Tensor, wid: torch.Tensor):
+    """The compaction of ``phased_merge_words`` (JAX ``ops/merge.py``), on
+    any device: each row's kept lanes (alive, or a word's first lane, so
+    that a word with no live id keeps a slot) move left in order, each row
+    is cut to its first W/2 lanes with (-1, -1) after its kept ones, and
+    half-rows 2k and 2k + 1 make row k.
+
+    Args:
+      t: [B, W] int32 tokens after the first phase; B even, W even.
+      wid: [B, W] int32 word ids of the uncompacted rows.
+    Returns:
+      (tokens [B/2, W], word ids [B/2, W] with -1 on the lanes that keep
+      nothing, kept lanes of each input row [B] int32).  A row with more
+      than W/2 kept lanes spills: its half keeps only the first W/2.
+    """
+    B, W = t.shape
+    keep = (t >= 0) | ((wid >= 0) & (wid != _shift_right(wid, -2)))
+    rowcum = torch.cumsum(keep.to(torch.int32), dim=1)
+    # kept lanes first, in order; the rest are (-1, -1), in any order
+    order = torch.argsort(torch.where(keep, rowcum - 1, W), dim=1, stable=True)
+    ts = torch.where(keep, t, -1).gather(1, order)[:, : W // 2]
+    ws = torch.where(keep, wid, -1).gather(1, order)[:, : W // 2]
+    return ts.reshape(B // 2, W), ws.reshape(B // 2, W), rowcum[:, -1].to(torch.int32)
+
+
+def phased_merge_words_plain(tokens, wid, lookup, n1: int):
+    """The JAX ``phased_merge_words`` step for step, on any device:
+    ``n1`` steps of the JAX fixpoint on [B, W], the half-row compaction
+    (:func:`compact_half_rows_plain`), and the JAX fixpoint to its end on
+    the [B/2, W] rows.
+
+    Returns (t_final [B/2, W] int32, wid2 [B/2, W] int32, spill bool
+    tensor: some row kept more than W/2 lanes)."""
+    W = tokens.shape[1]
+    t = segmented_fixpoint_bounded_plain(tokens, wid, lookup, n1)
+    ts, ws, kept = compact_half_rows_plain(t, wid)
+    t_final, _count = _fixpoint_plain(ts, ws, lookup)
+    return t_final, ws, (kept > W // 2).any()
 
 
 def merge_fixpoint_qc_plain(tokens, wid, t1, t2, size: int):

@@ -12,6 +12,12 @@ table when it is eligible, kernel K5 on the CHD table otherwise)
 the widest bucket are cut at word boundaries; one word longer than that
 goes to the host oracle.
 
+Sharded (``parallel/encode.py:shard_encode_pipeline``): each batch is
+padded to a multiple of the mesh's devices and split into equal row
+blocks; each block runs the same passes on its device (a stream of its
+own, the tables copied there once) and comes back in one copy into pinned
+memory; the host joins the blocks in row order.
+
 Eligibility: BPE + the ByteLevel pre-tokenizer + a well-formed merge table
 with a cuckoo or a CHD pair table.  Anything else raises ``NotImplementedError``: the
 pipeline never falls back.  Texts that may hold an added token are routed to the host tier
@@ -25,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from ..convert import tables_to_device
+from ..convert import TorchTables, tables_to_device
 from ..core.pretokenizers import ByteLevel, gpt2_split_spans
 from ..utils.bytelevel import encode_bytes
 from ..utils.device import resolve_device
@@ -56,8 +62,16 @@ def pack_texts(data: list[bytes], L: int, B: int):
     return native_pack(data, L, B)
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class EncodePipeline:
-    """Holds the tables on one device and runs the encode pass there."""
+    """Holds the tables on one device and runs the encode pass there, or,
+    sharded, on each device of a mesh."""
 
     def __init__(self, tables, host_bpe, device, normalizer=None, add_prefix_space=False):
         if tables.qc is None and tables.chd is None:
@@ -69,24 +83,88 @@ class EncodePipeline:
         self.normalizer = normalizer
         self.add_prefix_space = add_prefix_space
         self.max_id = tables.max_id
-        qc, chd = tables.qc, tables.chd
-        self.tables = tables_to_device(
-            byte_token_table=tables.byte_token_table,
+        self._host_tables = tables
+        self.tables = self.copy_tables(self.device)
+        self.sharding = None  # also n_devices
+
+    def copy_tables(self, device) -> TorchTables:
+        """The pipeline's tables copied to ``device``, from the host arrays."""
+        qc, chd = self._host_tables.qc, self._host_tables.chd
+        return tables_to_device(
+            byte_token_table=self._host_tables.byte_token_table,
             class_table=gpt2_class_table(),
-            device=self.device,
+            device=device,
             **(dict(qc_t1=qc.t1, qc_t2=qc.t2, qc_size=qc.size) if qc is not None else {}),
             **(dict(chd_disp=chd.disp, chd_rows=chd.rows) if chd is not None else {}),
         )
 
-    def encode_rows(self, arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
-        """[B, L] uint8 + [B] int32 -> [B, L] int32 ids with -1 tombstones."""
-        tb = self.tables
-        arr_t = torch.from_numpy(arr).to(self.device)
-        lens_t = torch.from_numpy(lens).to(self.device)
+    @property
+    def sharding(self):
+        """The ``parallel/mesh.py:BatchSharding`` of the batches, or None."""
+        return self._sharding
+
+    @sharding.setter
+    def sharding(self, value):
+        # the per-device tables and streams belong to the mesh they were
+        # made for: a new one drops them
+        self._sharding = value
+        self.n_devices = 1 if value is None else value.n_devices
+        self._blocks = None
+
+    def block_state(self, sharding) -> list[tuple]:
+        """(device, tables, stream or None) of each block of ``sharding``'s
+        mesh, made anew: the tables copied once per device (this pipeline's
+        own on its device), a stream of its own for each block on a card."""
+        tables: dict = {_indexed(self.device): self.tables}
+        blocks = []
+        for dev in sharding.mesh:
+            if dev not in tables:
+                tables[dev] = self.copy_tables(dev)
+            stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+            blocks.append((dev, tables[dev], stream))
+        return blocks
+
+    def _block_state(self) -> list[tuple]:
+        if self._blocks is None:
+            self._blocks = self.block_state(self._sharding)
+        return self._blocks
+
+    @staticmethod
+    def _rows_on(arr: np.ndarray, lens: np.ndarray, device, tb) -> torch.Tensor:
+        """Presplit, K1 and the fixpoint of the rows on ``device``: [B, L]
+        int32 ids with -1 tombstones, on the device."""
+        arr_t = torch.from_numpy(arr).to(device)
+        lens_t = torch.from_numpy(lens).to(device)
         _start, word_id, _valid = presplit(arr_t, lens_t, tb.class_table)
         tokens = seed_tokens(arr_t, lens_t, tb.byte_token_table)
         tokens, _count = tb.merge_fixpoint(tokens, word_id)
-        return tokens.cpu().numpy()
+        return tokens
+
+    def encode_rows(self, arr: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """[B, L] uint8 + [B] int32 -> [B, L] int32 ids with -1 tombstones.
+        Sharded, each block of rows on its device: every block is launched
+        before any is read back."""
+        if self._sharding is None:
+            return self._rows_on(arr, lens, self.device, self.tables).cpu().numpy()
+        out = []
+        for (dev, tb, stream), (_d, rows) in zip(self._block_state(),
+                                                 self._sharding.blocks(arr.shape[0])):
+            if stream is None:
+                out.append((self._rows_on(arr[rows], lens[rows], dev, tb), None))
+                continue
+            with torch.cuda.device(dev):
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    tokens = self._rows_on(arr[rows], lens[rows], dev, tb)
+                    host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+                    host.copy_(tokens, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            out.append((host, event))
+        for _host, event in out:
+            if event is not None:
+                event.synchronize()
+        return np.concatenate([host.numpy() for host, _event in out])
 
     def _encode_packed(self, data: list[bytes]) -> list[list[int]]:
         """Encode byte strings that fit the widest bucket, grouped by length
@@ -100,6 +178,7 @@ class EncodePipeline:
             for c0 in range(0, len(idxs), B):
                 chunk = idxs[c0 : c0 + B]
                 Bpad = _bucket(len(chunk), _BATCH_BUCKETS) or len(chunk)
+                Bpad = -(-Bpad // self.n_devices) * self.n_devices  # equal blocks
                 arr, lens = pack_texts([data[i] for i in chunk], L, Bpad)
                 tokens = self.encode_rows(arr, lens)
                 for row, i in enumerate(chunk):

@@ -1,6 +1,6 @@
 """Device word path: the GPU merges the distinct words the caches miss.
 
-The twin of the JAX package's ``ops/wordpath.py``, unsharded and unphased.
+The twin of the JAX package's ``ops/wordpath.py``.
 The native runtime (``native/``) finds the distinct pre-split words that
 its shared caches do not hold; they are sorted by length and packed back
 to back into dense ``[B, 128]`` byte rows (a word never spans two rows,
@@ -20,6 +20,22 @@ Two modes:
   at its next batch.  Every batch is exact whatever the timing, since the
   native runtime merges whatever is not cached yet.
 
+Two variants, as in JAX, in either mode:
+
+- sharded (``parallel/encode.py:shard_word_encoder``): a pack whose rows
+  split evenly over the mesh's devices goes out as one block a device, each
+  block's fill on its device and a stream of its own, with the tables copied
+  there once, into a pinned buffer and an event of its own; the host joins
+  the blocks' ids and bitmaps in row order.  A spill in any block sends the
+  whole pack again at full capacity, sharded.
+- phased (``CTOK_PHASE_N1=N``, read once per encoder; 0, the default, turns
+  it off): a pack (sharded: a block) of an even number of rows fills
+  through ``word_fill_phased`` (K20, then K2 or K5, then K4's phased mode):
+  ``N`` steps on the rows, then the fixpoint finishes on half as many rows.
+  Word boundaries then come from the buffer's start bitmap; a pack whose
+  rows kept more than half their lanes, or whose bitmap does not show one
+  start a word, is sent again unphased at full capacity.
+
 One difference from the JAX package: a background fill that fails is not
 counted and switched off after a few failures.  The error is raised again
 in the serving thread, at the next harvest or :meth:`drain_async`; nothing
@@ -36,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from .wordfill import word_fill
+from .wordfill import word_fill, word_fill_phased
 
 __all__ = ["DeviceWordEncoder", "build_word_encoder"]
 
@@ -73,8 +89,9 @@ _live_mu = threading.Lock()
 _exit_hook_installed = False
 
 # Serialises device fills across threads: the background fill and a
-# synchronous one share the kernels' launch counters and the device.
-# Host encodes never take this lock.
+# synchronous one share the kernels' launch counters and the devices (one
+# lock for the process covers every device of a mesh).  Host encodes never
+# take this lock.
 _device_lock = threading.Lock()
 
 
@@ -138,6 +155,35 @@ class DeviceWordEncoder:
         self.words_filled = 0  # words inserted into the caches from the device
         # the last fill: words, packs by shape, spills, host seconds by stage
         self.last_fill: dict = {}
+        # parallel/mesh.py BatchSharding of the packs' rows, or None; the
+        # blocks' devices, tables and streams, made at the first sharded fill
+        self._sharding = None
+        self._blocks = None
+
+    @property
+    def sharding(self):
+        return self._sharding
+
+    @sharding.setter
+    def sharding(self, value):
+        # the blocks' tables and streams belong to the mesh they were made
+        # for, and the unpack splits by the current mesh: a new one drops them
+        self._sharding = value
+        self._blocks = None
+
+    @property
+    def _phase_n1(self) -> int:
+        """Steps of the fixpoint before the phased fill's compaction, from
+        ``CTOK_PHASE_N1`` at first use (0, the default: no phasing)."""
+        v = getattr(self, "_phase_n1_cached", None)
+        if v is None:
+            v = self._phase_n1_cached = int(os.environ.get("CTOK_PHASE_N1", "0"))
+        return v
+
+    def _n1_for(self, rows: int) -> int:
+        """The phased fill's steps for a pack (or block) of ``rows`` rows:
+        0 (unphased) unless phasing is on and the rows pair up."""
+        return self._phase_n1 if self._phase_n1 > 0 and rows % 2 == 0 else 0
 
     @functools.cached_property
     def _out_dtype(self):
@@ -190,19 +236,17 @@ class DeviceWordEncoder:
             stream.synchronize()
             return out
 
-    def _dispatch(self, a: np.ndarray, bits: np.ndarray, row_len: np.ndarray, cap: int):
-        """Launch the fill of one pack.  Returns (host uint8 tensor, CUDA
+    def _launch(self, dev, tables, a, bits, row_len, cap: int, n1: int):
+        """Launch the fill of one pack or block on ``dev`` (its current
+        stream), phased when ``n1`` > 0.  Returns (host uint8 tensor, CUDA
         event or None): on a card, the fused buffer is copied once into a
         pinned host tensor of its own, and the event marks the copy's end."""
-        dev = self.device
-        fused = word_fill(
-            torch.from_numpy(a).to(dev),
-            torch.from_numpy(bits).to(dev),
-            torch.from_numpy(row_len).to(dev),
-            cap,
-            tables=self.pipeline.tables,
-            itemsize=np.dtype(self._out_dtype).itemsize,
-        )
+        args = [torch.from_numpy(x).to(dev) for x in (a, bits, row_len)]
+        isz = np.dtype(self._out_dtype).itemsize
+        if n1:
+            fused = word_fill_phased(*args, cap, n1, tables=tables, itemsize=isz)
+        else:
+            fused = word_fill(*args, cap, tables=tables, itemsize=isz)
         if dev.type != "cuda":
             return fused, None
         # a fresh pinned tensor per pack: no later fill writes into a buffer
@@ -215,26 +259,118 @@ class DeviceWordEncoder:
         return host, event
 
     def _fn(self, a, bits, row_len):
-        """The fill of one pack at the compact capacity (3/8 of its lanes)."""
-        cap = a.shape[0] * _WORD_W * self._CAP_NUM // self._CAP_DEN
-        return self._dispatch(a, bits, row_len, cap)
+        """The fill of one pack at the compact capacity (3/8 of its lanes),
+        phased when ``CTOK_PHASE_N1`` asks and the rows pair up."""
+        B = a.shape[0]
+        cap = B * _WORD_W * self._CAP_NUM // self._CAP_DEN
+        return self._launch(self.device, self.pipeline.tables, a, bits, row_len, cap,
+                            self._n1_for(B))
 
     def _fn_full(self, a, bits, row_len):
-        """The fill of one pack with a slot for every lane: cannot spill."""
-        return self._dispatch(a, bits, row_len, a.shape[0] * _WORD_W)
+        """The fill of one pack with a slot for every lane, unphased: cannot
+        spill."""
+        return self._launch(self.device, self.pipeline.tables, a, bits, row_len,
+                            a.shape[0] * _WORD_W, 0)
+
+    def _block_state(self) -> list[tuple]:
+        if self._blocks is None:
+            self._blocks = self.pipeline.block_state(self._sharding)
+        return self._blocks
+
+    def _sharded(self, a, bits, row_len, cap_num: int, cap_den: int, phased: bool) -> list:
+        """Launch every block of a sharded pack, each on its device and
+        stream, before any is read back.  Returns each block's (host,
+        event)."""
+        blocks = self._sharding.blocks(a.shape[0])
+        out = []
+        for (dev, tables, stream), (_dev, rows) in zip(self._block_state(), blocks):
+            B_loc = rows.stop - rows.start
+            cap = B_loc * _WORD_W * cap_num // cap_den
+            n1 = self._n1_for(B_loc) if phased else 0
+            if stream is None:
+                out.append(self._launch(dev, tables, a[rows], bits[rows], row_len[rows], cap, n1))
+                continue
+            with torch.cuda.device(dev):
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    out.append(self._launch(dev, tables, a[rows], bits[rows], row_len[rows],
+                                            cap, n1))
+        return out
+
+    def _fn_sharded(self, a, bits, row_len):
+        """The sharded fill of one pack at the compact capacity, each block
+        phased as :meth:`_fn` would phase a pack of its rows."""
+        return self._sharded(a, bits, row_len, self._CAP_NUM, self._CAP_DEN, True)
+
+    def _fn_full_sharded(self, a, bits, row_len):
+        """The sharded fill of one pack with a slot for every lane, unphased."""
+        return self._sharded(a, bits, row_len, 1, 1, False)
+
+    @staticmethod
+    def _raw(fused) -> np.ndarray:
+        """Wait for one fill and return its fused buffer."""
+        host, event = fused
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
 
     def _unpack_fused(self, fused, cap: int):
         """Wait for one fill and split its fused buffer into (ids
         ndarray[cap], alive bit per lane, total)."""
-        host, event = fused
-        if event is not None:
-            event.synchronize()
-        raw = host.numpy()
+        raw = self._raw(fused)
         ids_bytes = cap * np.dtype(self._out_dtype).itemsize
         out_ids = raw[:ids_bytes].view(self._out_dtype)
         alive = np.unpackbits(raw[ids_bytes:-4], bitorder="little")
         total = int(raw[-4:].view(np.int32)[0])
         return out_ids, alive, total
+
+    def _unpack_fused_phased(self, fused, B: int, cap: int):
+        """Phased twin of :meth:`_unpack_fused`: the buffer covers B*W/2
+        lanes with an alive and a word-start bitmap.  Returns (ids, alive
+        bits, word-start bits, total)."""
+        raw = self._raw(fused)
+        ids_bytes = cap * np.dtype(self._out_dtype).itemsize
+        nb = B * _WORD_W // 16
+        out_ids = raw[:ids_bytes].view(self._out_dtype)
+        alive = np.unpackbits(raw[ids_bytes : ids_bytes + nb], bitorder="little")
+        wstart = np.unpackbits(raw[ids_bytes + nb : -4], bitorder="little")
+        total = int(raw[-4:].view(np.int32)[0])
+        return out_ids, alive, wstart, total
+
+    def _unpack_fused_sharded(self, fused, B: int, cap_num: int, cap_den: int):
+        """Join a sharded fill's blocks (a list of one for an unsharded
+        pack): (ids in row order, alive bits, spilled).  Each block's buffer
+        is :meth:`_unpack_fused`'s with B/n rows; the blocks hold contiguous
+        rows, so joining them in device order gives what one block of all
+        the rows would."""
+        B_loc = B // len(fused)
+        cap_loc = B_loc * _WORD_W * cap_num // cap_den
+        ids_parts, alive_parts, spilled = [], [], False
+        for blk in fused:
+            ids, alive, total = self._unpack_fused(blk, cap_loc)
+            alive_parts.append(alive)
+            if total > cap_loc:
+                spilled = True
+                total = cap_loc
+            ids_parts.append(ids[:total])
+        return np.concatenate(ids_parts), np.concatenate(alive_parts), spilled
+
+    def _unpack_fused_sharded_phased(self, fused, B: int, cap_num: int, cap_den: int):
+        """Join a sharded phased fill's blocks, each with its own phased
+        layout and sentinel: (ids, alive bits, word-start bits, spilled)."""
+        B_loc = B // len(fused)
+        cap_loc = B_loc * _WORD_W * cap_num // cap_den
+        ids_parts, alive_parts, ws_parts, spilled = [], [], [], False
+        for blk in fused:
+            ids, alive, wstart, total = self._unpack_fused_phased(blk, B_loc, cap_loc)
+            alive_parts.append(alive)
+            ws_parts.append(wstart)
+            if total > cap_loc:  # a capacity spill or the phase's sentinel
+                spilled = True
+                total = cap_loc
+            ids_parts.append(ids[:total])
+        return (np.concatenate(ids_parts), np.concatenate(alive_parts),
+                np.concatenate(ws_parts), spilled)
 
     @staticmethod
     def _ragged_gather(src, starts, counts):
@@ -251,7 +387,9 @@ class DeviceWordEncoder:
 
     def _encode_words_packed_locked(self, words_buf, lens):
         n = len(lens)
-        stats = {"words": n, "packs": {}, "spills": 0, "seconds": {}}
+        stats = {"words": n, "packs": {}, "spills": 0, "seconds": {},
+                 "blocks": self._sharding.n_devices if self._sharding is not None else 1,
+                 "phase_n1": self._phase_n1}
         self.last_fill = stats
         secs = stats["seconds"]
         if n == 0:
@@ -283,6 +421,7 @@ class DeviceWordEncoder:
         pending = []
         w_done = 0
         max_rows = _ROW_BUCKETS[-1]
+        ndev = self._sharding.n_devices if self._sharding is not None else 1
         while w_done < n:
             t0 = time.perf_counter()
             arr, marks, starts, n_fit, rows_used = self._pack_seg(
@@ -298,12 +437,13 @@ class DeviceWordEncoder:
             # densely from column 0
             bits = np.packbits(mk == 1, axis=1, bitorder="little")
             row_len = (mk > 0).sum(axis=1).astype(np.int32)
+            sharded = self._sharding is not None and B % ndev == 0
             t1 = time.perf_counter()
-            fused = self._fn(a, bits, row_len)
+            fused = (self._fn_sharded if sharded else self._fn)(a, bits, row_len)
             t_dispatch += time.perf_counter() - t1
             t_pack += t1 - t0
             stats["packs"][B] = stats["packs"].get(B, 0) + 1
-            pending.append((fused, starts, w_done, n_fit, B, (a, bits, row_len)))
+            pending.append((fused, starts, w_done, n_fit, B, sharded, (a, bits, row_len)))
             w_done += n_fit
         secs["pack"] = t_pack
         secs["dispatch"] = t_dispatch
@@ -312,21 +452,42 @@ class DeviceWordEncoder:
         t_spill = 0.0
         ids_parts: list[np.ndarray] = []
         counts_sorted = np.full(n, -1, np.int64)  # -1 = not covered
-        for fused, starts, w0, n_fit, B, args in pending:
-            cap = B * _WORD_W * self._CAP_NUM // self._CAP_DEN
-            out_ids, alive, total = self._unpack_fused(fused, cap)
-            if total > cap:
-                # more live ids than slots: dispatch this pack once more
-                # with a slot for every lane, so every word stays covered
+        for fused, starts, w0, n_fit, B, sharded, args in pending:
+            # an unsharded pack is one block of all its rows
+            blocks = fused if sharded else [fused]
+            cnts = None
+            if self._n1_for(B // len(blocks)):
+                # word boundaries from the buffer's start bitmap: compaction
+                # moved the words off the byte positions of `starts`
+                out_ids, alive, wstart, spilled = self._unpack_fused_sharded_phased(
+                    blocks, B, self._CAP_NUM, self._CAP_DEN)
+                sf = np.flatnonzero(wstart)
+                if not spilled and len(sf) != n_fit:  # not one start a word: trust none
+                    spilled = True
+                if not spilled:
+                    cs = np.zeros(len(alive) + 1, np.int64)
+                    np.cumsum(alive, out=cs[1:])
+                    bounds = np.append(sf, len(alive))
+                    cnts = cs[bounds[1:]] - cs[bounds[:-1]]
+            else:
+                out_ids, alive, spilled = self._unpack_fused_sharded(
+                    blocks, B, self._CAP_NUM, self._CAP_DEN)
+            if spilled:
+                # more live ids than slots, or a phased row over half its
+                # lanes: dispatch this pack once more, unphased, with a slot
+                # for every lane, so every word stays covered
                 t1 = time.perf_counter()
                 stats["spills"] += 1
-                out_ids, alive, total = self._unpack_fused(self._fn_full(*args), B * _WORD_W)
+                again = self._fn_full_sharded(*args) if sharded else [self._fn_full(*args)]
+                out_ids, alive, _spilled = self._unpack_fused_sharded(again, B, 1, 1)
+                cnts = None
                 t_spill += time.perf_counter() - t1
-            out_ids = out_ids[:total]
-            cs = np.zeros(len(alive) + 1, np.int64)
-            np.cumsum(alive, out=cs[1:])
-            ln = work_lens[w0 : w0 + n_fit].astype(np.int64)
-            counts_sorted[w0 : w0 + n_fit] = cs[starts + ln] - cs[starts]
+            if cnts is None:
+                cs = np.zeros(len(alive) + 1, np.int64)
+                np.cumsum(alive, out=cs[1:])
+                ln = work_lens[w0 : w0 + n_fit].astype(np.int64)
+                cnts = cs[starts + ln] - cs[starts]
+            counts_sorted[w0 : w0 + n_fit] = cnts
             ids_parts.append(out_ids)
         ids_sorted = np.concatenate(ids_parts) if ids_parts else np.zeros(0, np.int32)
         secs["harvest"] = time.perf_counter() - t0 - t_spill

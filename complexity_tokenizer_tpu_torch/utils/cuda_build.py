@@ -81,6 +81,14 @@ _SIGNATURES = {
     "ctok_word_ids": (_P, _P, _P, _I, _I, _P),
     # merged, count, out, B, W, cap, itemsize, stream
     "ctok_fill_compact": (_P, _P, _P, _I, _I, _L, _I, _P),
+    # merged, count, wid2, kept, out, B, W, cap, itemsize, stream
+    "ctok_fill_compact_phased": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _P),
+    # bytes, start_bits, row_len, byte_table, t1, t2, mask, n1, out_t, out_w, kept, B, W,
+    # stream
+    "ctok_phase_compact_qc": (_P, _P, _P, _P, _P, _P, _U, _I, _P, _P, _P, _I, _I, _P),
+    # bytes, start_bits, row_len, byte_table, disp, rows, size_mask, bucket_mask, n1, out_t,
+    # out_w, kept, B, W, stream
+    "ctok_phase_compact_chd": (_P, _P, _P, _P, _P, _P, _U, _U, _I, _P, _P, _P, _I, _I, _P),
     # ids, n, row_off, B, entries, arena, V, skip_special, state, out, cap, stream
     "ctok_decode_gather": (_P, _L, _P, _I, _P, _P, _I, _I, _P, _P, _L, _P),
     # info[5]

@@ -1991,3 +1991,127 @@ def test_k18_k19_refuse_bad_inputs_and_launch_without_spilling():
         pair_count(out, offs, lens, poison.bool(), PairCountScratch(8, "cuda"))
     for shape in (train_match_launch_shape(), pair_count_launch_shape()):
         assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape
+
+
+# --- K20 and K4's phased mode: the phased fill; the sharded fill ------------
+
+
+@pytest.mark.parametrize("n1", [1, 6])
+@pytest.mark.parametrize("kind", ["edges", "dots"])
+@pytest.mark.parametrize("B", [2, 64, 1024])
+@pytest.mark.parametrize("config", ["qc50k", "chd50k", "chd100k"])
+def test_k20_matches_plain(tok50k, tok100k, chd50k, config, B, kind, n1):
+    """K20 (block-flat word ids, the seed, n1 JAX steps, the half-row
+    compaction) equals its plain version on the card bit for bit, on both
+    probes, on edge rows (runs before the first start bit, rows of length 0
+    and 128, OOV bytes) and on rows of ``.`` runs; one launch a call."""
+    from complexity_tokenizer_tpu_torch.ops.wordfill import phase_compact, phase_compact_plain
+
+    _need_card()
+    _probe, tb = _fill_tables(config, tok50k, tok100k, chd50k)
+    pack = _fill_pack(kind, B, seed=B + n1)
+    before = phase_compact.launches
+    got = phase_compact(*pack, n1, tables=tb)
+    torch.cuda.synchronize()
+    assert phase_compact.launches == before + 1
+    exp = phase_compact_plain(*pack, n1, tables=tb)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("config", ["qc50k", "chd100k"])
+def test_phased_fill_matches_plain(tok50k, tok100k, chd50k, config, itemsize):
+    """The phased fill (K20, K2 or K5, K4's phased mode: one launch each)
+    equals its plain version on the card and on the CPU byte for byte, and
+    K4's phased mode alone its plain version, on corpus packs and edge
+    rows, at n1 = 4 and 6."""
+    from complexity_tokenizer_tpu_torch.ops.wordfill import (
+        fill_compact_phased,
+        fill_compact_phased_plain,
+        phase_compact,
+        word_fill_phased,
+        word_fill_phased_plain,
+    )
+
+    _need_card()
+    probe, tb = _fill_tables(config, tok50k, tok100k, chd50k)
+    tok = tok50k if config == "qc50k" else tok100k
+    cpu_tb = tok.pipeline("cpu").tables
+    fixpoint = merge_words_qc if probe == "qc" else merge_words
+    for kind, B in (("edges", 256), ("edges", 1024), ("dots", 64)):
+        pack = _fill_pack(kind, B, seed=B)
+        cap = B * 128 * 3 // 8
+        for n1 in (4, 6):
+            counted = (phase_compact, fixpoint, fill_compact_phased)
+            before = [fn.launches for fn in counted]
+            got = word_fill_phased(*pack, cap, n1, tables=tb, itemsize=itemsize)
+            torch.cuda.synchronize()
+            assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1]
+            exp = word_fill_phased_plain(*pack, cap, n1, tables=tb, itemsize=itemsize)
+            assert torch.equal(got, exp), (kind, B, n1)
+            cpu = word_fill_phased(*(x.cpu() for x in pack), cap, n1, tables=cpu_tb,
+                                   itemsize=itemsize)
+            assert torch.equal(got.cpu(), cpu), (kind, B, n1)
+            t2, w2, kept = phase_compact(*pack, n1, tables=tb)
+            merged, count = tb.merge_fixpoint(t2, w2)
+            assert torch.equal(fill_compact_phased(merged, count, w2, kept, cap, itemsize),
+                               fill_compact_phased_plain(merged, count, w2, kept, cap, itemsize))
+
+
+def test_phased_and_sharded_word_paths_on_card_match_unsharded(tok50k, monkeypatch):
+    """Every distinct word of a corpus through the word path with
+    ``CTOK_PHASE_N1=6`` (K20, K2, K4's phased mode; a spilled pack again
+    through K6 and K4), and sharded over ``[cuda:0]`` and ``[cuda:0,
+    cuda:0]`` (two blocks on two streams), phased and not: ids and counts
+    equal the unsharded unphased fill's bit for bit."""
+    from complexity_tokenizer_tpu_torch.native import NativeEncoder
+    from complexity_tokenizer_tpu_torch.ops.tables import byte_token_table
+    from complexity_tokenizer_tpu_torch.ops.wordfill import fill_compact_phased, phase_compact
+    from complexity_tokenizer_tpu_torch.ops.wordpath import DeviceWordEncoder
+    from complexity_tokenizer_tpu_torch.parallel import data_mesh, shard_word_encoder
+
+    _need_card()
+    texts = zipf_corpus(2000, seed=13) + list(MULTI_PIECES)
+    data = tok50k._prepare_bytes([tok50k._normalize(t) for t in texts])
+
+    def encoder(n1, mesh=None):
+        monkeypatch.setenv("CTOK_PHASE_N1", str(n1))
+        native = NativeEncoder(tok50k.bpe.packed_merge_arrays(), byte_token_table(tok50k.bpe.vocab))
+        wp = DeviceWordEncoder(tok50k.pipeline("cuda"), native)
+        if mesh is not None:
+            shard_word_encoder(wp, data_mesh(devices=mesh))
+        return wp
+
+    wp = encoder(0)
+    words, lens = wp.native.collect_miss_words(data, 128)
+    exp_ids, exp_counts = wp._encode_words_packed(words, lens)
+    assert (exp_counts >= 0).all()
+    for n1 in (0, 6):
+        for mesh in (None, ["cuda:0"], ["cuda:0", "cuda:0"]):
+            w = encoder(n1, mesh)
+            before = (phase_compact.launches, fill_compact_phased.launches)
+            ids, counts = w._encode_words_packed(words, lens)
+            launched = (phase_compact.launches - before[0], fill_compact_phased.launches - before[1])
+            assert np.array_equal(counts, exp_counts), (n1, mesh)
+            assert np.array_equal(ids, exp_ids), (n1, mesh)
+            assert w.last_fill["blocks"] == (1 if mesh is None else len(mesh))
+            if n1:
+                assert launched[0] == launched[1] > 0
+            else:
+                assert launched == (0, 0)
+
+
+def test_sharded_text_pipeline_on_card_matches_host(tok50k):
+    """The text pipeline split over ``[cuda:0, cuda:0]`` (two blocks, two
+    streams, every block launched before any is read back) equals the host
+    oracle."""
+    from complexity_tokenizer_tpu_torch.parallel import data_mesh, shard_encode_pipeline
+
+    _need_card()
+    tok = Tokenizer.from_file(BENCH_50K)
+    pipe = tok.pipeline("cuda")
+    shard_encode_pipeline(pipe, data_mesh(devices=["cuda:0", "cuda:0"]))
+    texts = zipf_corpus(500, seed=4) + list(MULTI_PIECES)
+    data = tok._prepare_bytes([tok._normalize(t) for t in texts])
+    assert pipe.encode_bytes(data) == tok.encode_batch(texts, backend="host")

@@ -4,7 +4,7 @@
 subprocess) and in its source (an AST scan, ``chip_smoke.py`` included).
 (h) Its entry points, called with no ``device``, raise when there is no
 card (``encode_batch``, the pipelines and ``EncodePipeline.encode_batch``,
-the word-level models' ``encode_batch``, and ``__call__`` with
+the sharded encode's default mesh, the word-level models' ``encode_batch``, and ``__call__`` with
 ``return_tensors="pt"`` or ``add_special_tokens=False``).  Also: the loader refuses a model the port does not run, and the
 kernel build raises without ``nvcc``.
 """
@@ -132,6 +132,26 @@ def test_pipeline_without_device_raises_without_card(no_card):
         build_encode_pipeline(tok)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tok.pipeline()
+
+
+def test_sharding_without_devices_raises_without_card(no_card):
+    """The sharded encode's default mesh is every card: with none it raises
+    (``data_mesh``, ``shard_encode_pipeline`` and ``shard_word_encoder``
+    with no mesh); a mesh of CPU devices runs, equal to the host."""
+    from complexity_tokenizer_tpu_torch.parallel import (
+        data_mesh,
+        shard_encode_pipeline,
+        shard_word_encoder,
+    )
+
+    tok = Tokenizer.from_str(TINY)
+    pipe = tok.pipeline("cpu")
+    for call in (data_mesh, lambda: shard_encode_pipeline(pipe),
+                 lambda: shard_word_encoder(tok._get_word_path("cpu"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    shard_encode_pipeline(pipe, data_mesh(devices=["cpu", "cpu"]))
+    assert pipe.encode_bytes([b"ab ab", b"b"]) == tok.encode_batch(["ab ab", "b"], backend="host")
 
 
 def _models():

@@ -35,6 +35,17 @@ _W = 128
 _JAX_ROWS = 512
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many ops on small tensors: with the test
+    workers sharing the machine, torch's intra-op threads only wait on each
+    other (one thread runs these tests many times faster under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fuzz_vocab():
     """The fuzz vocabulary of the JAX package's device test
     (``tests/test_models_trainers.py``): pieces of 1-4 characters of
