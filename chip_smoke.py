@@ -19,8 +19,8 @@ Phases (each prints its seconds):
    table) and the 100,000-entry one (ids and ranks past u16: K5, on the CHD
    table; the word path's ids are int32).  For each: the load cost
    (``from_file``, the tables' build, the tables to the card);
-   the text pipeline (``Tokenizer.pipeline().encode_bytes``: pre-split, K1,
-   K2 or K5); every distinct word through the device on a fresh native
+   the text pipeline (``Tokenizer.pipeline().encode_bytes``: K21 the
+   pre-split, K1, K2 or K5); every distinct word through the device on a fresh native
    context, each word's ids against the host merge; ``backend="device"``
    from a fresh ``Tokenizer.from_file`` (a first call that fills, a warm
    call); ``backend="auto"`` from another fresh tokenizer in five batches,
@@ -28,8 +28,8 @@ Phases (each prints its seconds):
    ``backend="native"``.  Every text's ids equal the host oracle's; the
    launch counts are set to 0 just before each path and read just after;
    each path must have launched its kernels and no other: the text pipeline
-   K1 and the fixpoint of its table, the word paths K6 and K4 (the fill in
-   two launches) and not K1, K2, K3 or K5.  The first ``[B, L]`` batch and
+   K21, K1 and the fixpoint of its table, once a batch each, the word paths
+   K6 and K4 (the fill in two launches) and not K1, K2, K3 or K5.  The first ``[B, L]`` batch and
    word pack of every shape are kept.
    Then the sharded and the phased fill at both vocabularies
    (``drive_shards``): every distinct word again, unsharded, sharded over
@@ -71,8 +71,8 @@ Phases (each prints its seconds):
    Then the text pipeline from text at 50K (``drive_norm``):
    ``EncodePipeline.encode_batch`` with the tokenizer's NFC normalizer,
    K8 proving rows stable (every row in one launch) before the host
-   rewrites the others, against the oracle, launching K8 once, K1 and K2
-   only; K8 against its plain version on that run's rows under the NFC and
+   rewrites the others, against the oracle, launching K8 once, K21, K1 and
+   K2 only; K8 against its plain version on that run's rows under the NFC and
    ``BertNormalizer()`` bitmaps, timed warm, cold and plain with its launch
    shape, and on the edge rows of ``utils/corpus.py:norm_edge_rows``
    (truncated leads before continuation-looking bytes, rows of exactly
@@ -88,7 +88,10 @@ Phases (each prints its seconds):
    word against the host ``encode``; the words the host took (poisoned,
    over 128 lanes) printed; each kernel against its plain version on the
    path's input (K9, K10, K11 and K12 on the ragged words or pieces as
-   their tiers pack them; K9 also on ``run_rows``; K12 also on
+   their tiers pack them; K9 also on ``run_rows``; K22, K9's fixpoint on the
+   u16 cuckoo table, which no path launches, on the 50K ByteLevel BPE
+   model's words and run rows against its plain version and K9, timed
+   warm, cold and plain beside K9; K12 also on
    ``utils/corpus.py:unigram_edge_texts``, with ``maxcand`` 3 and 16 under
    the fallback marker -2, and with every text a warp and every text in a
    group of 8 lanes), timed warm, cold and plain beside its bound and
@@ -148,7 +151,13 @@ Phases (each prints its seconds):
    on random bytes (some OOV table entries) at ``[8192, 512]`` and
    ``[16, 4096]`` and on edge shapes (``seed_edge_batches``), timed warm,
    cold (``_time_cold_ms``: no call finds its own lines in L2) and at
-   ``[1, 16]`` (its launch floor).  K2 also on ``[16, 4096]`` rows filled
+   ``[1, 16]`` (its launch floor).  K21 (the pre-split) on the text
+   pipeline's batches, on random bytes with random lengths at ``[16,
+   4096]``, ``[8192, 128]`` and ``[8192, 512]`` (timed warm and cold
+   beside its bytes bound, and its plain version, what the text pipeline
+   ran before it, eagerly and replayed from a CUDA graph) and on
+   ``utils/corpus.py:presplit_edge_rows`` at every bucket width; at 100K
+   on that vocabulary's text batches.  K2 also on ``[16, 4096]`` rows filled
    with corpus text, on the rows that separate its greedy apply from the JAX
    rule (``run_rows``) at ``[16, 1024]`` and ``[4, 4096]``, with and without
    OOV bytes inside the runs, and on one 4,096-byte word of one letter.  K5
@@ -191,8 +200,8 @@ Phases (each prints its seconds):
    warm-cache loads, one JSON line of per-kernel numbers, then as the last line
    ``{"ok": true, "device": {...}}``.
 
-The kernels' line lists K1-K20 and K4's phased mode (``launches_by_path``:
-every path above).
+The kernels' line lists K1-K22 and K4's phased mode (``launches_by_path``:
+every path above; K22's is 0 on every path).
 Any failure raises and the script exits nonzero without the last line.
 Needs the repository beside it and imports nothing of JAX.
 """
@@ -380,6 +389,96 @@ def check_seed(label: str, arr, lens, table, timed: bool = True) -> dict:
     return dict(
         res, ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, bound_share=bound_ms / ms_cold, library_ms=library_ms,
+    )
+
+
+# int32 operations a valid column of the pre-split needs at the least: the
+# lead byte's decode and class gather, the continuation check and the
+# class's propagation, the absorbed, quote and contraction flags, the
+# start and the running count (a column past the length needs none)
+OPS_PER_PRESPLIT_COLUMN = 24
+
+
+def _presplit_table_bytes(arr, lens, table) -> int:
+    """Bytes of the class table that the valid columns' lead bytes look up:
+    128 staged (the ASCII part) and one 32-byte sector per distinct sector
+    of the other code points."""
+    import torch
+
+    B, L = arr.shape
+    b = torch.nn.functional.pad(arr.int(), (0, 3))
+    b0, b1, b2, b3 = (b[:, k:k + L] for k in range(4))
+    cp = torch.where(b0 < 0xE0, ((b0 & 0x1F) << 6) | (b1 & 0x3F),
+                     torch.where(b0 < 0xF0, ((b0 & 0x0F) << 12) | ((b1 & 0x3F) << 6) | (b2 & 0x3F),
+                                 ((b0 & 0x07) << 18) | ((b1 & 0x3F) << 12) | ((b2 & 0x3F) << 6)
+                                 | (b3 & 0x3F))).clamp(max=0x10FFFF)
+    valid = torch.arange(L, device=arr.device)[None, :] < lens[:, None].long()
+    lead = valid & (b0 >= 0xC0)
+    return 128 + 32 * int(torch.unique(cp[lead] >> 5).numel())
+
+
+def check_presplit(label: str, arr, lens, table, timed: bool = True) -> dict:
+    """K21 against its plain version on ``arr``/``lens`` (on the card), bit
+    for bit in all three outputs.  With ``timed``: the kernel warm and cold
+    (``_time_cold_ms``), the plain version (what the text pipeline ran
+    before K21) eagerly with CUDA events around its calls (``plain_ms``:
+    its launches from the host included) and replayed from a CUDA graph
+    (``plain_graph_ms``: its device time alone), and the bound: the bytes
+    the valid columns need (each up to three bytes past it, within the
+    row), the lengths, the class-table bytes their lead bytes look up, and
+    the three outputs (6 B a column), against 24 operations a valid column
+    (``OPS_PER_PRESPLIT_COLUMN``)."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.presplit import (
+        presplit,
+        presplit_launch_shape,
+        presplit_plain,
+    )
+
+    B, L = arr.shape
+    got = presplit(arr, lens, table)
+    exp = presplit_plain(arr, lens, table)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(g, e) for g, e in zip(got, exp))
+    match = all(bool(torch.equal(g, e)) for g, e in zip(got, exp))
+    n_valid = lens.long().clamp(0, L)
+    print(f"[presplit] {label} [{B},{L}] match={match} max_abs_err={err} "
+          f"valid columns {int(n_valid.sum())} starts {int(exp[0].sum())}", flush=True)
+    if not match:
+        raise AssertionError(f"presplit kernel differs from its plain version: {label} [{B},{L}]")
+    res = dict(inputs=label, shape=[B, L], match=match, max_abs_err=err)
+    if not timed:
+        return res
+    reps = 50 if B * L >= 1 << 20 else 200
+    ms = _time_ms(lambda: presplit(arr, lens, table), reps)
+    sets = _cold_sets((arr, lens), 6 * B * L)
+    ms_cold = _time_cold_ms(lambda a, n: presplit(a, n, table), sets, reps)
+    del sets
+    plain_ms = _time_ms(lambda: presplit_plain(arr, lens, table), 5, graph=False)
+    try:  # a measurement only: the plain version's ops may refuse capture
+        plain_graph_ms = _time_ms(lambda: presplit_plain(arr, lens, table), 5)
+    except RuntimeError as e:
+        print(f"[presplit] {label}: the plain version does not replay from a CUDA graph: {e}")
+        plain_graph_ms = None
+    read = int(torch.where(n_valid > 0, (n_valid + 3).clamp(max=L), 0).sum())
+    table_bytes = _presplit_table_bytes(arr, lens, table)
+    bound_ms, bound_by = _bound(read + 4 * B + table_bytes + 6 * B * L,
+                                OPS_PER_PRESPLIT_COLUMN * int(n_valid.sum()))
+    shape = presplit_launch_shape(L)
+    print(
+        f"[presplit] {label} [{B},{L}] kernel warm={ms:.4f} ms cold={ms_cold:.4f} ms "
+        f"plain={plain_ms:.4f} ms (graph replay {plain_graph_ms} ms) bound={bound_ms:.4f} ms "
+        f"({bound_by}; {read} bytes read, {table_bytes} table bytes; cold share "
+        f"{bound_ms / ms_cold:.3f}); launch {shape['threads']} threads, {shape['registers']} "
+        f"registers, {shape['local_bytes']} B spilled a thread, {shape['static_smem']} B shared, "
+        f"{shape['blocks_per_sm']} blocks per SM, {shape['row_warps']} warps a row",
+        flush=True,
+    )
+    return dict(
+        res, ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+        bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms_cold, library_ms=None,
+        launch=shape,
     )
 
 
@@ -1275,10 +1374,12 @@ def drive_shards(label: str, r: dict, texts: list[str], kernels_of: dict, native
     got, counts_l, wall = _drive_launches(kernels_of, lambda: text_pipeline_encode(tok, sp, texts))
     _compare(f"[{label}] text pipeline, two blocks", texts, got, r["host"])
     _need_only(f"{label} text pipeline, two blocks", counts_l,
-               {"seed_tokens": None, fixpoint: None})
-    if counts_l["seed_tokens"] != counts_l[fixpoint] or counts_l["seed_tokens"] % 2:
-        raise AssertionError(f"[{label}] the two-block text pipeline launched K1 and the "
-                             f"fixpoint {counts_l['seed_tokens']} / {counts_l[fixpoint]} times")
+               {"presplit": None, "seed_tokens": None, fixpoint: None})
+    if (not counts_l["presplit"] == counts_l["seed_tokens"] == counts_l[fixpoint]
+            or counts_l["seed_tokens"] % 2):
+        raise AssertionError(f"[{label}] the two-block text pipeline launched K21, K1 and the "
+                             f"fixpoint {counts_l['presplit']} / {counts_l['seed_tokens']} / "
+                             f"{counts_l[fixpoint]} times")
     launches[f"{label} text pipeline, two blocks"] = counts_l
     print(f"[{label}] text pipeline over [cuda:0, cuda:0]: {wall:.3f} s, equal to the host oracle; "
           f"launches {counts_l}", flush=True)
@@ -1975,7 +2076,11 @@ def drive_norm(texts: list[str], host: list[list[int]], kernels_of: dict, parent
     setup_s = time.perf_counter() - t1
     got, counts, wall = _drive_launches(kernels_of, lambda: pipe.encode_batch(texts))
     _need_only("the 50K text pipeline with K8", counts,
-               {"norm_stable_rows": 1, "seed_tokens": None, "merge_fixpoint_qc": None})
+               {"norm_stable_rows": 1, "presplit": None, "seed_tokens": None,
+                "merge_fixpoint_qc": None})
+    if not counts["presplit"] == counts["seed_tokens"] == counts["merge_fixpoint_qc"]:
+        raise AssertionError(f"K21, K1 and K2 launched unequally on the 50K text pipeline with "
+                             f"K8: {counts}")
     # the texts that may hold an added token go to the oracle on the
     # Tokenizer's own routes; EncodePipeline.encode_batch has no scan
     flags = tok._added_route_flags(tok._prepare_bytes([tok._normalize(t) for t in texts]))
@@ -2036,6 +2141,77 @@ def _in_turns(kernel, parent, reps: int = 20) -> tuple[list, list]:
     kernel, parent."""
     p0, k0, k1, p1 = (_time_ms(f, reps) for f in (parent, kernel, kernel, parent))
     return [k0, k1], [p0, p1]
+
+
+def check_word_rows_qc(label: str, model, tier, sym_rows) -> dict:
+    """K22 (K9's fixpoint on the u16 cuckoo table) against its plain version
+    and against K9, bit for bit, on the ragged words ``sym_rows`` as the
+    model's tier packs them, over the cuckoo table of the same symbol ids
+    (``ops/stringbpe_device.py:string_qc_table``); timed warm, cold and
+    plain beside K9 on the same words, with the bound of K9's ragged form
+    (the live symbols in, offsets, an id a symbol and a count a word out,
+    and the probes' table bytes: two 8-byte cuckoo rows a probe, at most
+    the whole table).  No path launches K22."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.merge import (
+        TILE_SYMBOLS,
+        WORD_LANES,
+        launch_shape,
+        merge_word_rows,
+        merge_word_rows_qc,
+        merge_word_rows_qc_ragged_plain,
+        word_tiles,
+    )
+    from complexity_tokenizer_tpu_torch.ops.stringbpe_device import string_qc_table
+
+    qc = string_qc_table(model.merge_ranks)
+    if qc is None:
+        raise AssertionError(f"[{label}] the merge table does not fit the u16 cuckoo table")
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    t1, t2 = on(qc.t1.view(np.int32)), on(qc.t2.view(np.int32))
+    syms_np, offs_np = tier.pack(sym_rows)[:2]
+    syms, offs, tiles = on(syms_np), on(offs_np), on(word_tiles(offs_np, TILE_SYMBOLS))
+    args = (t1, t2, qc.size)
+    k9_args = (tier.disp, tier.rows, tier.chd.size, tier.chd.n_buckets)
+    got = merge_word_rows_qc(syms, offs, tiles, *args)
+    exp = merge_word_rows_qc_ragged_plain(syms, offs, *args)
+    k9 = merge_word_rows(syms, offs, tiles, *k9_args)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(got[0], exp[0]), _max_abs_err(got[1], exp[1]))
+    match = bool(torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1]))
+    equals_k9 = bool(torch.equal(got[0], k9[0]) and torch.equal(got[1], k9[1]))
+    B, N = offs.numel() - 1, syms.numel()
+    ms = _time_ms(lambda: merge_word_rows_qc(syms, offs, tiles, *args), 20)
+    sets = _cold_sets((syms, offs, tiles), 4 * N + 4 * B)
+    ms_cold = _time_cold_ms(lambda s_, o_, t_: merge_word_rows_qc(s_, o_, t_, *args), sets, 20)
+    del sets
+    k9_ms = _time_ms(lambda: merge_word_rows(syms, offs, tiles, *k9_args), 20)
+    plain_ms = _time_ms(lambda: merge_word_rows_qc_ragged_plain(syms, offs, *args), 2,
+                        graph=False)
+    probes, merges = _symbol_probe_work(syms, offs, exp[1], tier.disp, tier.rows)[:2]
+    table_bytes = min(probes * 16, 2 * t1.numel() * 4)
+    bound_ms, bound_by = _bound(4 * int((syms >= 0).sum()) + 4 * (B + 1) + 4 * N + 4 * B
+                                + table_bytes, probes * OPS_PER_PROBE)
+    shape = launch_shape(TILE_SYMBOLS + WORD_LANES - 1, chd=False, ragged=True)
+    print(
+        f"[merge_word_rows_qc] {label} {N} symbols, {B} words, {tiles.numel() - 1} tiles: "
+        f"match={match} max_abs_err={err} equals K9={equals_k9} kernel warm={ms:.4f} ms "
+        f"cold={ms_cold:.4f} ms (K9 on the same words {k9_ms:.4f} ms) plain={plain_ms:.4f} ms "
+        f"bound={bound_ms:.4f} ms ({bound_by}; {probes} probes, {merges} merges); launch "
+        f"{shape['threads']} threads, {shape['registers']} registers, {shape['local_bytes']} B "
+        f"spilled a thread, shared {shape['static_smem']} + {shape['dynamic_smem']} B a block, "
+        f"{shape['blocks_per_sm']} blocks per SM",
+        flush=True,
+    )
+    if not match:
+        raise AssertionError(f"merge_word_rows_qc kernel differs from its plain version: {label}")
+    if not equals_k9:
+        raise AssertionError(f"K22 differs from K9 on the same words: {label}")
+    return dict(inputs=label, shape=[N, B], match=match, max_abs_err=err, equals_k9=equals_k9,
+                ms=ms, ms_cold=ms_cold, k9_ms=k9_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, probes=probes, merges=merges, launch=shape)
 
 
 def check_model_kernel(label: str, name: str, tier, words: list[str], sym_rows=None,
@@ -2437,6 +2613,9 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
         out["checks"].setdefault(kname, []).append(
             check_model_kernel(label, kname, tier, uniq, sym_rows, parent, edge))
         if label == "ByteLevel BPE 50K":
+            # K22 on the same words, over the cuckoo table of the same ids
+            out["checks"]["merge_word_rows_qc"] = [
+                check_word_rows_qc("corpus words, 50K", model, tier, sym_rows)]
             # the rows that separate the greedy apply from the JAX rule, as
             # words of 128 byte-level symbols; with breaks, the run breakers
             # are symbols no merge names (ids past the table's universe)
@@ -2447,6 +2626,9 @@ def drive_models(texts: list[str], kernels_of: dict, parent=None) -> dict:
                         for r in run_rows(corpus_bytes, 64, 128, breaks)]
                 out["checks"][kname].append(check_model_kernel(
                     "run rows, unknown-symbol breaks" if breaks else "run rows", kname, tier, [],
+                    runs))
+                out["checks"]["merge_word_rows_qc"].append(check_word_rows_qc(
+                    "run rows, unknown-symbol breaks" if breaks else "run rows", model, tier,
                     runs))
         out["launches"][label] = counts
         out["walls"][label] = wall
@@ -3303,11 +3485,13 @@ def main(argv=None) -> int:
         )
         from complexity_tokenizer_tpu_torch.ops.merge import (
             merge_word_rows,
+            merge_word_rows_qc,
             merge_words,
             merge_words_qc,
         )
         from complexity_tokenizer_tpu_torch.ops.normalize_device import norm_stable_rows
         from complexity_tokenizer_tpu_torch.ops.pipeline import pack_texts
+        from complexity_tokenizer_tpu_torch.ops.presplit import presplit
         from complexity_tokenizer_tpu_torch.ops.seed import seed_tokens
         from complexity_tokenizer_tpu_torch.ops.wordfill import (
             fill_compact,
@@ -3331,6 +3515,7 @@ def main(argv=None) -> int:
             RUN_BREAKS,
             edge_word_pack,
             long_token_vocab,
+            presplit_edge_rows,
             run_rows,
         )
         from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
@@ -3429,7 +3614,8 @@ def main(argv=None) -> int:
                   "wordlevel_lookup": wordlevel_lookup, "viterbi": viterbi,
                   **{k: getattr(trainer_device, k) for k in TRAIN_KERNELS},
                   "piece_hist": piece_hist, "train_match": train_match, "pair_count": pair_count,
-                  "phase_compact": phase_compact, "fill_compact_phased": fill_compact_phased}
+                  "phase_compact": phase_compact, "fill_compact_phased": fill_compact_phased,
+                  "presplit": presplit, "merge_word_rows_qc": merge_word_rows_qc}
     r50 = drive_paths("50K", TOKENIZER_JSON, texts, kernels_of, native)
     r100 = drive_paths("100K", TOKENIZER_100K, texts, kernels_of, native)
     s50 = drive_shards("50K", r50, texts, kernels_of, native)
@@ -3449,17 +3635,21 @@ def main(argv=None) -> int:
                  **{f"model {k}": v for k, v in mdl["launches"].items()},
                  **train["launches"], **train2["launches"]}
     # every kernel of a path was launched on it and no other: the text
-    # pipeline runs K1 and the fixpoint of its table, the word paths one K6
-    # (K3, K1 and the fixpoint folded into it) and one K4 a pack
+    # pipeline runs K21, K1 and the fixpoint of its table once a batch, the
+    # word paths one K6 (K3, K1 and the fixpoint folded into it) and one K4
+    # a pack
     for label, r, fixpoint in (("50K", r50, "merge_fixpoint_qc"), ("100K", r100, "merge_fixpoint_chd")):
         for path_name, counts in r["launches"].items():
             text = path_name == "text pipeline"
-            need = [fixpoint, "seed_tokens"] if text else ["word_merge", "fill_compact"]
+            need = [fixpoint, "seed_tokens", "presplit"] if text else ["word_merge", "fill_compact"]
             for name, n in counts.items():
                 if (n > 0) != (name in need):
                     raise AssertionError(f"kernel {name} was launched {n} times on the {label} {path_name}")
             if not text and counts["word_merge"] != counts["fill_compact"]:
                 raise AssertionError(f"K6 and K4 launched unequally on the {label} {path_name}")
+            if text and not counts["presplit"] == counts["seed_tokens"] == counts[fixpoint]:
+                raise AssertionError(f"K21, K1 and the fixpoint launched unequally on the {label} "
+                                     f"{path_name}: {counts}")
 
     # 4. kernels against their plain versions -------------------------------
     t0 = time.perf_counter()
@@ -3520,6 +3710,21 @@ def main(argv=None) -> int:
     for label, arr, lens in seed_edge_batches(rng):
         seed_res.append(check_seed(label, arr, lens, table, timed=False))
     launch_floor_ms = seed_launch_floor_ms(tb.byte_token_table)
+    # K21 (the pre-split): the text pipeline's batches, random bytes with
+    # random lengths (some past L, some negative) at the pipeline's three
+    # batch shapes, and the edge rows at every bucket width
+    presplit_res: list[dict] = []
+    for shape in r50["shapes"]:
+        arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
+        presplit_res.append(check_presplit("text batch", arr, lens, tb.class_table))
+    prng = np.random.RandomState(args.seed + 21)
+    for B, W in ((16, 4096), (8192, 128), (8192, 512)):
+        arr = torch.from_numpy(prng.randint(0, 256, size=(B, W)).astype(np.uint8)).cuda()
+        lens = torch.from_numpy(prng.randint(-2, W + 3, size=B).astype(np.int32)).cuda()
+        presplit_res.append(check_presplit("random bytes", arr, lens, tb.class_table))
+    for W in (128, 512, 2048, 4096):
+        arr, lens = (torch.from_numpy(x).cuda() for x in presplit_edge_rows(W))
+        presplit_res.append(check_presplit("edge rows", arr, lens, tb.class_table, timed=False))
     arr, lens = (torch.from_numpy(x).cuda() for x in _corpus_rows(texts, 16, 4096))
     merge_res.append(check_merge("corpus rows", tb, arr, lens))
     # the rows that separate the greedy apply from the JAX rule, also with
@@ -3568,6 +3773,8 @@ def main(argv=None) -> int:
     for shape in r100["shapes"]:
         arr, lens = (torch.from_numpy(x).cuda() for x in batches[shape])
         chd_res.append(check_merge("text batch", tb, arr, lens, table="chd", cold=True))
+        presplit_res.append(check_presplit("text batch, 100K", arr, lens, tb.class_table,
+                                           timed=False))
     chd_res.append(check_merge("one letter", tb, *one_letter, table="chd", plain_reps=1,
                                cold=True))
     # edge shapes: one row, three rows of 8, a width that is no multiple of
@@ -3840,6 +4047,54 @@ def main(argv=None) -> int:
             "library_ms": None,
             "checks": res,
         })
+    # K21: the text pipeline's first pass since this kernel; headline
+    # numbers at its widest batch
+    text_res = [r for r in presplit_res if r["inputs"] == "text batch"]
+    main = max(text_res, key=lambda r: r["shape"][0] * r["shape"][1])
+    # K22: no path launches it (as no JAX path calls merge_word_rows_qc); its
+    # numbers on the 50K ByteLevel BPE model's words
+    k22_res = mdl["checks"]["merge_word_rows_qc"]
+    for name, res, src, wrapper, replaces, path_name, head in (
+        ("presplit", presplit_res, "presplit.cu", "ops/presplit.py",
+         "complexity_tokenizer_tpu/ops/presplit.py:75", "50K text pipeline", main),
+        ("merge_word_rows_qc", k22_res, "kernels.cu", "ops/merge.py",
+         "complexity_tokenizer_tpu/ops/merge.py:175", None, k22_res[0]),
+    ):
+        by_path = {
+            **{f"{label} {p}": counts[name]
+               for label, r in (("50K", r50), ("100K", r100))
+               for p, counts in r["launches"].items()},
+            **_call_launches(name, call50, call100),
+            **{p: c[name] for p, c in new_paths.items()},
+        }
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "complexity_tokenizer_tpu_torch/csrc/" + src,
+            "wrapper": "complexity_tokenizer_tpu_torch/" + wrapper,
+            "replaces": replaces,
+            "launches": by_path[path_name] if path_name else 0,
+            "launches_path": path_name or "none: no path calls it, as no JAX path calls "
+                                          "merge_word_rows_qc",
+            "launches_by_path": by_path,
+            "match": all(r["match"] for r in res),
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "inputs": head["inputs"],
+            "shape": head["shape"],
+            "ms": head["ms"],
+            "ms_cold": head["ms_cold"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "launch": head["launch"],
+            "checks": res,
+        })
+        for key in ("plain_graph_ms", "k9_ms", "equals_k9"):
+            if key in head:
+                kernels[-1][key] = head[key]
+    if any(n for p, n in kernels[-1]["launches_by_path"].items()):
+        raise AssertionError("a path launched K22, which no path calls")
     # K12 inside the Unigram trainer: its checks and times on the E-steps
     next(k for k in kernels if k["name"] == "viterbi")["trainer_checks"] = train2["checks"]["viterbi"]
     # K17-K19: the WordPiece and Unigram trainers' routes

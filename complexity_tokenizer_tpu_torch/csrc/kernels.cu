@@ -856,6 +856,14 @@ struct FillRows {
 // names, numbered after it per batch): the CHD probe compares both keys of
 // a row and assumes no bound on the ids, so such an id never hits.
 //
+// K22 is the same kernel on the u16 cuckoo table (QcProbe, K2's walk:
+// every pair probed as the walk reaches it), the counterpart of
+// merge_word_rows_qc (complexity_tokenizer_tpu/ops/merge.py:175, the same
+// _word_rows_fixpoint over qc_lookup_jnp), which no JAX path calls.  Its
+// key is (a << 16) | b in u32 arithmetic, as in qc_lookup_jnp
+// (ops/hashtable.py:277-280): symbol ids past 65,535 alias as they do
+// there, and the pair packing to the empty-slot key 0xFFFFFFFF never hits.
+//
 // Bound: latency, as K5's: each step of a word waits on its probes in L2.
 // Where one word a block of 64 threads left 63 lanes waiting and at most
 // 32 blocks an SM (about 4,200 words in flight on 132 SMs), a tile of
@@ -1576,15 +1584,33 @@ int ctok_merge_word_rows(const void* syms, const void* offs, const void* tiles, 
                              io);
 }
 
+// K22, K9 on the u16 cuckoo table: the same arguments with the table of
+// ctok_merge_fixpoint_qc (t1, t2 [mask + 1, 2] u32 rows) in place of the
+// CHD table's
+int ctok_merge_word_rows_qc(const void* syms, const void* offs, const void* tiles, int n_tiles,
+                            int lanes, const void* t1, const void* t2, unsigned mask, void* out,
+                            void* count, void* stream) {
+  const QcProbe tb{static_cast<const uint2*>(t1),
+                   static_cast<const uint2*>(t2), (uint32_t)mask};
+  const RaggedRows io{static_cast<const int32_t*>(syms), static_cast<const int32_t*>(offs),
+                      static_cast<const int32_t*>(tiles)};
+  return (int)dispatch_merge(nullptr, nullptr, tb, out, count, n_tiles, lanes, stream, nullptr,
+                             io);
+}
+
 // The launch shape of K2 (chd = 0) or K5 (chd = 1) for rows of L, with
-// policy 1 that of K6 on the same table, with policy 2 that of K9 (CHD
-// only) for tiles of L lanes: info gets threads a block, registers a
-// thread, static and dynamic shared bytes a block, local (spill) bytes a
-// thread and resident blocks per SM.
+// policy 1 that of K6 on the same table, with policy 2 that of K22 (chd =
+// 0) or K9 (chd = 1) for tiles of L lanes: info gets threads a block,
+// registers a thread, static and dynamic shared bytes a block, local
+// (spill) bytes a thread and resident blocks per SM.
 int ctok_merge_fixpoint_info(int chd, int policy, int L, int* info) {
-  if (policy == 2)
-    return (int)dispatch_merge(nullptr, nullptr, ChdProbe{}, nullptr, nullptr, 1, L, nullptr,
+  if (policy == 2) {
+    if (chd)
+      return (int)dispatch_merge(nullptr, nullptr, ChdProbe{}, nullptr, nullptr, 1, L, nullptr,
+                                 info, RaggedRows{});
+    return (int)dispatch_merge(nullptr, nullptr, QcProbe{}, nullptr, nullptr, 1, L, nullptr,
                                info, RaggedRows{});
+  }
   if (policy == 1) {
     if (chd)
       return (int)dispatch_word_merge(nullptr, nullptr, nullptr, nullptr, ChdProbe{}, nullptr,

@@ -1,10 +1,12 @@
-"""Segmented BPE merge fixpoint: kernels K2, K5 and K9 and their plain versions.
+"""Segmented BPE merge fixpoint: kernels K2, K5, K9 and K22 and their plain versions.
 
 K9 (:func:`merge_word_rows`) is the same fixpoint over ragged words (the
 symbols of all words end to end, and their offsets), on the CHD table: the
 device tier of CharBPE and the ByteLevel BPE model
 (``ops/stringbpe_device.py``).  A block takes a tile of whole words
-(:func:`word_tiles`).
+(:func:`word_tiles`).  K22 (:func:`merge_word_rows_qc`) is K9 on the u16
+cuckoo table, the counterpart of the JAX ``merge_word_rows_qc``; as there,
+no path calls it.
 
 K2 (:func:`merge_words_qc`) probes the u16 two-choice cuckoo table, K5
 (:func:`merge_words`) the CHD table of the vocabularies past u16; both run
@@ -50,6 +52,9 @@ __all__ = [
     "merge_word_rows",
     "merge_word_rows_plain",
     "merge_word_rows_ragged_plain",
+    "merge_word_rows_qc",
+    "merge_word_rows_qc_plain",
+    "merge_word_rows_qc_ragged_plain",
     "segmented_fixpoint_bounded_plain",
     "compact_half_rows_plain",
     "phased_merge_words_plain",
@@ -225,23 +230,16 @@ def merge_fixpoint_chd_plain(tokens, wid, disp, rows, size: int, n_buckets: int)
     )
 
 
-def merge_word_rows_plain(tokens, disp, rows, size: int, n_buckets: int):
-    """Plain PyTorch version of K9, on any device: the JAX
-    ``_word_rows_fixpoint`` under ``merge_word_rows``, step for step.
-
-    Args:
-      tokens: [B, W] int32, one word a row, -1 = tombstone/pad.
-      disp, rows, size, n_buckets: the CHD table, as for
-        :func:`merge_fixpoint_chd_plain`.
-    Returns:
-      (tokens, count) as :func:`merge_fixpoint_chd_plain`.
-    """
+def _word_rows_fixpoint_plain(tokens, lookup):
+    """The JAX ``_word_rows_fixpoint`` step for step: one word a row, the
+    per-word minimum a row minimum; ``lookup(a, b, valid) -> (rank,
+    minted)`` probes the pair table."""
     t = tokens
     while True:
         alive = t >= 0
         t_next = _shift_left(_carry_first(t, alive), -1)
         pair_valid = alive & (t_next >= 0)
-        r, minted = chd_lookup_rows(disp, rows, size, n_buckets, t, t_next, pair_valid)
+        r, minted = lookup(t, t_next, pair_valid)
         rowmin = r.min(dim=1, keepdim=True).values
         is_best = (r == rowmin) & (rowmin < INF_RANK) & pair_valid
         # equal-pair runs: the leading occurrence wins
@@ -254,6 +252,38 @@ def merge_word_rows_plain(tokens, disp, rows, size: int, n_buckets: int):
             break
     count = (t >= 0).sum(dim=1, dtype=torch.int32)
     return t, count
+
+
+def merge_word_rows_plain(tokens, disp, rows, size: int, n_buckets: int):
+    """Plain PyTorch version of K9, on any device: the JAX
+    ``_word_rows_fixpoint`` under ``merge_word_rows``, step for step.
+
+    Args:
+      tokens: [B, W] int32, one word a row, -1 = tombstone/pad.
+      disp, rows, size, n_buckets: the CHD table, as for
+        :func:`merge_fixpoint_chd_plain`.
+    Returns:
+      (tokens, count) as :func:`merge_fixpoint_chd_plain`.
+    """
+    return _word_rows_fixpoint_plain(
+        tokens, lambda a, b, valid: chd_lookup_rows(disp, rows, size, n_buckets, a, b, valid)
+    )
+
+
+def merge_word_rows_qc_plain(tokens, t1, t2, size: int):
+    """Plain PyTorch version of K22, on any device: the JAX
+    ``merge_word_rows_qc`` (``_word_rows_fixpoint`` over ``qc_lookup_jnp``),
+    step for step.  Ids past 65,535 alias in the u32 key as they do there.
+
+    Args:
+      tokens: [B, W] int32, one word a row, -1 = tombstone/pad.
+      t1, t2, size: the cuckoo table, as for :func:`merge_fixpoint_qc_plain`.
+    Returns:
+      (tokens, count) as :func:`merge_fixpoint_qc_plain`.
+    """
+    return _word_rows_fixpoint_plain(
+        tokens, lambda a, b, valid: qc_lookup(t1, t2, size, a, b, valid)
+    )
 
 
 def _ragged_index(offs: torch.Tensor):
@@ -276,12 +306,28 @@ def merge_word_rows_ragged_plain(syms, offs, disp, rows, size: int, n_buckets: i
       (out [N] int32: the merged ids at their words' first symbol, -1
       elsewhere; count [B] int32: live ids a word).
     """
+    return _ragged_plain(syms, offs, lambda dense: merge_word_rows_plain(
+        dense, disp, rows, size, n_buckets))
+
+
+def merge_word_rows_qc_ragged_plain(syms, offs, t1, t2, size: int):
+    """Plain PyTorch version of K22, on any device: the words scattered into
+    rows, :func:`merge_word_rows_qc_plain`, and gathered back.  Arguments
+    and result as :func:`merge_word_rows_ragged_plain`, with the cuckoo
+    table."""
+    return _ragged_plain(syms, offs, lambda dense: merge_word_rows_qc_plain(dense, t1, t2, size))
+
+
+def _ragged_plain(syms, offs, dense_fixpoint):
+    """The ragged words ``syms``/``offs`` scattered into [B, W] rows (W the
+    longest word), ``dense_fixpoint(rows) -> (tokens, count)``, and the
+    tokens gathered back to their flat offsets."""
     B = offs.numel() - 1
     word, col = _ragged_index(offs)
     W = max(1, int(col.max()) + 1) if col.numel() else 1
     dense = torch.full((B, W), -1, dtype=torch.int32, device=syms.device)
     dense[word, col] = syms
-    t, count = merge_word_rows_plain(dense, disp, rows, size, n_buckets)
+    t, count = dense_fixpoint(dense)
     return t[word, col], count
 
 
@@ -396,6 +442,42 @@ def merge_words(tokens, wid, disp, rows, size: int, n_buckets: int):
 merge_words.launches = 0  # launches of K5 (not of the plain version)
 
 
+def _launch_ragged(fn: str, entry: str, syms, offs, tiles, tables, table_args,
+                   tile: int, max_lanes: int):
+    """The checks K9 and K22 share (int32, contiguous, on the symbols'
+    device, of the given shapes; tiles of whole words whose lanes fit
+    ``max_lanes``), then the launch of the C entry ``entry`` on the
+    symbols' current stream.  Returns (out, count, launched)."""
+    N, B, T = syms.numel(), offs.numel() - 1, tiles.numel() - 1
+    for name, t, shape in (("syms", syms, (N,)), ("offs", offs, (B + 1,)),
+                           ("tiles", tiles, (T + 1,)), *tables):
+        if t.device != syms.device or t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{fn}: {name} must be int32 {shape} on {syms.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    lanes = tile + WORD_LANES - 1
+    if tile <= 0 or lanes > max_lanes:
+        raise ValueError(f"{fn}: tiles of {tile} symbols exceed the shared memory")
+    out = torch.empty_like(syms)
+    count = torch.empty(max(B, 0), dtype=torch.int32, device=syms.device)
+    if B <= 0:
+        return out, count, False
+    if T <= 0:
+        raise ValueError(f"{fn}: no tiles for the words (word_tiles)")
+    stream = torch.cuda.current_stream(syms.device).cuda_stream
+    check(
+        getattr(kernel_library().lib, entry)(
+            syms.data_ptr(), offs.data_ptr(), tiles.data_ptr(), T, lanes, *table_args,
+            out.data_ptr(), count.data_ptr(), stream,
+        ),
+        fn,
+    )
+    return out, count, True
+
+
 def merge_word_rows(syms, offs, tiles, disp, rows, size: int, n_buckets: int,
                     tile: int = TILE_SYMBOLS):
     """K9 on CUDA tensors, the plain version on CPU tensors.
@@ -412,41 +494,47 @@ def merge_word_rows(syms, offs, tiles, disp, rows, size: int, n_buckets: int,
     for name, n in (("table size", size), ("bucket count", n_buckets)):
         if n <= 0 or n & (n - 1):
             raise ValueError(f"merge_word_rows: {name} {n} is not a power of two")
-    N, B, T = syms.numel(), offs.numel() - 1, tiles.numel() - 1
-    for name, t, shape in (("syms", syms, (N,)), ("offs", offs, (B + 1,)),
-                           ("tiles", tiles, (T + 1,)), ("disp", disp, (n_buckets,)),
-                           ("rows", rows, (size, 4))):
-        if t.device != syms.device or t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(
-                f"merge_word_rows: {name} must be int32 {shape} on {syms.device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"merge_word_rows: {name} must be contiguous")
-    lanes = tile + WORD_LANES - 1
-    if tile <= 0 or lanes > 12288:  # 18 B of shared memory a lane
-        raise ValueError(f"merge_word_rows: tiles of {tile} symbols exceed the shared memory")
     if rows.data_ptr() % 16:
         raise ValueError("merge_word_rows: rows must be 16-byte aligned (one int4 load a probe)")
-    out = torch.empty_like(syms)
-    count = torch.empty(max(B, 0), dtype=torch.int32, device=syms.device)
-    if B <= 0:
-        return out, count
-    if T <= 0:
-        raise ValueError("merge_word_rows: no tiles for the words (word_tiles)")
-    stream = torch.cuda.current_stream(syms.device).cuda_stream
-    check(
-        kernel_library().lib.ctok_merge_word_rows(
-            syms.data_ptr(), offs.data_ptr(), tiles.data_ptr(), T, lanes, disp.data_ptr(),
-            rows.data_ptr(), size - 1, n_buckets - 1, out.data_ptr(), count.data_ptr(), stream,
-        ),
-        "merge_word_rows",
+    # 18 B of shared memory a lane
+    out, count, launched = _launch_ragged(
+        "merge_word_rows", "ctok_merge_word_rows", syms, offs, tiles,
+        (("disp", disp, (n_buckets,)), ("rows", rows, (size, 4))),
+        (disp.data_ptr(), rows.data_ptr(), size - 1, n_buckets - 1), tile, 12288,
     )
-    merge_word_rows.launches += 1
+    merge_word_rows.launches += launched
     return out, count
 
 
 merge_word_rows.launches = 0  # launches of K9 (not of the plain version)
+
+
+def merge_word_rows_qc(syms, offs, tiles, t1, t2, size: int, tile: int = TILE_SYMBOLS):
+    """K22 on CUDA tensors, the plain version on CPU tensors.
+
+    Same arguments and result as :func:`merge_word_rows_qc_ragged_plain`
+    when the table is well-formed; ``tiles`` as for
+    :func:`merge_word_rows` (the plain version does not read them).  No
+    path of the package calls it, as no path of the JAX package calls its
+    ``merge_word_rows_qc``.
+    """
+    if syms.device.type == "cpu":
+        return merge_word_rows_qc_ragged_plain(syms, offs, t1, t2, size)
+    if syms.device.type != "cuda":
+        raise ValueError(f"merge_word_rows_qc: unsupported device {syms.device}")
+    if size <= 0 or size & (size - 1):
+        raise ValueError(f"merge_word_rows_qc: table size {size} is not a power of two")
+    # 14 B of shared memory a lane, as K2
+    out, count, launched = _launch_ragged(
+        "merge_word_rows_qc", "ctok_merge_word_rows_qc", syms, offs, tiles,
+        (("t1", t1, (size, 2)), ("t2", t2, (size, 2))),
+        (t1.data_ptr(), t2.data_ptr(), size - 1), tile, 16384,
+    )
+    merge_word_rows_qc.launches += launched
+    return out, count
+
+
+merge_word_rows_qc.launches = 0  # launches of K22 (not of the plain version)
 
 
 _SHAPE_KEYS = ("threads", "registers", "static_smem", "dynamic_smem", "local_bytes",
@@ -456,12 +544,12 @@ _SHAPE_KEYS = ("threads", "registers", "static_smem", "dynamic_smem", "local_byt
 def launch_shape(L: int, chd: bool = True, fill: bool = False, ragged: bool = False) -> dict:
     """How the card launches K5 (``chd``) or K2 on rows of ``L`` or, with
     ``fill``, K6 (the word path's merge from the packed bytes,
-    ``ops/wordfill.py``) on the same table, or with ``ragged`` K9 on tiles
-    of ``L`` lanes (CHD only): threads a block, registers a thread, static
-    and dynamic shared bytes a block, local (spill) bytes a thread, and
-    resident blocks per SM.  Needs a card; launches nothing."""
+    ``ops/wordfill.py``) on the same table, or with ``ragged`` K9 (``chd``)
+    or K22 on tiles of ``L`` lanes: threads a block, registers a thread,
+    static and dynamic shared bytes a block, local (spill) bytes a thread,
+    and resident blocks per SM.  Needs a card; launches nothing."""
     info = (ctypes.c_int * len(_SHAPE_KEYS))()
     policy = 2 if ragged else int(fill)
     check(kernel_library().lib.ctok_merge_fixpoint_info(
-        int(chd or ragged), policy, L, ctypes.addressof(info)), "launch_shape")
+        int(chd), policy, L, ctypes.addressof(info)), "launch_shape")
     return dict(zip(_SHAPE_KEYS, info))

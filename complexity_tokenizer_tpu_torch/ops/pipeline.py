@@ -5,7 +5,7 @@ kernel K8 proves to be fixed points of the normalizer skip the host
 rewrite, ``ops/normalize_device.py``; ``encode_bytes`` takes the bytes
 normalized and prefixed by the Tokenizer) -> UTF-8 bytes packed into
 ``[B, L]`` uint8 tensors at bucketed widths -> on the device:
-pre-split (torch ops), byte -> token seed (kernel K1), segmented merge
+pre-split (kernel K21), byte -> token seed (kernel K1), segmented merge
 fixpoint (``TorchTables.merge_fixpoint``: kernel K2 on the u16 cuckoo
 table when it is eligible, kernel K5 on the CHD table otherwise)
 -> host unpack to ragged id lists.  Texts longer than
@@ -131,7 +131,7 @@ class EncodePipeline:
 
     @staticmethod
     def _rows_on(arr: np.ndarray, lens: np.ndarray, device, tb) -> torch.Tensor:
-        """Presplit, K1 and the fixpoint of the rows on ``device``: [B, L]
+        """K21 (the pre-split), K1 and the fixpoint of the rows on ``device``: [B, L]
         int32 ids with -1 tombstones, on the device."""
         arr_t = torch.from_numpy(arr).to(device)
         lens_t = torch.from_numpy(lens).to(device)

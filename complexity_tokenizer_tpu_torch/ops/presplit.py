@@ -1,4 +1,4 @@
-"""GPT-2 pre-split over ``[B, L]`` byte tensors, as torch ops.
+"""GPT-2 pre-split over ``[B, L]`` byte tensors: kernel K21 and its plain version.
 
 The same local boundary rules as the JAX package's ``ops/presplit.py``,
 derived from the leftmost-first semantics of the no-lookahead pattern::
@@ -17,17 +17,27 @@ derived from the leftmost-first semantics of the no-lookahead pattern::
 
 UTF-8 is decoded arithmetically at lead bytes, the class gathered from the
 ``[0x110000]`` table on the device and propagated over continuation bytes.
-Diff-tested against the host scanner (``core/pretokenizers.py``) and the
-JAX pass.  It stays torch ops in this slice; a kernel is queued.
+
+:func:`presplit` launches kernel K21 (``csrc/presplit.cu``, one launch a
+batch: a warp a 128-column step, each step's window of bytes in shared
+memory, a row's steps on several warps of a block) on CUDA
+tensors and runs :func:`presplit_plain`, the same rules as torch ops, on
+CPU tensors.  Both are diff-tested against the host scanner
+(``core/pretokenizers.py``) and the JAX pass.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..utils.cuda_build import check, kernel_library
 from ..utils.unicode_tables import CL_LETTER, CL_NUMBER, CL_OTHER, CL_WS
 
-__all__ = ["presplit", "CL_NONE"]
+__all__ = ["presplit", "presplit_plain", "presplit_launch_shape", "CL_NONE", "N_CODEPOINTS"]
+
+N_CODEPOINTS = 0x110000  # entries of the class table
 
 CL_NONE = 4  # out-of-text sentinel
 
@@ -46,8 +56,9 @@ def _shift_left(x: torch.Tensor, k: int, fill) -> torch.Tensor:
     return out
 
 
-def presplit(byte_arr: torch.Tensor, lengths: torch.Tensor, class_table: torch.Tensor):
-    """Word segmentation of packed byte rows.
+def presplit_plain(byte_arr: torch.Tensor, lengths: torch.Tensor, class_table: torch.Tensor):
+    """Plain PyTorch version of K21, on any device: the JAX ``presplit``
+    step for step.
 
     Args:
       byte_arr: [B, L] uint8 (zero-padded past ``lengths``).
@@ -130,3 +141,61 @@ def presplit(byte_arr: torch.Tensor, lengths: torch.Tensor, class_table: torch.T
     word_id = torch.cumsum(start.to(torch.int32), dim=1, dtype=torch.int32) - 1
     word_id = torch.where(valid, word_id, -1)
     return start, word_id, valid
+
+
+def presplit(byte_arr: torch.Tensor, lengths: torch.Tensor, class_table: torch.Tensor):
+    """K21 on CUDA tensors, the plain version on CPU tensors.
+
+    Same arguments and result as :func:`presplit_plain`; the kernel takes
+    ``byte_arr`` [B, L] uint8, ``lengths`` [B] int32 and ``class_table``
+    [0x110000] uint8, contiguous, on one card.
+    """
+    if byte_arr.device.type == "cpu":
+        return presplit_plain(byte_arr, lengths, class_table)
+    if byte_arr.device.type != "cuda":
+        raise ValueError(f"presplit: unsupported device {byte_arr.device}")
+    if byte_arr.dim() != 2:
+        raise ValueError(f"presplit: byte_arr must be [B, L], got {tuple(byte_arr.shape)}")
+    B, L = byte_arr.shape
+    for name, t, dtype, shape in (
+        ("byte_arr", byte_arr, torch.uint8, (B, L)),
+        ("lengths", lengths, torch.int32, (B,)),
+        ("class_table", class_table, torch.uint8, (N_CODEPOINTS,)),
+    ):
+        if t.device != byte_arr.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"presplit: {name} must be {dtype} {shape} on {byte_arr.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"presplit: {name} must be contiguous")
+    start = torch.empty((B, L), dtype=torch.bool, device=byte_arr.device)
+    word_id = torch.empty((B, L), dtype=torch.int32, device=byte_arr.device)
+    valid = torch.empty((B, L), dtype=torch.bool, device=byte_arr.device)
+    if start.numel() == 0:
+        return start, word_id, valid
+    stream = torch.cuda.current_stream(byte_arr.device).cuda_stream
+    check(
+        kernel_library().lib.ctok_presplit(
+            byte_arr.data_ptr(), lengths.data_ptr(), class_table.data_ptr(), start.data_ptr(),
+            word_id.data_ptr(), valid.data_ptr(), B, L, stream,
+        ),
+        "presplit",
+    )
+    presplit.launches += 1
+    return start, word_id, valid
+
+
+presplit.launches = 0  # launches of K21 (not of the plain version)
+
+
+def presplit_launch_shape(L: int) -> dict:
+    """How the card launches K21 on rows of ``L`` columns: threads a block,
+    registers a thread, static shared bytes a block, local (spill) bytes a
+    thread, resident blocks per SM, and the warps that take a row's 128-column
+    steps together (``row_warps``).  Needs a card; launches nothing."""
+    keys = ("threads", "registers", "static_smem", "local_bytes", "blocks_per_sm", "row_warps")
+    info = (ctypes.c_int * len(keys))()
+    check(kernel_library().lib.ctok_presplit_info(L, ctypes.addressof(info)),
+          "presplit_launch_shape")
+    return dict(zip(keys, info))

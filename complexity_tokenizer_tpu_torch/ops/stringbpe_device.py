@@ -26,21 +26,17 @@ import torch
 
 from ..core.bpe import merges_well_formed
 from ..utils.device import resolve_device
-from .hashtable import build_chd_table
+from .hashtable import build_chd_table, build_qc_table
 from .merge import TILE_SYMBOLS, WORD_LANES, merge_word_rows, word_tiles
 
-__all__ = ["StringBpeDevice", "build_string_bpe_device"]
+__all__ = ["StringBpeDevice", "build_string_bpe_device", "string_pair_ids", "string_qc_table"]
 
 
-def build_string_bpe_device(
-    merge_ranks: dict[tuple[str, str], int], device=None
-) -> "StringBpeDevice | None":
-    """The device runner of a string-pair merge table on ``device``
-    (``cuda`` unless the caller passes ``"cpu"``); None when the table is
-    empty or not well-formed for batch application, or the CHD build
-    fails."""
-    if not merge_ranks:
-        return None
+def string_pair_ids(merge_ranks: dict[tuple[str, str], int]):
+    """The dense symbol ids of a string-pair merge table: (sym_id, the
+    merge ranks and ops over ids, as ``hashtable.build_chd_table`` and
+    ``build_qc_table`` take them).  Every string of the table (left, right,
+    product) gets an id, in rank order."""
     sym_id: dict[str, int] = {}
 
     def sid(s: str) -> int:
@@ -56,6 +52,28 @@ def build_string_bpe_device(
         ia, ib, io = sid(a), sid(b), sid(a + b)
         id_ranks[(ia, ib)] = r
         id_ops[r] = ((ia, ib), io)
+    return sym_id, id_ranks, id_ops
+
+
+def string_qc_table(merge_ranks: dict[tuple[str, str], int]):
+    """The u16 cuckoo table (``hashtable.QcTable``) of a string-pair merge
+    table, over the symbol ids of :func:`string_pair_ids` (those of
+    :class:`StringBpeDevice`); None where ids or ranks pass u16.  K22's
+    table (``ops/merge.py:merge_word_rows_qc``); no model builds it."""
+    _sym_id, id_ranks, id_ops = string_pair_ids(merge_ranks)
+    return build_qc_table(id_ranks, id_ops) if id_ranks else None
+
+
+def build_string_bpe_device(
+    merge_ranks: dict[tuple[str, str], int], device=None
+) -> "StringBpeDevice | None":
+    """The device runner of a string-pair merge table on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``); None when the table is
+    empty or not well-formed for batch application, or the CHD build
+    fails."""
+    if not merge_ranks:
+        return None
+    sym_id, id_ranks, id_ops = string_pair_ids(merge_ranks)
     if not merges_well_formed(id_ranks, id_ops):
         return None
     chd = build_chd_table(id_ranks, id_ops)

@@ -12,8 +12,9 @@ rule from the JAX one (:func:`run_rows`), and word packs that reach the
 word path's fill at its edges (:func:`edge_word_pack`), a decode
 vocabulary of long tokens (:func:`long_token_vocab`), and byte rows that
 reach the normalization check at a row's and a block's edge
-(:func:`norm_edge_rows`), and word rows that reach the trainer's merge step
-at its edges (:func:`merge_edge_rows`).  The golden vocabulary of the
+(:func:`norm_edge_rows`), byte rows that reach the GPT-2 pre-split at its
+edges (:func:`presplit_edge_rows`), and word rows that reach the trainer's
+merge step at its edges (:func:`merge_edge_rows`).  The golden vocabulary of the
 WordPiece trainer at bert-base-uncased's 30,522 entries
 (:func:`wordpiece_30k_vocab`) and texts whose words reach its match at the
 lanes' edge (:func:`wordpiece_train_edge_texts`).
@@ -40,7 +41,7 @@ BENCH_WORDPIECE_30K = os.path.join(_CACHE, "bench_wordpiece_30k.json")
 __all__ = [
     "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
     "edge_word_pack", "long_token_vocab", "merge_edge_rows", "metaspace_pieces", "norm_edge_rows",
-    "norm_trap_bitmap", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
+    "norm_trap_bitmap", "presplit_edge_rows", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
     "wordlevel_vocab", "wordpiece_30k_vocab", "wordpiece_train_edge_texts", "zipf_lexicon",
     "zipf_corpus",
 ]
@@ -223,6 +224,77 @@ def norm_edge_rows(text: bytes, span: int = 4096, seed: int = 0) -> list[tuple[s
         ("empty rows", [b""] * 5),
     ]
     return groups
+
+
+# byte strings at which the pre-split's local rules differ from a
+# simplified rule: runs of 4-8 continuation bytes (invalid UTF-8: byte i
+# takes the class computed at i - 3), continuation bytes that start a row
+# (the class of the fill), a quote after them, the seven contractions, a
+# quote after an absorbed and after a non-absorbed space, after a newline,
+# a tab and a digit, multi-byte letters before a quote, and whole 2-, 3-
+# and 4-byte forms
+PRESPLIT_TRAPS = (
+    b"\x80\x80\x80\x80x", b"\xa9\xa9x", b"\x80's", b"\x80\x80'll", b"\x80\x80\x80'd",
+    b"ab" + b"\x80" * 4 + b" cd", b"\xc3" + b"\xa9" * 5 + b"'s", b"z" + b"\xbf" * 8 + b"q",
+    b" " + b"\x9f" * 6 + b"1", b"'" + b"\x80" * 7,
+    b"'s", b"'t", b"'re", b"'ve", b"'m", b"'ll", b"'d", b"it's", b"we'll ", b"they're",
+    b"x 'sy", b"x  'sy", b"\n'll", b"\t 're", b"1'd", b"  'm", b"x ''s",
+    "é's".encode(), "中'll".encode(), "\U0001f601'm".encode(), "é".encode(), "中".encode(),
+    "\U0001f601".encode(), " \u00a0x".encode(), "a\u2028'd".encode(),
+)
+
+
+def presplit_edge_rows(L: int, seed: int = 0):
+    """Byte rows of width ``L`` that reach the GPT-2 pre-split at its edges,
+    as numpy (bytes uint8 [B, L], lengths int32 [B]); every byte past a
+    row's length is non-zero (the pre-split decodes a lead byte's tail from
+    the row's real bytes there, and only past column L - 1 from zeros).
+
+    - each of :data:`PRESPLIT_TRAPS` at columns 0-3, across the edges of
+      128-column steps (the kernel's window reaches 8 columns back and 4
+      on: columns c - 8 .. c + 7 at the edges c = 128, 256, the middle and
+      L - 128; each trap at every other such column), and at the row's
+      end, after random bytes (every other row: random text, valid UTF-8
+      around the trap as far as the trap is), with the length ending the trap,
+      cutting 1-3 bytes off it (a lead truncated at len-1..len-3, a
+      contraction cut by the length), or at, past or far past ``L``;
+    - rows of random text over the traps' bytes, whose lengths include 0, 1,
+      ``L``, ``L + 1``, -1 and the int32 extremes."""
+    rng = np.random.RandomState(seed + L)
+    fill = np.frombuffer(b"ab '\"s\tlr1.\ndmtve\x80\xc3\xa9\xe2\x80\xbf ", np.uint8)
+    pieces = [p.encode() for p in ("a", "b", " ", "'", "s", "\t", "1", ".", "\n", "l", "r", "e",
+                                   "d", "m", "t", "v", "  ", "é", "中", "\u00a0", "\U0001f601")]
+
+    def filler() -> np.ndarray:
+        if len(rows) % 2:
+            return fill[rng.randint(0, fill.size, size=L)].copy()
+        text = b""
+        while len(text) < L:
+            text += b"".join(pieces[i] for i in rng.randint(0, len(pieces), size=L // 2))
+        return np.frombuffer(text[:L], np.uint8).copy()
+
+    edge_cols = []
+    for c0 in sorted({128, 256, L // 256 * 128, L - 128} & set(range(128, L, 128))):
+        edge_cols += [c0 - 8, c0 - 5, c0 - 3, c0 - 1, c0, c0 + 1, c0 + 3, c0 + 7]
+    rows, lens = [], []
+    for t, trap in enumerate(PRESPLIT_TRAPS):
+        n = len(trap)
+        cols = [0, 1, 2, 3] + edge_cols[t % 2::2] + [L - n - 1, L - n]
+        for i, c in enumerate(cols):
+            if c < 0 or c + n > L:
+                continue
+            row = filler()
+            row[c:c + n] = np.frombuffer(trap, np.uint8)
+            end = c + n
+            choice = (t + i) % 8
+            ln = [end, end - 1, end - 2, end - 3, L, L + 1, 2 * L + 5, end][choice]
+            rows.append(row)
+            lens.append(max(ln, 0))
+    specials = (0, 1, L, L + 1, -1, 2**31 - 1, -(2**31), L - 1)
+    for i, ln in enumerate(specials * 2):
+        rows.append(filler())
+        lens.append(ln if i < len(specials) else int(rng.randint(0, L + 1)))
+    return np.stack(rows).astype(np.uint8), np.asarray(lens, dtype=np.int64).astype(np.int32)
 
 
 def edge_word_pack(words: list[bytes], B: int, W: int = 128, seed: int = 0):

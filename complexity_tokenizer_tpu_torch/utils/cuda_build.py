@@ -49,6 +49,8 @@ _SIGNATURES = {
     # syms, offs, tiles, n_tiles, lanes, disp, rows, size_mask, bucket_mask, out, count,
     # stream
     "ctok_merge_word_rows": (_P, _P, _P, _I, _I, _P, _P, _U, _U, _P, _P, _P),
+    # syms, offs, tiles, n_tiles, lanes, t1, t2, mask, out, count, stream
+    "ctok_merge_word_rows_qc": (_P, _P, _P, _I, _I, _P, _P, _U, _P, _P, _P),
     # data, n_bytes, offs, block_rows, n_blocks, bitmap, stable, B, span, stream
     "ctok_norm_check": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P),
     # info[5]
@@ -79,6 +81,10 @@ _SIGNATURES = {
     "ctok_word_merge_chd": (_P, _P, _P, _P, _P, _P, _U, _U, _P, _P, _I, _I, _P),
     # bits, row_len, wid, B, W, stream
     "ctok_word_ids": (_P, _P, _P, _I, _I, _P),
+    # bytes, lens, class_table, start, wid, valid, B, L, stream
+    "ctok_presplit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # L, info[6]
+    "ctok_presplit_info": (_I, _P),
     # merged, count, out, B, W, cap, itemsize, stream
     "ctok_fill_compact": (_P, _P, _P, _I, _I, _L, _I, _P),
     # merged, count, wid2, kept, out, B, W, cap, itemsize, stream

@@ -2115,3 +2115,189 @@ def test_sharded_text_pipeline_on_card_matches_host(tok50k):
     texts = zipf_corpus(500, seed=4) + list(MULTI_PIECES)
     data = tok._prepare_bytes([tok._normalize(t) for t in texts])
     assert pipe.encode_bytes(data) == tok.encode_batch(texts, backend="host")
+
+
+# ---------------------------------------------------------------------------
+# K21 (the GPT-2 pre-split) and K22 (K9's fixpoint on the cuckoo table)
+
+
+def _check_k21(arr_np, lens_np):
+    """K21 bit for bit against its plain version on the card, one launch."""
+    from complexity_tokenizer_tpu_torch.ops.presplit import presplit, presplit_plain
+
+    arr, lens = torch.from_numpy(arr_np).cuda(), torch.from_numpy(lens_np).cuda()
+    table = torch.from_numpy(gpt2_class_table()).cuda()
+    before = presplit.launches
+    got = presplit(arr, lens, table)
+    exp = presplit_plain(arr, lens, table)
+    torch.cuda.synchronize()
+    assert presplit.launches == before + 1
+    for g, e, name in zip(got, exp, ("start", "word_id", "valid")):
+        assert g.dtype == e.dtype and torch.equal(g, e), name
+    return got
+
+
+@pytest.mark.parametrize("L", [128, 512, 2048, 4096])
+def test_k21_matches_plain_on_edge_rows(L):
+    """The traps of utils/corpus.py:presplit_edge_rows at a row's start,
+    across the kernel's 128-column steps and at its end, lengths cutting
+    into them, any int32 length, non-zero bytes past every length."""
+    from complexity_tokenizer_tpu_torch.utils.corpus import presplit_edge_rows
+
+    _need_card()
+    _check_k21(*presplit_edge_rows(L))
+
+
+@pytest.mark.parametrize("B,L", [(8192, 128), (8192, 512), (16, 4096), (2048, 2048),
+                                 (5, 48), (3, 200), (1, 7), (9, 129), (7, 384), (5, 1152),
+                                 (3, 1920), (3, 2049), (2, 8192), (1, 5000), (6400, 1000),
+                                 (20000, 384)])
+def test_k21_matches_plain_on_corpus_and_random_rows(B, L):
+    """Corpus rows (as the text pipeline packs them) and random bytes, with
+    random lengths, some past L and some negative."""
+    _need_card()
+    rng = np.random.RandomState(B + L)
+    texts = zipf_corpus(B, seed=L, lo=max(L // 8, 1), hi=L)
+    texts[: min(B, 4)] = ["it's we'll  'd", " ".join(MULTI_PIECES), "", "a" * L][: min(B, 4)]
+    arr, lens = pack_texts([t.encode("utf-8")[:L] for t in texts], L, B)
+    _check_k21(arr, lens)
+    arr = rng.randint(0, 256, size=(B, L)).astype(np.uint8)
+    lens = rng.randint(-2, L + 3, size=B).astype(np.int32)
+    _check_k21(arr, lens)
+
+
+def test_k21_refuses_bad_inputs_and_launches_without_spilling():
+    from complexity_tokenizer_tpu_torch.ops.presplit import presplit, presplit_launch_shape
+
+    _need_card()
+    arr = torch.zeros((4, 128), dtype=torch.uint8, device="cuda")
+    lens = torch.zeros(4, dtype=torch.int32, device="cuda")
+    table = torch.from_numpy(gpt2_class_table()).cuda()
+    with pytest.raises(ValueError, match="lengths"):
+        presplit(arr, lens.long(), table)
+    with pytest.raises(ValueError, match="class_table"):
+        presplit(arr, lens, table[:1000])
+    with pytest.raises(ValueError, match="byte_arr"):
+        presplit(arr.int(), lens, table)
+    with pytest.raises(ValueError, match="contiguous"):
+        presplit(torch.zeros((4, 256), dtype=torch.uint8, device="cuda")[:, ::2], lens, table)
+    with pytest.raises(ValueError, match="lengths"):
+        presplit(arr, lens.cpu(), table)
+    start, wid, valid = presplit(arr[:0], lens[:0], table)
+    assert start.shape == (0, 128) and wid.dtype == torch.int32
+    for L in (128, 512, 2048, 4096):
+        shape = presplit_launch_shape(L)
+        assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, (L, shape)
+    # a warp a row at 128 columns, a warp a 128-column step up to 32 a row
+    assert [presplit_launch_shape(L)["row_warps"] for L in (128, 512, 1920, 4096, 8192)] == \
+        [1, 4, 8, 32, 32]
+    assert presplit_launch_shape(4096)["threads"] == 1024
+
+
+def test_text_pipeline_launches_k21_k1_k2_once_a_batch(tok50k):
+    from complexity_tokenizer_tpu_torch.ops.presplit import presplit
+
+    _need_card()
+    texts = zipf_corpus(300, seed=8) + ["x" * 3000]
+    data = tok50k._prepare_bytes([tok50k._normalize(t) for t in texts])
+    pipe = tok50k.pipeline("cuda")
+    counts = (presplit.launches, seed_tokens.launches, merge_words_qc.launches)
+    assert pipe.encode_bytes(data) == tok50k.encode_batch(texts, backend="host")
+    got = (presplit.launches - counts[0], seed_tokens.launches - counts[1],
+           merge_words_qc.launches - counts[2])
+    from complexity_tokenizer_tpu_torch.ops.pipeline import _LENGTH_BUCKETS, _bucket
+
+    batches = len({_bucket(max(len(d), 1), _LENGTH_BUCKETS) for d in data})
+    assert batches >= 2 and got == (batches,) * 3, got  # a batch a length bucket
+
+
+def _k22_case():
+    """The 50K ByteLevel BPE model's tier (K9's CHD table) and the cuckoo
+    table over the same symbol ids, on the card."""
+    from complexity_tokenizer_tpu_torch.ops.stringbpe_device import string_qc_table
+
+    model = _string_tier(BENCH_50K)
+    dev = model._tiers.get("cuda")
+    qc = string_qc_table(model.merge_ranks)
+    t1 = torch.from_numpy(qc.t1.view(np.int32)).cuda()
+    t2 = torch.from_numpy(qc.t2.view(np.int32)).cuda()
+    return model, dev, (t1, t2, qc.size)
+
+
+def test_k22_matches_plain_and_k9():
+    """K22 bit for bit against its plain version at every tile size, and
+    against K9 on the same words (the model's words, 128-symbol runs, a
+    tombstone inside a word, ids past the table's universe), and on words
+    holding symbol ids past 65,535."""
+    from complexity_tokenizer_tpu_torch.ops.merge import (
+        merge_word_rows,
+        merge_word_rows_qc,
+        merge_word_rows_qc_ragged_plain,
+        word_tiles,
+    )
+
+    _need_card()
+    model, dev, qc = _k22_case()
+    words = sorted({w for t in zipf_corpus(400, seed=3) for w in model._split_words(t)})
+    words += [" " + "a" * 127, "=" * 128, " " + "ab" * 63, "é" * 60, " x中y"]
+    enc = model._byte_encoder
+    base = len(dev.symbols)
+    rows = [[dev.sym_id.get(enc[b], base) for b in w.encode()][:128] for w in words]
+    rows[5][3:4] = [-1]  # a tombstone inside a word
+    text = " ".join(zipf_corpus(50, seed=2)).encode()
+    runs = [[enc[b] for b in r] for r in run_rows(text, 16, 128)]
+    syms, offs = dev.pack(runs)[:2]
+    rows += [syms[offs[i]:offs[i + 1]].tolist() for i in range(len(runs))]
+    rows += [[], [], [base, base + 1]]
+    syms, offs = _ragged_words(rows)
+    s, o = torch.from_numpy(syms).cuda(), torch.from_numpy(offs).cuda()
+    exp_t, exp_c = merge_word_rows_qc_ragged_plain(s, o, *qc)
+    for tile in (1, 16, 384, 896, 1920):
+        tiles = torch.from_numpy(word_tiles(offs, tile)).cuda()
+        before = merge_word_rows_qc.launches
+        got_t, got_c = merge_word_rows_qc(s, o, tiles, *qc, tile=tile)
+        torch.cuda.synchronize()
+        assert merge_word_rows_qc.launches == before + 1
+        assert torch.equal(got_t, exp_t) and torch.equal(got_c, exp_c), tile
+    tiles = torch.from_numpy(word_tiles(offs)).cuda()
+    k9 = merge_word_rows(s, o, tiles, dev.disp, dev.rows, dev.chd.size, dev.chd.n_buckets)
+    assert torch.equal(k9[0], exp_t) and torch.equal(k9[1], exp_c)
+    assert (exp_c.cpu().numpy() < np.diff(offs)).any()  # merges happened
+    # ids past u16 (a left id aliases its low 16 bits in the key), and the
+    # pairs that pack to the empty-slot key
+    rng = np.random.RandomState(0)
+    big = [list(r) for r in rows[:300] if len(r) > 1]
+    for r in big:
+        r[rng.randint(len(r))] = int(rng.choice([65535, 65536, 131071, 2**31 - 1]))
+    big += [[65535, 65535], [131071, 65535]]
+    big += [[r[0] + 65536, r[1]] for r in rows[:100] if len(r) > 1]
+    syms, offs = _ragged_words(big)
+    s, o = torch.from_numpy(syms).cuda(), torch.from_numpy(offs).cuda()
+    exp = merge_word_rows_qc_ragged_plain(s, o, *qc)
+    got = merge_word_rows_qc(s, o, torch.from_numpy(word_tiles(offs)).cuda(), *qc)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+def test_k22_refuses_bad_inputs_and_launches_without_spilling():
+    from complexity_tokenizer_tpu_torch.ops.merge import (
+        TILE_SYMBOLS,
+        WORD_LANES,
+        merge_word_rows_qc,
+    )
+
+    _need_card()
+    _model, _dev, (t1, t2, size) = _k22_case()
+    syms = torch.zeros(8, dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, 4, 8], dtype=torch.int32, device="cuda")
+    tiles = torch.tensor([0, 2], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="power of two"):
+        merge_word_rows_qc(syms, offs, tiles, t1, t2, size - 1)
+    with pytest.raises(ValueError, match="t1"):
+        merge_word_rows_qc(syms, offs, tiles, t1[:8], t2, size)
+    with pytest.raises(ValueError, match="offs"):
+        merge_word_rows_qc(syms, offs.long(), tiles, t1, t2, size)
+    with pytest.raises(ValueError, match="shared memory"):
+        merge_word_rows_qc(syms, offs, tiles, t1, t2, size, tile=20000)
+    shape = launch_shape(TILE_SYMBOLS + WORD_LANES - 1, chd=False, ragged=True)
+    assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape

@@ -121,6 +121,37 @@ def test_zipf_texts_at_50k(bench50k):
     _check(bench50k, texts)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many ops on small tensors: with the test
+    workers sharing the machine, torch's intra-op threads only wait on each
+    other."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("L", [128, 512, 2048, 4096])
+def test_encode_rows_equal_jax_encode_fn_on_edge_rows(bench50k, L):
+    """The text pipeline's device pass (``EncodePipeline.encode_rows``:
+    K21's, K1's and K2's plain versions on the CPU) on the pre-split's edge
+    rows equals the JAX pipeline's jitted pass (``_encode_fn``: presplit,
+    seed, the cuckoo fixpoint) id for id, tombstones and counts included."""
+    import numpy as np
+
+    from complexity_tokenizer_tpu_torch.utils.corpus import presplit_edge_rows
+
+    pt, _jt, jp = bench50k
+    arr, lens = presplit_edge_rows(L)
+    got = pt.pipeline("cpu").encode_rows(arr, lens)
+    exp_t, exp_c = (np.asarray(x) for x in jp._encode_fn(arr, lens))
+    np.testing.assert_array_equal(got, exp_t)
+    np.testing.assert_array_equal((got >= 0).sum(1), exp_c)
+
+
 def test_pack_texts_layout():
     arr, lens = P.pack_texts([b"ab", b"", b"xyz"], 8, 4)
     assert arr.shape == (4, 8) and arr.dtype.name == "uint8"
