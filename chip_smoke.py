@@ -2742,8 +2742,9 @@ def check_train_kernels(texts: list[str], golden50: list) -> dict:
     """K13-K16 against their plain versions on the card, bit for bit, on the
     classic route's real inputs: its initial rows and the state after 1,000
     merges (the classic 4,096 route's first 1,000 steps, K15 -> K14 -> K16,
-    whose merges must be the golden file's first 1,000); K14 also on
-    ``utils/corpus.py:merge_edge_rows``.  Each timed warm, cold (except
+    whose merges must be the golden file's first 1,000); K13 also on the
+    initial rows with Zipf-skewed ids below 260, 241 and 700 (each branch of
+    its plan), K14 also on ``utils/corpus.py:merge_edge_rows``.  Each timed warm, cold (except
     K14, whose rows are restored before each launch: see
     ``_time_reset_ms``) and plainly, beside its bound and the library call
     where there is one."""
@@ -2752,7 +2753,7 @@ def check_train_kernels(texts: list[str], golden50: list) -> dict:
 
     from complexity_tokenizer_tpu_torch.ops import trainer_device as td
     from complexity_tokenizer_tpu_torch.parallel.trainer import run_steps
-    from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
+    from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows, zipf_pair_rows
 
     out = {k: [] for k in TRAIN_KERNELS}
     words0, freqs, vocab, v0 = _train_inputs(texts, TRAIN_ROUTES[0][1])
@@ -2774,10 +2775,44 @@ def check_train_kernels(texts: list[str], golden50: list) -> dict:
     library_ms = _time_ms(
         lambda: torch.zeros(v0 * v0, dtype=torch.int32, device="cuda").index_add_(0, key, fval), 50)
     bound_ms, bound_by = _bound(4 * N * W + 4 * N + 4 * v0 * v0, N * (W - 1))
-    out["pair_hist"].append(dict(r, shape=[N, W], ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    launch = td.pair_hist_launch_shape(N, W, v0)
+    out["pair_hist"].append(dict(r, shape=[N, W], v0=v0, ms=ms, ms_cold=ms_cold,
+                                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=library_ms, launch=launch))
     print(f"[pair_hist] [{N},{W}] v0={v0} warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} "
-          f"library={library_ms:.4f} bound={bound_ms:.5f} ms ({bound_by})", flush=True)
+          f"library={library_ms:.4f} bound={bound_ms:.5f} ms ({bound_by}); launch {launch}",
+          flush=True)
+    # K13's other branches on the classic rows' lengths and frequencies with
+    # Zipf-skewed ids below v0 (utils/corpus.py:zipf_pair_rows): 260, a
+    # byte-level alphabet (the slices on blockIdx.y), timed as above; 241,
+    # the last side of one block's histogram, and 700, past the slices'
+    # reach (global atomics), checked
+    for vz in (260, 241, 700):
+        wz = torch.from_numpy(zipf_pair_rows(words0.cpu().numpy(), vz, seed=vz)).cuda()
+        rz = _check_equal("pair_hist", f"Zipf ids below {vz} on the rows [{N},{W}]",
+                          td.pair_hist(wz, freqs, vz), td.pair_hist_plain(wz, freqs, vz))
+        rz.update(shape=[N, W], v0=vz, launch=td.pair_hist_launch_shape(N, W, vz))
+        if vz == 260:
+            lz, rgt = wz[:, :-1].long(), wz[:, 1:].long()
+            vz_valid = (lz >= 0) & (rgt >= 0)
+            kz = (lz * vz + rgt)[vz_valid]
+            fz = freqs[:, None].expand_as(lz)[vz_valid]
+            ms_z = _time_ms(lambda: td.pair_hist(wz, freqs, vz), 50)
+            sets = _cold_sets((wz, freqs), 4 * vz * vz)
+            ms_cold_z = _time_cold_ms(lambda w, f: td.pair_hist(w, f, vz), sets, 50)
+            del sets
+            plain_z = _time_ms(lambda: td.pair_hist_plain(wz, freqs, vz), 3, graph=False)
+            library_z = _time_ms(
+                lambda: torch.zeros(vz * vz, dtype=torch.int32, device="cuda").index_add_(0, kz, fz),
+                50)
+            bz, bz_by = _bound(4 * N * W + 4 * N + 4 * vz * vz, N * (W - 1))
+            rz.update(ms=ms_z, ms_cold=ms_cold_z, plain_ms=plain_z, library_ms=library_z,
+                      bound_ms=bz, bound_by=bz_by)
+            print(f"[pair_hist] [{N},{W}] v0={vz} warm={ms_z:.4f} cold={ms_cold_z:.4f} "
+                  f"plain={plain_z:.4f} library={library_z:.4f} bound={bz:.5f} ms ({bz_by})",
+                  flush=True)
+        print(f"[pair_hist] v0={vz} launch {rz['launch']}", flush=True)
+        out["pair_hist"].append(rz)
 
     # the state after 1,000 merges: the classic 4,096 route's first 1,000 steps
     hist0 = torch.zeros(Vr, Vr, dtype=torch.int32, device="cuda")
@@ -3057,9 +3092,11 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
     """K12 (on the Unigram trainer's inputs: ``maxcand`` 16, the marker -2,
     the first E-step timed warm and cold), K17, K18 and K19 against their
     plain versions on the card, bit for bit (K19 as a set of (key, count),
-    their number and the poisoned words): K17 on K12's results of the Unigram 32,000 run's first and last
-    E-steps (each with its poisoned pieces) and on a crafted result holding
-    ids 0 and V - 1, fallbacks and poisoned texts; K18 and K19 on the
+    their number and the poisoned words): K17 on K12's results of the Unigram 32,000 run's
+    E-steps (each with its poisoned pieces; timed at the first and the
+    last), on a crafted result holding
+    ids 0 and V - 1, fallbacks and poisoned texts, and on
+    ``utils/corpus.py:piece_hist_edge_results`` (a hot id among them); K18 and K19 on the
     WordPiece 30,522 run's rounds ``WP_CAPTURE_ROUNDS``, on the edge run's
     (words of 1, 13, 127 and 128 characters) and on its tables with every
     form of two characters or more forged (which poisons the words that
@@ -3087,6 +3124,7 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
         train_match_launch_shape,
         train_match_plain,
     )
+    from complexity_tokenizer_tpu_torch.utils.corpus import piece_hist_edge_results
 
     out = {"viterbi": [], "piece_hist": [], "train_match": [], "pair_count": []}
     # K12 and K17 on the Unigram run's E-steps
@@ -3113,7 +3151,9 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
         c = _check_equal("piece_hist", label, got, exp)
         poisoned = int(exp[V:].sum())
         c.update(poisoned=poisoned, shape=[N, B, V])
-        if r == min(ug_kept):
+        # timed at the first E-step (the largest V: the clear's bytes) and
+        # the last (the smallest V: the atomics)
+        if r in (min(ug_kept), max(ug_kept)):
             args = (res, offs, freqs, gidx)
             fn = lambda x, o, f, g: piece_hist(x, o, f, g, V, n_global)  # noqa: E731
             ms = _time_ms(lambda: fn(*args), 20)
@@ -3157,6 +3197,15 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
     out["piece_hist"].append(_check_equal("piece_hist", "crafted: ids 0 and V - 1, fallbacks, "
                                           "poisoned texts", piece_hist(res, o, freqs, gidx, V, B + 7),
                                           exp))
+    # K17 on utils/corpus.py:piece_hist_edge_results: a hot id most texts
+    # choose, texts of no slot, texts of 100 slots and more, every text
+    # poisoned, one text, V = 1, ids at and past V
+    for label, *arrays, Ve, ne in piece_hist_edge_results():
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        out["piece_hist"].append(_check_equal("piece_hist", f"crafted: {label}",
+                                              piece_hist(*args, Ve, ne),
+                                              piece_hist_plain(*args, Ve, ne)))
+    print(f"[piece_hist] launch {piece_hist_launch_shape()}", flush=True)
 
     # K18 and K19 on the WordPiece runs' rounds
     def match_args(inp):
@@ -4008,6 +4057,8 @@ def main(argv=None) -> int:
             "library_ms": main["library_ms"],
             "checks": res,
         })
+        if "launch" in main:
+            kernels[-1]["launch"] = main["launch"]
     # K20 and K4's phased mode: the phased fill (CTOK_PHASE_N1), on the
     # 50K word path's largest pack; launches on the phased fill of every
     # distinct word

@@ -20,14 +20,17 @@
 // What bounds them on this card: K13, K14 and K15 read their inputs once
 // (the word rows, the [V, V] histogram) and are bound by those bytes and,
 // at the trainer's sizes (a few MB), by their launch; K16 touches four
-// lines of the histogram, a few tens of KB, and is launch-bound.  Each is
-// written to be simple and right: a thread a slot pair (K13), a thread a
-// row walking its alive chain in the reference's order (K14), a grid-wide
-// maximum finished by the last block (K15), a thread a cell of the four
-// lines (K16).
+// lines of the histogram, a few tens of KB, and is launch-bound.  K14, K15
+// and K16 are written to be simple and right: a thread a row walking its
+// alive chain in the reference's order (K14), a grid-wide maximum finished
+// by the last block (K15), a thread a cell of the four lines (K16).  K13
+// was redesigned for Hopper (below): a private histogram a block in shared
+// memory, flushed with one atomic a nonzero bin.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "hist_clear.cuh"
 
 namespace {
 
@@ -37,14 +40,151 @@ constexpr int kMaxArgmaxBlocks = 132 * 4;
 constexpr uint32_t kAll = 0xFFFFFFFFu;
 
 // ---------------------------------------------------------------------------
-// K13: hist[l * v0 + r] += freq[row] over adjacent slots (l, r) that both
-// hold a token, as make_initial_hist (which also pairs adjacent slots, not
-// the alive chain: the initial rows hold no tombstone inside a word).  A
-// key past the histogram is dropped, as JAX's scatter drops it.  A thread a
-// slot pair, one int atomic a pair.
-__global__ void __launch_bounds__(kThreads)
+// K13: hist[l * v0 + r] += freq[row] over adjacent slots (l, r) of a row that
+// both hold a token (>= 0), as make_initial_hist (which also pairs adjacent
+// slots, not the alive chain: the initial rows hold no tombstone inside a
+// word).  The key is JAX's l * v0 + r, dropped only at >= v0 * v0, so a
+// right id r >= v0 adds into line l + 1 as in JAX (not a 2-D [l][r] index
+// with a bound on each coordinate).
+//
+// The first design (pair_hist_global_kernel, kept below for a v0 past the
+// plan's reach) gave a thread a slot pair and a global atomic a pair: on
+// the classic rows [48968,13] at v0 = 58 that is 587,616 atomics into 3,364
+// bins, and a Zipf curve of letter pairs queues the hot bins' atomics at the
+// same L2 addresses (0.0365 ms against a 0.00082 ms bytes bound).  Here:
+// - a block keeps a private histogram in shared memory and counts with
+//   shared-memory atomics; after its rows it adds each nonzero bin to hist
+//   with one global atomic, so a bin takes at most a global atomic a block
+//   (blocks x bins touched is the flush's cost; the plan sizes the grid to
+//   the card, or to the steps when there are fewer);
+// - a warp reads kHistStep consecutive slots of the flat rows a step, in
+//   four coalesced loads of 32 (the slot after them is lane 0's fifth), and
+//   shuffles give each slot its right neighbour; each slot's row and column
+//   are kept up to date by additions, with no divide a slot;
+// - hist is cleared by a kernel of its own, launched before K13, which is
+//   its programmatic dependent (hist_clear.cuh): K13 waits for the clear
+//   only before its flush, so the clear overlaps the counting.
+// v0 past one block's shared memory (v0 <= 241: 232,448 B): the histogram
+// in slices of at most kHistSliceBins bins, at most kHistMaxSlices of them
+// (v0 <= 681), a block a slice on blockIdx.y, each reading the rows of its
+// x and skipping the keys outside its slice.  On the classic rows with Zipf
+// ids below 260 that took 0.0089 ms, and the slices over a thread block
+// cluster's distributed shared memory 0.0124 (scripts/study_hist_variants.py
+// and its scripts/hist_variants/pair_hist_variants.cu; PERF.md, section 6):
+// a second read of the rows from L2 costs less than atomics into another
+// SM's shared memory.  Past 681, the first design after the clear.
+// pair_hist_plan (mirrored by ops/trainer_device.py:pair_hist_plan) picks
+// the branch and the grid.
+constexpr int kHistThreads = 1024;
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr int kHistStep = 128;              // slots a warp reads a step
+constexpr int kHistSmemBytes = 232448;      // a block's shared memory on the H100 (opt-in)
+constexpr int kHistSliceBins = kHistSmemBytes / 4;
+constexpr int kHistMaxSlices = 8;           // past them, global atomics
+
+// branch 0: a block's histogram; 1: in slices; 2: global atomics.  groups:
+// blocks (branch 0) or blocks along x (branch 1).
+struct HistPlan {
+  int branch, slices, slice_bins, groups;
+};
+
+HistPlan pair_hist_plan(int64_t slots, int v0, int sms) {
+  const int64_t bins = (int64_t)v0 * v0;
+  if (bins > (int64_t)kHistMaxSlices * kHistSliceBins) return {2, 0, 0, 0};
+  const int slices = (int)((bins + kHistSliceBins - 1) / kHistSliceBins);
+  const int64_t steps = (slots + kHistStep - 1) / kHistStep;
+  int64_t groups = (steps + (int64_t)kHistWarps * slices - 1) / ((int64_t)kHistWarps * slices);
+  const int64_t fill = sms / slices > 1 ? sms / slices : 1;
+  if (groups > fill) groups = fill;
+  if (groups < 1) groups = 1;
+  return {slices > 1 ? 1 : 0, slices, (int)((bins + slices - 1) / slices), (int)groups};
+}
+
+// The pairs of the steps reader, reader + n_readers, ... (a warp each): the
+// valid ones go to add(key, freq).
+template <class Add>
+__device__ __forceinline__ void hist_walk(const int32_t* __restrict__ words,
+                                          const int32_t* __restrict__ freqs, int64_t slots,
+                                          int W, int v0, int64_t reader, int64_t n_readers,
+                                          Add add) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n_keys = (int64_t)v0 * v0;
+  const int64_t stride = n_readers * kHistStep;
+  // the row and column of the lane's first slot, and their steps: a step
+  // of the warp (stride slots) and of the lane's next load (32 slots)
+  const int64_t first = reader * kHistStep + lane;
+  int row = (int)(first / W), col = (int)(first - (int64_t)row * W);
+  const int row_stride = (int)(stride / W), col_stride = (int)(stride % W);
+  const int row32 = 32 / W, col32 = 32 % W;
+  for (int64_t e0 = first; e0 - lane < slots; e0 += stride) {
+    int32_t v[4], f[4], c[4];
+    int r = row, cc = col;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t e = e0 + 32 * j;
+      const bool in = e < slots;
+      v[j] = in ? __ldg(words + e) : -1;
+      f[j] = in ? __ldg(freqs + r) : 0;
+      c[j] = cc;
+      r += row32;
+      cc += col32;
+      if (cc >= W) {
+        cc -= W;
+        ++r;
+      }
+    }
+    const int64_t e4 = e0 - lane + kHistStep;
+    const int32_t v4 = lane == 0 && e4 < slots ? __ldg(words + e4) : -1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int32_t next = __shfl_down_sync(kAll, v[j], 1);
+      const int32_t wrap = __shfl_sync(kAll, j < 3 ? v[j + 1] : v4, 0);
+      const int32_t rt = lane == 31 ? wrap : next;
+      const int32_t l = v[j];
+      if (c[j] + 1 < W && l >= 0 && rt >= 0) {
+        const int64_t key = (int64_t)l * v0 + rt;
+        if (key < n_keys) add((int)key, f[j]);
+      }
+    }
+    row += row_stride;
+    col += col_stride;
+    if (col >= W) {
+      col -= W;
+      ++row;
+    }
+  }
+}
+
+// Branch 0 (gridDim.y 1, slice_bins v0 * v0) and branch 1 (a slice a
+// blockIdx.y).
+__global__ void __launch_bounds__(kHistThreads)
 pair_hist_kernel(const int32_t* __restrict__ words, const int32_t* __restrict__ freqs,
-                 int N, int W, int v0, int32_t* __restrict__ hist) {
+                 int64_t slots, int W, int v0, int slice_bins, int32_t* __restrict__ hist) {
+  extern __shared__ int32_t sh[];
+  const int lo = blockIdx.y * slice_bins;
+  const int n = min(slice_bins, v0 * v0 - lo);
+  for (int i = threadIdx.x; i < n; i += kHistThreads) sh[i] = 0;
+  __syncthreads();
+  const int64_t reader = (int64_t)blockIdx.x * kHistWarps + (threadIdx.x >> 5);
+  hist_walk(words, freqs, slots, W, v0, reader, (int64_t)gridDim.x * kHistWarps,
+            [&](int key, int32_t f) {
+              const int k = key - lo;
+              if (k >= 0 && k < n) atomicAdd(sh + k, f);
+            });
+  __syncthreads();
+  // the clear of hist (the launch before this one) has ended
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int i = threadIdx.x; i < n; i += kHistThreads) {
+    const int32_t c = sh[i];
+    if (c != 0) atomicAdd(hist + lo + i, c);
+  }
+}
+
+// The first design, for a v0 past the plan's reach: a thread a slot pair,
+// one global atomic a pair.
+__global__ void __launch_bounds__(kThreads)
+pair_hist_global_kernel(const int32_t* __restrict__ words, const int32_t* __restrict__ freqs,
+                        int N, int W, int v0, int32_t* __restrict__ hist) {
   const int64_t pairs = (int64_t)N * (W - 1);
   const int64_t n_keys = (int64_t)v0 * v0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < pairs;
@@ -284,16 +424,85 @@ int blocks_for(int64_t n, int threads, int64_t cap) {
   return (int)(g < 1 ? 1 : g);
 }
 
+// K13's kernel may take up to kHistSmemBytes of dynamic shared memory: the
+// opt-in once a device (outside a CUDA graph's capture after a first call)
+cudaError_t allow_hist_smem() {
+  static unsigned done = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(pair_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kHistSmemBytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return sms;
+}
+
 }  // namespace
 
 extern "C" {
 
+// K13: words [N, W], freqs [N] int32 -> hist [v0 * v0] int32, cleared here
 int ctok_pair_hist(const int32_t* words, const int32_t* freqs, int N, int W, int v0,
                    int32_t* hist, cudaStream_t stream) {
-  const int64_t pairs = (int64_t)N * (W - 1);
-  pair_hist_kernel<<<blocks_for(pairs, kThreads, 132 * 16), kThreads, 0, stream>>>(
-      words, freqs, N, W, v0, hist);
-  return (int)cudaGetLastError();
+  if (N < 0 || W < 0 || v0 < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ctok_hist::launch_clear(hist, (int64_t)v0 * v0, stream);
+  if (err != cudaSuccess || N == 0 || W < 2) return (int)err;
+  const int64_t slots = (int64_t)N * W;
+  const HistPlan p = pair_hist_plan(slots, v0, sm_count());
+  if (p.branch == 2) {
+    const int64_t pairs = (int64_t)N * (W - 1);
+    pair_hist_global_kernel<<<blocks_for(pairs, kThreads, 132 * 16), kThreads, 0, stream>>>(
+        words, freqs, N, W, v0, hist);
+    return (int)cudaGetLastError();
+  }
+  err = allow_hist_smem();
+  if (err != cudaSuccess) return (int)err;
+  return (int)ctok::launch_dependent(pair_hist_kernel, dim3(p.groups, p.slices),
+                                          dim3(kHistThreads), sizeof(int32_t) * p.slice_bins,
+                                          stream, words, freqs, slots, W, v0, p.slice_bins, hist);
+}
+
+// K13's plan and launch shape for rows [N, W] at v0: info gets the branch
+// (0 a block's histogram, 1 in slices, 2 global atomics), slices, bins a
+// slice, groups (blocks, or blocks along x), the SMs the plan saw, then the
+// kernel's threads a block, registers a thread, static and dynamic shared
+// bytes a block, local (spill) bytes a thread and resident blocks per SM
+int ctok_pair_hist_info(int N, int W, int v0, int* info) {
+  const int sms = sm_count();
+  const HistPlan p = pair_hist_plan((int64_t)N * W, v0, sms);
+  cudaFuncAttributes fa;
+  int blocks = 0, threads = kHistThreads;
+  size_t smem = sizeof(int32_t) * (size_t)p.slice_bins;
+  cudaError_t err;
+  if (p.branch == 2) {
+    threads = kThreads;
+    smem = 0;
+    err = cudaFuncGetAttributes(&fa, pair_hist_global_kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pair_hist_global_kernel,
+                                                          threads, 0);
+  } else {
+    err = allow_hist_smem();
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, pair_hist_kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pair_hist_kernel, threads,
+                                                          smem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int shape[] = {p.branch, p.slices, p.slice_bins, p.groups, sms, threads, fa.numRegs,
+                       (int)fa.sharedSizeBytes, (int)smem, (int)fa.localSizeBytes, blocks};
+  for (int i = 0; i < 11; ++i) info[i] = shape[i];
+  return (int)cudaSuccess;
 }
 
 int ctok_merge_step(int32_t* words, const int32_t* freqs, int N, int W, const int32_t* ma,

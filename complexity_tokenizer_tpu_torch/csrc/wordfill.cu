@@ -22,6 +22,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dependent_launch.cuh"
+
 namespace {
 
 constexpr int kFillThreads = 256;                 // 8 warps, 8 rows a block
@@ -232,9 +234,9 @@ fill_compact_kernel(const int32_t* __restrict__ merged,
   }
 }
 
-// cudaLaunchKernelEx of fill_compact_kernel<T, kPhased> as the programmatic
-// dependent of the kernel before it on the stream (K6 triggers it early);
-// after any other work the launch waits as usual
+// fill_compact_kernel<T, kPhased> as the programmatic dependent of the
+// kernel before it on the stream (K6 triggers it early); after any other
+// work the launch waits as usual
 template <bool kPhased>
 int launch_fill_compact(const void* merged, const void* count, const void* wid2,
                         const void* kept, void* out, int B, int W, long long cap, int itemsize,
@@ -247,25 +249,16 @@ int launch_fill_compact(const void* merged, const void* count, const void* wid2,
   const auto* w = static_cast<const int32_t*>(wid2);
   const auto* k = static_cast<const int32_t*>(kept);
   auto* o = static_cast<uint8_t*>(out);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kFillThreads);
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err;
+  const auto s = (cudaStream_t)stream;
   if (itemsize == 2)
-    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<uint16_t, kPhased>, m, c, w, k, o, B, W,
-                             (int64_t)cap);
-  else if (itemsize == 4)
-    err = cudaLaunchKernelEx(&cfg, fill_compact_kernel<int32_t, kPhased>, m, c, w, k, o, B, W,
-                             (int64_t)cap);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+    return (int)ctok::launch_dependent(fill_compact_kernel<uint16_t, kPhased>, dim3(blocks),
+                                       dim3(kFillThreads), 0, s, m, c, w, k, o, B, W,
+                                       (int64_t)cap);
+  if (itemsize == 4)
+    return (int)ctok::launch_dependent(fill_compact_kernel<int32_t, kPhased>, dim3(blocks),
+                                       dim3(kFillThreads), 0, s, m, c, w, k, o, B, W,
+                                       (int64_t)cap);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

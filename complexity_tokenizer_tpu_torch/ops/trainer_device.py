@@ -6,7 +6,9 @@ calls ``pl.pallas_call``); here each is a hand-written CUDA kernel
 
 - K13 :func:`pair_hist` (``make_initial_hist``, ``:48``): the dense pair
   histogram of the word rows, ``hist[l * v0 + r] += freq`` over adjacent
-  slots that both hold a token.
+  slots that both hold a token; a block's histogram in shared memory, in
+  slices on ``blockIdx.y`` past 241 ids, global atomics past 681
+  (:func:`pair_hist_plan`).
 - K14 :func:`merge_step` (``make_merge_step``, ``:64``): one merge
   ``(a, b) -> new_id`` over every row, along its alive chain (``-1`` slots
   are tombstones): occurrences 1st, 3rd, ... of a run of matches are
@@ -36,6 +38,8 @@ or raises, and counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils.cuda_build import check, kernel_library
@@ -43,6 +47,8 @@ from ..utils.cuda_build import check, kernel_library
 __all__ = [
     "pair_hist",
     "pair_hist_plain",
+    "pair_hist_plan",
+    "pair_hist_launch_shape",
     "merge_step",
     "merge_step_plain",
     "select_pair",
@@ -84,6 +90,36 @@ def pair_hist_plain(words: torch.Tensor, freqs: torch.Tensor, v0: int) -> torch.
     return hist
 
 
+# csrc/train.cu's constants: threads a block, slots a warp reads a step, a
+# block's shared memory on the H100 (int32 bins), the most slices
+_HIST_THREADS = 1024
+_HIST_STEP = 128
+_HIST_SLICE_BINS = 232_448 // 4
+_HIST_MAX_SLICES = 8
+
+
+def pair_hist_plan(N: int, W: int, v0: int, sms: int = 132) -> dict:
+    """K13's branch and grid for rows ``[N, W]`` at ``v0`` on a card of
+    ``sms`` SMs, as ``csrc/train.cu:pair_hist_plan`` computes them.
+
+    ``branch`` 0: a block's histogram in shared memory (``v0 * v0`` int32
+    bins fit its 232,448 bytes: v0 <= 241); 1: the histogram in ``slices``
+    of ``slice_bins`` bins, a block a slice on ``blockIdx.y`` (up to 8
+    slices: v0 <= 681); 2: global atomics (the first design).  ``groups``:
+    the blocks (branch 0) or the blocks along x of each slice (branch 1),
+    an SM's worth of the card unless the rows give fewer than a step a
+    warp."""
+    bins = v0 * v0
+    if bins > _HIST_MAX_SLICES * _HIST_SLICE_BINS:
+        return dict(branch=2, slices=0, slice_bins=0, groups=0)
+    slices = -(-bins // _HIST_SLICE_BINS)
+    steps = -(-(N * W) // _HIST_STEP)
+    warps = _HIST_THREADS // 32
+    groups = max(1, min(-(-steps // (warps * slices)), max(sms // slices, 1)))
+    return dict(branch=1 if slices > 1 else 0, slices=slices, slice_bins=-(-bins // slices),
+                groups=groups)
+
+
 def pair_hist(words: torch.Tensor, freqs: torch.Tensor, v0: int) -> torch.Tensor:
     """K13 on CUDA tensors, the plain version on CPU tensors.
 
@@ -93,7 +129,8 @@ def pair_hist(words: torch.Tensor, freqs: torch.Tensor, v0: int) -> torch.Tensor
       v0: the histogram's side (ids below it).
     Returns:
       [v0 * v0] int32, ``hist[l * v0 + r]`` the summed frequency of the
-      adjacent slot pairs ``(l, r)``.
+      adjacent slot pairs ``(l, r)`` (JAX's key: a right id at or past v0
+      adds into line l + 1; a key at or past ``v0 * v0`` is dropped).
     """
     if words.device.type == "cpu":
         return pair_hist_plain(words, freqs, v0)
@@ -101,9 +138,9 @@ def pair_hist(words: torch.Tensor, freqs: torch.Tensor, v0: int) -> torch.Tensor
         raise ValueError(f"pair_hist: unsupported device {words.device}")
     N, W = words.shape
     _check("pair_hist", words.device, words=(words, None), freqs=(freqs, (N,)))
-    hist = torch.zeros(v0 * v0, dtype=torch.int32, device=words.device)
     if N == 0 or W < 2:
-        return hist
+        return torch.zeros(v0 * v0, dtype=torch.int32, device=words.device)
+    hist = torch.empty(v0 * v0, dtype=torch.int32, device=words.device)  # K13 clears it
     check(
         kernel_library().lib.ctok_pair_hist(
             words.data_ptr(), freqs.data_ptr(), N, W, v0, hist.data_ptr(), _stream(words.device)
@@ -115,6 +152,20 @@ def pair_hist(words: torch.Tensor, freqs: torch.Tensor, v0: int) -> torch.Tensor
 
 
 pair_hist.launches = 0  # launches of K13 (not of the plain version)
+
+
+def pair_hist_launch_shape(N: int, W: int, v0: int) -> dict:
+    """K13's plan and launch shape on the card for rows ``[N, W]`` at
+    ``v0``, from ``ctok_pair_hist_info``: the plan's keys (see
+    :func:`pair_hist_plan`), ``sms``, and the kernel's threads, registers,
+    static and dynamic shared bytes, local (spill) bytes and resident blocks
+    per SM.  Needs a card; launches nothing."""
+    keys = ("branch", "slices", "slice_bins", "groups", "sms", "threads",
+            "registers", "static_smem", "dynamic_smem", "local_bytes", "blocks_per_sm")
+    info = (ctypes.c_int * len(keys))()
+    check(kernel_library().lib.ctok_pair_hist_info(N, W, v0, ctypes.addressof(info)),
+          "pair_hist_launch_shape")
+    return dict(zip(keys, info))
 
 
 # ---------------------------------------------------------------------------

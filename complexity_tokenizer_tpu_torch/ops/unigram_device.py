@@ -391,7 +391,10 @@ def piece_hist_plain(res, offs, freqs, gidx, V: int, n_global: int):
 def piece_hist(res, offs, freqs, gidx, V: int, n_global: int):
     """K17 on CUDA tensors, the plain version on CPU tensors; same arguments
     and result as :func:`piece_hist_plain`.  int32 atomics give the same
-    sums in any order, so K17 equals its plain version bit for bit."""
+    sums in any order, so K17 equals its plain version bit for bit.  One
+    call is one launch of K17, after its buffer's clear (``csrc/
+    unigram_train.cu``: a thread a text, as the clear's programmatic
+    dependent)."""
     if res.device.type == "cpu":
         return piece_hist_plain(res, offs, freqs, gidx, V, n_global)
     if res.device.type != "cuda":
@@ -405,9 +408,9 @@ def piece_hist(res, offs, freqs, gidx, V: int, n_global: int):
         ("res", res, i32, (N + 2 * B,)), ("offs", offs, i32, (B + 1,)),
         ("freqs", freqs, i32, (B,)), ("gidx", gidx, i32, (B,)),
     ))
-    buf = torch.zeros(V + n_global, dtype=i32, device=res.device)
     if B == 0:
-        return buf
+        return torch.zeros(V + n_global, dtype=i32, device=res.device)
+    buf = torch.empty(V + n_global, dtype=i32, device=res.device)  # K17 clears it
     check(
         kernel_library().lib.ctok_piece_hist(
             res.data_ptr(), offs.data_ptr(), freqs.data_ptr(), gidx.data_ptr(), B, N, V,

@@ -14,7 +14,10 @@ vocabulary of long tokens (:func:`long_token_vocab`), and byte rows that
 reach the normalization check at a row's and a block's edge
 (:func:`norm_edge_rows`), byte rows that reach the GPT-2 pre-split at its
 edges (:func:`presplit_edge_rows`), and word rows that reach the trainer's
-merge step at its edges (:func:`merge_edge_rows`).  The golden vocabulary of the
+merge step at its edges (:func:`merge_edge_rows`), the trainer's rows with
+Zipf-skewed ids for its pair histogram past the bench corpus's alphabet
+(:func:`zipf_pair_rows`), and K12 results that reach the Unigram trainer's
+piece histogram at its edges (:func:`piece_hist_edge_results`).  The golden vocabulary of the
 WordPiece trainer at bert-base-uncased's 30,522 entries
 (:func:`wordpiece_30k_vocab`) and texts whose words reach its match at the
 lanes' edge (:func:`wordpiece_train_edge_texts`).
@@ -41,9 +44,9 @@ BENCH_WORDPIECE_30K = os.path.join(_CACHE, "bench_wordpiece_30k.json")
 __all__ = [
     "LONG_TOKEN_LENGTHS", "MULTI_PIECES", "RUN_BREAKS", "bert_scale_wordpiece_vocab",
     "edge_word_pack", "long_token_vocab", "merge_edge_rows", "metaspace_pieces", "norm_edge_rows",
-    "norm_trap_bitmap", "presplit_edge_rows", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
+    "norm_trap_bitmap", "piece_hist_edge_results", "presplit_edge_rows", "run_rows", "unigram_32k_vocab", "unigram_edge_texts",
     "wordlevel_vocab", "wordpiece_30k_vocab", "wordpiece_train_edge_texts", "zipf_lexicon",
-    "zipf_corpus",
+    "zipf_corpus", "zipf_pair_rows",
 ]
 
 # multilingual UTF-8, NFC-sensitive sequences (decomposed forms, combining
@@ -540,6 +543,71 @@ def merge_edge_rows(V: int = 64, seed: int = 0) -> list[tuple]:
         freqs = rng.randint(1, 1000, size=300).astype(np.int32)
         out.append((label, words, freqs, pa, pb, new))
     return out
+
+
+def zipf_pair_rows(words: np.ndarray, v0: int, seed: int = 0, s: float = 1.1) -> np.ndarray:
+    """``words`` (trainer rows [N, W], -1 empty) with every id replaced by
+    one drawn below ``v0`` with probability proportional to ``1 / (i +
+    1) ** s``: the rows' lengths (and so their pairs) kept, the ids of an
+    alphabet as large as a byte-level corpus's (ByteLevel's 256 characters
+    and the specials: v0 about 260) with a Zipf curve of hot pairs."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, v0 + 1, dtype=np.float64) ** s
+    out = words.astype(np.int32, copy=True)
+    live = out >= 0
+    out[live] = rng.choice(v0, size=int(live.sum()), p=p / p.sum()).astype(np.int32)
+    return out
+
+
+def piece_hist_edge_results(seed: int = 0) -> list[tuple]:
+    """K12 results that reach the Unigram trainer's piece histogram (K17) at
+    its edges, as ``(label, res [N + 2B], offs [B + 1], freqs [B], gidx [B],
+    V, n_global)`` int32 numpy arrays and ints (res: ids of each text's
+    slots, -1 and the fallback -2 among them, then each text's count and
+    poison flag): one id that most texts choose, in texts of 0 to 40 slots;
+    runs of texts of no slot; a text of 100 slots and more among short
+    ones; every text poisoned; one text; one piece (V = 1); ids at and past
+    V; a corpus index ``gidx`` that covers part of ``n_global``."""
+    rng = np.random.RandomState(seed)
+
+    def result(label, lens, ids, poison, V, n_global=None):
+        lens = np.asarray(lens, np.int64)
+        B = len(lens)
+        n_global = B + 7 if n_global is None else n_global
+        offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        res = np.concatenate([np.asarray(ids, np.int32), lens.astype(np.int32),
+                              np.asarray(poison, np.int32)])
+        freqs = rng.randint(1, 1 << 12, size=B).astype(np.int32)
+        gidx = rng.permutation(n_global)[:B].astype(np.int32)
+        return (label, res, offs, freqs, gidx, V, n_global)
+
+    out = []
+    B, V = 3000, 5000
+    lens = rng.randint(0, 41, size=B)
+    ids = np.full(int(lens.sum()), 7, np.int32)  # the hot id
+    other = rng.rand(len(ids))
+    ids[other < 0.2] = rng.randint(0, V, size=int((other < 0.2).sum()))
+    ids[(other >= 0.2) & (other < 0.35)] = -1
+    ids[(other >= 0.35) & (other < 0.4)] = -2
+    out.append(("a hot id in texts of 0-40 slots", lens, ids, rng.rand(B) < 0.05, V))
+    lens = np.where(np.arange(B) % 97 < 40, 0, rng.randint(1, 9, size=B))
+    out.append(("runs of texts of no slot", lens, rng.randint(-2, V, size=int(lens.sum())),
+                rng.rand(B) < 0.05, V))
+    lens = rng.randint(1, 12, size=B)
+    lens[[5, 1000, B - 1]] = (100, 128, 300)
+    out.append(("texts of 100, 128 and 300 slots among short ones", lens,
+                rng.randint(-2, V, size=int(lens.sum())), np.zeros(B, np.int32), V))
+    lens = rng.randint(0, 20, size=B)
+    out.append(("every text poisoned", lens, rng.randint(0, V, size=int(lens.sum())),
+                np.ones(B, np.int32), V))
+    out.append(("one text", [37], rng.randint(-1, V, size=37), [0], V))
+    lens = rng.randint(0, 30, size=500)
+    out.append(("one piece (V = 1)", lens, rng.randint(-2, 3, size=int(lens.sum())),
+                rng.rand(500) < 0.1, 1))
+    lens = rng.randint(0, 30, size=B)
+    out.append(("ids at and past V, a corpus four times the texts", lens,
+                rng.randint(V - 3, V + 3, size=int(lens.sum())), rng.rand(B) < 0.1, V, 4 * B))
+    return [result(*o) for o in out]
 
 
 def wordpiece_30k_vocab() -> list[str]:

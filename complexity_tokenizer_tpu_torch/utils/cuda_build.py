@@ -101,6 +101,8 @@ _SIGNATURES = {
     "ctok_decode_info": (_P,),
     # words, freqs, N, W, v0, hist, stream
     "ctok_pair_hist": (_P, _P, _I, _I, _I, _P, _P),
+    # N, W, v0, info[11]
+    "ctok_pair_hist_info": (_I, _I, _I, _P),
     # words, freqs, N, W, ma, mb, step, a, b, new_id, delta, V, minted, stream
     "ctok_merge_step": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P),
     # hist, V, scratch, step, ma, mb, stream

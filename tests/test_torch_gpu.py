@@ -54,8 +54,10 @@ from complexity_tokenizer_tpu_torch.utils.corpus import (
     long_token_vocab,
     norm_edge_rows,
     norm_trap_bitmap,
+    piece_hist_edge_results,
     run_rows,
     zipf_corpus,
+    zipf_pair_rows,
 )
 from complexity_tokenizer_tpu_torch.utils.unicode_tables import gpt2_class_table
 
@@ -1740,6 +1742,70 @@ def test_k15_k16_blocks_match_plain(mode, rows):
         assert (got[2][0] < 0).any()  # exhausted
 
 
+@pytest.mark.parametrize("v0,N", [(58, 48_968), (58, 3), (241, 20_000), (260, 48_968),
+                                  (700, 20_000)])
+def test_k13_each_branch_matches_plain(v0, N):
+    """Each branch of K13's plan against the plain version, bit for bit, one
+    launch a call: a block's histogram (v0 58, the bench corpus's alphabet,
+    on the classic rows' shape and on three rows; 241, the last side that
+    fits one block), the slices on blockIdx.y (260, a byte-level alphabet)
+    and global atomics (700, past the slices' reach), on rows with
+    Zipf-skewed ids and rows whose right id is at or past v0 (JAX's key
+    aliases it into the next line).  The card's plan is the Python mirror's."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import (
+        pair_hist,
+        pair_hist_launch_shape,
+        pair_hist_plain,
+        pair_hist_plan,
+    )
+
+    rng = np.random.RandomState(v0 + N)
+    words = rng.randint(0, 2, size=(N, 13)).astype(np.int32)
+    words[rng.rand(N, 13) < 0.25] = -1
+    words = zipf_pair_rows(words, v0, seed=v0)
+    words[0, :3] = (3, v0 + 5, v0 - 1)
+    words[-1, -2:] = (v0 - 1, v0 + 2)
+    freqs = rng.randint(1, 1000, size=N).astype(np.int32)
+    w, f = torch.from_numpy(words).cuda(), torch.from_numpy(freqs).cuda()
+    exp = pair_hist_plain(w, f, v0)
+    for _ in range(2):  # the second call finds a buffer of the first's in the cache
+        before = pair_hist.launches
+        got = pair_hist(w, f, v0)
+        torch.cuda.synchronize()
+        assert pair_hist.launches == before + 1
+        assert torch.equal(got, exp), (v0, N)
+    shape = pair_hist_launch_shape(N, 13, v0)
+    plan = pair_hist_plan(N, 13, v0, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert {k: shape[k] for k in plan} == plan, shape
+    assert shape["local_bytes"] == 0 and shape["blocks_per_sm"] > 0, shape
+
+
+def test_k13_replays_from_a_cuda_graph():
+    """K13 (its clear, then the histogram as the clear's programmatic
+    dependent) captured in a CUDA graph and replayed: the same histogram
+    every replay, at v0 58 and 260."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import pair_hist, pair_hist_plain
+
+    rng = np.random.RandomState(1)
+    for v0 in (58, 260):
+        words = zipf_pair_rows(rng.randint(0, 2, size=(5000, 13)).astype(np.int32), v0, seed=2)
+        w = torch.from_numpy(words).cuda()
+        f = torch.from_numpy(rng.randint(1, 100, size=5000).astype(np.int32)).cuda()
+        exp = pair_hist_plain(w, f, v0)
+        pair_hist(w, f, v0)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            got = pair_hist(w, f, v0)
+        for _ in range(3):
+            got.fill_(-1)
+            g.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, exp), v0
+
+
 def test_trainer_on_card_matches_cpu():
     """``DistributedInlTrainer`` on the card equals it on the CPU (the plain
     versions), classic and INL, on both routes."""
@@ -1834,6 +1900,33 @@ def test_k17_matches_plain():
         piece_hist(res, o, freqs[:-1], gidx, V, B + 50)
     shape = piece_hist_launch_shape()
     assert shape["blocks_per_sm"] > 0 and shape["local_bytes"] == 0, shape
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_k17_matches_plain_on_edge_results(case):
+    """K17 against its plain version, bit for bit, one launch a call, on
+    ``utils/corpus.py:piece_hist_edge_results``: a hot id that most texts
+    choose, runs of texts of no slot, texts of 100 slots and more, every
+    text poisoned, one text, V = 1, ids at and past V; and from a CUDA
+    graph (the clear, then K17 as its programmatic dependent)."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.ops.unigram_device import piece_hist, piece_hist_plain
+
+    label, *arrays, V, n_global = piece_hist_edge_results()[case]
+    res, offs, freqs, gidx = (torch.from_numpy(a).cuda() for a in arrays)
+    exp = piece_hist_plain(res, offs, freqs, gidx, V, n_global)
+    before = piece_hist.launches
+    got = piece_hist(res, offs, freqs, gidx, V, n_global)
+    torch.cuda.synchronize()
+    assert piece_hist.launches == before + 1
+    assert torch.equal(got, exp), label
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = piece_hist(res, offs, freqs, gidx, V, n_global)
+    got.fill_(-1)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp), label
 
 
 def _wordpiece_capture(texts, vocab_size, rounds, device="cuda"):

@@ -13,6 +13,9 @@ step loop, against ``make_k_merge_steps`` and ``make_inl_window_steps`` on a
 one-device mesh.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -28,9 +31,14 @@ from complexity_tokenizer_tpu.parallel.trainer import (
     make_k_merge_steps,
     make_merge_step,
 )
-from complexity_tokenizer_tpu_torch.ops.trainer_device import merge_step, pair_hist
+from complexity_tokenizer_tpu_torch.ops import trainer_device
+from complexity_tokenizer_tpu_torch.ops.trainer_device import (
+    merge_step,
+    pair_hist,
+    pair_hist_plan,
+)
 from complexity_tokenizer_tpu_torch.parallel.trainer import run_steps
-from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
+from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows, zipf_pair_rows
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,6 +70,76 @@ def test_k13_matches_make_initial_hist(seed):
     got = pair_hist(torch.from_numpy(words), torch.from_numpy(freqs), v0)
     assert got.dtype == torch.int32 and got.shape == (v0 * v0,)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("v0", [58, 241, 242, 260])
+def test_k13_zipf_keys_and_aliasing_match_make_initial_hist(v0):
+    """K13's plain version against ``make_initial_hist`` at the side of the
+    bench corpus's alphabet (58), at the last side whose histogram fits one
+    block's shared memory (241) and the first past it (242), and at a
+    byte-level alphabet's (260): rows of the trainer's shape with
+    Zipf-skewed ids, and rows whose right id is at or past v0.  JAX's key
+    ``l * v0 + r`` makes such an id add into line l + 1 (and drops a key at
+    or past ``v0 * v0``), not a 2-D bound on each id."""
+    _, words, freqs = _random_rows(v0, n=400, w=13, holes=0.25)
+    words = zipf_pair_rows(words, v0, seed=v0)
+    alias = np.full((4, 13), -1, np.int32)
+    alias[0, :2] = (3, v0 + 5)  # adds into (4, 5)
+    alias[1, :3] = (v0 - 1, v0 - 1, v0 + 2)  # (v0-1, v0-1), then a key past the histogram
+    alias[2, :2] = (0, 2 * v0)  # adds into (2, 0)
+    alias[3, :2] = (v0 - 1, v0 - 1)
+    words = np.concatenate([words, alias])
+    freqs = np.concatenate([freqs, np.array([11, 13, 17, 19], np.int32)])
+    want = np.asarray(jax.jit(make_initial_hist(v0))(words, freqs))
+    got = pair_hist(torch.from_numpy(words), torch.from_numpy(freqs), v0)
+    assert got.dtype == torch.int32 and got.shape == (v0 * v0,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the aliased keys landed where JAX puts them
+    assert want[4 * v0 + 5] >= 11 and want[2 * v0] >= 17 and want[v0 * v0 - 1] >= 13 + 19
+    # the Zipf curve: the hottest pair holds far more than its share
+    assert want.max() > 20 * want.sum() / (v0 * v0)
+
+
+@pytest.mark.parametrize("v0,branch,slices", [
+    (58, 0, 1), (241, 0, 1), (242, 1, 2), (260, 1, 2), (340, 1, 2), (341, 1, 3), (681, 1, 8),
+    (682, 2, 0), (1000, 2, 0),
+])
+def test_k13_plan_branch(v0, branch, slices):
+    """K13's plan (mirrored in ``csrc/train.cu``): a block's histogram while
+    ``v0 * v0`` int32 bins fit its 232,448 bytes (v0 <= 241), slices of
+    it, up to 8 (v0 <= 681), global atomics past that; every slice within
+    one block's shared memory."""
+    plan = pair_hist_plan(48_968, 13, v0)
+    assert (plan["branch"], plan["slices"]) == (branch, slices)
+    if branch < 2:
+        assert plan["slice_bins"] * 4 <= 232_448
+        assert plan["slice_bins"] * slices >= v0 * v0
+        assert plan["slice_bins"] * (slices - 1) < v0 * v0
+        assert plan["groups"] == 132 // slices  # the classic rows fill the card
+
+
+@pytest.mark.parametrize("N,W,sms,groups", [
+    (48_968, 13, 132, 132), (48_968, 13, 114, 114), (100, 13, 132, 1), (5_000, 13, 132, 16),
+    (0, 13, 132, 1),
+])
+def test_k13_plan_grid(N, W, sms, groups):
+    """K13's groups at v0 = 58: a block an SM, fewer when the rows give
+    fewer than a 128-slot step to each of a block's 32 warps, at least one."""
+    assert pair_hist_plan(N, W, 58, sms)["groups"] == groups
+
+
+@pytest.mark.parametrize("c_name,py_name", [
+    ("kHistThreads", "_HIST_THREADS"), ("kHistStep", "_HIST_STEP"),
+    ("kHistSmemBytes", "_HIST_SLICE_BINS"), ("kHistMaxSlices", "_HIST_MAX_SLICES"),
+])
+def test_k13_plan_constants_mirror_the_source(c_name, py_name):
+    """The Python plan's constants are ``csrc/train.cu``'s (the card reads
+    its own plan; ``tests/test_torch_gpu.py`` compares the two there)."""
+    src = os.path.join(os.path.dirname(trainer_device.__file__), "..", "csrc", "train.cu")
+    with open(src, encoding="utf-8") as f:
+        value = int(re.search(rf"constexpr int {c_name} = (\d+);", f.read()).group(1))
+    want = getattr(trainer_device, py_name)
+    assert (value // 4 if c_name == "kHistSmemBytes" else value) == want
 
 
 def _k14(words, freqs, a, b, new, V):

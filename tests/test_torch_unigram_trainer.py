@@ -12,6 +12,7 @@ refused; and world size 2 over gloo against world size 1.
 import json
 from collections import Counter
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -32,7 +33,11 @@ from complexity_tokenizer_tpu_torch.ops.unigram_device import (
 )
 from complexity_tokenizer_tpu_torch.parallel.unigram_trainer import DistributedUnigramTrainer
 from complexity_tokenizer_tpu_torch.trainers import UnigramTrainer, UnigramTrainerConfig
-from complexity_tokenizer_tpu_torch.utils.corpus import MULTI_PIECES, zipf_corpus
+from complexity_tokenizer_tpu_torch.utils.corpus import (
+    MULTI_PIECES,
+    piece_hist_edge_results,
+    zipf_corpus,
+)
 
 import torch_train_worker
 
@@ -165,6 +170,48 @@ def test_k17_plain_on_edge_results():
     assert order.tolist() == [5, 3, 0, 1, 4, 2] and groups == (6, 6) and wide == [5]
     assert lens.tolist() == [0, 1, 2, 2, 2, 4] and poffs.tolist() == [0, 0, 1, 3, 5, 7, 11]
     assert len(chars) == 11
+
+
+_EDGE_RESULTS = piece_hist_edge_results()
+
+
+def _jax_piece_hist(res, offs, freqs, gidx, V, n_global):
+    """JAX's expression (``_counts_program``,
+    ``parallel/unigram_trainer.py:66-70``) on the same arrays: the ids laid out dense [B, L]
+    (-1 past a text's slots), ``hist.at[where(ok, out, V)].add(where(ok,
+    freqs, 0))[:V]`` with ``ok`` the ids >= 0 of the texts not poisoned,
+    and the poison flags gathered to their places in the corpus."""
+    B = len(offs) - 1
+    N = len(res) - 2 * B
+    lens = np.diff(offs)
+    L = max(int(lens.max()), 1)
+    out = np.full((B, L), -1, np.int32)
+    rows = np.repeat(np.arange(B), lens)
+    cols = np.arange(N) - np.repeat(offs[:-1], lens)
+    out[rows, cols] = res[:N]
+    poison = res[N + B:] != 0
+    ok = (out >= 0) & ~poison[:, None]
+    hist = jnp.zeros(V + 1, jnp.int32)
+    hist = hist.at[jnp.where(ok, out, V)].add(jnp.where(ok, freqs[:, None], 0))[:V]
+    flags = np.zeros(n_global, np.int32)
+    flags[gidx] = poison
+    return np.concatenate([np.asarray(hist), flags])
+
+
+@pytest.mark.parametrize("case", range(len(_EDGE_RESULTS)), ids=[c[0] for c in _EDGE_RESULTS])
+def test_k17_plain_matches_jax_expression(case):
+    """K17's plain version (and the wrapper on CPU tensors) against JAX's
+    ``.at[].add`` on the same arrays, bit for bit, on
+    ``utils/corpus.py:piece_hist_edge_results``: one id most texts choose,
+    texts of no slot, texts over 32 slots, every text poisoned, one text,
+    V = 1, ids at and past V, a corpus index over part of ``n_global``."""
+    label, res, offs, freqs, gidx, V, n_global = _EDGE_RESULTS[case]
+    want = _jax_piece_hist(res, offs, freqs, gidx, V, n_global)
+    on = torch.from_numpy
+    got = piece_hist_plain(on(res), on(offs), on(freqs), on(gidx), V, n_global)
+    np.testing.assert_array_equal(got.numpy(), want, err_msg=label)
+    assert torch.equal(piece_hist(on(res), on(offs), on(freqs), on(gidx), V, n_global), got)
+    assert want[:V].any() or label == "every text poisoned"
 
 
 def test_refused_tables_take_the_host_e_step():
