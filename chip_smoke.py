@@ -2660,6 +2660,13 @@ TRAIN_ROUTES = (
     ("INL 4,096, T 96", dict(vocab_size=4096, min_frequency=2), 96, INL_32K, False),
 )
 TRAIN_KERNELS = ("pair_hist", "merge_step", "select_pair", "hist_update")
+# the merges of classic 50,000 before which K14 is checked and timed on the
+# route's rows (replayed with K14 from the golden merges), the classic
+# 4,096 route's 32-step blocks and the INL 4,096 route's windows whose
+# device-resident steps are checked and timed (each replayed from the start)
+K14_STATES = (0, 1000, 10_000, 40_000)
+CLASSIC_BLOCKS = (0, 30)
+INL_WINDOWS = (0, 10)
 
 
 def _warm_cache_map(path: str) -> dict:
@@ -2674,11 +2681,15 @@ def _warm_cache_map(path: str) -> dict:
             for i in range(len(lens))}
 
 
-def _time_reset_ms(resets: list, runs: list, reps: int = 3) -> float:
+def _time_reset_ms(resets: list, runs: list, reps: int = 3, separate: bool = False) -> float:
     """Device ms of one ``runs[i]()``, for kernels that change their own
     input: a CUDA graph of every ``resets[i]()`` then every ``runs[i]()``
     (so with many large sets the runs find their inputs cold) less a graph
-    of the resets alone, over the number of runs."""
+    of the resets alone, over the number of runs.  ``separate``: a 4-byte
+    memset before each run, in both graphs, so that no run is launched
+    right behind another (a kernel launched as the programmatic dependent
+    of the one before would overlap it), as a route that reads each result
+    back launches them."""
     import torch
 
     def graph(fns):
@@ -2700,12 +2711,16 @@ def _time_reset_ms(resets: list, runs: list, reps: int = 3) -> float:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    return (graph(resets + runs) - graph(resets)) / len(runs)
+    if not separate:
+        return (graph(resets + runs) - graph(resets)) / len(runs)
+    sep = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return (graph(resets + [f for run in runs for f in (sep.zero_, run)])
+            - graph(resets + [sep.zero_] * len(runs))) / len(runs)
 
 
-def _train_inputs(texts, cfg):
-    """The trainer's initial rows on the card, as the device trainer builds
-    them: (words [N, W], freqs [N], vocab, v0)."""
+def _train_state(texts, cfg, device="cuda"):
+    """A device trainer with its vocabulary initialized, and its initial
+    rows as it builds them: (trainer, words [N, W], freqs [N])."""
     import contextlib
     import io
     from collections import Counter
@@ -2715,13 +2730,128 @@ def _train_inputs(texts, cfg):
     from complexity_tokenizer_tpu_torch.parallel.trainer import DistributedInlTrainer, pack_word_rows
     from complexity_tokenizer_tpu_torch.trainers.inl_trainer import TrainerConfig
 
-    t = DistributedInlTrainer(TrainerConfig(**cfg))
+    t = DistributedInlTrainer(TrainerConfig(**cfg), device=device)
     wf = t._count_words(texts)
     wf = Counter({w: f for w, f in wf.items() if f >= t.config.min_frequency})
     with contextlib.redirect_stdout(io.StringIO()):
         words_list, freqs_list = t._init_vocab(wf)
     words, freqs = pack_word_rows(words_list, freqs_list)
-    return torch.from_numpy(words).cuda(), torch.from_numpy(freqs).cuda(), t.vocab, len(t.vocab)
+    return t, torch.from_numpy(words).to(device), torch.from_numpy(freqs).to(device)
+
+
+def _train_inputs(texts, cfg):
+    """The trainer's initial rows on the card, as the device trainer builds
+    them: (words [N, W], freqs [N], vocab, v0)."""
+    t, words, freqs = _train_state(texts, cfg)
+    return words, freqs, t.vocab, len(t.vocab)
+
+
+def _leading(ma, n_do: int) -> int:
+    """The steps of a block's merge log that merged (those before the
+    first -1)."""
+    applied = 0
+    while applied < n_do and ma[applied] >= 0:
+        applied += 1
+    return applied
+
+
+def classic_blocks(words, freqs, hist, v0: int, n_steps: int, keep=None):
+    """The classic device-resident route's blocks replayed as
+    ``DistributedInlTrainer._batched_selection_loop`` enqueues them
+    (``run_steps``, 32 steps a block, the deltas and log zeroed first), on
+    ``words`` and ``hist`` in place, for ``n_steps`` steps or until a step
+    does nothing.  Returns the merges (id pairs) and, for each block index
+    in ``keep`` (every block when None), a copy of its input as
+    ``check_block`` takes it."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import SelectScratch
+    from complexity_tokenizer_tpu_torch.parallel.trainer import DistributedInlTrainer, run_steps
+
+    k = DistributedInlTrainer._SELECT_BLOCK_K
+    dev = words.device
+    log = torch.empty(3, k, dtype=torch.int32, device=dev)
+    deltas = torch.empty(k, hist.shape[0], 4, dtype=torch.int32, device=dev)
+    scratch = SelectScratch(dev) if dev.type == "cuda" else None
+    merges, kept, done = [], {}, 0
+    while done < n_steps:
+        n_do = min(k, n_steps - done)
+        if keep is None or done // k in keep:
+            kept[done // k] = dict(v0b=v0 + done, n_do=n_do, words=words.clone(),
+                                   hist=hist.clone(), freqs=freqs, cand=None)
+        deltas[:n_do].zero_()
+        log[2].zero_()
+        run_steps(n_do, v0 + done, words, freqs, hist, log, deltas, scratch=scratch)
+        ma, mb, _mf = log.cpu().numpy()
+        applied = _leading(ma, n_do)
+        merges += [(int(a), int(b)) for a, b in zip(ma[:applied], mb[:applied])]
+        done += applied
+        if applied < n_do:
+            break
+    return merges, kept
+
+
+def inl_windows(texts, cfg, n_windows=None, keep=None, device="cuda"):
+    """The INL device-resident route's rebuild windows replayed from the
+    start of training as ``DistributedInlTrainer._inl_window_loop`` runs
+    them: the host seeds its pair counts from K13, scores and orders the
+    pairs at each window's start, ships the first ``_INL_WINDOW_T`` as the
+    candidates, the card runs ``run_steps`` over them, and the host folds
+    the window's logged deltas back merge by merge.  Stops after
+    ``n_windows`` windows, at the vocabulary's size, or after the first
+    window whose candidates ran out (the loop goes on there one K14 launch
+    a merge, which this does not replay).  Returns the trainer (its
+    ``merges``) and, for each window index in ``keep`` (every one when
+    None), a copy of its input as ``check_block`` takes it."""
+    import numpy as np
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import pair_hist
+    from complexity_tokenizer_tpu_torch.parallel.trainer import REBUILD_INTERVAL, run_steps
+
+    t, words, freqs = _train_state(texts, cfg, device)
+    v0 = len(t.vocab)
+    seed = pair_hist(words, freqs, v0).view(v0, v0).cpu().numpy()
+    ys, xs = np.nonzero(seed)
+    for a, b in zip(ys.tolist(), xs.tolist()):
+        t.pair_freqs[(a, b)] = int(seed[a, b])
+    target = t.config.vocab_size
+    V = max(target, v0 + 1)
+    hist = t._hist_on_device(V)
+    k, T = REBUILD_INTERVAL, t._INL_WINDOW_T
+    log = torch.empty(3, k, dtype=torch.int32, device=device)
+    deltas = torch.empty(k, V, 4, dtype=torch.int32, device=device)
+    kept, w = {}, 0
+    while len(t.vocab) < target and (n_windows is None or w < n_windows):
+        pairs, order = t._ordered_pairs()
+        if not len(order):
+            break
+        pairs_np = np.asarray(pairs, np.int32).reshape(-1, 2)
+        n_cand = min(T, len(order))
+        cand_np = np.zeros((2, T), np.int32)
+        cand_np[:, :n_cand] = pairs_np[order[:n_cand]].T
+        window = min(k, target - len(t.vocab))
+        n_do = min(window, n_cand)
+        v0b = len(t.vocab)
+        cand = torch.from_numpy(cand_np).to(device)
+        state = torch.tensor([-1, 0], dtype=torch.int32, device=device)
+        if keep is None or w in keep:
+            kept[w] = dict(v0b=v0b, n_do=n_do, words=words.clone(), hist=hist.clone(),
+                           freqs=freqs, cand=(cand[0].clone(), cand[1].clone(), n_cand,
+                                              state.clone()))
+        deltas[:n_do].zero_()
+        log[2].zero_()
+        run_steps(n_do, v0b, words, freqs, hist, log, deltas, cand=(cand[0], cand[1], n_cand, state))
+        ma, mb, mf = log.cpu().numpy()
+        applied = _leading(ma, n_do)
+        deltas_np = deltas[:applied].cpu().numpy()
+        for i in range(applied):
+            a, b = int(ma[i]), int(mb[i])
+            t._apply_delta_hist(deltas_np[i], int(mf[i]), a, b, t._mint(a, b))
+        w += 1
+        if applied < window:
+            break
+    return t, kept
 
 
 def _check_equal(name: str, label: str, got, exp) -> dict:
@@ -2738,21 +2868,29 @@ def _check_equal(name: str, label: str, got, exp) -> dict:
     return dict(inputs=label, match=match, max_abs_err=err)
 
 
-def check_train_kernels(texts: list[str], golden50: list) -> dict:
+def check_train_kernels(texts: list[str], golden50: list, golden_inl: list) -> dict:
     """K13-K16 against their plain versions on the card, bit for bit, on the
     classic route's real inputs: its initial rows and the state after 1,000
-    merges (the classic 4,096 route's first 1,000 steps, K15 -> K14 -> K16,
-    whose merges must be the golden file's first 1,000); K13 also on the
-    initial rows with Zipf-skewed ids below 260, 241 and 700 (each branch of
-    its plan), K14 also on ``utils/corpus.py:merge_edge_rows``.  Each timed warm, cold (except
-    K14, whose rows are restored before each launch: see
-    ``_time_reset_ms``) and plainly, beside its bound and the library call
-    where there is one."""
+    merges (the classic 4,096 route's first 1,000 steps, K15 -> K14 -> K16
+    in blocks of 32, ``classic_blocks``, whose merges must be the golden
+    file's first 1,000); K13 also on the initial rows with Zipf-skewed ids
+    below 260, 241 and 700 (each branch of its plan); K14 (with its clear,
+    as the per-merge route calls it, into buffers that held other values)
+    on the classic 50,000 route's rows before merges ``K14_STATES``
+    (reached by K14 itself, the golden merges applied one launch each, as
+    that route launches them, each minting) and on
+    ``utils/corpus.py:merge_edge_rows``; the 32-step blocks
+    ``CLASSIC_BLOCKS`` of that replay and the 100-step windows
+    ``INL_WINDOWS`` of the INL 4,096 route (``inl_windows``, whose merges
+    must be the INL golden file's) through ``run_steps`` (K15, K14, then K16
+    as K14's programmatic dependent) against the plain versions' steps.
+    Each timed warm, cold (except K14, whose rows are restored before each
+    launch, and the blocks: see ``_time_reset_ms``) and plainly, beside its
+    bound and the library call where there is one."""
     import numpy as np
     import torch
 
     from complexity_tokenizer_tpu_torch.ops import trainer_device as td
-    from complexity_tokenizer_tpu_torch.parallel.trainer import run_steps
     from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows, zipf_pair_rows
 
     out = {k: [] for k in TRAIN_KERNELS}
@@ -2814,66 +2952,116 @@ def check_train_kernels(texts: list[str], golden50: list) -> dict:
         print(f"[pair_hist] v0={vz} launch {rz['launch']}", flush=True)
         out["pair_hist"].append(rz)
 
-    # the state after 1,000 merges: the classic 4,096 route's first 1,000 steps
+    # the state after 1,000 merges: the classic 4,096 route's first 1,000
+    # steps, in its blocks of 32
     hist0 = torch.zeros(Vr, Vr, dtype=torch.int32, device="cuda")
     hist0[:v0, :v0] = got.view(v0, v0)
     words1k, hist1k = words0.clone(), hist0.clone()
-    log = torch.empty(3, 1000, dtype=torch.int32, device="cuda")
-    log[2].zero_()
-    deltas = torch.zeros(1000, Vr, 4, dtype=torch.int32, device="cuda")
     scratch = td.SelectScratch("cuda")
-    run_steps(1000, v0, words1k, freqs, hist1k, log, deltas, scratch=scratch)
+    merged, blocks = classic_blocks(words1k, freqs, hist1k, v0, 1000, keep=CLASSIC_BLOCKS)
     inv = {i: t for t, i in vocab.items()}
-    ma, mb, _mf = log.cpu().numpy()
-    for i in range(1000):
-        a, b = inv[int(ma[i])], inv[int(mb[i])]
+    for i, (ia, ib) in enumerate(merged):
+        a, b = inv[ia], inv[ib]
         inv[v0 + i] = a + b
         if (a, b) != golden50[i]:
             raise AssertionError(f"device-resident merge {i} is {(a, b)}, the golden file's {golden50[i]}")
-    tid = {t: i for i, t in inv.items()}
+    if len(merged) != 1000:
+        raise AssertionError(f"the classic 4,096 replay stopped after {len(merged)} merges")
+    # the INL 4,096 route's windows, replayed
+    trainer, windows = inl_windows(texts, TRAIN_ROUTES[3][1], n_windows=max(INL_WINDOWS) + 1,
+                                   keep=INL_WINDOWS)
+    if trainer.merges != golden_inl[: len(trainer.merges)] or len(windows) != len(INL_WINDOWS):
+        raise AssertionError(f"the INL 4,096 replay's {len(trainer.merges)} merges are not the "
+                             f"golden file's")
+    del trainer
 
-    # K14 (pair as scalars, delta [50,000, 4]: the per-merge route) at both
-    # states, the next golden merge; then the edge rows
-    for label, words, step in (("initial rows", words0, 0), ("after 1,000 merges", words1k, 1000)):
-        a, b = (tid[t] for t in golden50[step])
-        new = v0 + step
+    # the classic 50,000 route's rows before each merge of K14_STATES: the
+    # golden merges applied by K14 as that route launches it (the pair as
+    # scalars, adding into one of two buffers while it zeroes the other),
+    # each minting at least one occurrence, and the rows after 1,000 merges
+    # those of the device-resident replay
+    gids = dict(vocab)
+    pairs50 = []
+    for i, (x, y) in enumerate(golden50[: max(K14_STATES)]):
+        pairs50.append((gids[x], gids[y]))
+        gids.setdefault(x + y, v0 + i)
+    states = {}
+    rows = words0.clone()
+    route = torch.zeros(2, 1 + 4 * V50, dtype=torch.int32, device="cuda")
+    mints = torch.zeros(len(pairs50), dtype=torch.int32, device="cuda")
+    for i in range(len(pairs50) + 1):
+        if i in K14_STATES:
+            states[i] = rows.clone()
+        if i == len(pairs50):
+            break
+        (a, b), new, n_buf = pairs50[i], v0 + i, 1 + 4 * (v0 + i + 1)
+        cur, other = route[i % 2], route[1 - i % 2]
+        td.merge_step(rows, freqs, new, cur[1:n_buf].view(new + 1, 4), mints[i:i + 1], a=a, b=b,
+                      zero=other[:n_buf])
+    if not bool((mints > 0).all()):
+        raise AssertionError(f"golden merge {int((mints <= 0).nonzero()[0])} of classic 50,000 "
+                             f"minted nothing on the replayed rows")
+    if not torch.equal(states[1000], words1k):
+        raise AssertionError("the rows after 1,000 golden merges are not the device-resident route's")
+    del route, mints
+
+    # K14 as the per-merge route calls it (the pair as scalars, adding into
+    # a zeroed buffer while it zeroes the other) before each merge of
+    # K14_STATES, on that route's rows; then the edge rows
+    for s_ in K14_STATES:
+        words, new = states[s_], v0 + s_
+        a, b = gids[golden50[s_][0]], gids[golden50[s_][1]]
+        label = f"before merge {s_:,}"
+        n_buf = 1 + 4 * (new + 1)
         res = []
         for fn in (td.merge_step, td.merge_step_plain):
             w = words.clone()
-            d = torch.zeros(V50, 4, dtype=torch.int32, device="cuda")
-            m = torch.zeros(1, dtype=torch.int32, device="cuda")
-            fn(w, freqs, new, d, m, a=a, b=b)
-            res.append((w, d, m))
-        r = _check_equal("merge_step", f"{label} [{N},{W}], {golden50[step]}", res[0], res[1])
+            bufs = torch.zeros(2, n_buf, dtype=torch.int32, device="cuda")
+            bufs[1].fill_(7)  # the merge before's buffer: K14 zeroes it
+            fn(w, freqs, new, bufs[0, 1:].view(new + 1, 4), bufs[0, :1], a=a, b=b, zero=bufs[1])
+            res.append((w, bufs))
+        r = _check_equal("merge_step", f"{label} [{N},{W}], {golden50[s_]}", res[0], res[1])
         changed = int((res[0][0] != words).sum())
-        nz = int((res[0][1] != 0).sum())
+        nz = int((res[0][1][0, 1:] != 0).sum())
+        holding = int(((words == a).any(1) & (words == b).any(1)).sum())
         src = words
-        d = torch.zeros(V50, 4, dtype=torch.int32, device="cuda")
-        m = torch.zeros(1, dtype=torch.int32, device="cuda")
+        bufs = torch.zeros(2, n_buf, dtype=torch.int32, device="cuda")
+        d, m = bufs[0, 1:].view(new + 1, 4), bufs[0, :1]
         timed = {}
         # warm: 10 restored copies (their rows and sources fit the L2 together);
-        # cold: copies of twice the L2, restored before any of them merges
-        for key, n_sets in (("warm", 10), ("cold", -(-COLD_BYTES // (8 * N * W)) + 1)):
-            copies = [(src.clone(), src.clone()) for _ in range(n_sets)]
+        # cold: copies of twice the L2, restored before any of them merges;
+        # alone: not zeroing the other buffer; each launch after a memset,
+        # not behind the one before (the route reads each merge back)
+        for key, n_sets, zero in (("warm", 10, bufs[1]), ("alone", 10, None),
+                                  ("cold", -(-COLD_BYTES // (8 * N * W)) + 1, bufs[1])):
+            copies = [(src, src.clone()) for _ in range(n_sets)]
             timed[key] = _time_reset_ms(
                 [lambda s=s, x=x: x.copy_(s) for s, x in copies],
-                [lambda x=x: td.merge_step(x, freqs, new, d, m, a=a, b=b) for _s, x in copies])
+                [lambda x=x, z=zero: td.merge_step(x, freqs, new, d, m, a=a, b=b, zero=z)
+                 for _s, x in copies], separate=True)
             del copies
         ms, ms_cold = timed["warm"], timed["cold"]
         w = words.clone()
 
         def plain():
             w.copy_(src)
-            td.merge_step_plain(w, freqs, new, d, m, a=a, b=b)
+            td.merge_step_plain(w, freqs, new, d, m, a=a, b=b, zero=bufs[1])
 
         plain_ms = _time_ms(plain, reps=3, graph=False)
-        bound_ms, bound_by = _bound(4 * N * W + 4 * N + 4 * changed + 4 * nz + 4, N * W)
-        out["merge_step"].append(dict(r, shape=[N, W], ms=ms, ms_cold=ms_cold, plain_ms=plain_ms,
+        # the rows read, the frequencies of the rows that hold both tokens
+        # (no other row's is read), changed slots and the touched delta
+        # entries and count written, the other buffer zeroed
+        bound_ms, bound_by = _bound(4 * N * W + 4 * holding + 4 * changed + 4 * nz + 4 + 4 * n_buf,
+                                    N * W)
+        out["merge_step"].append(dict(r, shape=[N, W], merge=s_, ms=ms, ms_cold=ms_cold,
+                                      ms_alone=timed["alone"], plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                                      changed_slots=changed, delta_entries=nz))
-        print(f"[merge_step] {label} [{N},{W}] warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} "
-              f"bound={bound_ms:.5f} ms ({bound_by}; {changed} slots changed, {nz} delta entries)",
-              flush=True)
+                                      changed_slots=changed, delta_entries=nz,
+                                      rows_holding_pair=holding))
+        print(f"[merge_step] {label} [{N},{W}] warm={ms:.4f} cold={ms_cold:.4f} "
+              f"alone={timed['alone']:.4f} plain={plain_ms:.4f} bound={bound_ms:.5f} ms "
+              f"({bound_by}; {changed} slots changed, {nz} delta entries, {holding} rows hold "
+              f"both tokens)", flush=True)
     for label, words_np, freqs_np, a, b, new in merge_edge_rows():
         res = []
         for fn in (td.merge_step, td.merge_step_plain):
@@ -2964,7 +3152,67 @@ def check_train_kernels(texts: list[str], golden50: list) -> dict:
                                       library_ms=None)
         print(f"[select_pair] window {label} T={T} warm={ms:.4f} plain={plain_ms:.4f} "
               f"bound={bound_ms:.5f} ms ({bound_by})", flush=True)
+    out["blocks"] = [check_block(f"classic 4,096, block {i}", blk, scratch)
+                     for i, blk in sorted(blocks.items())]
+    out["blocks"] += [check_block(f"INL 4,096, window {i}", blk, scratch)
+                      for i, blk in sorted(windows.items())]
     return out
+
+
+def check_block(label: str, blk: dict, scratch) -> dict:
+    """A device-resident block or window, from ``classic_blocks`` or
+    ``inl_windows``: ``run_steps`` (K15, K14, then K16 as K14's programmatic
+    dependent) against
+    the plain versions' steps on the same inputs, bit for bit (rows,
+    histogram, merge log, deltas, the window's cursor), then timed as one
+    CUDA graph on inputs restored before each replay (``_time_reset_ms``)."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops import trainer_device as td
+    from complexity_tokenizer_tpu_torch.parallel.trainer import run_steps
+
+    n_do, v0b, freqs, cand = blk["n_do"], blk["v0b"], blk["freqs"], blk["cand"]
+    V = blk["hist"].shape[0]
+
+    def fresh():
+        st = dict(words=blk["words"].clone(), hist=blk["hist"].clone(),
+                  log=torch.zeros(3, n_do, dtype=torch.int32, device="cuda"),
+                  deltas=torch.zeros(n_do, V, 4, dtype=torch.int32, device="cuda"),
+                  state=torch.zeros(2, dtype=torch.int32, device="cuda"))
+        if cand is not None:
+            st["state"].copy_(cand[3])
+        st["cand"] = None if cand is None else (cand[0], cand[1], cand[2], st["state"])
+        return st
+
+    got, want = fresh(), fresh()
+    run_steps(n_do, v0b, got["words"], freqs, got["hist"], got["log"], got["deltas"],
+              cand=got["cand"], scratch=scratch)
+    for i in range(n_do):
+        ma, mb, mf = want["log"][0], want["log"][1], want["log"][2]
+        td.select_pair_plain(want["hist"], i, ma, mb, cand=want["cand"])
+        td.merge_step_plain(want["words"], freqs, v0b + i, want["deltas"][i], mf[i:i + 1],
+                            log=(ma, mb), step=i)
+        td.hist_update_plain(want["hist"], i, ma, mb, v0b + i, want["deltas"][i])
+    keys = ("words", "hist", "log", "deltas", "state")
+    r = _check_equal("run_steps", f"{label}: {n_do} steps from merge {v0b}",
+                     [got[k] for k in keys], [want[k] for k in keys])
+    applied = int((got["log"][0] >= 0).sum())
+    work = fresh()
+
+    def reset():
+        work["words"].copy_(blk["words"])
+        work["hist"].copy_(blk["hist"])
+        work["log"].zero_()
+        work["deltas"].zero_()
+        if cand is not None:
+            work["state"].copy_(cand[3])
+
+    ms = _time_reset_ms([reset], [lambda: run_steps(n_do, v0b, work["words"], freqs, work["hist"],
+                                                    work["log"], work["deltas"],
+                                                    cand=work["cand"], scratch=scratch)])
+    print(f"[run_steps] {label}: {n_do} steps ({applied} merges) from id {v0b}, "
+          f"graph-replayed {ms:.4f} ms ({ms / n_do * 1e3:.2f} us a step)", flush=True)
+    return dict(r, block=label, steps=n_do, merges=applied, v0b=v0b, ms=ms)
 
 
 def drive_train(kernels_of: dict) -> dict:
@@ -2976,8 +3224,8 @@ def drive_train(kernels_of: dict) -> dict:
     96 candidates a window (the host ends every window).  Each saves into a
     temporary directory; the 50K and 32K files equal the golden files byte
     for byte (the 50K one's warm-cache sidecar holds the tracked one's words
-    and ids), the 4,096 routes' merges are the golden files' prefixes.  Then
-    K13-K16 against their plain versions (``check_train_kernels``)."""
+    and ids), the 4,096 routes' merges are the golden files' prefixes.
+    Then K13-K16 against their plain versions (``check_train_kernels``)."""
     import contextlib
     import io
     import shutil
@@ -3040,12 +3288,17 @@ def drive_train(kernels_of: dict) -> dict:
     shutil.rmtree(tmp)
     _phase("train routes", t0)
     t0 = time.perf_counter()
-    checks = check_train_kernels(texts, goldens[TOKENIZER_JSON][1])
+    checks = check_train_kernels(texts, goldens[TOKENIZER_JSON][1], goldens[INL_32K][1])
     # the host's share of each route's wall: the wall less the kernels' time
-    # (each launch at the warm time of its check on the classic rows)
+    # (each launch at the warm time of its check on the classic rows; K14 at
+    # the mean of its times at the states)
     warm = {k: min(r["ms"] for r in checks[k] if "ms" in r) for k in TRAIN_KERNELS}
+    # K14 on the per-merge routes: the mean of its warm times at the states
+    per_merge = [r["ms"] for r in checks["merge_step"] if "merge" in r]
+    k14_per_merge = sum(per_merge) / len(per_merge)
     for label, wl in walls.items():
-        dev_s = sum(launches[f"train {label}"][k] * warm[k] for k in TRAIN_KERNELS) / 1e3
+        dev_s = sum(launches[f"train {label}"][k] * (k14_per_merge if k == "merge_step" else warm[k])
+                    for k in TRAIN_KERNELS) / 1e3
         wl["kernel_s_est"] = dev_s
         wl["host_share_est"] = 1.0 - dev_s / wl["wall_s"]
         print(f"[train] {label}: kernels about {dev_s:.3f} s of {wl['wall_s']:.3f} s "

@@ -20,12 +20,13 @@
 // What bounds them on this card: K13, K14 and K15 read their inputs once
 // (the word rows, the [V, V] histogram) and are bound by those bytes and,
 // at the trainer's sizes (a few MB), by their launch; K16 touches four
-// lines of the histogram, a few tens of KB, and is launch-bound.  K14, K15
-// and K16 are written to be simple and right: a thread a row walking its
-// alive chain in the reference's order (K14), a grid-wide maximum finished
-// by the last block (K15), a thread a cell of the four lines (K16).  K13
-// was redesigned for Hopper (below): a private histogram a block in shared
-// memory, flushed with one atomic a nonzero bin.
+// lines of the histogram, a few tens of KB, and is launch-bound.  K15 is
+// written to be simple and right: a grid-wide maximum finished by the last
+// block.  K13 was redesigned for Hopper (a private histogram a block in
+// shared memory, flushed with one atomic a nonzero bin), and so were K14 (a
+// warp scans 16 rows with coalesced loads into shared memory and only the
+// rows that hold the pair walk their chain) and K16 (a thread a cell of the four lines,
+// launched behind K14 so that its launch overlaps K14's run): see each.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -218,11 +219,51 @@ pair_hist_global_kernel(const int32_t* __restrict__ words, const int32_t* __rest
 //   kinds 1 and 3 [y] += f, y the alive token after the partner, unless y
 //     starts the next taken match (the one after a taken match is taken
 //     whenever it matches: the slot between them is a partner).
-// A thread a row; the row's minted frequency is summed in a register and
-// added with one atomic.  An index at or past V (delta's rows) is dropped,
-// as JAX's scatter drops it.  When the pair comes from the merge log
-// (ma != nullptr) and the step does nothing (ma[step] < 0), the launch
-// leaves every buffer unchanged, as JAX's jnp.where(do, out, words).
+// An index at or past V (delta's rows) is dropped, as JAX's scatter drops
+// it.  When the pair comes from the merge log (ma != nullptr) and the step
+// does nothing (ma[step] < 0), the launch leaves the rows, delta and minted
+// unchanged, as JAX's jnp.where(do, out, words).
+//
+// The first design gave a thread a row walking its chain: 8-16 warps an
+// SM, each load waiting on the one before, strided 52 B across the warp,
+// and every row walked even when it holds no a, which after the first
+// merges is nearly every row.  Here a warp takes kMergeRows consecutive
+// rows, kMergeRows * W contiguous int32:
+// - its lanes read them in coalesced steps of 32 slots, kMergeBatch steps'
+//   loads in flight, note which rows hold a and which hold b (a bit a row,
+//   OR-reduced over the warp) and keep the rows in the warp's shared
+//   memory (rows of up to kTileMaxW slots; wider ones are walked from the
+//   lines the scan brought into L1);
+// - only the rows that hold both walk their chain, each in a lane, from
+//   that copy; a warp with no such row ends there, so late in a run K14 is
+//   one read of the rows;
+// - a row's minted frequency is summed over the warp and added with one
+//   atomic; the deltas are global atomics, as few as the taken matches
+//   (the first merge of the classic 50,000 run, the most contended, adds
+//   14,368 into 52 entries; by merge 10,000 a merge adds none).
+// The walk never reads a slot it has written (it writes pos and nx behind
+// the slots yp and yn it reads), and a lane writes only its own row.  16
+// rows a warp (6.5 lines of 13-slot rows, 3,061 warps for the classic
+// rows) measured faster than 32 and 8, and the walk from shared memory
+// faster than from L1 on the device-resident steps, where early merges
+// walk many rows (scripts/study_merge_variants.py; PERF.md, section 6).
+//
+// The per-merge route reads each merge's deltas back, so they must start
+// from zero: K14 zeroes `zero` (zero_n int32, overlapping no other
+// argument) as it runs.  The route keeps two buffers that take turns: K14
+// adds into the one the merge before zeroed and zeroes the other, which
+// the host has read back by then; so no launch of its own clears one.
+//
+// K14 is a plain launch on both routes: as the programmatic dependent of
+// K15 (dependent_launch.cuh) it measured faster only on the INL windows,
+// within the noise on the classic blocks, and slower on the per-merge
+// route, where the merge before is read back first.  It triggers its own
+// dependents as it starts: K16 after it is scheduled while K14 runs.
+constexpr int kMergeThreads = 128;
+constexpr int kMergeRows = 16;   // rows a warp
+constexpr int kMergeBatch = 8;   // loads of 32 slots a lane keeps in flight
+constexpr int kTileMaxW = 64;    // the widest rows kept in shared memory
+
 __device__ __forceinline__ int next_alive(const int32_t* t, int p, int W) {
   while (p < W && t[p] < 0) ++p;
   return p;
@@ -232,20 +273,16 @@ __device__ __forceinline__ void add_delta(int32_t* delta, int V, int x, int kind
   if (x < V) atomicAdd(&delta[x * 4 + kind], f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-merge_step_kernel(int32_t* __restrict__ words, const int32_t* __restrict__ freqs, int N, int W,
-                  const int32_t* __restrict__ ma, const int32_t* __restrict__ mb, int step,
-                  int a, int b, int new_id, int32_t* __restrict__ delta, int V,
-                  int32_t* __restrict__ minted) {
-  if (ma != nullptr) {
-    a = ma[step];
-    b = mb[step];
-    if (a < 0) return;
-  }
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  int32_t* t = words + (int64_t)r * W;
-  const int32_t f = freqs[r];
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The row's merge in the reference's order, read from t (its copy in
+// shared memory, or the row itself) and written to out (the row); returns
+// the row's minted frequency
+__device__ __forceinline__ int32_t merge_row(const int32_t* t, int32_t* out, int W, int32_t f,
+                                             int a, int b, int new_id,
+                                             int32_t* __restrict__ delta, int V) {
   int32_t row_minted = 0;
   int prev = -1;              // the value before pos on the chain (-1: none)
   bool prev_partner = false;  // ... and it is a taken match's partner
@@ -269,8 +306,8 @@ merge_step_kernel(int32_t* __restrict__ words, const int32_t* __restrict__ freqs
           add_delta(delta, V, y, 3, f);
         }
       }
-      t[pos] = new_id;
-      t[nx] = -1;
+      out[pos] = new_id;
+      out[nx] = -1;
       row_minted += f;
       prev = b;
       prev_partner = true;
@@ -283,7 +320,69 @@ merge_step_kernel(int32_t* __restrict__ words, const int32_t* __restrict__ freqs
       v = vn;
     }
   }
-  if (row_minted != 0) atomicAdd(minted, row_minted);
+  return row_minted;
+}
+
+__global__ void __launch_bounds__(kMergeThreads)
+merge_step_kernel(int32_t* __restrict__ words, const int32_t* __restrict__ freqs, int N, int W,
+                  const int32_t* __restrict__ ma, const int32_t* __restrict__ mb, int step,
+                  int a, int b, int new_id, int32_t* __restrict__ delta, int V,
+                  int32_t* __restrict__ minted, int32_t* __restrict__ zero, int64_t zero_n) {
+  extern __shared__ int32_t tile_all[];  // kMergeRows * W a warp, when W <= kTileMaxW
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int64_t tid = (int64_t)blockIdx.x * kMergeThreads + threadIdx.x;
+  if (zero_n > 0) ctok_hist::clear_slice(zero, zero_n, tid, (int64_t)gridDim.x * kMergeThreads);
+  if (ma != nullptr) {
+    a = ma[step];
+    b = mb[step];
+    if (a < 0) return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t row0 = (tid >> 5) * kMergeRows;
+  if (W == 0 || row0 >= N) return;
+  const int rows = N - row0 < kMergeRows ? (int)(N - row0) : kMergeRows;
+  const int64_t n = (int64_t)rows * W;
+  const int32_t* src = words + row0 * W;
+  const bool tile = W <= kTileMaxW;
+  int32_t* t_sh = tile_all + (threadIdx.x >> 5) * kMergeRows * W;
+  // 1. the scan: slot e of the warp's rows is lane e % 32's load e / 32;
+  // its row within the warp (r) and column (c) follow by additions
+  uint32_t has_a = 0, has_b = 0;
+  int r = lane / W, c = lane % W;
+  const int r32 = 32 / W, c32 = 32 % W;
+  for (int64_t e0 = lane; e0 < n; e0 += 32 * kMergeBatch) {
+    int32_t v[kMergeBatch];
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      const int64_t e = e0 + 32 * j;
+      v[j] = e < n ? src[e] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeBatch; ++j) {
+      if (tile && e0 + 32 * j < n) t_sh[e0 + 32 * j] = v[j];
+      // a slot past the rows holds -1, which is neither a nor b
+      if (v[j] == a) has_a |= 1u << r;
+      if (v[j] == b) has_b |= 1u << r;
+      r += r32;
+      c += c32;
+      if (c >= W) {
+        c -= W;
+        ++r;
+      }
+    }
+  }
+  const uint32_t walk = __reduce_or_sync(kAll, has_a) & __reduce_or_sync(kAll, has_b);
+  if (walk == 0) return;
+  // 2. the rows that hold a and b walk
+  if (tile) __syncwarp();  // the warp's rows are in shared memory
+  int32_t row_minted = 0;
+  if ((walk >> lane) & 1u) {
+    int32_t* row = words + (row0 + lane) * W;
+    row_minted = merge_row(tile ? t_sh + lane * W : row, row, W, freqs[row0 + lane], a, b,
+                           new_id, delta, V);
+  }
+  const int32_t warp_minted = __reduce_add_sync(kAll, row_minted);
+  if (lane == 0 && warp_minted != 0) atomicAdd(minted, warp_minted);
 }
 
 // ---------------------------------------------------------------------------
@@ -387,10 +486,18 @@ select_window_kernel(const int32_t* __restrict__ hist, int V, const int32_t* __r
 // when no line holds it, is one more thread's.  Clamping the touched cells
 // equals JAX's clamp of the whole array: no other cell changed.  Nothing
 // when the step does nothing (a < 0).
+//
+// It moves a few tens of KB and costs about a launch's latency, so it is
+// launched as the programmatic dependent of the kernel before it (K14 in a
+// device-resident step, which triggers it as it starts): its blocks are
+// scheduled while K14 runs and wait for it before reading anything.  With
+// more than one process the deltas' reduction comes between them, and the
+// launch waits as a plain one.
 __global__ void __launch_bounds__(kThreads)
 hist_update_kernel(int32_t* __restrict__ hist, int V, int step,
                    const int32_t* __restrict__ ma, const int32_t* __restrict__ mb, int new_id,
                    const int32_t* __restrict__ delta) {
+  grid_dependency_wait();
   const int a = ma[step];
   if (a < 0) return;
   const int b = mb[step];
@@ -505,11 +612,21 @@ int ctok_pair_hist_info(int N, int W, int v0, int* info) {
   return (int)cudaSuccess;
 }
 
+// K14: words [N, W] merged in place, the deltas added into delta [V, 4] and
+// the minted count into minted; the pair from the log (ma, mb at step; ma
+// nullptr: a, b); zero [zero_n] zeroed as it runs (zero_n 0: nothing)
 int ctok_merge_step(int32_t* words, const int32_t* freqs, int N, int W, const int32_t* ma,
                     const int32_t* mb, int step, int a, int b, int new_id, int32_t* delta, int V,
-                    int32_t* minted, cudaStream_t stream) {
-  merge_step_kernel<<<blocks_for(N, kThreads, 1 << 30), kThreads, 0, stream>>>(
-      words, freqs, N, W, ma, mb, step, a, b, new_id, delta, V, minted);
+                    int32_t* minted, int32_t* zero, int64_t zero_n, cudaStream_t stream) {
+  if (N < 0 || W < 0 || V < 0 || zero_n < 0) return (int)cudaErrorInvalidValue;
+  if ((N == 0 || W == 0) && zero_n == 0) return (int)cudaSuccess;
+  const int64_t warps = ((int64_t)N + kMergeRows - 1) / kMergeRows;
+  int blocks = blocks_for(warps * 32, kMergeThreads, 1 << 30);
+  const int zero_blocks = blocks_for(zero_n / 4, kMergeThreads, ctok_hist::kClearMaxBlocks);
+  if (zero_blocks > blocks) blocks = zero_blocks;
+  const size_t smem = W <= kTileMaxW ? sizeof(int32_t) * (kMergeThreads / 32) * kMergeRows * W : 0;
+  merge_step_kernel<<<blocks, kMergeThreads, smem, stream>>>(
+      words, freqs, N, W, ma, mb, step, a, b, new_id, delta, V, minted, zero, zero_n);
   return (int)cudaGetLastError();
 }
 
@@ -531,9 +648,10 @@ int ctok_select_window(const int32_t* hist, int V, const int32_t* ca, const int3
 
 int ctok_hist_update(int32_t* hist, int V, int step, const int32_t* ma, const int32_t* mb,
                      int new_id, const int32_t* delta, cudaStream_t stream) {
-  hist_update_kernel<<<blocks_for(4 * (int64_t)V + 1, kThreads, 1 << 30), kThreads, 0, stream>>>(
-      hist, V, step, ma, mb, new_id, delta);
-  return (int)cudaGetLastError();
+  return (int)ctok::launch_dependent(hist_update_kernel,
+                                     dim3(blocks_for(4 * (int64_t)V + 1, kThreads, 1 << 30)),
+                                     dim3(kThreads), 0, stream, hist, V, step, ma, mb, new_id,
+                                     delta);
 }
 
 }  // extern "C"

@@ -28,7 +28,10 @@ calls ``pl.pallas_call``); here each is a hand-written CUDA kernel
 On the device-resident routes K15 writes the step's pair to the merge log
 (``ma[step]``, ``mb[step]``, -1 when the step does nothing), and K14 and
 K16 read it there, so the host enqueues a block's launches and reads the
-log once.  K14 adds into ``delta`` and ``minted``, which the caller zeroes.
+log once.  K14 adds into ``delta`` and ``minted``, which the caller zeroes
+(a block's once; on the per-merge route K14 itself, a merge ahead: see
+``zero``).  K16 is launched as the programmatic dependent of K14, so its
+launch overlaps K14's run.
 
 All four work on int32: integer atomics give the same sums in any order, so
 every kernel equals its plain version bit for bit.  Each wrapper runs the
@@ -182,15 +185,18 @@ def _step_pair(a, b, log, step):
 
 
 def merge_step_plain(words, freqs, new_id: int, delta, minted, a: int = 0, b: int = 0,
-                     log=None, step: int = 0) -> None:
+                     log=None, step: int = 0, zero=None) -> None:
     """Plain version of K14, on any device, in place: ``make_merge_step``
-    over the compacted alive chain of each row.
+    over the compacted alive chain of each row (``zero``, when given, is
+    zeroed first, as K14 zeroes it).
 
     Selection is the JAX rule: ``cnt[j]``, the length of the run of matches
     ending at chain position j, odd.  Attribution as JAX's: kinds 1 and 3
     skip a y that starts the next selected match; kind 2 takes ``new_id``
     for x when the previous selected match is chain-adjacent; x and y are
     the neighbours' values before the merge."""
+    if zero is not None:
+        zero.zero_()
     pair = _step_pair(a, b, log, step)
     if pair is None:
         return
@@ -236,8 +242,16 @@ def merge_step_plain(words, freqs, new_id: int, delta, minted, a: int = 0, b: in
     words[r_sel, pos[r_sel, j_sel + 1]] = -1
 
 
+def _overlap(x, y) -> bool:
+    """Whether two tensors' storage ranges share a byte."""
+    if x.numel() == 0 or y.numel() == 0:
+        return False
+    x0, y0 = x.data_ptr(), y.data_ptr()
+    return x0 < y0 + y.numel() * y.element_size() and y0 < x0 + x.numel() * x.element_size()
+
+
 def merge_step(words, freqs, new_id: int, delta, minted, a: int = 0, b: int = 0,
-               log=None, step: int = 0) -> None:
+               log=None, step: int = 0, zero=None) -> None:
     """K14 on CUDA tensors, the plain version on CPU tensors, in place.
 
     Args:
@@ -250,10 +264,15 @@ def merge_step(words, freqs, new_id: int, delta, minted, a: int = 0, b: int = 0,
       a, b: the pair, when ``log`` is None.
       log: ``(ma, mb)``, [k] int32 each on the words' device: the pair is
         ``(ma[step], mb[step])``, read on the card; ``ma[step] < 0`` leaves
-        every buffer unchanged.
+        the rows, ``delta`` and ``minted`` unchanged (``zero`` is zeroed).
+      zero: an int32 tensor that K14 zeroes as it runs, overlapping none of
+        the others.  The per-merge route keeps two ``[minted | delta]``
+        buffers that take turns: each merge adds into the one the merge
+        before zeroed and zeroes the other, read back by then, so no
+        launch of its own clears one.
     """
     if words.device.type == "cpu":
-        return merge_step_plain(words, freqs, new_id, delta, minted, a, b, log, step)
+        return merge_step_plain(words, freqs, new_id, delta, minted, a, b, log, step, zero)
     if words.device.type != "cuda":
         raise ValueError(f"merge_step: unsupported device {words.device}")
     N, W = words.shape
@@ -269,12 +288,18 @@ def merge_step(words, freqs, new_id: int, delta, minted, a: int = 0, b: int = 0,
         if not 0 <= step < ma.shape[0]:
             raise ValueError(f"merge_step: step {step} outside the log's {ma.shape[0]}")
         ma_p, mb_p = ma.data_ptr(), mb.data_ptr()
-    if N == 0:
+    zero_p = zero_n = 0
+    if zero is not None:
+        _check("merge_step", dev, zero=(zero, None))
+        if any(_overlap(zero, t) for t in (words, freqs, delta, minted)):
+            raise ValueError("merge_step: zero must overlap none of the other tensors")
+        zero_p, zero_n = zero.data_ptr(), zero.numel()
+    if (N == 0 or W == 0) and not zero_n:
         return
     check(
         kernel_library().lib.ctok_merge_step(
             words.data_ptr(), freqs.data_ptr(), N, W, ma_p, mb_p, step, int(a), int(b), new_id,
-            delta.data_ptr(), delta.shape[0], minted.data_ptr(), _stream(dev),
+            delta.data_ptr(), delta.shape[0], minted.data_ptr(), zero_p, zero_n, _stream(dev),
         ),
         "merge_step",
     )

@@ -10,10 +10,10 @@ place of the mesh:
 - the initial pair histogram is K13 (``ops/trainer_device.py:pair_hist``),
   summed over the processes (``parallel/mesh.py:reduce_sum``);
 - above ``CTOK_TRAINER_DEVICE_SELECT_MAX_V`` (4,096) ids, or with a
-  checkpoint schedule, each merge is one K14 launch whose four delta
-  histograms come back to the host, which keeps the pair counts and selects
-  the next pair (the classic exact heap, or the INL rebuild walk:
-  ``InlBpeTrainer._selection_loop``);
+  checkpoint schedule, each merge is one K14 launch (which also zeroes the
+  merge before's buffer) whose four delta histograms come back to the
+  host, which keeps the pair counts and selects the next pair (the classic
+  exact heap, or the INL rebuild walk: ``InlBpeTrainer._selection_loop``);
 - up to it, the pair histogram stays on the card as ``[V, V]`` and each
   step is K15 (selection) -> K14 (the merge) -> K16 (the histogram's
   update), 32 steps a block in classic mode and a rebuild window of 100 in
@@ -57,7 +57,8 @@ def pack_word_rows(words_list, freqs_list) -> tuple[np.ndarray, np.ndarray]:
 def run_steps(n_do: int, v0b: int, words, freqs, hist, log, deltas, cand=None,
               scratch=None) -> None:
     """Enqueue ``n_do`` device-resident steps K15 -> K14 -> K16 (the step's
-    deltas and minted count summed over the processes between K14 and K16):
+    deltas and minted count summed over the processes between K14 and K16;
+    K16 is launched as the programmatic dependent of K14):
     ``make_k_merge_steps`` (``cand`` None) or ``make_inl_window_steps``
     (``cand = (ca, cb, n_cand, state)``).  ``log`` is [3, k] int32 (a, b,
     minted of each step; minted zeroed by the caller), ``deltas`` [k, V, 4]
@@ -145,17 +146,23 @@ class DistributedInlTrainer(InlBpeTrainer):
         read back (only the rows up to ``new_id`` can be nonzero), folded
         into the host's counts."""
         dev = self.device
-        # [minted | delta [V, 4]]: one zeroing and one copy back a merge
-        buf = torch.zeros(1 + 4 * V, dtype=torch.int32, device=dev)
+        # two [minted | delta [V, 4]] buffers take turns: K14 adds into the
+        # one the merge before zeroed and zeroes the other (read back by
+        # then); one copy back a merge
+        bufs = torch.zeros((2, 1 + 4 * V), dtype=torch.int32, device=dev)
         host = torch.empty(1 + 4 * V, dtype=torch.int32, pin_memory=dev.type == "cuda")
-        delta = buf[1:].view(V, 4)
+        turn = [0]
 
         def apply_merge(pair, new_id):
             a, b = pair
             n = 1 + 4 * (new_id + 1)
+            buf, other = bufs[turn[0]], bufs[1 - turn[0]]
+            turn[0] = 1 - turn[0]
             live = buf[:n]
-            live.zero_()
-            merge_step(words, freqs, new_id, delta, buf[:1], a=a, b=b)
+            # the rows hold ids below new_id, so the rows up to it are the
+            # whole of the merge's delta
+            merge_step(words, freqs, new_id, buf[1:n].view(new_id + 1, 4), buf[:1], a=a, b=b,
+                       zero=other[:n])
             reduce_sum(live)
             out = host[:n]
             out.copy_(live)
@@ -293,7 +300,7 @@ class DistributedInlTrainer(InlBpeTrainer):
             deltas[:n_do].zero_()
             log[2].zero_()
             run_steps(n_do, v0b, words, freqs, hist, log, deltas,
-                            cand=(cand[0], cand[1], n_cand, state))
+                      cand=(cand[0], cand[1], n_cand, state))
             ma, mb, mf = log.cpu().numpy()
             applied = 0
             while applied < n_do and ma[applied] >= 0:

@@ -516,8 +516,10 @@ def merge_edge_rows(V: int = 64, seed: int = 0) -> list[tuple]:
     ``x a b a b y`` (adjacent occurrences) and ``a a a`` (a run of
     ``a == b``); runs of 1 to 7 equal tokens; rows of one alive token,
     all-tombstone rows and empty rows; tombstones between the pair's
-    tokens; and random tombstoned rows over three ids, with ``a == b`` and
-    with ``a != b``."""
+    tokens; random tombstoned rows over three ids, with ``a == b`` and
+    with ``a != b``; a with no b after it, and rows with no a; rows wider
+    than 32 slots (runs of ``a == b`` across slot 32, random rows of 70);
+    and a late state, 5,000 rows of mostly tombstones."""
     rng = np.random.RandomState(seed)
     new = V - 1
     x, a, b, y = 5, 1, 2, 6
@@ -542,6 +544,26 @@ def merge_edge_rows(V: int = 64, seed: int = 0) -> list[tuple]:
         words[rng.rand(300, 13) < 0.3] = -1
         freqs = rng.randint(1, 1000, size=300).astype(np.int32)
         out.append((label, words, freqs, pa, pb, new))
+    # a with no b after it on the chain (b before it, b past another token,
+    # a at the end), and rows that hold b and no a, between rows that merge
+    lone = rows([[a, x], [x, a], [a, -1, x, b], [b, a], [a, -1, -1], [b, b, x], [y, b],
+                 [x, a, b, y], [b, x, y, x]], 6)
+    out.append(("a without b after it, rows with no a", lone,
+                np.arange(1, 10, dtype=np.int32), a, b, new))
+    # rows wider than a warp's 32 slots: runs of a == b across slot 32, and
+    # random rows of 70 slots
+    wide = rows([[a] * n for n in (31, 32, 33, 40)] + [[x] * 30 + [a, a, a, y]], 40)
+    out.append(("runs of a == b across 32 slots, W 40", wide,
+                np.arange(1, 6, dtype=np.int32), a, a, new))
+    words = rng.randint(0, 3, size=(200, 70)).astype(np.int32)
+    words[rng.rand(200, 70) < 0.3] = -1
+    out.append(("random, W 70, a != b", words, rng.randint(1, 1000, size=200).astype(np.int32),
+                0, 1, new))
+    # a late state: most slots tombstones, rows of many warps and blocks
+    words = rng.randint(0, 3, size=(5000, 13)).astype(np.int32)
+    words[rng.rand(5000, 13) < 0.85] = -1
+    out.append(("late state: 85% tombstones, 5,000 rows", words,
+                rng.randint(1, 1000, size=5000).astype(np.int32), 0, 1, new))
     return out
 
 

@@ -104,7 +104,7 @@ _SIGNATURES = {
     # N, W, v0, info[11]
     "ctok_pair_hist_info": (_I, _I, _I, _P),
     # words, freqs, N, W, ma, mb, step, a, b, new_id, delta, V, minted, stream
-    "ctok_merge_step": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P),
+    "ctok_merge_step": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _L, _P),
     # hist, V, scratch, step, ma, mb, stream
     "ctok_select_argmax": (_P, _I, _P, _I, _P, _P, _P),
     # hist, V, ca, cb, T, n_cand, state, step, ma, mb, stream

@@ -4,14 +4,20 @@
     python3 scripts/study_k12_variants.py [--parent DIR] [--variant NAME=FLAGS] ... [--ablate]
                                           [--rounds 2]
 
-Every variant is the package's ``csrc/unigram.cu`` built alone with the
-package's ``nvcc`` flags and its ``K12_*`` macros set (FLAGS: ``KEY=V``
-words joined by commas, each ``-DK12_KEY=V``), all at once:
+Every variant is built alone with the package's ``nvcc`` flags and ``-I``
+the package's ``csrc``, all at once: ``package`` is the package's
+``csrc/unigram.cu`` (it has no switch); the others are the study source
+``scripts/k12_variants/viterbi_variants.cu`` (the package's K12 with the
+designs it was measured against behind ``K12_*`` switches, see its header)
+with its macros set (FLAGS: ``KEY=V`` words joined by commas, each
+``-DK12_KEY=V``):
 
-- ``package``: the defaults (``K12_TEXT_LANES`` lanes a text of up to 16
-  characters, end by end: each lane probes its share of the end's real
-  candidates, ``K12_BATCH`` at a time with their reads in flight together,
-  and folds them, and the group's folds are combined);
+- ``package``: 4 lanes a text of up to 16 characters, end by end: each
+  lane probes its share of the end's real candidates, 2 at a time with
+  their reads in flight together, and folds them, and the group's folds
+  are combined;
+- ``study-defaults``: the study source with no macro set, which must be
+  the package's kernel (bit for bit, and in time);
 - ``first``: a warp a text, every (end, length <= maxcand) slot scored,
   one candidate a lane a round, three reductions a DP step: the first
   design's steps in this source;
@@ -54,12 +60,15 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PACKAGE_SRC = os.path.join(REPO, "complexity_tokenizer_tpu_torch", "csrc", "unigram.cu")
+CSRC = os.path.join(REPO, "complexity_tokenizer_tpu_torch", "csrc")
+PACKAGE_SRC = os.path.join(CSRC, "unigram.cu")
+STUDY_SRC = os.path.join(REPO, "scripts", "k12_variants", "viterbi_variants.cu")
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 
 FIRST = "LAYOUT=0,TRUE_CAND=0,SERIAL_DP=0,BATCH=1"
 VARIANTS = {
     "package": "",
+    "study-defaults": "",
     "first": FIRST,
     "groups": "LAYOUT=1,TRUE_CAND=0,SERIAL_DP=0,BATCH=1",
     "true-cand": "LAYOUT=0,TRUE_CAND=1,SERIAL_DP=0,BATCH=4",
@@ -81,18 +90,18 @@ def build(flags: dict) -> dict:
     from complexity_tokenizer_tpu_torch.utils.cuda_build import LINK_FLAGS, NVCC_FLAGS, _nvcc
 
     nvcc = _nvcc()
-    with open(PACKAGE_SRC, "rb") as fh:
-        src_key = hashlib.sha256(fh.read())
     jobs = {}
     for name, words in flags.items():
+        src = PACKAGE_SRC if name == "package" else STUDY_SRC
         defines = [f"-DK12_{w.strip()}" for w in words.split(",") if w.strip()]
-        key = src_key.copy()
+        with open(src, "rb") as fh:
+            key = hashlib.sha256(fh.read())
         key.update(" ".join(defines).encode())
         out = os.path.join(REPO, "build", "k12_variants", key.hexdigest()[:16])
         os.makedirs(out, exist_ok=True)
         obj, so = os.path.join(out, "k12.o"), os.path.join(out, "libk12.so")
         jobs[name] = (so, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *defines, "-c", PACKAGE_SRC, "-o", obj],
+            [nvcc, *NVCC_FLAGS, *defines, "-I", CSRC, "-c", src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, obj, proc) in jobs.items():

@@ -1630,7 +1630,7 @@ def _k14_case(words, freqs, a, b, new, dev, log_step=None):
     return w.cpu().numpy(), delta.cpu().numpy(), int(minted)
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(10))
 def test_k13_k14_match_plain_on_edge_rows(case):
     """K13 and K14 against their plain versions on the card, bit for bit, on
     ``utils/corpus.py:merge_edge_rows`` (the pair as scalars and from the
@@ -1668,6 +1668,36 @@ def test_k13_k14_match_plain_on_edge_rows(case):
     minted = torch.zeros(1, dtype=torch.int32, device=dev)
     merge_step(w2, f, new, delta, minted, log=(ma, ma.clone()), step=1)
     assert torch.equal(w2, w) and not delta.any() and not minted.any()
+    # the per-merge route's turns: K14 adds into a buffer the merge before
+    # zeroed and zeroes the other, which held other values; a step that
+    # does nothing zeroes it too
+    w3 = w.clone()
+    bufs = torch.zeros((2, 1 + 4 * (new + 1)), dtype=torch.int32, device=dev)
+    bufs[1] = torch.randint(-50, 50, (1 + 4 * (new + 1),), dtype=torch.int32, device=dev)
+    n0 = merge_step.launches
+    merge_step(w3, f, new, bufs[0, 1:].view(new + 1, 4), bufs[0, :1], a=a, b=b, zero=bufs[1])
+    assert torch.equal(w3, want_w) and torch.equal(bufs[0, 1:].view(new + 1, 4), want_d), label
+    assert torch.equal(bufs[0, :1], want_m) and not bufs[1].any(), label
+    bufs[0].fill_(7)
+    merge_step(w3, f, new, bufs[1, 1:].view(new + 1, 4), bufs[1, :1], log=(ma, ma.clone()),
+               step=1, zero=bufs[0])
+    assert torch.equal(w3, want_w) and not bufs.any(), label
+    assert merge_step.launches == n0 + 2
+
+
+def test_k14_refuses_a_zero_buffer_that_overlaps():
+    """K14 zeroes ``zero`` while it adds into ``delta`` and ``minted``, so a
+    ``zero`` that shares storage with another argument is refused."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import merge_step
+
+    dev = torch.device("cuda")
+    w = torch.zeros(4, 3, dtype=torch.int32, device=dev)
+    f = torch.ones(4, dtype=torch.int32, device=dev)
+    buf = torch.zeros(1 + 4 * 8, dtype=torch.int32, device=dev)
+    for zero in (buf, buf[:5], w.view(-1)):
+        with pytest.raises(ValueError, match="overlap"):
+            merge_step(w, f, 7, buf[1:].view(8, 4), buf[:1], a=0, b=1, zero=zero)
 
 
 def _block(dev, words, freqs, V, n_steps, window=None):
@@ -1703,14 +1733,16 @@ def _block(dev, words, freqs, V, n_steps, window=None):
     return out + [None if state is None else state.cpu().numpy()]
 
 
-@pytest.mark.parametrize("rows", [2, 4])
+@pytest.mark.parametrize("rows", [2, 4, 8, 9])
 @pytest.mark.parametrize("mode", ["classic", "window", "window, T overflows"])
 def test_k15_k16_blocks_match_plain(mode, rows):
-    """A block of K15 -> K14 -> K16 steps on the card against the plain
+    """A block of K15 -> K14 -> K16 steps on the card (K16 the programmatic
+    dependent of K14) against the plain
     versions on the card, bit for bit: words, histogram, merge log, deltas,
-    the window's cursor; on the runs of ``a == b`` and the random edge rows
-    of ``merge_edge_rows``, on the runs until the histogram is exhausted
-    (classic) and until the candidates run out (window)."""
+    the window's cursor; on the runs of ``a == b``, the random edge rows,
+    rows of 70 slots and the late state of ``merge_edge_rows``, on the runs
+    until the histogram is exhausted (classic) and until the candidates run
+    out (window)."""
     _need_card()
     from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
 
@@ -1740,6 +1772,72 @@ def test_k15_k16_blocks_match_plain(mode, rows):
     assert (got[2][0] >= 0).any()
     if mode != "classic" or rows == 2:
         assert (got[2][0] < 0).any()  # exhausted
+
+
+@pytest.mark.parametrize("mode", ["classic", "window"])
+def test_k15_k14_k16_block_replays_from_a_cuda_graph(mode):
+    """A 32-step block of ``run_steps`` (K15, K14, then K16 as K14's
+    programmatic dependent), run eagerly and captured in a CUDA graph and
+    replayed on restored inputs, against the plain versions' 32 steps on
+    the same inputs, bit for bit, in classic and in window mode."""
+    _need_card()
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import (
+        SelectScratch,
+        hist_update_plain,
+        merge_step_plain,
+        pair_hist,
+        select_pair_plain,
+    )
+    from complexity_tokenizer_tpu_torch.parallel.trainer import run_steps
+    from complexity_tokenizer_tpu_torch.utils.corpus import merge_edge_rows
+
+    _, words, freqs, *_ = merge_edge_rows()[9]
+    dev = torch.device("cuda")
+    w0, f = torch.from_numpy(words).to(dev), torch.from_numpy(freqs).to(dev)
+    V, k = 64, 32
+    h0 = torch.zeros(V, V, dtype=torch.int32, device=dev)
+    h0[:3, :3] = pair_hist(w0, f, 3).view(3, 3)
+    w, h = w0.clone(), h0.clone()
+    log = torch.zeros(3, k, dtype=torch.int32, device=dev)
+    deltas = torch.zeros(k, V, 4, dtype=torch.int32, device=dev)
+    scratch = SelectScratch(dev)
+    ca = torch.tensor([0, 1, 2, 0, 1, 2, 1, 0] * 8, dtype=torch.int32, device=dev)
+    cb = torch.tensor([1, 2, 0, 0, 1, 2, 0, 2] * 8, dtype=torch.int32, device=dev)
+    st0 = torch.tensor([-1, 0], dtype=torch.int32, device=dev)
+    st = st0.clone()
+    cand = None if mode == "classic" else (ca, cb, 60, st)
+
+    def reset():
+        w.copy_(w0)
+        h.copy_(h0)
+        st.copy_(st0)
+        log.zero_()
+        deltas.zero_()
+
+    def block():
+        run_steps(k, 3, w, f, h, log, deltas, cand=cand, scratch=scratch)
+
+    reset()
+    for i in range(k):  # the plain versions' steps
+        select_pair_plain(h, i, log[0], log[1], cand=cand)
+        merge_step_plain(w, f, 3 + i, deltas[i], log[2][i:i + 1], log=(log[0], log[1]), step=i)
+        hist_update_plain(h, i, log[0], log[1], 3 + i, deltas[i])
+    want = [t.clone() for t in (w, h, log, deltas, st)]
+    assert (log[0] >= 0).sum() > 3
+    reset()
+    block()
+    torch.cuda.synchronize()
+    for got, exp in zip((w, h, log, deltas, st), want):
+        assert torch.equal(got, exp), mode
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        block()
+    for _ in range(3):
+        reset()
+        g.replay()
+        torch.cuda.synchronize()
+        for got, exp in zip((w, h, log, deltas, st), want):
+            assert torch.equal(got, exp), mode
 
 
 @pytest.mark.parametrize("v0,N", [(58, 48_968), (58, 3), (241, 20_000), (260, 48_968),

@@ -6,8 +6,9 @@ order; ``tests/test_torch_gpu.py`` holds them to these plain versions on
 the card).
 
 Inputs come from numpy seeds: random rows with tombstones, runs of
-``a == b``, adjacent occurrences, rows of one token and of none
-(``utils/corpus.py:merge_edge_rows``), ``new_id = V - 1``.  The block and
+``a == b``, adjacent occurrences, rows of one token and of none, rows
+with a and no b after it, rows wider than 32 slots, a late state of mostly
+tombstones (``utils/corpus.py:merge_edge_rows``), ``new_id = V - 1``.  The block and
 the window run through ``parallel/trainer.py:run_steps``, the trainer's own
 step loop, against ``make_k_merge_steps`` and ``make_inl_window_steps`` on a
 one-device mesh.
@@ -156,7 +157,7 @@ def _jax_k14(words, freqs, a, b, new, V):
     return np.asarray(out), np.asarray(delta), int(minted)
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(10))
 def test_k14_matches_make_merge_step_on_edge_rows(case):
     label, words, freqs, a, b, new = merge_edge_rows()[case]
     V = new + 1
@@ -164,6 +165,43 @@ def test_k14_matches_make_merge_step_on_edge_rows(case):
     np.testing.assert_array_equal(got[0], want[0], err_msg=label)
     np.testing.assert_array_equal(got[1], want[1], err_msg=label)  # entry for entry
     assert got[2] == want[2], label
+
+
+@pytest.mark.parametrize("case", [0, 4, 6, 9])
+def test_k14_zeroes_the_other_buffer_as_it_merges(case):
+    """``zero`` (the per-merge route's two buffers taking turns): the merge
+    adds JAX's delta and count of the one merge into zeroed buffers and
+    zeroes the other buffer, stale before; a logged step that does nothing
+    zeroes it too and changes nothing else; the route's turns give each
+    merge JAX's delta."""
+    label, words, freqs, a, b, new = merge_edge_rows()[case]
+    V = new + 1
+    want = _jax_k14(words, freqs, a, b, new, V)
+    rng = np.random.RandomState(case)
+    bufs = torch.zeros((2, 1 + 4 * V), dtype=torch.int32)
+    bufs[1] = torch.from_numpy(rng.randint(-50, 50, size=1 + 4 * V).astype(np.int32))
+    w = torch.from_numpy(words.copy())
+    merge_step(w, torch.from_numpy(freqs), new, bufs[0, 1:].view(V, 4), bufs[0, :1], a=a, b=b,
+               zero=bufs[1])
+    np.testing.assert_array_equal(w.numpy(), want[0], err_msg=label)
+    np.testing.assert_array_equal(bufs[0, 1:].view(V, 4).numpy(), want[1], err_msg=label)
+    assert int(bufs[0, 0]) == want[2] and not bufs[1].any(), label
+    bufs[0].fill_(7)
+    ma = torch.full((2,), -1, dtype=torch.int32)
+    merge_step(w, torch.from_numpy(freqs), new, bufs[1, 1:].view(V, 4), bufs[1, :1],
+               log=(ma, ma.clone()), step=1, zero=bufs[0])
+    np.testing.assert_array_equal(w.numpy(), want[0], err_msg=label)
+    assert not bufs.any(), label
+    # two merges in turns, as the per-merge route runs them
+    w = torch.from_numpy(words.copy())
+    for turn, (pa, pb) in enumerate(((a, b), (b, a))):
+        nid = new - 1 + turn
+        exp = _jax_k14(w.numpy().copy(), freqs, pa, pb, nid, V)
+        cur, other = bufs[turn % 2], bufs[1 - turn % 2]
+        merge_step(w, torch.from_numpy(freqs), nid, cur[1:].view(V, 4), cur[:1], a=pa, b=pb,
+                   zero=other)
+        np.testing.assert_array_equal(cur[1:].view(V, 4).numpy(), exp[1], err_msg=label)
+        assert int(cur[0]) == exp[2] and not other.any(), label
 
 
 @pytest.mark.parametrize("seed", range(6))

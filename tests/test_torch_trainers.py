@@ -260,6 +260,48 @@ def test_distributed_trainer_matches_jax(mode, route, monkeypatch):
     assert bool(getattr(want, "_select_block_times", None)) == device_resident
 
 
+@pytest.mark.parametrize("mode", ["classic", "inl"])
+def test_chip_smoke_block_and_window_replays_match_jax(mode):
+    """``chip_smoke.py``'s replays of the device-resident routes, from which
+    it and ``scripts/study_merge_variants.py`` take the blocks and windows
+    they check and time: the classic route's blocks of 32 steps
+    (``classic_blocks``) and the INL route's windows with the host's scoring
+    between them (``inl_windows``), run on the CPU, give JAX's merges, and
+    each kept input starts where the block or window before it ended."""
+    import importlib.util
+
+    from complexity_tokenizer_tpu_torch.ops.trainer_device import pair_hist
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dict(vocab_size=380, min_frequency=1, **(CLASSIC if mode == "classic" else {}))
+    texts = ["aaa bbb aaa bbb ccc ddd " * 3, SAMPLE_TEXT] + _texts(40)
+    with _quiet():
+        want = JaxDistributed(JaxConfig(**cfg))
+        want.train_from_texts(texts)
+    if mode == "classic":
+        t, words, freqs = smoke._train_state(texts, cfg, "cpu")
+        v0 = len(t.vocab)
+        hist = torch.zeros(380, 380, dtype=torch.int32)
+        hist[:v0, :v0] = pair_hist(words, freqs, v0).view(v0, v0)
+        ids, kept = smoke.classic_blocks(words, freqs, hist, v0, 380 - v0)
+        inv = {i: tok for tok, i in t.vocab.items()}
+        merges = []
+        for i, (a, b) in enumerate(ids):
+            merges.append((inv[a], inv[b]))
+            inv[v0 + i] = inv[a] + inv[b]
+    else:
+        t, kept = smoke.inl_windows(texts, cfg, device="cpu")
+        merges, v0 = t.merges, len(t.vocab) - len(t.merges)
+    assert merges == want.merges and len(merges) > 150
+    blocks = [kept[i] for i in sorted(kept)]
+    assert sorted(kept) == list(range(len(blocks))) and blocks[0]["v0b"] == v0
+    for blk, nxt in zip(blocks, blocks[1:]):
+        assert nxt["v0b"] == blk["v0b"] + blk["n_do"]
+    assert sum(blk["n_do"] for blk in blocks) >= len(merges)
+
+
 def _checkpointed_jax_run(tmp_path, cfg, interval):
     path = tmp_path / "ck.json"
     with _quiet():
