@@ -133,11 +133,17 @@ Phases (each prints its seconds):
    words and the host's ms a round.  Then K12 against its plain version
    on every E-step's inputs (the first timed), K17 on every E-step's K12
    result and a crafted one (ids 0 and V - 1,
-   fallbacks, poisoned texts), K18 and K19 on the 30,522 run's rounds 0
-   and 1,000, the edge run's and its forged tables, bit for bit (K19 as a
-   set); each timed warm, cold and plainly beside its bound and the
+   fallbacks, poisoned texts), K18 and K19 on the 30,522 run's rounds 0,
+   1,000 and 10,000, the edge run's and its forged tables, bit for bit (K19
+   as a set); each timed warm, cold and plainly beside its bound and the
    library call (K17: ``index_add_``; K19: ``torch.unique`` then
-   ``index_add_``).
+   ``index_add_``).  K19 beside the K19 of commit 65588a4 (its source in
+   ``scripts/pair_count_variants/parent_pair_count.cu``): the 30,522
+   training again with that K19 and that commit's readback (its wall and
+   ms a round against this route's), and once more with both K19s timed in
+   turns every round (summed over the run) and their inputs kept at rounds
+   0, 1,000, 10,000 and the last, where both are checked against the plain
+   version and timed warm and cold in turns (parent, this, this, parent).
    With ``--parent DIR`` (a checkout of an earlier commit): the kernels of
    it that ``scripts/parent_word_kernels.py`` knows, built beside the
    package's kernels, on the same rows, words and texts laid out as that
@@ -3316,7 +3322,8 @@ def drive_train(kernels_of: dict) -> dict:
 UNIGRAM_32K = os.path.join(REPO, ".cache", "bench_unigram_32k.json")
 WORDPIECE_30K = os.path.join(REPO, ".cache", "bench_wordpiece_30k.json")
 TRAIN2_KERNELS = ("viterbi", "piece_hist", "train_match", "pair_count")
-WP_CAPTURE_ROUNDS = (0, 1000)  # the rounds whose K18 inputs are checked and timed
+WP_CAPTURE_ROUNDS = (0, 1000, 10_000)  # the rounds whose K18 inputs are checked (1,000 timed)
+K19_ROUNDS = (0, 1000, 10_000, -1)  # the rounds K19 is timed at, beside the parent's (-1: last)
 
 
 def _sorted_pairs(res):
@@ -3353,10 +3360,10 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
     WordPiece 30,522 run's rounds ``WP_CAPTURE_ROUNDS``, on the edge run's
     (words of 1, 13, 127 and 128 characters) and on its tables with every
     form of two characters or more forged (which poisons the words that
-    choose one).  Each timed warm and cold on the main run's inputs, and
-    plainly, beside its bound and the library call (K17: ``index_add_`` of
-    the frequencies; K19: ``torch.unique(return_inverse=True)`` then
-    ``index_add_`` over the pairs' keys; K18: none)."""
+    choose one).  K17 and K18 timed warm and cold on the main run's inputs
+    (K18 at round 1,000), and plainly, beside the bound and the library
+    call (K17: ``index_add_`` of the frequencies; K18: none); K19's times
+    are ``check_k19_rounds``'s."""
     import numpy as np
     import torch
 
@@ -3371,7 +3378,6 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
     from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
         PairCountScratch,
         pair_count,
-        pair_count_launch_shape,
         pair_count_plain,
         train_match,
         train_match_launch_shape,
@@ -3465,7 +3471,7 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
         return (inp["chars"], inp["offs"], inp["lens"], inp["table"], inp["slot_meta"],
                 inp["slot_chars"], inp["fb_map"], inp["lt_cap"])
 
-    cases = [(f"WordPiece round {r}", inp, r == WP_CAPTURE_ROUNDS[-1])
+    cases = [(f"WordPiece round {r}", inp, r == 1000)
              for r, inp in sorted(wp_kept.items())]
     cases += [(f"edge words round {r}", inp, False) for r, inp in sorted(edge_kept.items())]
     last = dict(edge_kept[max(edge_kept)])
@@ -3504,30 +3510,6 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
             print(f"[train_match] {label}: [{N} chars, {B} words] lt_cap {inp['lt_cap']} "
                   f"warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} bound={bound_ms:.5f} "
                   f"ms ({bound_by}); {n_probe} probes; launch {c['launch']}", flush=True)
-            pargs = (m, inp["offs"], inp["freqs"], p)
-            ms = _time_ms(lambda: pair_count(*pargs, scratch), 20)
-            csets = [tuple(t.clone() for t in pargs) + (PairCountScratch(N, "cuda"),)
-                     for _ in range(-(-COLD_BYTES // (12 * scratch.t_size + 4 * (N + 3 * B))))]
-            ms_cold = _time_cold_ms(lambda a, b, c_, d_, s: pair_count(a, b, c_, d_, s), csets, 20)
-            del csets
-            plain_ms = _time_ms(lambda: pair_count_plain(*pargs, scratch.t_size), 2, graph=False)
-            # the library call: unique and index_add_ over the pairs' keys
-            keys, wts = _pair_keys(*pargs)
-
-            def library():
-                u, inv = torch.unique(keys, return_inverse=True)
-                return torch.zeros(u.numel(), dtype=torch.int32, device="cuda").index_add_(
-                    0, inv, wts)
-
-            library_ms = _time_ms(library, 5, graph=False)
-            n = d["keys"]
-            bound_ms, bound_by = _bound(4 * (N + 3 * B + 1) + 8 * n + 8, keys.numel())
-            d.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, library_ms=library_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, pairs=keys.numel(),
-                     launch=pair_count_launch_shape())
-            print(f"[pair_count] {label}: {keys.numel()} pairs, {n} keys, table {scratch.t_size}: "
-                  f"warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} library={library_ms:.4f} "
-                  f"bound={bound_ms:.5f} ms ({bound_by}); launch {d['launch']}", flush=True)
         out["train_match"].append(c)
         out["pair_count"].append(d)
     return out
@@ -3545,6 +3527,84 @@ def _pair_keys(out, offs, freqs, poison):
     same = (w[:-1] == w[1:]) & (poison[w[:-1]] == 0)
     keys = (out[live[:-1]][same].long() << 16) | out[live[1:]][same].long()
     return keys, freqs[w[:-1][same]]
+
+
+def check_k19_rounds(timer, parent) -> list:
+    """K19 (this package's wrapper) and the parent's (``parent``, a
+    ``scripts/study_pair_count_variants.py:K19``) at the WordPiece 30,522
+    rounds ``timer`` kept (its ``K19_ROUNDS``): each against the plain
+    version bit for bit (a set of (key, count), their number, the poisoned
+    words); timed warm and cold in turns (parent, this, this, parent),
+    plainly and beside the library call (``torch.unique(return_inverse=True)``
+    then ``index_add_`` over the pairs' keys) and the bound (4 B a slot,
+    offset, frequency and flag in, 8 B a key out); the pairs, keys and the
+    atomics on the hottest key."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        PairCountScratch,
+        pair_count,
+        pair_count_launch_shape,
+        pair_count_plain,
+    )
+
+    recs = []
+    for r in K19_ROUNDS:
+        if r == -1:
+            r, *inp = timer.kept[-1]
+        else:
+            inp = timer.kept[r]
+        o, offs, freqs, poison = inp
+        N, B = o.numel(), offs.numel() - 1
+        label = f"WordPiece 30,522 round {r}"
+        scratch = PairCountScratch(N, "cuda")
+        exp = pair_count_plain(o, offs, freqs, poison, scratch.t_size)
+        d = _check_pairs(label, pair_count(o, offs, freqs, poison, scratch), exp)
+        _check_pairs(f"{label} (the parent's K19)", parent(o, offs, freqs, poison,
+                                                            parent.scratch(N)), exp)
+        keys, wts = _pair_keys(o, offs, freqs, poison)
+        hottest = int(torch.unique(keys, return_counts=True)[1].max()) if keys.numel() else 0
+        args = (o, offs, freqs, poison)
+        runs = {"this": [], "parent": []}
+        n_sets = -(-COLD_BYTES // (4 * (N + 3 * B + 1) + 4 * (3.5 * scratch.t_size + 6)))
+        for who in ("parent", "this", "this", "parent"):
+            if who == "this":
+                fn = lambda a, b, c, d_, sc: pair_count(a, b, c, d_, sc)  # noqa: E731
+                mk = lambda: PairCountScratch(N, "cuda")  # noqa: E731
+            else:
+                fn, mk = parent, (lambda: parent.scratch(N))
+            sc = mk()
+            warm = _time_ms(lambda: fn(*args, sc), 20)
+            sets = [tuple(t.clone() for t in args) + (mk(),) for _ in range(int(n_sets))]
+            cold = _time_cold_ms(fn, sets, 20)
+            del sets, sc
+            runs[who].append(dict(warm=warm, cold=cold))
+        plain_ms = _time_ms(lambda: pair_count_plain(*args, scratch.t_size), 2, graph=False)
+
+        def library():
+            u, inv = torch.unique(keys, return_inverse=True)
+            return torch.zeros(u.numel(), dtype=torch.int32, device="cuda").index_add_(
+                0, inv, wts)
+
+        library_ms = _time_ms(library, 5, graph=False)
+        bound_ms, bound_by = _bound(4 * (N + 3 * B + 1) + 8 * d["keys"] + 8, keys.numel())
+        mean = lambda who, k: sum(x[k] for x in runs[who]) / 2  # noqa: E731
+        d.update(round=r, shape=[N, B], table=scratch.t_size, pairs=int(keys.numel()),
+                 hottest_key_atomics=hottest, ms=mean("this", "warm"),
+                 ms_cold=mean("this", "cold"), parent_ms=mean("parent", "warm"),
+                 parent_ms_cold=mean("parent", "cold"), turns=runs, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 launch=pair_count_launch_shape())
+        print(f"[pair_count] {label}: [{N} slots, {B} words] {d['pairs']} pairs, {d['keys']} keys "
+              f"(the hottest {hottest} pairs), table {scratch.t_size}: in turns warm "
+              + " ".join(f"{w}={x['warm']:.4f}" for w in ("parent", "this") for x in runs[w])
+              + " cold " + " ".join(f"{w}={x['cold']:.4f}" for w in ("parent", "this")
+                                    for x in runs[w])
+              + f" ms; plain={plain_ms:.4f} library={library_ms:.4f} bound={bound_ms:.5f} ms "
+              f"({bound_by}); launch {d['launch']}", flush=True)
+        recs.append(d)
+        del keys, wts, scratch
+    return recs
 
 
 def _k18_need(inp) -> tuple[int, int]:
@@ -3750,11 +3810,49 @@ def drive_train2(kernels_of: dict, wp_size: int = 30_522) -> dict:
               f"host {walls[label]['host_ms_per_round']:.3f} ms a round", flush=True)
         del trainer, model
     _phase("train WordPiece and Unigram", t0)
+
+    # K19 beside the parent's: its route (K19 and readback), then both K19s
+    # in turns every round, their inputs kept at K19_ROUNDS
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import study_pair_count_variants as k19study
+
+    from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
+
+    parent = k19study.K19(k19study.build({"parent": (k19study.PARENT_SRC, "")})["parent"],
+                          parent=True)
+    this = f"WordPiece {wp_size:,}"
+    timer = k19study.RoundTimer({"this": k19study.K19(kernel_library().lib), "parent": parent},
+                                keep=K19_ROUNDS)
+    for label, route in ((f"{this} (the parent's K19 and readback)", k19study.parent_route(parent)),
+                         (f"{this} (both K19s in turns a round)", timer.installed())):
+        trainer = DistributedWordPieceTrainer(WordPieceTrainerConfig(vocab_size=wp_size))
+        with route, contextlib.redirect_stdout(io.StringIO()):
+            model, _counts, wall = _drive_launches(kernels_of,
+                                                   lambda: trainer.train_from_texts(texts))
+        st = trainer.last_stats
+        if sorted(model.vocab, key=model.vocab.__getitem__) != golden[:wp_size]:
+            raise AssertionError(f"train {label}: the vocabulary is not the golden file's")
+        walls[label] = dict(wall_s=wall, rounds=st["rounds"],
+                            device_ms_per_round=1e3 * st["device_s"] / st["rounds"],
+                            host_ms_per_round=1e3 * st["host_s"] / st["rounds"])
+        print(f"[train] {label}: entry for entry the golden file; wall {wall:.3f} s (this "
+              f"route {walls[this]['wall_s']:.3f}), launch and read back "
+              f"{walls[label]['device_ms_per_round']:.3f} ms a round (this route "
+              f"{walls[this]['device_ms_per_round']:.3f}), host "
+              f"{walls[label]['host_ms_per_round']:.3f} ms a round (this route "
+              f"{walls[this]['host_ms_per_round']:.3f})", flush=True)
+        del trainer, model
+    k19_run = dict(rounds=timer.rounds, ms=timer.ms)
+    print(f"[pair_count] over the {timer.rounds} rounds of {this}, in turns a round: "
+          f"{timer.ms['this']:.3f} ms, the parent's {timer.ms['parent']:.3f} ms", flush=True)
+    _phase("train WordPiece beside the parent's K19", t0)
     t0 = time.perf_counter()
     checks = check_train2_kernels(ug_kept, wp_kept, edge_kept)
+    checks["pair_count"] += check_k19_rounds(timer, parent)
     _phase("train WordPiece and Unigram kernels", t0)
     torch.cuda.synchronize()
-    return {"launches": launches, "walls": walls, "checks": checks}
+    return {"launches": launches, "walls": walls, "checks": checks, "k19_run": k19_run}
 
 
 def main(argv=None) -> int:
@@ -4411,7 +4509,7 @@ def main(argv=None) -> int:
          "complexity_tokenizer_tpu/parallel/wordpiece_trainer.py:274", "train WordPiece 30,522"),
     ):
         res = train2["checks"][name]
-        main = next(r for r in res if "ms" in r)
+        main = next(r for r in res if "ms" in r and r.get("round", 1000) == 1000)
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4440,6 +4538,13 @@ def main(argv=None) -> int:
             "launch": main["launch"],
             "checks": res,
         })
+    # K19 at the four rounds and over the run, beside the parent's
+    k19 = next(k for k in kernels if k["name"] == "pair_count")
+    k19["rounds"] = [{k: r[k] for k in ("round", "shape", "pairs", "keys", "hottest_key_atomics",
+                                          "ms", "ms_cold", "parent_ms", "parent_ms_cold",
+                                          "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                     for r in train2["checks"]["pair_count"] if "round" in r]
+    k19["run_sum_ms"] = train2["k19_run"]
     if _sha1(blob50) != blob50_sha1:
         raise AssertionError("the tracked 50K warm-cache file changed during the run")
     print(json.dumps({"call": {

@@ -33,30 +33,44 @@
 // - out: the symbol at each piece's start, -1 in the word's other slots;
 //   poison [B] int32.
 //
-// K19 over K18's out, the words' offs, freqs [B] and poison [B]: every
+// K19 over K18's out [N], the words' offs, freqs [B] and poison [B]: every
 // adjacent pair of a word's symbols (the -1 between pieces skipped), keyed
 // (a << 16) | b, weighted by the word's frequency; a poisoned word adds
-// nothing (JAX weights it 0 and drops keys whose sum is 0).  The launcher
-// clears a table of T int32 keys (-1 empty) and counts and the result's
-// head; a thread a word inserts its pairs (atomicCAS claims a key's row,
-// atomicAdd sums its count, linear probing from mix_hash(key, 0)); a
-// second pass, a thread a row, writes the rows whose count is above 0 as
-// (key, count) into res [2 + 2 cap] after res[0] = their number (a warp's
-// rows claim their places with one atomic); res[1] counts the poisoned
-// words.  The table holds at least twice the slots, so it cannot fill.
-// int32 sums are the same in any order, so the set of (key, count) equals
-// pair_count_plain's bit for bit; their order is the table's.
+// nothing (JAX weights it 0 and drops keys whose sum is 0).  Its state is
+// an open-address table [T] of int2 (key, count) rows (key -1: empty;
+// linear probing from mix_hash(key, 0)), a list of the rows a call claims
+// and a head (the list's length, the poisoned words, the compaction's
+// blocks done).  The caller clears it once; every call leaves it cleared,
+// so no call clears the table or passes over all its T rows.  Two launches:
+// - the insert: a warp takes 32 consecutive slots of out in one coalesced
+//   load; each lane finds its slot's word (a 32-ary search of offs for the
+//   slot at the step's start, then the next 32 offsets shuffled) and the
+//   slot before it that holds a symbol (a ballot, or the last symbol before
+//   the step); a slot holding a symbol whose earlier symbol lies in its
+//   word adds the pair: atomicCAS claims the key's row, atomicAdd sums the
+//   weight.  A block gathers the rows its lanes claimed in shared memory
+//   (one shared atomic a warp) and appends them to the list with one
+//   global atomic, with its share of the poisoned words;
+// - the compaction, the insert's programmatic dependent: after
+//   griddepcontrol.wait, a thread a listed row writes (key, count) into res
+//   [2 + 2 cap] and returns the row to empty; res[0] = the list's length,
+//   res[1] = the poisoned words; the last block to finish zeroes the head.
+// The table holds at least twice the slots, so it cannot fill.  int32 sums
+// are the same in any order, so the set of (key, count) equals
+// pair_count_plain's bit for bit; their order is the claims'.
 //
 // Bound: latency.  K18's bytes are the words' characters in, the symbols
 // and poison flags out and the table rows its probes touch (16 B each, in
 // L2 after the first touch); a candidate waits on one probe's dependent
-// row reads.  K19 reads the symbols once and writes each key once; its
-// clear writes the table (8 B a row).
+// row reads.  K19 reads the symbols once and writes each key once; a
+// claimed row is read and written back once more, and the atomics on a hot
+// key's row queue in L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "chd_hash.cuh"
+#include "dependent_launch.cuh"
 
 namespace {
 
@@ -147,62 +161,170 @@ train_match_kernel(const int32_t* __restrict__ chars, const int32_t* __restrict_
 // ---------------------------------------------------------------------------
 // K19
 
-__device__ __forceinline__ void insert_pair(int32_t* __restrict__ keys,
-                                            int32_t* __restrict__ counts, uint32_t mask,
-                                            int32_t key, int32_t f) {
+constexpr int kCompactMaxBlocks = 264;  // two a SM: the compaction strides over the list
+
+// The last w in [0, B] with offs[w] <= p, the same p in every lane (offs[0]
+// = 0 <= p): the word that holds slot p, empty words passed over.  A 32-ary
+// search, one ballot a level (3 levels for 30,000 words).
+__device__ __forceinline__ int warp_word_of(const int32_t* __restrict__ offs, int B, int p,
+                                            int lane) {
+  int lo = 0, len = B + 1;
+  while (len > 1) {
+    const int step = (len + 31) >> 5;
+    const bool le = lane * step < len && __ldg(offs + lo + lane * step) <= p;
+    const int k = 31 - __clz(__ballot_sync(kFull, le));  // lane 0 holds: offs[lo] <= p
+    const int nlo = lo + k * step;
+    len = min(step, lo + len - nlo);
+    lo = nlo;
+  }
+  return lo;
+}
+
+// The same for one lane's p (the slow path, when 32 words or more start in
+// a step: empty or one-slot words).
+__device__ __forceinline__ int lane_word_of(const int32_t* __restrict__ offs, int B, int p) {
+  int lo = 0, hi = B;  // offs[lo] <= p < offs[hi + 1], offs[B + 1] taken as infinite
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(offs + mid) <= p) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Adds f to key's row, claiming an empty row for a new key; returns whether
+// this call claimed it, and the row.
+__device__ __forceinline__ bool insert_pair(int2* __restrict__ table, uint32_t mask, int32_t key,
+                                            int32_t f, uint32_t* row) {
   uint32_t h = mix_hash((uint32_t)key, 0u) & mask;
+  bool claimed = false;
   while (true) {
-    const int32_t k = keys[h];
-    if (k == key) break;
-    if (k == -1) {
-      const int32_t prev = atomicCAS(&keys[h], -1, key);
-      if (prev == -1 || prev == key) break;
+    // the atomicCAS alone, no read of the key before it: a read first took
+    // 5% more over the run (scripts/study_pair_count_variants.py)
+    const int32_t prev = atomicCAS(reinterpret_cast<int32_t*>(table + h), -1, key);
+    if (prev == -1) {
+      claimed = true;
+      break;
     }
-    h = (h + 1) & mask;  // a row holds its key for good: probe on
+    if (prev == key) break;
+    h = (h + 1) & mask;  // a row holds its key until the compaction: probe on
   }
-  atomicAdd(&counts[h], f);
+  atomicAdd(reinterpret_cast<int32_t*>(table + h) + 1, f);
+  *row = h;
+  return claimed;
 }
 
 __global__ void __launch_bounds__(kThreads)
-pair_insert_kernel(const int32_t* __restrict__ out, const int32_t* __restrict__ offs,
+pair_insert_kernel(const int32_t* __restrict__ out, int N, const int32_t* __restrict__ offs,
                    const int32_t* __restrict__ freqs, const int32_t* __restrict__ poison, int B,
-                   int32_t* __restrict__ keys, int32_t* __restrict__ counts, uint32_t mask,
-                   int32_t* __restrict__ res) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= B) return;
-  if (poison[w] != 0) {
-    atomicAdd(&res[1], 1);
-    return;
+                   int2* __restrict__ table, uint32_t mask, int32_t* __restrict__ rows,
+                   int32_t* __restrict__ head) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  __shared__ int32_t s_rows[kThreads];  // the rows this block claimed
+  __shared__ int32_t s_n, s_poison, s_base;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    s_n = 0;
+    s_poison = 0;
   }
-  const int32_t f = freqs[w];
-  if (f <= 0) return;
-  const int end = offs[w + 1];
-  int32_t prev = -1;
-  for (int p = offs[w]; p < end; ++p) {
-    const int32_t s = out[p];
-    if (s < 0) continue;
-    if (prev >= 0) insert_pair(keys, counts, mask, (prev << 16) | s, f);
-    prev = s;
+  __syncthreads();
+  // this block's share of the poisoned words, by index
+  int np = 0;
+  for (int w = blockIdx.x * kThreads + threadIdx.x; w < B; w += gridDim.x * kThreads)
+    np += __ldg(poison + w) != 0;
+  np = __reduce_add_sync(kFull, np);
+  if (lane == 0 && np) atomicAdd(&s_poison, np);
+
+  const int base = (blockIdx.x * kThreads + threadIdx.x) & ~31;  // the warp's 32 slots
+  if (base < N) {
+    const int p = base + lane;
+    const int32_t s = p < N ? __ldg(out + p) : -1;
+    int c0 = base - 32;  // the step before, for the symbol before the first
+    int32_t v = c0 >= 0 ? __ldg(out + c0 + lane) : -1;
+    const int wc = warp_word_of(offs, B, base, lane);
+    const int ws0 = __ldg(offs + wc);
+    const int32_t nxt = wc + 1 + lane <= B ? __ldg(offs + wc + 1 + lane) : 0x7FFFFFFF;
+    // lane's word: wc + the starts among the next 32 at or before p
+    int cnt = 0;
+#pragma unroll
+    for (int k = 16; k >= 1; k >>= 1) {
+      const int32_t o = __shfl_sync(kFull, nxt, cnt + k - 1);
+      if (o <= p) cnt += k;
+    }
+    const int32_t o31 = __shfl_sync(kFull, nxt, 31);
+    if (cnt == 31 && o31 <= p) cnt = 32;
+    const int32_t o_prev = __shfl_sync(kFull, nxt, max(cnt - 1, 0));
+    int w = wc + cnt;
+    int wstart = cnt > 0 ? o_prev : ws0;
+    if (o31 <= base + 31) {  // 32 starts or more in the step (empty words)
+      w = lane_word_of(offs, B, p);
+      wstart = __ldg(offs + w);
+    }
+    // the last symbol before the step, as far back as the step's first word
+    int cq = -1;
+    int32_t ca = 0;
+    while (true) {
+      const unsigned mm = __ballot_sync(kFull, v >= 0);
+      if (mm) {
+        cq = c0 + 31 - __clz(mm);
+        ca = __shfl_sync(kFull, v, 31 - __clz(mm));
+        break;
+      }
+      if (c0 <= ws0) break;
+      c0 -= 32;
+      v = c0 + lane >= 0 ? __ldg(out + c0 + lane) : -1;
+    }
+    // the symbol before this lane's: in the step, or the one before it
+    const bool live = s >= 0;
+    const unsigned below = __ballot_sync(kFull, live) & ((1u << lane) - 1u);
+    const int src = below ? 31 - __clz(below) : 0;
+    const int32_t a_in = __shfl_sync(kFull, s, src);
+    const int q = below ? base + src : cq;
+    const int32_t a = below ? a_in : ca;
+    int32_t f = 0;
+    if (live && w < B && q >= wstart && __ldg(poison + w) == 0) f = __ldg(freqs + w);
+    uint32_t row = 0;
+    const bool claimed = f > 0 && insert_pair(table, mask, (a << 16) | s, f, &row);
+    const unsigned cm = __ballot_sync(kFull, claimed);
+    if (cm) {
+      const int leader = __ffs(cm) - 1;
+      int b0 = 0;
+      if (lane == leader) b0 = atomicAdd(&s_n, __popc(cm));
+      b0 = __shfl_sync(kFull, b0, leader);
+      if (claimed) s_rows[b0 + __popc(cm & ((1u << lane) - 1u))] = (int32_t)row;
+    }
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_n) s_base = atomicAdd(head, s_n);
+    if (s_poison) atomicAdd(head + 1, s_poison);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < s_n; i += kThreads) rows[s_base + i] = s_rows[i];
 }
 
 __global__ void __launch_bounds__(kThreads)
-pair_compact_kernel(const int32_t* __restrict__ keys, const int32_t* __restrict__ counts, int T,
-                    int32_t* __restrict__ res) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int32_t cnt = i < T ? counts[i] : 0;
-  const bool take = cnt > 0;
-  const unsigned ballot = __ballot_sync(kFull, take);
-  if (ballot == 0) return;
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(ballot) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(&res[0], __popc(ballot));
-  base = __shfl_sync(kFull, base, leader);
-  if (take) {
-    const int j = base + __popc(ballot & ((1u << lane) - 1u));
-    res[2 + 2 * j] = keys[i];
-    res[3 + 2 * j] = cnt;
+pair_compact_kernel(int2* __restrict__ table, const int32_t* __restrict__ rows,
+                    int32_t* __restrict__ head, int32_t* __restrict__ res) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int n = __ldcg(head);
+  int2* kv = reinterpret_cast<int2*>(res + 2);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
+    const int32_t r = __ldcg(rows + i);
+    kv[i] = __ldcg(table + r);
+    table[r] = make_int2(-1, 0);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    res[0] = n;
+    res[1] = __ldcg(head + 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(head + 2, 1) == (int)gridDim.x - 1) {  // every block has read the head
+      head[0] = 0;
+      head[1] = 0;
+      head[2] = 0;
+    }
   }
 }
 
@@ -247,31 +369,32 @@ int ctok_train_match(const void* chars, const void* offs, const void* lens, int 
 
 int ctok_train_match_info(int* info) { return shape_of(train_match_kernel, info); }
 
-// K19: out [N], offs [B + 1], freqs [B], poison [B] int32; keys and counts
-// [T] int32 (T a power of two, at least twice the slots), res [2 + 2 cap]
-// int32, cap = T / 2 -> res: the keys' number, the poisoned words' number,
-// the (key, count) pairs
-int ctok_pair_count(const void* out, const void* offs, const void* freqs, const void* poison,
-                    int B, void* keys, void* counts, int T, void* res, int cap, void* stream) {
-  if (T < 32 || (T & (T - 1)) != 0 || 2 * cap < T) return (int)cudaErrorInvalidValue;
+// K19: out [N], offs [B + 1], freqs [B], poison [B] int32; table [T] int2
+// (8-byte aligned, every row (-1, 0) on entry and on return; T a power of
+// two, at least 2 N), rows [T / 2] int32, head [4] int32 (zero on entry and
+// on return), res [2 + T] int32 (res + 2 8-byte aligned) -> res: the keys'
+// number, the poisoned words' number, the (key, count) pairs
+int ctok_pair_count(const void* out, int N, const void* offs, const void* freqs,
+                    const void* poison, int B, void* table, int T, void* rows, void* head,
+                    void* res, void* stream) {
+  if (N < 0 || B < 0 || T < 64 || (T & (T - 1)) != 0 || (int64_t)2 * N > T)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(keys, 0xFF, sizeof(int32_t) * (size_t)T, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)T, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(res, 0, 2 * sizeof(int32_t), s);
-  if (err != cudaSuccess) return (int)err;
-  if (B > 0) {
-    pair_insert_kernel<<<blocks_for(B), kThreads, 0, s>>>(
-        static_cast<const int32_t*>(out), static_cast<const int32_t*>(offs),
-        static_cast<const int32_t*>(freqs), static_cast<const int32_t*>(poison), B,
-        static_cast<int32_t*>(keys), static_cast<int32_t*>(counts), (uint32_t)(T - 1),
-        static_cast<int32_t*>(res));
-    err = cudaGetLastError();
+  int2* tab = static_cast<int2*>(table);
+  int32_t* hd = static_cast<int32_t*>(head);
+  if (N > 0 || B > 0) {
+    pair_insert_kernel<<<max(blocks_for(N), 1), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(out), N, static_cast<const int32_t*>(offs),
+        static_cast<const int32_t*>(freqs), static_cast<const int32_t*>(poison), B, tab,
+        (uint32_t)(T - 1), static_cast<int32_t*>(rows), hd);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  pair_compact_kernel<<<blocks_for(T), kThreads, 0, s>>>(
-      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(counts), T,
-      static_cast<int32_t*>(res));
-  return (int)cudaGetLastError();
+  return (int)ctok::launch_dependent(pair_compact_kernel,
+                                     dim3(min(max(blocks_for(N), 1), kCompactMaxBlocks)),
+                                     dim3(kThreads), 0, s, tab,
+                                     static_cast<const int32_t*>(rows), hd,
+                                     static_cast<int32_t*>(res));
 }
 
 int ctok_pair_count_info(int* info) { return shape_of(pair_insert_kernel, info); }

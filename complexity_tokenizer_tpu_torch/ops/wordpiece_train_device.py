@@ -24,9 +24,11 @@ two hand-written CUDA kernels:
   weighted by the word's frequency, 0 when the word is poisoned; summed by
   key.  Out: the keys whose count is above 0, their counts, their number
   (and the poisoned words' number).  On the card an open-address table of
-  at least twice the slots, cleared each call, takes the sums by atomics;
-  a second pass compacts it.  Its order differs from JAX's sorted one; the
-  trainer's selection does not depend on it.
+  at least twice the slots (:class:`PairCountScratch`, cleared once when
+  made and left cleared by every call) takes the sums by atomics, a warp
+  reading 32 slots at a time; the insert lists the rows it claims, and a
+  second launch writes out and empties only those.  Its order differs from
+  JAX's sorted one; the trainer's selection does not depend on it.
 
 The trainer's tables on the card lie in one int32 buffer
 (:func:`match_table_views`): the open-address table ``[T, 4]`` (h1, h2,
@@ -286,21 +288,32 @@ def pair_count_plain(out, offs, freqs, poison, t_size: int | None = None):
 
 
 class PairCountScratch:
-    """K19's table on the card: keys and counts ``[T]`` int32 and the result
-    ``[2 + T]``, cleared by each call; one serves every call on its stream
-    for words of at most ``n_slots`` slots in all."""
+    """K19's state on the card, for every call on its stream over words of at
+    most ``n_slots`` slots in all: the open-address table ``table [T, 2]``
+    int32 of (key, count) rows (key -1: empty), ``rows [T // 2]`` (the rows
+    a call claims), ``head [4]`` (their number, the poisoned words, the
+    compaction's blocks done) and the result ``res [2 + T]``.  Cleared once,
+    here; each call empties the rows it claimed and zeroes the head as it
+    ends, so the next call finds it cleared."""
 
     def __init__(self, n_slots: int, device):
-        self.t_size = pair_table_size(n_slots)
-        self.table = torch.empty(2, self.t_size, dtype=torch.int32, device=device)
-        self.res = torch.empty(2 + self.t_size, dtype=torch.int32, device=device)
+        self.t_size = T = pair_table_size(n_slots)
+        # one buffer: table, head, rows, res (res + 2 stays 8-byte aligned)
+        buf = torch.zeros(2 * T + 4 + T // 2 + 2 + T, dtype=torch.int32, device=device)
+        self.table = buf[:2 * T].view(T, 2)
+        self.table[:, 0] = -1
+        self.head = buf[2 * T:2 * T + 4]
+        self.rows = buf[2 * T + 4:2 * T + 4 + T // 2]
+        self.res = buf[2 * T + 4 + T // 2:]
 
 
 def pair_count(out, offs, freqs, poison, scratch: PairCountScratch | None = None):
     """K19 on CUDA tensors, the plain version on CPU tensors: same arguments
     and result as :func:`pair_count_plain` (the scratch's ``t_size``), the
-    pairs in the table's order.  The result is the scratch's buffer, which
-    the next call overwrites."""
+    pairs in the order their rows were claimed.  The result is the scratch's
+    buffer, which the next call overwrites.  Two launches (the insert, then
+    the compaction as its programmatic dependent), nothing read back, so a
+    CUDA graph can capture it."""
     if out.device.type == "cpu":
         return pair_count_plain(out, offs, freqs, poison,
                                 None if scratch is None else scratch.t_size)
@@ -309,22 +322,23 @@ def pair_count(out, offs, freqs, poison, scratch: PairCountScratch | None = None
     N, B = out.numel(), offs.numel() - 1
     if scratch is None:
         scratch = PairCountScratch(N, out.device)
+    T = scratch.t_size
     i32 = torch.int32
     _check_args("pair_count", (
         ("out", out, i32, (N,)), ("offs", offs, i32, (B + 1,)), ("freqs", freqs, i32, (B,)),
         ("poison", poison, i32, (B,)),
-        ("scratch.table", scratch.table, i32, (2, scratch.t_size)),
-        ("scratch.res", scratch.res, i32, (2 + scratch.t_size,)),
+        ("scratch.table", scratch.table, i32, (T, 2)), ("scratch.rows", scratch.rows, i32, (T // 2,)),
+        ("scratch.head", scratch.head, i32, (4,)), ("scratch.res", scratch.res, i32, (2 + T,)),
     ))
-    if 2 * N > scratch.t_size:
-        raise ValueError(f"pair_count: {N} slots need a table of {pair_table_size(N)}, "
-                         f"not {scratch.t_size}")
+    if 2 * N > T:
+        raise ValueError(f"pair_count: {N} slots need a table of {pair_table_size(N)}, not {T}")
+    if scratch.table.data_ptr() % 8 or scratch.res.data_ptr() % 8:
+        raise ValueError("pair_count: scratch.table and scratch.res must be 8-byte aligned")
     check(
         kernel_library().lib.ctok_pair_count(
-            out.data_ptr(), offs.data_ptr(), freqs.data_ptr(), poison.data_ptr(), B,
-            scratch.table[0].data_ptr(), scratch.table[1].data_ptr(), scratch.t_size,
-            scratch.res.data_ptr(), scratch.t_size // 2,
-            torch.cuda.current_stream(out.device).cuda_stream,
+            out.data_ptr(), N, offs.data_ptr(), freqs.data_ptr(), poison.data_ptr(), B,
+            scratch.table.data_ptr(), T, scratch.rows.data_ptr(), scratch.head.data_ptr(),
+            scratch.res.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
         ),
         "pair_count",
     )
@@ -332,7 +346,7 @@ def pair_count(out, offs, freqs, poison, scratch: PairCountScratch | None = None
     return scratch.res
 
 
-pair_count.launches = 0  # calls of K19 (its clear, insert and compaction; not the plain version)
+pair_count.launches = 0  # calls of K19 (its insert and compaction; not the plain version)
 
 
 def pair_count_launch_shape() -> dict:

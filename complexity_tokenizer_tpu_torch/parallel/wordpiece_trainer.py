@@ -16,9 +16,10 @@ in place of the mesh:
   word's greedy match, unmatched characters falling back to their
   ``##``-aware symbols) then K19 (``pair_count``: the words' adjacent
   symbol pairs, keyed ``(a << 16) | b`` and weighted by frequency, summed in
-  a hash table on the card), whose (key, count) pairs come back; with more
-  than one process every process gathers every process's pairs and adds
-  them up, so all hold the same global counts;
+  a hash table on the card), whose (key, count) pairs come back, with one
+  process in one asynchronous copy to pinned memory (:class:`_PairReader`);
+  with more than one process every process gathers every process's pairs
+  and adds them up, so all hold the same global counts;
 - words wider than the lanes and words K18 poisons (a hash collision) are
   tokenized and counted on the host each round and added to those counts;
 - the selection (the highest count, ties to the lexicographically smallest
@@ -293,6 +294,7 @@ class DistributedWordPieceTrainer(WordPieceTrainer):
         gidx_d = buf[N + 3 * B + 1:]
         fb_d = torch.from_numpy(fb_map).to(dev)
         scratch = PairCountScratch(N, dev) if dev.type == "cuda" else None
+        reader = _PairReader()
 
         def host_pairs(word_list) -> Counter:
             out: Counter = Counter()
@@ -319,7 +321,8 @@ class DistributedWordPieceTrainer(WordPieceTrainer):
             # JAX grows its unique-pair budget and retries (at most six
             # times, then the host trainer); K19's table holds every pair
             # of the corpus, so that route does not exist here
-            keys, counts, poisoned = _read_pairs(res, poison, gidx_d, len(dev_words), world)
+            keys, counts, poisoned = _read_pairs(res, poison, gidx_d, len(dev_words), world,
+                                                 reader)
             t1 = time.perf_counter()
             stats["device_s"] += t1 - t0
             stats["rounds"] += 1
@@ -365,15 +368,45 @@ class DistributedWordPieceTrainer(WordPieceTrainer):
         )
 
 
-def _read_pairs(res, poison, gidx, n_dev: int, world: int):
+class _PairReader:
+    """K19's result back on the host, one process: the head and as many pairs
+    as the round before had keys, plus a margin, in one asynchronous copy
+    into pinned memory and one wait; a second copy only when the round has
+    more keys than that (as a first round may)."""
+
+    FIRST = 4096  # keys the first round's copy takes
+
+    def __init__(self):
+        self.host: torch.Tensor | None = None
+        self.expect = self.FIRST
+
+    def _copy(self, res, lo: int, hi: int) -> None:
+        self.host[lo:hi].copy_(res[lo:hi], non_blocking=True)
+        if res.is_cuda:
+            torch.cuda.current_stream(res.device).synchronize()
+
+    def read(self, res) -> np.ndarray:
+        """``res [2 + 2 cap]`` (K19's result) -> its head and pairs, a numpy
+        view of the pinned buffer (the next call overwrites it)."""
+        if self.host is None or self.host.numel() != res.numel():
+            self.host = torch.empty(res.numel(), dtype=torch.int32, pin_memory=res.is_cuda)
+        m = min(self.expect, (res.numel() - 2) // 2)
+        self._copy(res, 0, 2 + 2 * m)
+        n = int(self.host[0])
+        if n > m:
+            self._copy(res, 2 + 2 * m, 2 + 2 * n)
+        self.expect = n + max(1024, n // 16)
+        return self.host[:2 + 2 * n].numpy()
+
+
+def _read_pairs(res, poison, gidx, n_dev: int, world: int, reader: _PairReader):
     """K19's pairs back on the host: (keys int64, counts int64, the poisoned
     words' indices in the corpus's words that fit the lanes).  One process
-    copies the head, then its pairs; with more than one, every process's
-    pairs are gathered and summed by key, and the poisoned words are those
-    of every process."""
+    reads its head and pairs with ``reader``; with more than one, every
+    process's pairs are gathered and summed by key, and the poisoned words
+    are those of every process."""
     if world == 1:
-        n = int(res[0])
-        keys, counts, _n, n_poison = split_pairs(res[:2 + 2 * n].cpu().numpy())
+        keys, counts, _n, n_poison = split_pairs(reader.read(res))
         keys, counts = keys.astype(np.int64), counts.astype(np.int64)
     else:
         head = res[:2].clone()

@@ -120,8 +120,8 @@ _SIGNATURES = {
     "ctok_train_match": (_P, _P, _P, _I, _P, _U, _P, _P, _P, _I, _P, _P, _P),
     # info[5]
     "ctok_train_match_info": (_P,),
-    # out, offs, freqs, poison, B, keys, counts, t_size, res, cap, stream
-    "ctok_pair_count": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P),
+    # out, N, offs, freqs, poison, B, table, t_size, rows, head, res, stream
+    "ctok_pair_count": (_P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P),
     # info[5]
     "ctok_pair_count_info": (_P,),
 }

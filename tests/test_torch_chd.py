@@ -47,6 +47,17 @@ from complexity_tokenizer_tpu_torch.utils.corpus import (  # noqa: E402
 )
 from complexity_tokenizer_tpu_torch.utils.unicode_tables import gpt2_class_table  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many ops on small tensors: with the test
+    workers sharing the machine, torch's intra-op threads only wait on each
+    other (one thread runs these tests many times faster under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 BENCH_100K = os.path.join(
     os.path.dirname(__file__), "..", ".cache", "bench_tokenizer_100k.json"
 )

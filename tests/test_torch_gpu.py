@@ -2105,6 +2105,71 @@ def test_k18_k19_match_plain():
     assert poisoned > 0
 
 
+def _k19_input(rng, lens, n_syms, gap=0.3, poison=0.0, dead_start=0.0, sym=None):
+    """K19's inputs for words of ``lens`` slots: symbols below ``n_syms`` (or
+    ``sym(rng, n)``), -1 in a share ``gap`` of the slots past a word's first,
+    that slot -1 in a share ``dead_start`` of the words, a share ``poison``
+    of the words poisoned, frequencies up to 1,000."""
+    lens = np.asarray(lens, np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    N = int(offs[-1])
+    syms = (rng.randint(0, n_syms, size=N) if sym is None else sym(rng, N)).astype(np.int32)
+    out = np.where(rng.rand(N) < gap, -1, syms).astype(np.int32)
+    starts = offs[:-1][lens > 0]
+    out[starts] = syms[starts]
+    out[starts[rng.rand(starts.size) < dead_start]] = -1
+    freqs = rng.randint(1, 1001, size=len(lens)).astype(np.int32)
+    flags = (rng.rand(len(lens)) < poison).astype(np.int32)
+    return [torch.from_numpy(a).cuda() for a in (out, offs, freqs, flags)]
+
+
+def test_k19_edge_cases_match_plain():
+    """K19 against its plain version as a set of (key, count), with its
+    number and the poisoned words: a round with many keys (empty words,
+    runs of 40 of them, words whose first slot is -1, poisoned words) then
+    rounds with few keys on the same scratch (no stale row survives), no
+    word, every word poisoned, one hot key in every pair, words of 128
+    slots; one launch a call."""
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        PairCountScratch,
+        pair_count,
+        pair_count_plain,
+    )
+
+    _need_card()
+    rng = np.random.RandomState(19)
+    many_lens = rng.randint(0, 21, size=6000)
+    many_lens[1000:1040] = 0
+    many_lens[3000:3045] = 0
+    cases = [
+        ("many keys", _k19_input(rng, many_lens, 3000, poison=0.05, dead_start=0.05)),
+        ("few keys", _k19_input(rng, rng.randint(1, 9, size=3000), 4)),
+        ("one word of one slot", _k19_input(rng, [1], 4)),
+        ("few keys again", _k19_input(rng, rng.randint(1, 30, size=4000), 3, poison=0.1)),
+        ("no word", _k19_input(rng, np.zeros(0, np.int64), 4)),
+        ("every word poisoned", _k19_input(rng, rng.randint(1, 20, size=2000), 50, poison=1.0)),
+        ("one hot key", _k19_input(rng, rng.randint(2, 40, size=20000), 1, gap=0.2,
+                                   sym=lambda r, n: np.full(n, 5))),
+        ("words of 128 slots", _k19_input(rng, np.full(700, 128), 900, gap=0.6, poison=0.05)),
+    ]
+    scratch = PairCountScratch(max(c[1][0].numel() for c in cases), "cuda")
+    for label, (out, offs, freqs, poison) in cases:
+        before = pair_count.launches
+        got = _sorted_pairs(pair_count(out, offs, freqs, poison, scratch))
+        exp = _sorted_pairs(pair_count_plain(out, offs, freqs, poison, scratch.t_size))
+        assert got == exp, label
+        assert pair_count.launches == before + 1
+        assert exp[3] == int((poison != 0).sum()), label
+        if label == "one hot key":
+            assert exp[:3] == ([(5 << 16) | 5], exp[1], 1) and exp[1][0] > 1 << 20, label
+        if label in ("no word", "every word poisoned"):
+            assert exp[2] == 0, label
+        if label == "many keys":
+            assert exp[2] > 10_000, exp[2]
+    assert not scratch.head.any() and bool((scratch.table[:, 0] == -1).all())
+    assert not scratch.table[:, 1].any()
+
+
 def test_trainers_on_card_match_cpu():
     """``DistributedWordPieceTrainer`` and ``DistributedUnigramTrainer`` on
     the card equal the host trainers and, on a smaller case, themselves on

@@ -36,6 +36,17 @@ from complexity_tokenizer_tpu_torch.utils.corpus import (  # noqa: E402
     zipf_corpus,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many ops on small tensors: with the test
+    workers sharing the machine, torch's intra-op threads only wait on each
+    other (one thread runs these tests many times faster under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # ---------------------------------------------------------------------------
 # the models of tests/test_models_trainers.py, built in both packages
 

@@ -22,6 +22,18 @@ from complexity_tokenizer_tpu_torch.utils.corpus import MULTI_PIECES, zipf_corpu
 
 import torch  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many ops on small tensors: with the test
+    workers sharing the machine, torch's intra-op threads only wait on each
+    other (one thread runs these tests many times faster under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KINDS = ("NFC", "NFD", "NFKC", "NFKD", "lowercase", "strip_accents", "bert_clean_text",
          "bert_cjk")
 

@@ -6,8 +6,10 @@ and the host trainer, vocabulary for vocabulary, on the JAX package's
 cases (over-wide words, the fallback that resets the vocabulary, the int32
 bound); the longest-match tables array for array; one round of K18 and
 K19's plain versions against JAX's ``_match_count_program`` on the same
-tables, also with forged rows that poison words; the selection rule against
-a brute-force ``min``; and world size 2 over gloo against world size 1.
+tables, also with forged rows that poison words and on a word list where
+one pair dominates; the one-process readback's copies; the selection rule
+against a brute-force ``min``; and world size 2 over gloo against world
+size 1.
 """
 
 import json
@@ -37,6 +39,7 @@ from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
 from complexity_tokenizer_tpu_torch.parallel.wordpiece_trainer import (
     DistributedWordPieceTrainer,
     _MatchTables,
+    _PairReader,
     select_pair,
 )
 from complexity_tokenizer_tpu_torch.trainers import WordPieceTrainer, WordPieceTrainerConfig
@@ -265,14 +268,15 @@ def _port_round(pt, fb, words, freqs, lt_cap):
     return keys.tolist(), counts.tolist(), flags
 
 
-@pytest.mark.parametrize("size,forge", [(0, False), (150, False), (200, True)])
+@pytest.mark.parametrize("size,forge", [(0, False), (150, False), (200, True), (250, False)])
 def test_k18_k19_plain_match_jax_program(size, forge):
     """One round of K18 and K19's plain versions against JAX's
     ``_match_count_program`` on the same tables: the (key, count) set (in
     key order, summed over JAX's shards), its size and the poisoned words;
-    at the alphabet alone, after 150 and 200 entries, and with every form
-    of two characters or more forged in both tables' characters, which
-    poisons the words that choose one."""
+    at the alphabet alone, after 150, 200 and 250 entries (a late round of
+    the 260-entry training), and with every form of two characters or more
+    forged in both tables' characters, which poisons the words that choose
+    one."""
     texts, cfg = CASES["edges"]
     wf = _word_freqs(texts, cfg)
     vocab = _trained_vocab(texts, cfg, 260)
@@ -288,6 +292,57 @@ def test_k18_k19_plain_match_jax_program(size, forge):
     assert (pk, pc) == (jk, jc) and len(pk) > 10
     np.testing.assert_array_equal(pp, jp)
     assert bool(pp.any()) == forge
+
+
+def test_k19_plain_matches_jax_program_on_a_hot_pair():
+    """A word list where one pair dominates: ``q`` then ``##z`` in every
+    word but two, with the largest frequencies; round 0 (the alphabet's
+    tables).  The plain K19 against JAX's program, and the hot key's count
+    is every such word's frequency."""
+    rng = np.random.RandomState(3)
+    words = set()
+    while len(words) < 300:
+        w = "".join(rng.choice(list("abcde"), size=rng.randint(0, 7)))
+        pos = rng.randint(0, len(w) + 1)
+        words.add(w[:pos] + "qz" + w[pos:])
+    words = sorted(words) + ["abc", "de"]
+    freqs = [int(f) for f in rng.randint(1, 1 << 16, size=len(words))]
+    freqs[-2:] = [1, 2]
+    wf = Counter(dict(zip(words, freqs)))
+    alphabet = sorted({c for w in words for c in w})
+    vocab = {t: i for i, t in enumerate(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + alphabet)}
+    jt, pt, fb, syms = _both_tables(vocab, wf, 600)
+    jk, jc, jp, lt_cap = _jax_round(jt, fb, words, freqs)
+    pk, pc, pp = _port_round(pt, fb, words, freqs, lt_cap)
+    assert (pk, pc) == (jk, jc) and not pp.any()
+    hot = (syms.index("q") << 16) | syms.index("##z")
+    want = sum(f for w, f in zip(words, freqs) if w.startswith("qz"))
+    assert pc[pk.index(hot)] == want
+    want = sum(f for w, f in zip(words, freqs) if "qz" in w and not w.startswith("qz"))
+    hot = (syms.index("##q") << 16) | syms.index("##z")
+    assert pc[pk.index(hot)] == want == max(pc)
+
+
+def test_pair_reader_copies_once_unless_a_round_outgrows_its_guess():
+    """The one-process readback: one copy of the head and the round before's
+    keys plus a margin, a second copy only for a round with more keys; the
+    head and pairs it returns are the result's, whatever lies past them."""
+    reader = _PairReader()
+    copies = []
+    copy = reader._copy
+    reader._copy = lambda res, lo, hi: copies.append((lo, hi)) or copy(res, lo, hi)
+    T = 1 << 15
+    for n in (10, 5000, 5100, 100, 9000, 0):
+        res = torch.full((2 + T,), -7, dtype=torch.int32)
+        res[0], res[1] = n, 3
+        res[2:2 + 2 * n] = torch.arange(2 * n, dtype=torch.int32)
+        guess = reader.expect
+        copies.clear()
+        got = reader.read(res)
+        assert got.tolist() == res[:2 + 2 * n].tolist()
+        assert copies[0] == (0, 2 + 2 * min(guess, T // 2))
+        assert len(copies) == (2 if n > guess else 1)
+        assert reader.expect == n + max(1024, n // 16)
 
 
 def test_select_pair_matches_brute_force():
