@@ -134,16 +134,19 @@ Phases (each prints its seconds):
    on every E-step's inputs (the first timed), K17 on every E-step's K12
    result and a crafted one (ids 0 and V - 1,
    fallbacks, poisoned texts), K18 and K19 on the 30,522 run's rounds 0,
-   1,000 and 10,000, the edge run's and its forged tables, bit for bit (K19
-   as a set); each timed warm, cold and plainly beside its bound and the
-   library call (K17: ``index_add_``; K19: ``torch.unique`` then
+   1,000, 10,000 and the last, the edge run's and its forged tables, bit for
+   bit (K19 as a set); each timed warm, cold and plainly beside its bound
+   and the library call (K17: ``index_add_``; K19: ``torch.unique`` then
    ``index_add_``).  K19 beside the K19 of commit 65588a4 (its source in
    ``scripts/pair_count_variants/parent_pair_count.cu``): the 30,522
    training again with that K19 and that commit's readback (its wall and
-   ms a round against this route's), and once more with both K19s timed in
-   turns every round (summed over the run) and their inputs kept at rounds
-   0, 1,000, 10,000 and the last, where both are checked against the plain
-   version and timed warm and cold in turns (parent, this, this, parent).
+   ms a round against this route's), and once more with both K19s and both
+   K18s (the K18 of commit c29595f, a thread a word:
+   ``scripts/train_match_variants/parent_train_match.cu``) timed in turns
+   every round (each summed over the run) and their inputs kept at rounds
+   0, 1,000, 10,000 and the last, where each pair is checked against the
+   plain version and timed warm and cold in turns (parent, this, this,
+   parent).
    With ``--parent DIR`` (a checkout of an earlier commit): the kernels of
    it that ``scripts/parent_word_kernels.py`` knows, built beside the
    package's kernels, on the same rows, words and texts laid out as that
@@ -3322,8 +3325,9 @@ def drive_train(kernels_of: dict) -> dict:
 UNIGRAM_32K = os.path.join(REPO, ".cache", "bench_unigram_32k.json")
 WORDPIECE_30K = os.path.join(REPO, ".cache", "bench_wordpiece_30k.json")
 TRAIN2_KERNELS = ("viterbi", "piece_hist", "train_match", "pair_count")
-WP_CAPTURE_ROUNDS = (0, 1000, 10_000)  # the rounds whose K18 inputs are checked (1,000 timed)
+WP_CAPTURE_ROUNDS = (0, 1000, 10_000, -1)  # the rounds whose K18 inputs are checked (-1: last)
 K19_ROUNDS = (0, 1000, 10_000, -1)  # the rounds K19 is timed at, beside the parent's (-1: last)
+K18_ROUNDS = (0, 1000, 10_000, -1)  # the rounds K18 is timed at, beside the parent's (-1: last)
 
 
 def _sorted_pairs(res):
@@ -3357,13 +3361,13 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
     last), on a crafted result holding
     ids 0 and V - 1, fallbacks and poisoned texts, and on
     ``utils/corpus.py:piece_hist_edge_results`` (a hot id among them); K18 and K19 on the
-    WordPiece 30,522 run's rounds ``WP_CAPTURE_ROUNDS``, on the edge run's
-    (words of 1, 13, 127 and 128 characters) and on its tables with every
-    form of two characters or more forged (which poisons the words that
-    choose one).  K17 and K18 timed warm and cold on the main run's inputs
-    (K18 at round 1,000), and plainly, beside the bound and the library
-    call (K17: ``index_add_`` of the frequencies; K18: none); K19's times
-    are ``check_k19_rounds``'s."""
+    WordPiece 30,522 run's rounds ``WP_CAPTURE_ROUNDS`` (its last among
+    them), on the edge run's (words of 1, 13, 127 and 128 characters) and on
+    its tables with every form of two characters or more forged (which
+    poisons the words that choose one).  K17 timed warm and cold on the main
+    run's inputs, and plainly, beside the bound and the library call
+    (``index_add_`` of the frequencies); K18's and K19's times are
+    ``check_k18_rounds``'s and ``check_k19_rounds``'s."""
     import numpy as np
     import torch
 
@@ -3380,10 +3384,12 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
         pair_count,
         pair_count_plain,
         train_match,
-        train_match_launch_shape,
         train_match_plain,
     )
     from complexity_tokenizer_tpu_torch.utils.corpus import piece_hist_edge_results
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import study_train_match_variants as k18study
 
     out = {"viterbi": [], "piece_hist": [], "train_match": [], "pair_count": []}
     # K12 and K17 on the Unigram run's E-steps
@@ -3467,24 +3473,20 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
     print(f"[piece_hist] launch {piece_hist_launch_shape()}", flush=True)
 
     # K18 and K19 on the WordPiece runs' rounds
-    def match_args(inp):
-        return (inp["chars"], inp["offs"], inp["lens"], inp["table"], inp["slot_meta"],
-                inp["slot_chars"], inp["fb_map"], inp["lt_cap"])
-
-    cases = [(f"WordPiece round {r}", inp, r == 1000)
-             for r, inp in sorted(wp_kept.items())]
-    cases += [(f"edge words round {r}", inp, False) for r, inp in sorted(edge_kept.items())]
+    cases = [(f"WordPiece round {r}", inp) for r, inp in sorted(wp_kept.items())]
+    cases += [(f"edge words round {r}", inp) for r, inp in sorted(edge_kept.items())]
     last = dict(edge_kept[max(edge_kept)])
     last["slot_chars"] = last["slot_chars"].clone()
     last["slot_chars"][last["slot_meta"][:, 0] >= 2, 0] += 1
-    cases.append(("edge words, forms of 2+ characters forged", last, False))
-    for label, inp, timed in cases:
-        args = match_args(inp)
+    cases.append(("edge words, forms of 2+ characters forged", last))
+    for label, inp in cases:
+        args = k18study.match_args(inp)
         N, B = inp["chars"].numel(), inp["lens"].numel()
         m, p = train_match(*args)
         mp_, pp = train_match_plain(*args)
         c = _check_equal("train_match", label, [m, p], [mp_, pp])
-        c.update(poisoned=int(pp.sum()), shape=[N, B], lt_cap=inp["lt_cap"])
+        c.update(poisoned=int(pp.sum()), shape=[N, B], lt_cap=inp["lt_cap"],
+                 groups=list(inp["groups"]))
         if "forged" in label and c["poisoned"] == 0:
             raise AssertionError("train_match: the forged rows poisoned no word")
         scratch = PairCountScratch(N, "cuda")
@@ -3492,24 +3494,6 @@ def check_train2_kernels(ug_kept: dict, wp_kept: dict, edge_kept: dict) -> dict:
         d = _check_pairs(label, got, pair_count_plain(m, inp["offs"], inp["freqs"], p,
                                                       scratch.t_size))
         d.update(shape=[N, B], table=scratch.t_size)
-        if timed:
-            fn = lambda *a: train_match(*a, inp["lt_cap"])  # noqa: E731
-            ms = _time_ms(lambda: train_match(*args), 20)
-            sets = _cold_sets(args[:-1], 4 * (N + B))
-            ms_cold = _time_cold_ms(fn, sets, 20)
-            del sets
-            plain_ms = _time_ms(lambda: train_match_plain(*args), 2, graph=False)
-            # the bytes: the words in, the symbols and poison flags out, and
-            # the table's bytes that the round's probes need, each once
-            n_probe, table_bytes = _k18_need(inp)
-            bound_ms, bound_by = _bound(4 * (N + 2 * B + 1) + 4 * (N + B) + table_bytes,
-                                        14 * n_probe)
-            c.update(ms=ms, ms_cold=ms_cold, plain_ms=plain_ms, library_ms=None,
-                     bound_ms=bound_ms, bound_by=bound_by, probes=n_probe, table_bytes=table_bytes,
-                     launch=train_match_launch_shape())
-            print(f"[train_match] {label}: [{N} chars, {B} words] lt_cap {inp['lt_cap']} "
-                  f"warm={ms:.4f} cold={ms_cold:.4f} plain={plain_ms:.4f} bound={bound_ms:.5f} "
-                  f"ms ({bound_by}); {n_probe} probes; launch {c['launch']}", flush=True)
         out["train_match"].append(c)
         out["pair_count"].append(d)
     return out
@@ -3607,6 +3591,112 @@ def check_k19_rounds(timer, parent) -> list:
     return recs
 
 
+def check_k18_rounds(timer, parent) -> list:
+    """K18 (this package's wrapper) and the parent's (``parent``, a
+    ``scripts/study_train_match_variants.py:K18``) at the WordPiece 30,522
+    rounds ``timer`` kept (its ``K18_ROUNDS``): each against the plain
+    version bit for bit (``out`` and ``poison``); timed warm and cold in
+    turns (parent, this, this, parent), plainly and beside the bound (the
+    words in, the symbols and flags out, and the table bytes the round's
+    probes need, each once: ``_k18_need``); the round's words, characters,
+    ``lt_cap``, lane groups and probes, and K18's launch shape."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        train_match,
+        train_match_launch_shape,
+        train_match_plain,
+    )
+
+    import study_train_match_variants as k18study
+
+    recs = []
+    for r, inp in k18study.state_items(timer.kept):
+        args = k18study.match_args(inp)
+        N, B = inp["chars"].numel(), inp["lens"].numel()
+        label = f"WordPiece 30,522 round {r}"
+        exp = train_match_plain(*args)
+        c = _check_equal("train_match", label, list(train_match(*args)), list(exp))
+        _check_equal("train_match", f"{label} (the parent's K18)", list(parent(*args)), list(exp))
+        tensors = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        per_set = 4 * (N + B) + sum(args[i].numel() * 4 for i in tensors)
+        runs = {"this": [], "parent": []}
+        for who in ("parent", "this", "this", "parent"):
+            k = train_match if who == "this" else parent
+            warm = _time_ms(lambda: k(*args), 20)
+
+            def cold_fn(*ts, k=k):
+                a = list(args)
+                for i, t in zip(tensors, ts):
+                    a[i] = t
+                return k(*a)
+
+            sets = [tuple(args[i].clone() for i in tensors)
+                    for _ in range(-(-COLD_BYTES // per_set))]
+            cold = _time_cold_ms(cold_fn, sets, 20)
+            del sets
+            runs[who].append(dict(warm=warm, cold=cold))
+        plain_ms = _time_ms(lambda: train_match_plain(*args), 2, graph=False)
+        # the bytes: the words in, the symbols and poison flags out, and the
+        # table's bytes that the round's probes need, each once
+        n_probe, table_bytes = _k18_need(inp)
+        bound_ms, bound_by = _bound(4 * (N + 2 * B + 1) + 4 * (N + B) + table_bytes,
+                                    14 * n_probe)
+        if r == 1000:
+            c["host_us"] = _k18_host_us(args)
+            print(f"[train_match] {label}: the wrapper's host time a call "
+                  + ", ".join(f"{k} {v:.2f} us" for k, v in c["host_us"].items()), flush=True)
+        mean = lambda who, key: sum(x[key] for x in runs[who]) / 2  # noqa: E731
+        c.update(round=r, shape=[N, B], lt_cap=inp["lt_cap"], groups=list(inp["groups"]),
+                 poisoned=int(exp[1].sum()), probes=n_probe, table_bytes=table_bytes,
+                 ms=mean("this", "warm"), ms_cold=mean("this", "cold"),
+                 parent_ms=mean("parent", "warm"), parent_ms_cold=mean("parent", "cold"),
+                 turns=runs, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                 bound_by=bound_by, launch=train_match_launch_shape())
+        print(f"[train_match] {label}: [{N} chars, {B} words, groups {tuple(inp['groups'])}] "
+              f"lt_cap {inp['lt_cap']}, {n_probe} probes: in turns warm "
+              + " ".join(f"{w}={x['warm']:.4f}" for w in ("parent", "this") for x in runs[w])
+              + " cold " + " ".join(f"{w}={x['cold']:.4f}" for w in ("parent", "this")
+                                    for x in runs[w])
+              + f" ms; plain={plain_ms:.4f} bound={bound_ms:.5f} ms ({bound_by}); launch "
+              f"{c['launch']}", flush=True)
+        recs.append(c)
+    return recs
+
+
+def _k18_host_us(args, n: int = 2000) -> dict:
+    """The host's microseconds a call of K18's wrapper on these arguments
+    (each mean over ``n`` calls, the launches left queued on the card):
+    its argument checks (``_check_match``), the ctypes call of the entry
+    alone (into buffers made once), and the whole wrapper (the checks, two
+    ``torch.empty``, the ctypes call and the count)."""
+    import torch
+
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import _check_match, train_match
+    from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
+
+    chars, offs, lens, groups, table, meta, schars, fb, lt_cap = args
+    out = torch.empty(chars.numel(), dtype=torch.int32, device="cuda")
+    poison = torch.empty(lens.numel(), dtype=torch.int32, device="cuda")
+    entry = kernel_library().lib.ctok_train_match
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), int(groups[0]), int(groups[1]),
+            lens.numel(), table.data_ptr(), table.shape[0] - 1, meta.data_ptr(), schars.data_ptr(),
+            fb.data_ptr(), lt_cap, out.data_ptr(), poison.data_ptr(), stream)
+
+    def per_call(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * t / n
+
+    return dict(checks=per_call(lambda: _check_match(*args)),
+                ctypes=per_call(lambda: entry(*ptrs)), wrapper=per_call(lambda: train_match(*args)))
+
+
 def _k18_need(inp) -> tuple[int, int]:
     """The candidates K18 probes on these inputs and the table bytes they
     need, each once: the greedy walk's starts from the plain version's
@@ -3633,9 +3723,9 @@ def _k18_need(inp) -> tuple[int, int]:
         train_match_plain,
     )
 
-    out, _poison = train_match_plain(inp["chars"], inp["offs"], inp["lens"], inp["table"],
-                                     inp["slot_meta"], inp["slot_chars"], inp["fb_map"],
-                                     inp["lt_cap"])
+    out, _poison = train_match_plain(inp["chars"], inp["offs"], inp["lens"], inp["groups"],
+                                     inp["table"], inp["slot_meta"], inp["slot_chars"],
+                                     inp["fb_map"], inp["lt_cap"])
     chars, offs, lens = inp["chars"].long(), inp["offs"].long(), inp["lens"].long()
     table, meta = inp["table"], inp["slot_meta"]
     mask = table.shape[0] - 1
@@ -3766,10 +3856,24 @@ def drive_train2(kernels_of: dict, wp_size: int = 30_522) -> dict:
     golden = wordpiece_30k_vocab()
 
     def keeper(kept, rounds):
+        """A capture hook keeping the inputs of ``rounds`` (-1: the last, kept
+        under its number by ``keep.finish()``: the mirror is written only by
+        the next round's update, so they are still whole when the run
+        ends)."""
+        last = []
+
+        def clone(inp):
+            return {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in inp.items()}
+
         def keep(r, inp):
             if r in rounds:
-                kept[r] = {k: v.clone() if isinstance(v, torch.Tensor) else v
-                           for k, v in inp.items()}
+                kept[r] = clone(inp)
+            last[:] = [r, inp]
+
+        def finish():
+            if -1 in rounds and last:
+                kept[last[0]] = clone(last[1])
+        keep.finish = finish
         return keep
 
     wp_kept, edge_kept = {}, {}
@@ -3780,6 +3884,7 @@ def drive_train2(kernels_of: dict, wp_size: int = 30_522) -> dict:
         trainer = DistributedWordPieceTrainer(WordPieceTrainerConfig(vocab_size=size))
         trainer.capture = keeper(kept, rounds)
         model, counts, wall = _drive_launches(kernels_of, lambda: trainer.train_from_texts(corpus))
+        trainer.capture.finish()
         entries = sorted(model.vocab, key=model.vocab.__getitem__)
         st = trainer.last_stats
         if st["route"] != "device":
@@ -3812,20 +3917,32 @@ def drive_train2(kernels_of: dict, wp_size: int = 30_522) -> dict:
     _phase("train WordPiece and Unigram", t0)
 
     # K19 beside the parent's: its route (K19 and readback), then both K19s
-    # in turns every round, their inputs kept at K19_ROUNDS
+    # and both K18s in turns every round, their inputs kept at K19_ROUNDS
+    # and K18_ROUNDS
     t0 = time.perf_counter()
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import study_pair_count_variants as k19study
+    import study_train_match_variants as k18study
 
     from complexity_tokenizer_tpu_torch.utils.cuda_build import kernel_library
 
     parent = k19study.K19(k19study.build({"parent": (k19study.PARENT_SRC, "")})["parent"],
                           parent=True)
+    parent18 = k18study.K18(k18study.build({"parent": (k18study.PARENT_SRC, "")})["parent"],
+                            parent=True)
     this = f"WordPiece {wp_size:,}"
     timer = k19study.RoundTimer({"this": k19study.K19(kernel_library().lib), "parent": parent},
                                 keep=K19_ROUNDS)
+    timer18 = k18study.RoundTimer({"this": k18study.K18(kernel_library().lib),
+                                   "parent": parent18}, keep=K18_ROUNDS)
+
+    @contextlib.contextmanager
+    def both_timers():
+        with timer.installed(), timer18.installed():
+            yield
+
     for label, route in ((f"{this} (the parent's K19 and readback)", k19study.parent_route(parent)),
-                         (f"{this} (both K19s in turns a round)", timer.installed())):
+                         (f"{this} (both K19s and both K18s in turns a round)", both_timers())):
         trainer = DistributedWordPieceTrainer(WordPieceTrainerConfig(vocab_size=wp_size))
         with route, contextlib.redirect_stdout(io.StringIO()):
             model, _counts, wall = _drive_launches(kernels_of,
@@ -3844,15 +3961,22 @@ def drive_train2(kernels_of: dict, wp_size: int = 30_522) -> dict:
               f"{walls[this]['host_ms_per_round']:.3f})", flush=True)
         del trainer, model
     k19_run = dict(rounds=timer.rounds, ms=timer.ms)
+    k18_run = dict(rounds=timer18.rounds, ms=timer18.ms)
     print(f"[pair_count] over the {timer.rounds} rounds of {this}, in turns a round: "
           f"{timer.ms['this']:.3f} ms, the parent's {timer.ms['parent']:.3f} ms", flush=True)
-    _phase("train WordPiece beside the parent's K19", t0)
+    print(f"[train_match] over the {timer18.rounds} rounds of {this}, in turns a round: "
+          f"{timer18.ms['this']:.3f} ms, the parent's {timer18.ms['parent']:.3f} ms", flush=True)
+    if timer18.rounds != timer.rounds:
+        raise AssertionError("the two round timers saw different rounds")
+    _phase("train WordPiece beside the parent's K19 and K18", t0)
     t0 = time.perf_counter()
     checks = check_train2_kernels(ug_kept, wp_kept, edge_kept)
+    checks["train_match"] += check_k18_rounds(timer18, parent18)
     checks["pair_count"] += check_k19_rounds(timer, parent)
     _phase("train WordPiece and Unigram kernels", t0)
     torch.cuda.synchronize()
-    return {"launches": launches, "walls": walls, "checks": checks, "k19_run": k19_run}
+    return {"launches": launches, "walls": walls, "checks": checks, "k19_run": k19_run,
+            "k18_run": k18_run}
 
 
 def main(argv=None) -> int:
@@ -4545,6 +4669,13 @@ def main(argv=None) -> int:
                                           "plain_ms", "library_ms", "bound_ms", "bound_by")}
                      for r in train2["checks"]["pair_count"] if "round" in r]
     k19["run_sum_ms"] = train2["k19_run"]
+    # K18 the same
+    k18 = next(k for k in kernels if k["name"] == "train_match")
+    k18["rounds"] = [{k: r[k] for k in ("round", "shape", "lt_cap", "groups", "probes",
+                                          "table_bytes", "ms", "ms_cold", "parent_ms",
+                                          "parent_ms_cold", "plain_ms", "bound_ms", "bound_by")}
+                     for r in train2["checks"]["train_match"] if "round" in r]
+    k18["run_sum_ms"] = train2["k18_run"]
     if _sha1(blob50) != blob50_sha1:
         raise AssertionError("the tracked 50K warm-cache file changed during the run")
     print(json.dumps({"call": {

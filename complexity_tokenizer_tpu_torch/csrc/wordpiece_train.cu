@@ -11,27 +11,40 @@
 // complexity_tokenizer_tpu_torch/ops/wordpiece_train_device.py.
 //
 // K18 takes the distinct words ragged (chars [N] int32 end to end, offs
-// [B + 1], lens [B]; the caller orders them by length) and the trainer's
-// tables: an open-address table [T] of int4 rows (h1, h2, slot, 0), the
-// empty row (0, 1, 0, 0), T a power of two; each slot's (length, symbol)
-// [S] int2 and characters [S, 128] int32; the fallback symbols fb_map
-// [2, 0x110000] (the bare character, "##" + character).  A thread a word,
-// as match_rows decides it:
-// - at each start the candidate lengths l = 1..min(lt_cap, n - start) in
-//   turn: the two hashes of chars[start, start + l) grow by one step a
-//   length (h = h * base + (c + 1) in uint32, from the continuation seeds
-//   past the word's start: equal to JAX's P[e] - P[s] * base^l + seed *
-//   base^l); each is probed at up to 16 slots from mix_hash(h1, h2) & (T -
-//   1) and takes the first row whose key matches.  No key lies past an
-//   empty row of its run (the table only grows and inserts at the first
-//   empty row), so an empty row ends the probe, as a miss unless the key is
-//   the empty key itself (JAX's rule then takes that row's slot, 0);
-// - a hit counts when the slot's form has length l (the length guard); the
-//   longest counts, and only its characters are checked: a mismatch poisons
-//   the word, emits the fallback symbol and advances one, as a miss does;
-//   a miss whose character has no fallback symbol poisons the word too;
-// - out: the symbol at each piece's start, -1 in the word's other slots;
-//   poison [B] int32.
+// [B + 1], lens [B]; the caller orders them by length and gives the lane
+// groups (n8, n16): the words of at most 8 and 16 slots) and the trainer's
+// tables: an open-address table [T] of int4 rows (h1, h2, slot, (len << 16)
+// | sym: the form's length and symbol), the empty row (0, 1, 0, 0), T a
+// power of two; each slot's (length, symbol) [S] int2 and characters [S,
+// 128] int32; the fallback symbols fb_map [2, 0x110000] (the bare
+// character, "##" + character).  As match_rows decides it:
+// - lane groups sized to the word, as K10's: the words [0, n8) 4 a warp by
+//   groups of 8 lanes, [n8, n16) 2 a warp by groups of 16, the rest a warp
+//   each; a word longer than its group is still right, in more chunks.  No
+//   group is wider than lt_cap's candidates (every word in groups of 8 up to
+//   lt_cap 8, none past 16 up to 16), so more words share a warp.  The
+//   warps are taken from the last, so that the longest words start first;
+// - a step probes every candidate length l = 1..min(lt_cap, n - start) at
+//   once, lane j the length j + 1 (in chunks of the group's width where the
+//   lengths are wider).  The two hashes of chars[start, start + l) come from
+//   an inclusive scan over the group's lanes of the affine steps h -> h *
+//   base + (c + 1) in uint32, from the continuation seeds past the word's
+//   start (equal to JAX's P[e] - P[s] * base^l + seed * base^l).  Each lane
+//   walks its own probe run, up to 16 rows from mix_hash(h1, h2) & (T - 1),
+//   and takes the first row whose key matches.  No key lies past an empty
+//   row of its run (the table only grows and inserts at the first empty
+//   row), so an empty row ends the probe, as a miss unless the key is the
+//   empty key itself (JAX's rule then takes that row's slot, 0, whose length
+//   and symbol come from slot_meta[0]);
+// - the row's fourth word decides the hit with the probe's one read: a hit
+//   counts when the form has length l (the length guard); the longest is the
+//   highest set bit of the group's ballots, a later chunk before an earlier;
+// - only the longest hit is checked, a character a lane, ended by a vote of
+//   the group: a mismatch (a hash collision) poisons the word, emits the
+//   fallback symbol and advances one, as a miss does; a miss whose character
+//   has no fallback symbol poisons the word too;
+// - out: the symbol at each piece's start, -1 in the word's other slots
+//   (written first by the group's lanes, coalesced); poison [B] int32.
 //
 // K19 over K18's out [N], the words' offs, freqs [B] and poison [B]: every
 // adjacent pair of a word's symbols (the -1 between pieces skipped), keyed
@@ -61,8 +74,10 @@
 //
 // Bound: latency.  K18's bytes are the words' characters in, the symbols
 // and poison flags out and the table rows its probes touch (16 B each, in
-// L2 after the first touch); a candidate waits on one probe's dependent
-// row reads.  K19 reads the symbols once and writes each key once; a
+// L2 after the first touch); a step waits on its characters, the group's
+// scan, one probe's row reads (one row in most runs), a ballot and the check
+// of its hit.  The designs it was measured against are in
+// scripts/train_match_variants/.  K19 reads the symbols once and writes each key once; a
 // claimed row is read and written back once more, and the atomics on a hot
 // key's row queue in L2.
 
@@ -79,83 +94,171 @@ constexpr uint32_t kB2 = 0x0BADC0DFu;
 constexpr uint32_t kSeed1 = 0x9E3779B9u;
 constexpr uint32_t kSeed2 = 0x7F4A7C15u;
 constexpr uint32_t kFull = 0xFFFFFFFFu;
-constexpr int kMaxW = 128;           // characters a word
-constexpr int kMaxProbe = 16;        // the open-address table's probe budget
+constexpr int kMaxW = 128;            // characters a form
+constexpr int kMaxProbe = 16;         // the open-address table's probe budget
 constexpr int32_t kMaxCp = 0x110000;  // the fallback maps' codepoints
-constexpr int kThreads = 256;
-
-// The slot of key (h1, h2) in the open-address table, -1 when absent.
-__device__ __forceinline__ int32_t probe(const int4* __restrict__ table, uint32_t mask,
-                                         uint32_t h1, uint32_t h2) {
-  const uint32_t base = mix_hash(h1, h2);
-#pragma unroll 1
-  for (int j = 0; j < kMaxProbe; ++j) {
-    const int4 r = __ldg(table + ((base + j) & mask));
-    if ((uint32_t)r.x == h1 && (uint32_t)r.y == h2) return r.z;
-    if (r.x == 0 && r.y == 1) return -1;  // empty: no key lies past it
-  }
-  return -1;
-}
+constexpr int kThreads = 256;         // K19's threads a block
+constexpr int kMatchWarps = 4;        // K18's warps a block
 
 // ---------------------------------------------------------------------------
 // K18
 
-__global__ void __launch_bounds__(kThreads)
-train_match_kernel(const int32_t* __restrict__ chars, const int32_t* __restrict__ offs,
-                   const int32_t* __restrict__ lens, int B, const int4* __restrict__ table,
-                   uint32_t mask, const int2* __restrict__ slot_meta,
-                   const int32_t* __restrict__ slot_chars, const int32_t* __restrict__ fb_map,
-                   int lt_cap, int32_t* __restrict__ out, int32_t* __restrict__ poison) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= B) return;
-  const int o = offs[w];
-  const int slots = offs[w + 1] - o;
-  const int n = min(lens[w], slots);
-  const int32_t* c = chars + o;
-  int32_t* ow = out + o;
-  for (int p = 0; p < slots; ++p) ow[p] = -1;
-  int32_t poisoned = 0;
-  int start = 0;
-  while (start < n) {
-    uint32_t h1 = start > 0 ? kSeed1 : 0u;
-    uint32_t h2 = start > 0 ? kSeed2 : 0u;
-    const int maxl = min(lt_cap, n - start);
-    int best_l = 0;
-    int32_t best = 0;
+struct MatchArgs {
+  const int32_t* __restrict__ chars;
+  const int32_t* __restrict__ offs;
+  const int32_t* __restrict__ lens;
+  const int4* __restrict__ table;
+  uint32_t mask;
+  const int2* __restrict__ slot_meta;
+  const int32_t* __restrict__ slot_chars;
+  const int32_t* __restrict__ fb_map;
+  int lt_cap;
+  int32_t* __restrict__ out;
+  int32_t* __restrict__ poison;
+};
+
+// The row of key (h1, h2): true and the row when a row of the run holds it.
+// The key is compared before the empty test, so the empty key (0, 1) takes
+// the first empty row (slot 0), as JAX does; an empty row ends the run (no
+// key lies past it: the table only grows, at a run's first empty row).
+__device__ __forceinline__ bool probe_row(const int4* __restrict__ table, uint32_t mask,
+                                          uint32_t h1, uint32_t h2, int4& row) {
+  const uint32_t base = mix_hash(h1, h2);
 #pragma unroll 1
-    for (int l = 1; l <= maxl; ++l) {
-      const uint32_t u = (uint32_t)c[start + l - 1] + 1u;
-      h1 = h1 * kB1 + u;
-      h2 = h2 * kB2 + u;
-      const int32_t slot = probe(table, mask, h1, h2);
-      if (slot >= 0 && __ldg(&slot_meta[slot].x) == l) {
-        best_l = l;
-        best = slot;
-      }
+  for (int j = 0; j < kMaxProbe; ++j) {
+    const int4 r = __ldg(table + ((base + j) & mask));
+    if ((uint32_t)r.x == h1 && (uint32_t)r.y == h2) {
+      row = r;
+      return true;
     }
-    bool good = best_l > 0;
-    if (good) {
-      const int32_t* t = slot_chars + (int64_t)best * kMaxW;
-      for (int k = 0; k < best_l; ++k) {
-        if (__ldg(t + k) != c[start + k]) {
-          good = false;
-          break;
-        }
-      }
-      if (!good) poisoned = 1;  // a hash collision: never a shorter hit
-    }
-    int32_t sym;
-    if (good) {
-      sym = __ldg(&slot_meta[best].y);
-    } else {
-      const int32_t cp = min(max(c[start], 0), kMaxCp - 1);
-      sym = __ldg(fb_map + (start > 0 ? kMaxCp : 0) + cp);
-      if (best_l == 0 && sym < 0) poisoned = 1;
-    }
-    ow[start] = sym;
-    start += good ? best_l : 1;
+    if (r.x == 0 && r.y == 1) return false;
   }
-  poison[w] = poisoned;
+  return false;
+}
+
+// The words [word, word + 32 / G) of `end`, a group of G lanes each, with
+// every lane of the warp.
+template <int G>
+__device__ __forceinline__ void match_words(const MatchArgs& a, int word, int end, int lane) {
+  const int g = lane / G, gl = lane % G, shift = g * G;
+  const uint32_t low = (uint32_t)((1ull << G) - 1ull);
+  const int w = word + g;
+  const bool valid = w < end;
+  int off = 0, slots = 0, n = 0;
+  if (valid) {
+    off = __ldg(a.offs + w);
+    slots = __ldg(a.offs + w + 1) - off;
+    n = max(0, min(__ldg(a.lens + w), slots));
+  }
+  const int32_t* c = a.chars + off;
+  int32_t* ow = a.out + off;
+  for (int i = gl; i < slots; i += G) ow[i] = -1;  // the symbols after the __syncwarp
+  __syncwarp();
+  // lane gl's candidate in a chunk is gl + 1 characters long: base^(gl + 1)
+  uint32_t q1 = 1u, q2 = 1u;
+  {
+    uint32_t b1 = kB1, b2 = kB2;
+    for (int e = gl + 1; e; e >>= 1, b1 *= b1, b2 *= b2) {
+      if (e & 1) {
+        q1 *= b1;
+        q2 *= b2;
+      }
+    }
+  }
+  const int span = min(G, a.lt_cap);  // the lanes a chunk's scan must serve
+  bool poisoned = false;
+  int start = 0;
+  while (__any_sync(kFull, start < n)) {
+    // every candidate length at start, a lane each, in chunks of G
+    const int maxl = start < n ? min(a.lt_cap, n - start) : 0;
+    const int32_t ch0 = gl < maxl ? __ldg(c + start + gl) : 0;
+    int32_t fb = -1;
+    if (gl == 0 && maxl > 0)
+      fb = __ldg(a.fb_map + (start > 0 ? kMaxCp : 0) + min(max(ch0, 0), kMaxCp - 1));
+    int best_l = 0;
+    int32_t best_slot = 0, best_sym = 0;
+    uint32_t c1 = start > 0 ? kSeed1 : 0u, c2 = start > 0 ? kSeed2 : 0u;  // the chunk's prefix
+    for (int c0 = 0; __any_sync(kFull, c0 < maxl); c0 += G) {
+      const int l = c0 + gl + 1;
+      const bool live = l <= maxl;
+      const int32_t ch = c0 == 0 ? ch0 : (live ? __ldg(c + start + l - 1) : 0);
+      // inclusive scan of h -> h * base + u: lane j holds sum_{i <= j} u_i base^(j - i)
+      uint32_t v1 = ch >= 0 ? (uint32_t)ch + 1u : 0u, v2 = v1;
+      uint32_t m1 = kB1, m2 = kB2;
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) {
+        if (o >= span) break;
+        const uint32_t p1 = __shfl_up_sync(kFull, v1, o, G);
+        const uint32_t p2 = __shfl_up_sync(kFull, v2, o, G);
+        if (gl >= o) {
+          v1 += p1 * m1;
+          v2 += p2 * m2;
+        }
+        m1 *= m1;
+        m2 *= m2;
+      }
+      const uint32_t h1 = c1 * q1 + v1, h2 = c2 * q2 + v2;
+      c1 = __shfl_sync(kFull, h1, G - 1, G);
+      c2 = __shfl_sync(kFull, h2, G - 1, G);
+      bool hit = false;
+      int32_t slot = 0, sym = 0;
+      int4 r;
+      if (live && probe_row(a.table, a.mask, h1, h2, r)) {
+        uint32_t meta = (uint32_t)r.w;
+        if (r.x == 0 && r.y == 1) {  // the empty key: slot 0's (length, symbol)
+          const int2 m0 = __ldg(a.slot_meta);
+          meta = ((uint32_t)m0.x << 16) | ((uint32_t)m0.y & 0xFFFFu);
+        }
+        hit = (int)(meta >> 16) == l;  // the length guard
+        sym = (int32_t)(meta & 0xFFFFu);
+        slot = r.z;
+      }
+      // the longest hit: the highest lane of the latest chunk with one
+      const uint32_t hb = (__ballot_sync(kFull, hit) >> shift) & low;
+      const int src = hb ? 31 - __clz(hb) : 0;
+      const int32_t bs = __shfl_sync(kFull, slot, src, G);
+      const int32_t by = __shfl_sync(kFull, sym, src, G);
+      if (hb) {
+        best_l = c0 + src + 1;
+        best_slot = bs;
+        best_sym = by;
+      }
+    }
+    const int32_t fb0 = __shfl_sync(kFull, fb, 0, G);
+    // the exact check of the longest hit, a character a lane, a vote
+    bool ok = true;
+    if (best_l > 0)
+      for (int k = gl; k < best_l; k += G)
+        ok &= __ldg(a.slot_chars + (int64_t)best_slot * kMaxW + k) ==
+              (k == gl ? ch0 : __ldg(c + start + k));
+    const bool bad = (__ballot_sync(kFull, !ok) >> shift) & low;
+    if (start < n) {
+      const bool good = best_l > 0 && !bad;
+      if (gl == 0) ow[start] = good ? best_sym : fb0;
+      poisoned |= best_l > 0 ? bad : fb0 < 0;
+      start += good ? best_l : 1;
+    }
+  }
+  if (valid && gl == 0) a.poison[w] = poisoned;
+}
+
+// A warp's words: 4 of the words [0, n8), 2 of [n8, n16) or one of
+// [n16, B), by the warp's index counted from the last (the longest words'
+// blocks first).
+__global__ void __launch_bounds__(kMatchWarps * 32)
+train_match_kernel(MatchArgs a, int n8, int n16, int B, int warps) {
+  const int lane = threadIdx.x & 31;
+  int gw = blockIdx.x * kMatchWarps + (threadIdx.x >> 5);
+  if (gw >= warps) return;
+  gw = warps - 1 - gw;
+  const int w8 = (n8 + 3) / 4, w16 = (n16 - n8 + 1) / 2;
+  if (gw < w8) {
+    match_words<8>(a, 4 * gw, n8, lane);
+  } else if (gw < w8 + w16) {
+    match_words<16>(a, n8 + 2 * (gw - w8), n16, lane);
+  } else {
+    match_words<32>(a, n16 + gw - w8 - w16, B, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -331,14 +434,14 @@ pair_compact_kernel(int2* __restrict__ table, const int32_t* __restrict__ rows,
 int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 
 template <typename K>
-int shape_of(K kernel, int* info) {
+int shape_of(K kernel, int threads, int* info) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
   if (err != cudaSuccess) return (int)err;
-  const int shape[] = {kThreads, fa.numRegs, (int)fa.sharedSizeBytes, (int)fa.localSizeBytes,
+  const int shape[] = {threads, fa.numRegs, (int)fa.sharedSizeBytes, (int)fa.localSizeBytes,
                        blocks};
   for (int i = 0; i < 5; ++i) info[i] = shape[i];
   return (int)cudaSuccess;
@@ -348,26 +451,44 @@ int shape_of(K kernel, int* info) {
 
 extern "C" {
 
-// K18: chars [N], offs [B + 1], lens [B] int32; table [T] int4 (16-byte
-// aligned), t_mask = T - 1; slot_meta [S] int2; slot_chars [S, 128]; fb_map
-// [2, 0x110000]; lt_cap 1..128 -> out [N] int32, poison [B] int32
-int ctok_train_match(const void* chars, const void* offs, const void* lens, int B,
-                     const void* table, unsigned t_mask, const void* slot_meta,
+// K18: chars [N], offs [B + 1], lens [B] int32, the word groups (0 <= n8
+// <= n16 <= B); table [T] int4 (16-byte aligned; (len << 16) | sym in each
+// filled row's fourth word), t_mask = T - 1; slot_meta [S] int2; slot_chars
+// [S, 128]; fb_map [2, 0x110000]; lt_cap 1..128 -> out [N] int32, poison
+// [B] int32
+int ctok_train_match(const void* chars, const void* offs, const void* lens, int n8, int n16,
+                     int B, const void* table, unsigned t_mask, const void* slot_meta,
                      const void* slot_chars, const void* fb_map, int lt_cap, void* out,
                      void* poison, void* stream) {
-  if (B <= 0) return (int)cudaSuccess;
-  if (lt_cap < 1 || lt_cap > kMaxW || (t_mask & (t_mask + 1)) != 0)
+  if (B < 0 || n8 < 0 || n8 > n16 || n16 > B || lt_cap < 1 || lt_cap > kMaxW ||
+      (t_mask & (t_mask + 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  train_match_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const int32_t*>(chars), static_cast<const int32_t*>(offs),
-      static_cast<const int32_t*>(lens), B, static_cast<const int4*>(table), (uint32_t)t_mask,
-      static_cast<const int2*>(slot_meta), static_cast<const int32_t*>(slot_chars),
-      static_cast<const int32_t*>(fb_map), lt_cap, static_cast<int32_t*>(out),
-      static_cast<int32_t*>(poison));
+  if (B == 0) return (int)cudaSuccess;
+  if (lt_cap <= 8) {
+    n8 = n16 = B;
+  } else if (lt_cap <= 16) {
+    n16 = B;
+  }
+  const int warps = (n8 + 3) / 4 + (n16 - n8 + 1) / 2 + (B - n16);
+  const MatchArgs a{static_cast<const int32_t*>(chars),
+                    static_cast<const int32_t*>(offs),
+                    static_cast<const int32_t*>(lens),
+                    static_cast<const int4*>(table),
+                    (uint32_t)t_mask,
+                    static_cast<const int2*>(slot_meta),
+                    static_cast<const int32_t*>(slot_chars),
+                    static_cast<const int32_t*>(fb_map),
+                    lt_cap,
+                    static_cast<int32_t*>(out),
+                    static_cast<int32_t*>(poison)};
+  train_match_kernel<<<(warps + kMatchWarps - 1) / kMatchWarps, kMatchWarps * 32, 0,
+                       (cudaStream_t)stream>>>(a, n8, n16, B, warps);
   return (int)cudaGetLastError();
 }
 
-int ctok_train_match_info(int* info) { return shape_of(train_match_kernel, info); }
+int ctok_train_match_info(int* info) {
+  return shape_of(train_match_kernel, kMatchWarps * 32, info);
+}
 
 // K19: out [N], offs [B + 1], freqs [B], poison [B] int32; table [T] int2
 // (8-byte aligned, every row (-1, 0) on entry and on return; T a power of
@@ -397,6 +518,6 @@ int ctok_pair_count(const void* out, int N, const void* offs, const void* freqs,
                                      static_cast<int32_t*>(res));
 }
 
-int ctok_pair_count_info(int* info) { return shape_of(pair_insert_kernel, info); }
+int ctok_pair_count_info(int* info) { return shape_of(pair_insert_kernel, kThreads, info); }
 
 }  // extern "C"

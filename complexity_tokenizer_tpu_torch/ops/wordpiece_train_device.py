@@ -18,7 +18,10 @@ two hand-written CUDA kernels:
   character at the start, ``##`` + character past it), whether or not it
   is in the vocabulary; a character with none poisons the word.  Out: the
   emitted symbol at each piece's start, -1 elsewhere, and a poison flag a
-  word.
+  word.  On the card a group of 8, 16 or 32 lanes takes a word (K10's lane
+  groups, from the words' order by length), every candidate length of a
+  start probed at once, a lane each; the table row's fourth word holds the
+  form's length and symbol.
 - K19 :func:`pair_count` (the pair count of ``fn``, ``:274-317``): each
   word's symbols in order, every adjacent pair keyed ``(a << 16) | b`` and
   weighted by the word's frequency, 0 when the word is poisoned; summed by
@@ -32,9 +35,11 @@ two hand-written CUDA kernels:
 
 The trainer's tables on the card lie in one int32 buffer
 (:func:`match_table_views`): the open-address table ``[T, 4]`` (h1, h2,
-slot, 0; an empty slot is (0, 1, 0, 0)), each slot's ``[S, 2]`` (length,
-symbol) and its characters ``[S, 128]`` (-1 padded); the fallback symbols
-are ``fb_map [2, 0x110000]`` (bare, continuation).
+slot, ``(length << 16) | symbol`` of the slot's form; an empty slot is (0,
+1, 0, 0)), each slot's ``[S, 2]`` (length, symbol) and its characters
+``[S, 128]`` (-1 padded); the fallback symbols are ``fb_map [2, 0x110000]``
+(bare, continuation).  The plain version reads the lengths and symbols from
+``[S, 2]``, K18 from the rows.
 
 All int32: each kernel equals its plain version bit for bit (K19 as a set
 of (key, count)).  Each wrapper runs the plain version for a CPU tensor and,
@@ -93,7 +98,8 @@ def match_table_views(buf: torch.Tensor, t_size: int, s_cap: int):
 # K18: the greedy longest match over the open-address table
 
 
-def train_match_plain(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap: int):
+def train_match_plain(chars, offs, lens, groups, table, slot_meta, slot_chars, fb_map,
+                      lt_cap: int):
     """Plain PyTorch version of K18, on any device: JAX's ``match_rows``
     step for step, on the words scattered into -1-padded 128-lane rows.
 
@@ -101,8 +107,10 @@ def train_match_plain(chars, offs, lens, table, slot_meta, slot_chars, fb_map, l
       chars: [N] int32, the codepoints of all words end to end.
       offs: [B + 1] int32, word i is ``chars[offs[i]:offs[i + 1]]`` (at most
         128 slots); lens: [B] int32, each word's length (its slots).
-      table: [T, 4] int32 open-address rows (h1, h2, slot, 0), T a power of
-        two; slot_meta: [S, 2] int32 (length, symbol); slot_chars: [S, 128]
+      groups: K18's lane groups ``(n8, n16)``, not read here.
+      table: [T, 4] int32 open-address rows (h1, h2, slot, and the slot's
+        ``(length << 16) | symbol``, not read here), T a power of two;
+        slot_meta: [S, 2] int32 (length, symbol); slot_chars: [S, 128]
         int32; fb_map: [2, 0x110000] int32 fallback symbols (bare,
         continuation; -1: none).
       lt_cap: the longest candidate (1..128).
@@ -172,9 +180,13 @@ def train_match_plain(chars, offs, lens, table, slot_meta, slot_chars, fb_map, l
     return out[word, col], poison.to(torch.int32)
 
 
-def _check_match(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap):
+def _check_match(chars, offs, lens, groups, table, slot_meta, slot_chars, fb_map, lt_cap):
+    """K18's argument checks; returns the groups (n8, n16)."""
     N, B = chars.numel(), lens.numel()
     T, S = table.shape[0], slot_meta.shape[0]
+    n8, n16 = (int(g) for g in groups)
+    if not 0 <= n8 <= n16 <= B:
+        raise ValueError(f"train_match: groups {tuple(groups)} outside 0 <= n8 <= n16 <= {B}")
     if T < 1 or T & (T - 1):
         raise ValueError(f"train_match: table size {T} is not a power of two")
     if not 1 <= lt_cap <= _W:
@@ -187,19 +199,27 @@ def _check_match(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap
     ))
     if table.data_ptr() % 16 or slot_meta.data_ptr() % 8:
         raise ValueError("train_match: table must be 16-byte aligned and slot_meta 8-byte aligned")
+    return n8, n16
 
 
-def train_match(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap: int):
+def train_match(chars, offs, lens, groups, table, slot_meta, slot_chars, fb_map, lt_cap: int):
     """K18 on CUDA tensors, the plain version on CPU tensors; same arguments
-    and result as :func:`train_match_plain`.  A thread a word; a word's
-    length is cut to its slots.  Nothing is read back to check the
+    and result as :func:`train_match_plain`.  ``groups`` = (n8, n16): the
+    words [0, n8) are matched by groups of 8 lanes, [n8, n16) by groups of
+    16, the rest by a warp each (right for any order, fastest when each word
+    fits its group, as ``ops/wordpiece_device.py:_pack_words`` orders and
+    counts them); the table's rows must hold each slot's ``(length << 16) |
+    symbol`` in their fourth word, as the trainer's mirror writes it.  A
+    word's length is cut to its slots.  Nothing is read back to check the
     arguments (so a CUDA graph can capture it): a word of more than 128
     slots, which the plain version refuses, is matched whole."""
     if chars.device.type == "cpu":
-        return train_match_plain(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap)
+        return train_match_plain(chars, offs, lens, groups, table, slot_meta, slot_chars, fb_map,
+                                 lt_cap)
     if chars.device.type != "cuda":
         raise ValueError(f"train_match: unsupported device {chars.device}")
-    _check_match(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap)
+    n8, n16 = _check_match(chars, offs, lens, groups, table, slot_meta, slot_chars, fb_map,
+                           lt_cap)
     N, B = chars.numel(), lens.numel()
     out = torch.empty(N, dtype=torch.int32, device=chars.device)
     poison = torch.empty(B, dtype=torch.int32, device=chars.device)
@@ -207,7 +227,7 @@ def train_match(chars, offs, lens, table, slot_meta, slot_chars, fb_map, lt_cap:
         return out, poison
     check(
         kernel_library().lib.ctok_train_match(
-            chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), B, table.data_ptr(),
+            chars.data_ptr(), offs.data_ptr(), lens.data_ptr(), n8, n16, B, table.data_ptr(),
             table.shape[0] - 1, slot_meta.data_ptr(), slot_chars.data_ptr(), fb_map.data_ptr(),
             int(lt_cap), out.data_ptr(), poison.data_ptr(),
             torch.cuda.current_stream(chars.device).cuda_stream,

@@ -161,9 +161,14 @@ class _MatchTables:
         """The mirror on ``device``, one int32 buffer
         (``match_table_views(buf, t_size, s_cap)``), with the pending
         inserts applied in place: one copy of their (index, value) pairs
-        and one indexed write, no rebuild."""
+        and one indexed write, no rebuild.  Each filled row's fourth word
+        holds its slot's ``(length << 16) | symbol`` (K18 reads it; a length
+        is at most 128 and a symbol below 2**15), an empty row's 0."""
         if self._dev is None:
-            rows = np.stack([self.h1, self.h2, self.slotv, np.zeros_like(self.slotv)], 1)
+            filled = (self.h1 != _EMPTY_H1) | (self.h2 != _EMPTY_H2)
+            packed = np.where(filled, self.token_lens[self.slotv] << 16 | self.emit_sym[self.slotv],
+                              0).astype(np.int32)
+            rows = np.stack([self.h1, self.h2, self.slotv, packed], 1)
             meta = np.stack([self.token_lens, self.emit_sym], 1)
             host = np.concatenate([rows.ravel(), meta.ravel(), self.token_chars.ravel()])
             self._dev = torch.from_numpy(host).to(device)
@@ -174,8 +179,10 @@ class _MatchTables:
             cols = np.arange(_W)
             idx, val = [], []
             for pos, key, slot in self._pending:
-                idx.append([4 * pos, 4 * pos + 1, 4 * pos + 2, t4 + 2 * slot, t4 + 2 * slot + 1])
-                val.append([key[0], key[1], slot, self.token_lens[slot], self.emit_sym[slot]])
+                ln, sym = self.token_lens[slot], self.emit_sym[slot]
+                idx.append([4 * pos, 4 * pos + 1, 4 * pos + 2, 4 * pos + 3, t4 + 2 * slot,
+                            t4 + 2 * slot + 1])
+                val.append([key[0], key[1], slot, ln << 16 | sym, ln, sym])
                 idx.append(m + _W * slot + cols)
                 val.append(self.token_chars[slot])
             upd = np.stack([np.concatenate(idx), np.concatenate(val)]).astype(np.int32)
@@ -194,9 +201,9 @@ class DistributedWordPieceTrainer(WordPieceTrainer):
     over all rounds and those over the lanes, and the seconds spent
     launching and reading back (the kernels included) and on the host.
     ``capture``, when set, is called as ``capture(round, inputs)`` before
-    each round's launches, ``inputs`` the arguments of K18 and the
-    frequencies (the tables are updated in place afterwards: copy what is
-    kept)."""
+    each round's launches, ``inputs`` the arguments of K18 (its lane groups
+    among them) and the frequencies (the tables are updated in place
+    afterwards: copy what is kept)."""
 
     def __init__(self, config: WordPieceTrainerConfig | None = None, device=None):
         super().__init__(config)
@@ -281,7 +288,7 @@ class DistributedWordPieceTrainer(WordPieceTrainer):
         rank, world = rank_and_world()
         local = dev_words[rank::world]
         wl = np.fromiter(map(len, local), np.int64, len(local))
-        chars, offs, order, _groups = _pack_words(local, wl, wl)
+        chars, offs, order, groups = _pack_words(local, wl, wl)
         B = len(local)
         freqs = np.fromiter((word_freqs[local[j]] for j in order.tolist()), np.int64, B)
         gidx = (rank + world * order).astype(np.int32)  # packed word -> dev_words index
@@ -314,9 +321,10 @@ class DistributedWordPieceTrainer(WordPieceTrainer):
                                                     tables.s_cap)
             if self.capture is not None:
                 self.capture(stats["rounds"], dict(
-                    chars=chars_d, offs=offs_d, lens=lens_d, table=table, slot_meta=meta,
-                    slot_chars=schars, fb_map=fb_d, lt_cap=lt_cap, freqs=freqs_d))
-            out, poison = train_match(chars_d, offs_d, lens_d, table, meta, schars, fb_d, lt_cap)
+                    chars=chars_d, offs=offs_d, lens=lens_d, groups=groups, table=table,
+                    slot_meta=meta, slot_chars=schars, fb_map=fb_d, lt_cap=lt_cap, freqs=freqs_d))
+            out, poison = train_match(chars_d, offs_d, lens_d, groups, table, meta, schars, fb_d,
+                                      lt_cap)
             res = pair_count(out, offs_d, freqs_d, poison, scratch)
             # JAX grows its unique-pair budget and retries (at most six
             # times, then the host trainer); K19's table holds every pair

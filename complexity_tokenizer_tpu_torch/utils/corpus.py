@@ -19,8 +19,9 @@ Zipf-skewed ids for its pair histogram past the bench corpus's alphabet
 (:func:`zipf_pair_rows`), and K12 results that reach the Unigram trainer's
 piece histogram at its edges (:func:`piece_hist_edge_results`).  The golden vocabulary of the
 WordPiece trainer at bert-base-uncased's 30,522 entries
-(:func:`wordpiece_30k_vocab`) and texts whose words reach its match at the
-lanes' edge (:func:`wordpiece_train_edge_texts`).
+(:func:`wordpiece_30k_vocab`), texts whose words reach its match at the
+lanes' edge (:func:`wordpiece_train_edge_texts`) and words and a vocabulary
+that reach its match at its lane groups' edges (:func:`train_match_edge_words`).
 """
 
 from __future__ import annotations
@@ -655,3 +656,36 @@ def wordpiece_train_edge_texts(seed: int = 0) -> list[str]:
             words.append("".join(abc[i] for i in rng.randint(0, len(abc), size=n)))
     words += ["ab" * 64, "ab" * 64 + "c", "é" * 128]
     return [" ".join(words)] * 2 + zipf_corpus(60, seed=seed)
+
+
+# the word lengths at the edges of the WordPiece trainer's lane groups (8,
+# 16 and 32 lanes a word) and of its 128 lanes
+TRAIN_MATCH_EDGES = (1, 8, 9, 16, 17, 32, 33, 127, 128)
+
+
+def train_match_edge_words(seed: int = 27):
+    """Words for the WordPiece trainer's match at its lane groups' edges and
+    a vocabulary whose forms reach every length up to 128: (words, their
+    frequencies, vocabulary token -> id).  Three words of each length in
+    ``TRAIN_MATCH_EDGES`` (fewer where draws repeat) over six letters; the
+    vocabulary is the host trainer's 150 entries on them, then every other
+    word whole and ``##`` bodies of 7 to 127 characters cut from the longer
+    words, so that hits of every length lie at a word's start and past it."""
+    from ..trainers.wordpiece_trainer import WordPieceTrainer, WordPieceTrainerConfig
+
+    rng = np.random.RandomState(seed)
+    letters = list("abcdé日")
+    words = sorted({"".join(rng.choice(letters, size=n))
+                    for n in TRAIN_MATCH_EDGES for _ in range(3)})
+    freqs = [int(f) for f in rng.randint(1, 50, size=len(words))]
+    host = WordPieceTrainer(WordPieceTrainerConfig(vocab_size=150, min_frequency=1))
+    host._train_from_word_freqs(dict(zip(words, freqs)))
+    vocab = dict(host.vocab)
+    extra = words[::2]
+    for w in words:
+        for m in (7, 8, 9, 15, 16, 17, 31, 32, 33, 64, 100, 127):
+            if len(w) > m + 1:
+                extra.append("##" + w[1:1 + m])
+    for tok in extra:
+        vocab.setdefault(tok, len(vocab))
+    return words, freqs, vocab

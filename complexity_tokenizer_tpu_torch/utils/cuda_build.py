@@ -115,9 +115,9 @@ _SIGNATURES = {
     "ctok_piece_hist": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # info[5]
     "ctok_piece_hist_info": (_P,),
-    # chars, offs, lens, B, table, t_mask, slot_meta, slot_chars, fb_map, lt_cap, out,
-    # poison, stream
-    "ctok_train_match": (_P, _P, _P, _I, _P, _U, _P, _P, _P, _I, _P, _P, _P),
+    # chars, offs, lens, n8, n16, B, table, t_mask, slot_meta, slot_chars, fb_map, lt_cap,
+    # out, poison, stream
+    "ctok_train_match": (_P, _P, _P, _I, _I, _I, _P, _U, _P, _P, _P, _I, _P, _P, _P),
     # info[5]
     "ctok_train_match_info": (_P,),
     # out, N, offs, freqs, poison, B, table, t_size, rows, head, res, stream

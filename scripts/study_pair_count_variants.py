@@ -92,18 +92,20 @@ STATES = (0, 1000, 10_000, -1)  # -1: the last round
 SLEEP_CYCLES_EACH = 120_000
 
 
-def build(jobs: dict) -> dict:
-    """name -> ctypes library for each (source, macros), built at once."""
+def build(jobs: dict, build_dir: str = BUILD, kernel: str = "pair") -> dict:
+    """name -> ctypes library for each (source, macros), built at once into
+    ``build_dir``; prints the register report of each entry function whose
+    name holds ``kernel``."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from complexity_tokenizer_tpu_torch.utils.cuda_build import NVCC_FLAGS, _nvcc
 
-    os.makedirs(BUILD, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
     for name, (src, macros) in jobs.items():
-        so = os.path.join(BUILD, f"{name}.so")
+        so = os.path.join(build_dir, f"{name}.so")
         flags = [f"-D{m}" for m in macros.split(",") if m]
         procs[name] = (so, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, *flags, "-I", CSRC, "-shared", src, "-o", so],
@@ -117,7 +119,7 @@ def build(jobs: dict) -> dict:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif "Used" in line and "pair" in entry:
+            elif ("Used" in line or "spill" in line) and kernel in entry:
                 print(f"  {name}: {entry}: {line.split(':', 1)[-1].strip()}", flush=True)
         libs[name] = ctypes.CDLL(so)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)

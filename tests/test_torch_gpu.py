@@ -2065,8 +2065,8 @@ def _check_k18_k19(inp):
         train_match_plain,
     )
 
-    args = (inp["chars"], inp["offs"], inp["lens"], inp["table"], inp["slot_meta"],
-            inp["slot_chars"], inp["fb_map"], inp["lt_cap"])
+    args = (inp["chars"], inp["offs"], inp["lens"], inp["groups"], inp["table"],
+            inp["slot_meta"], inp["slot_chars"], inp["fb_map"], inp["lt_cap"])
     before = train_match.launches, pair_count.launches
     out, poison = train_match(*args)
     out_p, poison_p = train_match_plain(*args)
@@ -2103,6 +2103,107 @@ def test_k18_k19_match_plain():
     forged["slot_chars"][long_forms, 0] += 1
     _pairs, poisoned = _check_k18_k19(forged)
     assert poisoned > 0
+
+
+def _k18_edge_tables(device="cuda"):
+    """``utils/corpus.py:train_match_edge_words`` and the trainer's tables of
+    its vocabulary on ``device`` (the mirror's one buffer, forms of every
+    length up to 128), with the fallback symbols of its characters:
+    (words, table, slot_meta, slot_chars, fb_map)."""
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        MAX_CP,
+        match_table_views,
+    )
+    from complexity_tokenizer_tpu_torch.parallel.wordpiece_trainer import _MatchTables
+    from complexity_tokenizer_tpu_torch.utils.corpus import train_match_edge_words
+
+    words, _freqs, vocab = train_match_edge_words()
+    sym_of: dict = {}
+
+    def sym(s):
+        return sym_of.setdefault(s, len(sym_of))
+
+    tables = _MatchTables(1600)
+    for tok in sorted(vocab, key=vocab.__getitem__):
+        s = sym(tok)
+        assert tables.insert_form([ord(c) for c in tok], False, s)
+        if tok.startswith("##") and len(tok) > 2:
+            assert tables.insert_form([ord(c) for c in tok[2:]], True, s)
+    assert tables.max_len == 128
+    fb = np.full((2, MAX_CP), -1, np.int32)
+    for c in sorted({c for w in words for c in w}):
+        fb[0, ord(c)] = sym(c)
+        fb[1, ord(c)] = sym("##" + c)
+    views = match_table_views(tables.device_buffer(device), tables.t_size, tables.s_cap)
+    return (words, *views, torch.from_numpy(fb).to(device))
+
+
+def _k18_words(words, sort=True, device="cuda"):
+    """(chars, offs, lens) on ``device`` and the pack's groups (n8, n16): the
+    words ordered by length (``_pack_words``), or as given with the groups
+    the sorted pack would have, so that a group holds longer words."""
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_device import _pack_words
+
+    wl = np.fromiter(map(len, words), np.int64, len(words))
+    chars, offs, order, groups = _pack_words(words, wl, wl)
+    if not sort:
+        text = "".join(words)
+        chars = np.frombuffer(text.encode("utf-32-le"), np.uint32).astype(np.int32)
+        offs = np.concatenate([[0], np.cumsum(wl)]).astype(np.int32)
+        order = np.arange(len(words))
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)  # noqa: E731
+    return on(chars), on(offs), on(wl[order]), groups
+
+
+def test_k18_edge_cases_match_plain():
+    """K18 against its plain version, bit for bit (out and poison), one
+    launch a case (none for no word): words at the lane groups' edges (1,
+    8, 9, 16, 17, 32, 33, 127 and 128 characters) ordered by length at
+    ``lt_cap`` 8, 16, 32 and 128 over forms of every length up to 128;
+    the words unsorted with the sorted pack's groups (a group of 8 holds a
+    word of 128); every word in groups of 8 (``lt_cap`` wider than every
+    group), of 16, or a warp each; one word of 128 characters alone; no
+    word; every character without a fallback symbol; the tables with every
+    form of two characters or more forged."""
+    from complexity_tokenizer_tpu_torch.ops.wordpiece_train_device import (
+        train_match,
+        train_match_plain,
+    )
+
+    _need_card()
+    words, table, meta, schars, fb = _k18_edge_tables()
+    rng = np.random.RandomState(18)
+    shuffled = [words[i] for i in rng.permutation(len(words))]
+    chars, offs, lens, groups = _k18_words(words)
+    B = len(words)
+    long_word = max(words, key=len)
+    forged = schars.clone()
+    forged[meta[:, 0] >= 2, 0] += 1
+    cases = [(f"by length, lt_cap {lt}", (chars, offs, lens, groups), schars, fb, lt)
+             for lt in (8, 16, 32, 128)]
+    cases += [
+        ("unsorted, the sorted pack's groups", _k18_words(shuffled, sort=False), schars, fb, 128),
+        ("every word in groups of 8", (chars, offs, lens, (B, B)), schars, fb, 128),
+        ("every word in groups of 16", (chars, offs, lens, (0, B)), schars, fb, 32),
+        ("every word a warp", (chars, offs, lens, (0, 0)), schars, fb, 16),
+        ("one word of 128 characters", _k18_words([long_word]), schars, fb, 128),
+        ("no word", _k18_words([]), schars, fb, 32),
+        ("no fallback symbol", (chars, offs, lens, groups), schars, torch.full_like(fb, -1), 32),
+        ("forms of 2+ characters forged", (chars, offs, lens, groups), forged, fb, 128),
+    ]
+    assert len(long_word) == 128 and groups[0] < groups[1] < B
+    for label, (c, o, ln, g), sc, f, lt in cases:
+        args = (c, o, ln, g, table, meta, sc, f, lt)
+        before = train_match.launches
+        out, poison = train_match(*args)
+        out_p, poison_p = train_match_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_p) and torch.equal(poison, poison_p), label
+        assert train_match.launches == before + (ln.numel() > 0), label
+        if label in ("no fallback symbol", "forms of 2+ characters forged"):
+            assert bool(poison.any()), label
+        elif ln.numel():
+            assert not bool(poison.any()) and int((out >= 0).sum()) > 0, label
 
 
 def _k19_input(rng, lens, n_syms, gap=0.3, poison=0.0, dead_start=0.0, sym=None):
@@ -2232,12 +2333,15 @@ def test_k18_k19_refuse_bad_inputs_and_launch_without_spilling():
     table, meta, schars = match_table_views(buf, 64, 16)
     fb = torch.full((2, 0x110000), -1, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="lt_cap"):
-        train_match(chars, offs, lens, table, meta, schars, fb, 0)
+        train_match(chars, offs, lens, (4, 4), table, meta, schars, fb, 0)
     with pytest.raises(ValueError, match="power of two"):
-        train_match(chars, offs, lens, table[:48], meta, schars, fb, 8)
+        train_match(chars, offs, lens, (4, 4), table[:48], meta, schars, fb, 8)
     with pytest.raises(ValueError, match="offs"):
-        train_match(chars, offs[:4], lens, table, meta, schars, fb, 8)
-    out, poison = train_match(chars, offs, lens, table, meta, schars, fb, 8)
+        train_match(chars, offs[:4], lens, (4, 4), table, meta, schars, fb, 8)
+    for groups in ((3, 2), (-1, 2), (0, 5), (5, 5)):
+        with pytest.raises(ValueError, match="groups"):
+            train_match(chars, offs, lens, groups, table, meta, schars, fb, 8)
+    out, poison = train_match(chars, offs, lens, (4, 4), table, meta, schars, fb, 8)
     assert poison.tolist() == [1, 1, 1, 1]  # no fallback symbol for any character
     small = PairCountScratch(8, "cuda")
     small.t_size = 32

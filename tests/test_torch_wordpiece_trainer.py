@@ -45,6 +45,8 @@ from complexity_tokenizer_tpu_torch.parallel.wordpiece_trainer import (
 from complexity_tokenizer_tpu_torch.trainers import WordPieceTrainer, WordPieceTrainerConfig
 from complexity_tokenizer_tpu_torch.utils.corpus import (
     MULTI_PIECES,
+    TRAIN_MATCH_EDGES,
+    train_match_edge_words,
     wordpiece_train_edge_texts,
     zipf_corpus,
 )
@@ -210,14 +212,19 @@ def test_match_tables_match_jax():
     assert grown.device_buffer("cpu") is buf
     table, meta, chars = match_table_views(buf, grown.t_size, grown.s_cap)
     np.testing.assert_array_equal(table.numpy()[:, :3], np.stack([grown.h1, grown.h2, grown.slotv], 1))
+    # K18's (length << 16) | symbol in each filled row's fourth word, 0 in an empty row's
+    filled = (grown.h1 != 0) | (grown.h2 != 1)
+    packed = grown.token_lens[grown.slotv] << 16 | grown.emit_sym[grown.slotv]
+    np.testing.assert_array_equal(table.numpy()[:, 3], np.where(filled, packed, 0))
+    assert filled.sum() == grown.n_slots and (table.numpy()[filled, 3] >> 16 > 0).all()
     np.testing.assert_array_equal(meta.numpy(), np.stack([grown.token_lens, grown.emit_sym], 1))
     np.testing.assert_array_equal(chars.numpy(), grown.token_chars)
 
 
-def _jax_round(jt, fb, words, freqs):
-    """One round of JAX's ``_match_count_program`` on the 8-device CPU mesh:
-    the global (key, count) pairs, summed over the shards, and the poisoned
-    words."""
+def _jax_round(jt, fb, words, freqs, lt_cap=None):
+    """One round of JAX's ``_match_count_program`` on the 8-device CPU mesh
+    (at the trainer's ``lt_cap`` unless one is given): the global (key,
+    count) pairs, summed over the shards, and the poisoned words."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -237,7 +244,7 @@ def _jax_round(jt, fb, words, freqs):
         lens[i] = len(w)
         fr[i] = freqs[i]
     shard = NamedSharding(mesh, P(DATA_AXIS))
-    lt_cap = min(_pow2(max(jt.max_len, 8)), _W)
+    lt_cap = lt_cap or min(_pow2(max(jt.max_len, 8)), _W)
     prog = _match_count_program(mesh, jt.t_size, jt.s_cap, lt_cap, 1 << 12, N_pad // n_dev)
     gk, gc, gu, gp = prog(*jt.device_arrays(lt_cap), jnp.asarray(fb[0]), jnp.asarray(fb[1]),
                           *(jax.device_put(a, shard) for a in (chars, lens, fr)))
@@ -252,10 +259,11 @@ def _jax_round(jt, fb, words, freqs):
 
 def _port_round(pt, fb, words, freqs, lt_cap):
     wl = np.fromiter(map(len, words), np.int64, len(words))
-    chars, offs, order, _groups = _pack_words(words, wl, wl)
+    chars, offs, order, groups = _pack_words(words, wl, wl)
     on = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
     table, meta, schars = match_table_views(pt.device_buffer("cpu"), pt.t_size, pt.s_cap)
-    args = (on(chars), on(offs), on(wl[order]), table, meta, schars, torch.from_numpy(fb), lt_cap)
+    args = (on(chars), on(offs), on(wl[order]), groups, table, meta, schars,
+            torch.from_numpy(fb), lt_cap)
     out, poison = train_match(*args)
     assert all(torch.equal(a, b) for a, b in zip((out, poison), train_match_plain(*args)))
     f = on(np.asarray(freqs)[order])
@@ -292,6 +300,39 @@ def test_k18_k19_plain_match_jax_program(size, forge):
     assert (pk, pc) == (jk, jc) and len(pk) > 10
     np.testing.assert_array_equal(pp, jp)
     assert bool(pp.any()) == forge
+
+
+def _with_host_vocab(vocab, words, freqs):
+    """``vocab`` with its first 150 entries JAX's host trainer's on the
+    words (``train_match_edge_words`` trains the port's)."""
+    host = JaxHost(JaxConfig(vocab_size=150, min_frequency=1))
+    host._train_from_word_freqs(Counter(dict(zip(words, freqs))))
+    return {**host.vocab, **{t: i for t, i in vocab.items() if i >= len(host.vocab)}}
+
+
+@pytest.mark.parametrize("lt_cap", [8, 16, 32, 128])
+def test_k18_plain_matches_jax_program_at_group_edges(lt_cap):
+    """K18's plain version, called through ``train_match`` with the lane
+    groups, and K19's against JAX's ``_match_count_program`` at ``lt_cap``
+    8, 16, 32 and 128, on words at the groups' edges (1, 8, 9, 16, 17, 32,
+    33, 127 and 128 characters) and tables holding forms of every length up
+    to 128 (``utils/corpus.py:train_match_edge_words``, its vocabulary's
+    first entries JAX's host trainer's); the pack's groups put the words of
+    up to 8 and 16 characters first."""
+    words, freqs, vocab = train_match_edge_words()
+    wf = Counter(dict(zip(words, freqs)))
+    assert vocab == _with_host_vocab(vocab, words, freqs)
+    jt, pt, fb, _syms = _both_tables(vocab, wf, 800)
+    assert pt.max_len == 128
+    wl = np.fromiter(map(len, words), np.int64, len(words))
+    _c, _o, _order, groups = _pack_words(words, wl, wl)
+    assert sorted(set(wl.tolist())) == list(TRAIN_MATCH_EDGES)
+    assert groups == (int((wl <= 8).sum()), int((wl <= 16).sum()))
+    jk, jc, jp, _lt = _jax_round(jt, fb, words, freqs, lt_cap)
+    pk, pc, pp = _port_round(pt, fb, words, freqs, lt_cap)
+    assert (pk, pc) == (jk, jc) and len(pk) > 10
+    np.testing.assert_array_equal(pp, jp)
+    assert not pp.any()
 
 
 def test_k19_plain_matches_jax_program_on_a_hot_pair():
